@@ -30,6 +30,7 @@ def pytest_configure(config):
     # tier for pre-commit runs; the plain (slow-inclusive) suite stays the
     # gate. Mark tests/parametrizations that cost multiple seconds.
     config.addinivalue_line("markers", "slow: expensive tests, excluded from the fast lane")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips (with its reason) where CUDA is absent")
 
 
 def pytest_addoption(parser):
