@@ -1,0 +1,174 @@
+"""User API: the ``AutoDist`` entry point (PyTorch port of ``api.py``).
+
+Usage, as with the JAX package::
+
+    from autodist_tpu_torch.api import AutoDist
+    from autodist_tpu_torch.strategy import AllReduce
+
+    autodist = AutoDist(strategy_builder=AllReduce())      # device="cuda"
+    step = autodist.build(loss_fn, params, example_batch)
+    state = step.init(params)
+    state, metrics = step.run(state, batch, num_steps=10)
+
+``build`` is capture -> strategy -> compile -> lower: a :class:`ModelItem`
+of the params (sparse-update parameters found by a meta-tensor trace of the
+loss), the strategy from the builder (built and serialized to
+``const.DEFAULT_STRATEGY_DIR`` by the chief, loaded by id by a worker),
+pruned and validated by the :class:`StrategyCompiler`, lowered by the
+:class:`GraphTransformer` into the :class:`DistributedTrainStep`. One
+AutoDist per process; the default builder is ``PSLoadBalancing``. It runs on
+``cuda`` unless ``device="cpu"`` is passed; asking for CUDA without it
+raises. ``tune``, ``build_inference``, ``build_pipeline``,
+``elastic_rebuild``, fault tolerance, observability and asynchronous PS are
+not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Optional, Sequence, Union
+
+import torch
+
+from autodist_tpu_torch import const
+from autodist_tpu_torch.const import ENV
+from autodist_tpu_torch.kernel import DistributedTrainStep, GraphTransformer, build_mesh
+from autodist_tpu_torch.kernel.lowering import ShardingPlan
+from autodist_tpu_torch.model_item import ModelItem, Optimizer, OptimizerSpec
+from autodist_tpu_torch.models.convert import map_params
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.strategy import PSLoadBalancing, Strategy, StrategyBuilder
+from autodist_tpu_torch.strategy import StrategyCompiler, from_name
+from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.device import resolve_device
+from autodist_tpu_torch.utils.retry import wait_until
+
+_default_autodist: Optional["AutoDist"] = None
+
+
+def _cast_compute(loss_fn: Callable, compute_dtype: str) -> Callable:
+    """Mixed precision: floating params enter the loss in ``compute_dtype``
+    while the state stays fp32; autograd through the cast brings the
+    gradients back to the params' dtype."""
+    dtype = getattr(torch, compute_dtype)
+    if not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype must be floating, got {compute_dtype!r}")
+
+    def wrapped(params, batch):
+        return loss_fn(map_params(
+            lambda t: t.to(dtype) if t.is_floating_point() else t, params), batch)
+
+    return wrapped
+
+
+def _resolve_optimizer(optimizer):
+    """(OptimizerSpec, Optimizer): a spec is made; ``None`` is SGD at 0.01
+    (the JAX package's default); an :class:`Optimizer` is taken as given."""
+    if isinstance(optimizer, OptimizerSpec):
+        return optimizer, optimizer.make()
+    if optimizer is None:
+        spec = OptimizerSpec("sgd", {"learning_rate": 0.01})
+        return spec, spec.make()
+    return OptimizerSpec("custom"), optimizer
+
+
+class AutoDist:
+    """Distributed-training entry point bound to one cluster description."""
+
+    def __init__(self, resource_spec_file: Optional[str] = None,
+                 strategy_builder: Union[StrategyBuilder, str, None] = None,
+                 resource_spec: Optional[ResourceSpec] = None, device=None):
+        global _default_autodist
+        if _default_autodist is not None:
+            raise RuntimeError("Only one AutoDist instance is supported per process; "
+                               "call AutoDist.reset_default() first if you really "
+                               "need another.")
+        self.device = resolve_device(device)
+        if resource_spec is not None:
+            self.resource_spec = resource_spec
+        elif resource_spec_file:
+            self.resource_spec = ResourceSpec(resource_spec_file)
+        elif ENV.AUTODIST_RESOURCE_SPEC.val:
+            self.resource_spec = ResourceSpec(ENV.AUTODIST_RESOURCE_SPEC.val)
+        else:
+            self.resource_spec = ResourceSpec.from_local_devices(self.device)
+        if isinstance(strategy_builder, str):
+            strategy_builder = from_name(strategy_builder)
+        self.strategy_builder = strategy_builder or PSLoadBalancing()
+        self._mesh = None
+        self._built: Optional[DistributedTrainStep] = None
+        self._strategy: Optional[Strategy] = None
+        self._model_item: Optional[ModelItem] = None
+        _default_autodist = self
+
+    @classmethod
+    def reset_default(cls) -> None:
+        """Allow another AutoDist in this process (tests)."""
+        global _default_autodist
+        _default_autodist = None
+
+    @property
+    def mesh(self):
+        if self._mesh is None:
+            self._mesh = build_mesh(self.resource_spec, device=self.device)
+        return self._mesh
+
+    def _build_or_load_strategy(self, model_item: ModelItem) -> Strategy:
+        """The chief builds and serializes the strategy (and exports its id
+        to child processes); a worker loads the chief's by
+        ``AUTODIST_STRATEGY_ID``."""
+        if const.is_chief_process():
+            strategy = self.strategy_builder.build(model_item, self.resource_spec)
+            strategy.serialize()
+            os.environ[ENV.AUTODIST_STRATEGY_ID.name] = strategy.id
+            return strategy
+        strategy_id = ENV.AUTODIST_STRATEGY_ID.val
+        if not strategy_id:
+            raise RuntimeError("AUTODIST_WORKER is set but AUTODIST_STRATEGY_ID is empty: "
+                               "workers must be launched with the chief's strategy id")
+        path = os.path.join(const.DEFAULT_STRATEGY_DIR, strategy_id)
+        if not wait_until(lambda: os.path.exists(path), 60.0, interval_s=0.2):
+            raise FileNotFoundError(f"strategy {strategy_id!r} not found at {path}")
+        return Strategy.deserialize(strategy_id)
+
+    def build(self, loss_fn: Callable, params: Any, example_batch: Any = None,
+              optimizer: Union[OptimizerSpec, Optimizer, None] = None,
+              has_aux: bool = False, sparse_names: Sequence[str] = (),
+              host_offload: bool = False,
+              grad_accum_steps: int = 1, remat: bool = False,
+              compute_dtype: Optional[str] = None) -> DistributedTrainStep:
+        """Capture -> strategy -> compile -> lower. ``optimizer`` is an
+        :class:`OptimizerSpec` (default SGD at 0.01) or an
+        :class:`Optimizer`; ``compute_dtype="bfloat16"`` casts floating
+        params on entry to the loss (master weights stay fp32).
+        ``host_offload``, ``grad_accum_steps > 1`` and ``remat`` raise
+        ``NotImplementedError`` until they are ported (ROADMAP.md)."""
+        if remat:
+            raise NotImplementedError("remat is not ported yet; see ROADMAP.md")
+        opt_spec, tx = _resolve_optimizer(optimizer)
+        model_item = ModelItem.from_params(
+            params, optimizer_spec=opt_spec, loss_fn=loss_fn, example_batch=example_batch,
+            sparse_names=sparse_names)
+        strategy = self._build_or_load_strategy(model_item)
+        compiled = StrategyCompiler(model_item).compile(strategy)
+        if compute_dtype is not None:
+            # After capture: sparse detection traces the bare loss_fn.
+            loss_fn = _cast_compute(loss_fn, compute_dtype)
+        plan = GraphTransformer(compiled, model_item, self.mesh,
+                                host_offload=host_offload).transform()
+        logging.debug("sharding plan:\n%s", plan.describe())
+        step = DistributedTrainStep(plan, loss_fn, tx, has_aux=has_aux,
+                                    grad_accum_steps=grad_accum_steps)
+        self._built, self._strategy, self._model_item = step, compiled, model_item
+        return step
+
+    @property
+    def strategy(self) -> Optional[Strategy]:
+        return self._strategy
+
+    @property
+    def plan(self) -> Optional[ShardingPlan]:
+        return getattr(self._built, "plan", None)
+
+    @property
+    def model_item(self) -> Optional[ModelItem]:
+        return self._model_item

@@ -1,19 +1,16 @@
-"""Model zoo of the port. This slice serves the ``transformer``."""
+"""Model zoo of the port: the ``transformer`` and the BERT configs."""
 from __future__ import annotations
 
+from autodist_tpu_torch.models.spec import ModelSpec, get_model_spec, register_model
 from autodist_tpu_torch.models.transformer import TransformerConfig
-
-_CONFIGS = {"transformer": TransformerConfig}
 
 
 def get_model(name: str, **overrides):
-    """The config of zoo model ``name`` with ``overrides`` applied — the
-    counterpart of the JAX zoo lookup the serve CLI uses."""
-    try:
-        cls = _CONFIGS[name]
-    except KeyError:
-        raise KeyError(f"unknown model {name!r}; ported: {sorted(_CONFIGS)}") from None
-    return cls(**overrides)
+    """The config of zoo model ``name`` with ``overrides`` applied (what the
+    serving entry points take); :func:`get_model_spec` gives the whole
+    :class:`ModelSpec` (what ``AutoDist.build`` takes)."""
+    return get_model_spec(name, **overrides).config
 
 
-__all__ = ["get_model", "TransformerConfig"]
+__all__ = ["ModelSpec", "get_model", "get_model_spec", "register_model",
+           "TransformerConfig"]

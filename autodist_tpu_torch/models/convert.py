@@ -1,15 +1,18 @@
-"""Carry JAX-package parameters into the port.
+"""Carry parameters between the JAX package and the port.
 
 The JAX package's params are a pytree of arrays; handed over as plain nested
 dicts of ``np.ndarray`` (``jax.tree.map(np.asarray, params)``), they become
-the port's nested dict of tensors with the same keys and layouts. Flat names
+the port's nested dict of tensors with the same keys and layouts
+(:func:`params_from_jax`), and back (:func:`params_to_numpy`). Flat names
 follow the JAX package's ``model_item._path_to_name`` (``"/"``-joined keys,
-e.g. ``"layers_0/attn/wq/kernel"``), so checkpoints can interchange.
-No jax is imported here.
+e.g. ``"layers_0/attn/wq/kernel"``) and its leaf order: ``jax.tree_util``
+flattens a dict in sorted key order (``layers_10`` before ``layers_2``), and
+so does :func:`flatten_params`, so variable lists and the groups strategies
+cut from them agree between the packages. No jax is imported here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -21,22 +24,47 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same nesting of tensors on
     ``device`` (default ``"cuda"``), dtypes kept."""
     dev = resolve_device(device)
+    return map_params(lambda x: torch.as_tensor(np.array(x, copy=True), device=dev),
+                      tree)
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return torch.as_tensor(np.array(node, copy=True), device=dev)
 
-    return conv(tree)
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dict of tensors -> the same nesting of numpy arrays on the host
+    (bf16 widened to fp32: numpy has no bf16)."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return map_params(conv, params)
+
+
+def map_params(fn: Callable[[Any], Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """``fn`` applied to every leaf, nesting and key order kept."""
+    return {k: map_params(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in params.items()}
 
 
 def flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
-    """Nested params -> ``{"a/b/c": leaf}`` (``model_item._path_to_name``)."""
+    """Nested params -> ``{"a/b/c": leaf}`` in ``jax.tree_util``'s leaf order
+    (keys sorted at every level), named as ``model_item._path_to_name``."""
     out: Dict[str, Any] = {}
-    for k, v in params.items():
+    for k in sorted(params):
+        v = params[k]
         name = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, dict):
             out.update(flatten_params(v, name))
         else:
             out[name] = v
+    return out
+
+
+def unflatten_params(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`flatten_params`: ``{"a/b/c": leaf}`` -> nested dicts."""
+    out: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        node = out
+        *head, last = name.split("/")
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
     return out

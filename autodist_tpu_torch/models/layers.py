@@ -81,6 +81,22 @@ def embedding_init(gen, vocab: int, dim: int, stddev: float = 0.02,
 
 
 def embedding_lookup(p, ids):
-    """Row gather. Unlike ``jnp.take`` (which fills out-of-range rows with
-    NaN), an out-of-range id raises here: callers clamp positions first."""
+    """Row gather — the sparse-update read that ``ModelItem``'s trace marks
+    (an ``aten.index`` of the table). Unlike ``jnp.take`` (which fills
+    out-of-range rows with NaN), an out-of-range id raises here: callers
+    clamp positions first."""
     return p["embedding"][ids.long()]
+
+
+# ----------------------------------------------------------------------- losses
+def per_token_xent(logits, labels):
+    """Per-position cross-entropy (fp32 logsumexp), no reduction."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - label_logit
+
+
+def softmax_xent(logits, labels):
+    """Mean cross-entropy over every position."""
+    return per_token_xent(logits, labels).mean()

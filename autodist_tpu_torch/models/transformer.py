@@ -1,13 +1,16 @@
-"""Transformer language model — the serving slice of the PyTorch port.
+"""Transformer language model of the PyTorch port.
 
-Mirrors the JAX package's ``models/transformer.py``: a pre-norm causal
-transformer with tied input/output embeddings, fp32 params and bf16 compute.
-This slice ports the config, the params, the uncached one-shot
-:func:`forward` (``dot`` attention) as the oracle, and the paged KV-cache
-serving forwards (:func:`forward_paged_prefill_chunk`,
-:func:`forward_paged_decode_step`) with their cache helpers. Params are a
-plain nested dict of tensors with the JAX tree's keys, so
-``models/convert.py`` carries JAX parameters over unchanged.
+Mirrors the JAX package's ``models/transformer.py``: a pre-norm transformer
+with tied input/output embeddings, fp32 params and bf16 compute, causal
+(next-token) or bidirectional (BERT-style MLM) loss. Ported: the config, the
+params, the uncached :func:`forward` with ``dot`` or ``flash`` attention
+(``ops/flash_attention.py``, the CUDA flash kernels), :func:`loss_fn` for
+both objectives, the ``transformer`` / ``bert_base`` / ``bert_large`` model
+specs, and the paged KV-cache serving forwards
+(:func:`forward_paged_prefill_chunk`, :func:`forward_paged_decode_step`)
+with their cache helpers. Params are a plain nested dict of tensors with
+the JAX tree's keys, so ``models/convert.py`` carries JAX parameters over
+unchanged.
 
 Unlike the JAX forwards, which return a new cache, the paged forwards
 update the cache's tensors in place (the JAX engine donates the cache to
@@ -22,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from autodist_tpu_torch.models import layers as L
+from autodist_tpu_torch.models.spec import ModelSpec, register_model
+from autodist_tpu_torch.ops import flash_attention as fa_ops
 from autodist_tpu_torch.ops import paged_attention as pa_ops
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -36,8 +41,9 @@ class TransformerConfig:
     max_seq_len: int = 512
     causal: bool = True                 # False => BERT-style MLM
     dtype: Any = torch.bfloat16         # compute dtype (params stay fp32)
-    # dot | auto (dot below the flash crossover; the flash kernels come with
-    # the training slice) for the uncached forward.
+    # dot | flash (ops/flash_attention.py) | auto (resolve_attention_impl:
+    # flash from the JAX package's default crossover of 1024 tokens when
+    # block-aligned, dot below it) for the uncached forward.
     attention_impl: str = "auto"
     # Serving-path attention over the paged KV pool: gather (the plain
     # PyTorch version) | kernel (csrc/paged_attention.cu on CUDA) | auto
@@ -45,6 +51,7 @@ class TransformerConfig:
     paged_attention_impl: str = "auto"
     # int8 KV pages with per-position/per-head fp32 scales.
     kv_quant: bool = False
+    mlm_mask_token: int = 0             # [MASK] id for the MLM objective
 
     def __post_init__(self):
         if isinstance(self.dtype, str):
@@ -59,6 +66,13 @@ class TransformerConfig:
         d, f, v, l_ = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         per_layer = 4 * d * d + 2 * d * f + 4 * d + (f + d) + 4 * d
         return v * d + self.max_seq_len * d + l_ * per_layer + 2 * d
+
+    def flops_per_example(self, seq_len: Optional[int] = None) -> float:
+        """fwd+bwd FLOPs per sequence: 3x forward; forward = 2*P*s matmul
+        FLOPs + attention 4*s^2*d per layer."""
+        s = seq_len or self.max_seq_len
+        fwd = 2.0 * self.param_count() * s + 4.0 * self.num_layers * s * s * self.d_model
+        return 3.0 * fwd
 
 
 # ---------------------------------------------------------------------- params
@@ -102,16 +116,34 @@ def _dot_attention(q, k, v, causal: bool):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+#: The JAX package's packaged default flash crossover (``ops/crossover.py``
+#: ``DEFAULT_FLASH_CROSSOVER_SEQ``, measured on a TPU v5e). The H100
+#: crossover is not measured yet.
+DEFAULT_FLASH_CROSSOVER_SEQ = 1024
+
+
+def resolve_attention_impl(impl: str, seq_len: int) -> str:
+    """The ``attention_impl="auto"`` rule of the JAX package: "flash" at and
+    above the crossover when the sequence is block-aligned (the flash
+    kernel's own constraint), else "dot". Explicit impls pass through."""
+    if impl != "auto":
+        return impl
+    if seq_len >= DEFAULT_FLASH_CROSSOVER_SEQ and seq_len % fa_ops.BLOCK == 0:
+        return "flash"
+    return "dot"
+
+
 def _attention(q, k, v, cfg: TransformerConfig):
-    impl = cfg.attention_impl
-    if impl == "auto" and q.shape[1] < 1024:
-        # The JAX package's measured crossover picks dot below 1024 tokens.
-        impl = "dot"
+    impl = resolve_attention_impl(cfg.attention_impl, q.shape[1])
     if impl == "dot":
         return _dot_attention(q, k, v, cfg.causal)
-    raise NotImplementedError(
-        f"attention_impl {cfg.attention_impl!r} at seq {q.shape[1]} needs the "
-        "flash kernels, which are not ported yet (training slice)")
+    if impl == "flash":
+        return fa_ops.flash_attention(q, k, v, causal=cfg.causal)
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl {impl!r} (sequence parallelism) is not ported yet; "
+            "see ROADMAP.md")
+    raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 
 def _mlp(block_params, x, cfg):
@@ -136,20 +168,45 @@ def _argmax(logits):
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 
+def _block(block_params, x, cfg: TransformerConfig):
+    b, s, _ = x.shape
+    h = L.layernorm(block_params["ln1"], x)
+    q, k, v = _qkv(block_params["attn"], h, cfg, (b, s, cfg.num_heads, cfg.head_dim))
+    o = _attention(q, k, v, cfg).reshape(b, s, cfg.d_model)
+    x = x + L.dense(block_params["attn"]["wo"], o, compute_dtype=cfg.dtype)
+    return _mlp(block_params, x, cfg)
+
+
 def forward(params, tokens, cfg: TransformerConfig):
-    """tokens [B, S] int -> logits [B, S, V] (fp32). The uncached oracle."""
+    """tokens [B, S] int -> logits [B, S, V] (fp32)."""
     b, s = tokens.shape
     x = L.embedding_lookup(params["embed"], tokens).to(cfg.dtype)
     pos = torch.arange(s, device=tokens.device)
     x = x + L.embedding_lookup(params["pos_embed"], pos).to(cfg.dtype)
     for i in range(cfg.num_layers):
-        bp = params[f"layers_{i}"]
-        h = L.layernorm(bp["ln1"], x)
-        q, k, v = _qkv(bp["attn"], h, cfg, (b, s, cfg.num_heads, cfg.head_dim))
-        o = _attention(q, k, v, cfg).reshape(b, s, cfg.d_model)
-        x = x + L.dense(bp["attn"]["wo"], o, compute_dtype=cfg.dtype)
-        x = _mlp(bp, x, cfg)
+        x = _block(params[f"layers_{i}"], x, cfg)
     return _logits(params, x, cfg).to(torch.float32)
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    """Mean next-token cross-entropy (causal), or the MLM loss: masked
+    positions take ``cfg.mlm_mask_token`` and are predicted back, averaged
+    over the masked count (at least 1)."""
+    if cfg.causal:
+        # Attend over the full (block-aligned) sequence and shift the
+        # logits, not the inputs: trimming to s-1 would break the flash
+        # kernel's alignment and take the reference path instead.
+        tokens = batch["tokens"]
+        logits = forward(params, tokens, cfg)
+        return L.softmax_xent(logits[:, :-1], tokens[:, 1:])
+    mask = batch["mlm_mask"]
+    tokens = batch["tokens"]
+    inputs = torch.where(mask.bool(), torch.full_like(tokens, cfg.mlm_mask_token),
+                         tokens)
+    logits = forward(params, inputs, cfg)
+    mask = mask.to(torch.float32)
+    per_tok = L.per_token_xent(logits, batch["labels"]) * mask
+    return per_tok.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # --------------------------------------------------------- paged KV decode
@@ -301,3 +358,55 @@ def decode_model(cfg: TransformerConfig, eos_id: Optional[int] = None):
         max_len=cfg.max_seq_len,
         fp_cache_dtype=cfg.dtype,
     )
+
+
+# ------------------------------------------------------------------- modelspec
+@register_model("transformer")
+def transformer_lm(**overrides) -> ModelSpec:
+    cfg = TransformerConfig(**overrides)
+
+    def example_batch(batch_size: int, device=None):
+        """The JAX package's deterministic batch: tokens ``arange % vocab``;
+        MLM adds labels = tokens and a mask on every 7th position."""
+        dev = resolve_device(device)
+        s = cfg.max_seq_len
+        tokens = (torch.arange(batch_size * s, dtype=torch.int32, device=dev)
+                  .reshape(batch_size, s) % cfg.vocab_size)
+        if cfg.causal:
+            return {"tokens": tokens}
+        mask = (torch.arange(s, device=dev) % 7 == 0).to(torch.int32)
+        return {"tokens": tokens, "labels": tokens.clone(),
+                "mlm_mask": mask.expand(batch_size, s).contiguous()}
+
+    return ModelSpec(
+        name="transformer",
+        init=lambda seed=0, device=None: init_params(cfg, seed=seed, device=device),
+        loss_fn=lambda p, b: loss_fn(p, b, cfg),
+        example_batch=example_batch,
+        apply=lambda p, tokens: forward(p, tokens, cfg),
+        config=cfg,
+        flops_per_example=cfg.flops_per_example(),
+    )
+
+
+@register_model("bert_base")
+def bert_base(**overrides) -> ModelSpec:
+    """BERT-base MLM pretraining config (the JAX package's ``bert_base``)."""
+    kw = dict(vocab_size=30522, num_layers=12, d_model=768, num_heads=12,
+              d_ff=3072, max_seq_len=128, causal=False)
+    kw.update(overrides)
+    spec = transformer_lm(**kw)
+    spec.name = "bert_base"
+    return spec
+
+
+@register_model("bert_large")
+def bert_large(**overrides) -> ModelSpec:
+    """BERT-large uncased (L=24, H=1024, A=16; the JAX package's
+    ``bert_large``)."""
+    kw = dict(vocab_size=30522, num_layers=24, d_model=1024, num_heads=16,
+              d_ff=4096, max_seq_len=128, causal=False)
+    kw.update(overrides)
+    spec = transformer_lm(**kw)
+    spec.name = "bert_large"
+    return spec

@@ -1,0 +1,94 @@
+"""Strategy builder interface + compiler (PyTorch port of ``strategy/base.py``).
+
+A ``StrategyBuilder`` maps (ModelItem x ResourceSpec) -> ``Strategy``; the
+``StrategyCompiler`` prunes node configs of non-trainable variables and
+validates the rest against the model.
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import List
+
+from autodist_tpu_torch.model_item import ModelItem, VarItem
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.strategy.ir import NodeConfig, Strategy
+from autodist_tpu_torch.utils import logging
+
+
+def byte_size_load_fn(var: VarItem) -> float:
+    """Byte-size load metric of PS load balancing."""
+    return float(var.byte_size)
+
+
+def check_sync_supported(sync: bool) -> None:
+    """Reject asynchronous PS (``sync=False``): the port has no rendering of
+    it yet (the JAX package's host-driven AsyncPSTrainer is in ROADMAP.md)."""
+    if not sync:
+        raise NotImplementedError(
+            "sync=False (asynchronous PS) is not ported yet; see ROADMAP.md")
+
+
+def check_staleness_supported(staleness: int) -> None:
+    """Reject bounded staleness (``staleness > 0``): its delay buffers are
+    not ported yet (ROADMAP.md)."""
+    if staleness > 0:
+        raise NotImplementedError(
+            f"staleness={staleness} (bounded-staleness PS) is not ported yet; "
+            "see ROADMAP.md")
+
+
+def replica_devices(resource_spec: ResourceSpec) -> List[str]:
+    """The data-parallel replica set: every GPU, plus the host CPU of any
+    GPU-less node."""
+    out = [d.name_string() for d in resource_spec.gpu_devices]
+    gpuless = {n.address for n in resource_spec.nodes if n.gpus == 0}
+    out.extend(d.name_string() for d in resource_spec.cpu_devices
+               if d.host_address in gpuless)
+    return out
+
+
+def reduction_devices(resource_spec: ResourceSpec) -> List[str]:
+    """PS reduction destinations: one host CPU per node."""
+    return [d.name_string() for d in resource_spec.cpu_devices]
+
+
+class StrategyBuilder(ABC):
+    """Analyze model + resources, emit a Strategy."""
+
+    @abstractmethod
+    def build(self, model_item: ModelItem, resource_spec: ResourceSpec) -> Strategy:
+        """Generate the strategy."""
+        raise NotImplementedError
+
+    def _new_strategy(self, resource_spec: ResourceSpec) -> Strategy:
+        s = Strategy(id=Strategy.new_id(resource_spec.fingerprint()))
+        s.graph_config.replicas = replica_devices(resource_spec)
+        return s
+
+
+class StrategyCompiler:
+    """Prune + validate a strategy against the model."""
+
+    def __init__(self, model_item: ModelItem):
+        self._model_item = model_item
+
+    def compile(self, strategy: Strategy) -> Strategy:
+        trainable = {v.name for v in self._model_item.trainable_variables}
+        kept: List[NodeConfig] = []
+        for node in strategy.node_config:
+            if node.var_name not in trainable:
+                logging.debug("pruning node config for non-trainable %r", node.var_name)
+                continue
+            node.validate_against_shape(self._model_item.var(node.var_name).shape)
+            if node.partitioner and node.part_config and \
+                    len(node.part_config) != node.num_shards:
+                raise ValueError(f"{node.var_name!r}: {len(node.part_config)} part "
+                                 f"configs but partitioner {node.partitioner!r} "
+                                 f"implies {node.num_shards}")
+            kept.append(node)
+        missing = trainable - {n.var_name for n in kept}
+        if missing:
+            raise ValueError(f"strategy has no node config for trainable vars: "
+                             f"{sorted(missing)}")
+        strategy.node_config = kept
+        return strategy

@@ -3,17 +3,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — paged-KV greedy serving of the full-width
-``transformer`` (vocab 32000, 12 layers, d_model 768, 12 heads, d_ff 3072,
-bf16 compute, page_len 16) through ``ContinuousBatcher`` and the HTTP
-``ServeFrontend`` — with seeded random weights, once with bf16 KV pages and
-once with int8 pages. Phases, each printing one JSON line:
+Drives the port's two main paths with seeded random weights:
+
+- paged-KV greedy serving of the full-width ``transformer`` (vocab 32000,
+  12 layers, d_model 768, 12 heads, d_ff 3072, bf16 compute, page_len 16)
+  through ``ContinuousBatcher`` and the HTTP ``ServeFrontend``, once with
+  bf16 KV pages and once with int8 pages;
+- training through ``AutoDist.build`` / ``step.run``: ``bert_base`` (vocab
+  30522, 12 layers, d_model 768, MLM) at seq 512 with flash attention,
+  batch 32, AllReduce, default SGD; and the causal ``transformer`` at seq
+  512 with flash attention.
+
+Phases, each printing one JSON line:
 
 1. ``device``: CUDA must be present; prints the ``nvidia-smi`` name and
    power limit.
-2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu`` with
-   nvcc from this checkout.
-3. ``kernel_parity``: the CUDA kernel against its plain PyTorch version at
+2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu`` and
+   ``csrc/flash_attention.cu`` with nvcc from this checkout, both at once.
+3. ``kernel_parity``: the paged CUDA kernel against its plain version at
    the main path's shapes (decode B=32 Q=1, prefill B=1 Q=16, verify B=32
    Q=5; H=12, D=64, page_len 16, 32-page shuffled tables, positions that
    reach the last slot), with fp32, bf16 and int8 pages, timed beside the
@@ -25,6 +32,18 @@ once with int8 pages. Phases, each printing one JSON line:
 5. ``stream_check``: teacher-forced bf16 logits through the kernel path vs
    the plain path within a stated bound, and identical greedy streams of
    an fp32 2-layer full-width model.
+6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
+   plain versions on the same bf16 inputs (B=32, H=12, D=64; S=512 causal
+   and not, S=128 and S=256), timed beside the plain versions, SDPA
+   (forward; backward for the two backward kernels) and the bound.
+7. ``train``: bert_base (10 steps) and the causal transformer (4 steps)
+   through ``AutoDist(strategy_builder=AllReduce()).build`` and
+   ``step.run``; every loss finite, the last below the first, and each
+   flash kernel launched exactly ``num_layers x steps`` times.
+8. ``train_check``: one step's loss and gradients through the flash
+   kernels against the plain (``dot``) path, and both against the same
+   model in fp32, at full width within stated bf16 bounds; and
+   PSLoadBalancing's first-step loss equal to AllReduce's.
 
 Then the kernel table line, the card line and, last, the result line.
 Exits non-zero (printing no result) without CUDA, outside a checkout of the
@@ -45,10 +64,14 @@ import torch
 import torch.nn.functional as F
 
 from autodist_tpu_torch import metrics as M
-from autodist_tpu_torch.models import get_model
+from autodist_tpu_torch.api import AutoDist
+from autodist_tpu_torch.models import get_model, get_model_spec
 from autodist_tpu_torch.models import transformer as tt
+from autodist_tpu_torch.models.convert import flatten_params, unflatten_params
 from autodist_tpu_torch.ops import _build
+from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import paged_attention as pa
+from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
 from autodist_tpu_torch.serve.engine import InferenceEngine
 from autodist_tpu_torch.serve.server import ServeFrontend, mock_load_prompt
@@ -70,6 +93,32 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 STREAM_LOGIT_BOUND = 0.125
 SEED = 0
 N_REQUESTS, MAX_NEW = 64, 32
+# Flash kernels vs their plain versions on the same bf16 inputs: both work
+# in fp32 and round each output to bf16 once (2^-8 relative), so 2e-2
+# absolute and relative bounds them with room; the fp32 lse differs only in
+# summation order (1e-3).
+FLASH_TOL, LSE_TOL = 2e-2, 1e-3
+FLASH_B, FLASH_H, FLASH_D = 32, 12, 64
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 32, 10
+LM_BATCH, LM_STEPS = 8, 4
+# Flash (kernel) path vs the plain dot path at full width, bf16 compute,
+# both also held against the same model in fp32 (dot). Bounds:
+# - loss within 1e-2 relative of the dot path's (bf16 rounds at 2^-8);
+# - the whole gradient (all tensors as one vector) within 3e-2 relative L2
+#   of the fp32 gradient for each path, and of each other: hundreds of
+#   independent bf16 roundings average out to about 1% (1.0-1.1% for
+#   `tools/torch_flash_accuracy.py --small` on the CPU);
+# - each gradient tensor whose norm is at least 1e-3 of the whole within
+#   0.15 relative L2 of the dot path's. The flash backward takes delta =
+#   rowsum(dO * O) from the bf16-rounded O, as the JAX kernel does, so dS
+#   misses summing to zero over the keys by a rounding-sized term; at
+#   initialisation the query/key projections' true gradients are small and
+#   that term is a sizeable part of them (5.7% vs fp32 for the same tool
+#   on the CPU, 1.8% with O kept in fp32). Smaller tensors are covered by
+#   the whole-gradient bound.
+CHECK_LOSS_RTOL, CHECK_GLOBAL_RTOL, CHECK_GRAD_RTOL = 1e-2, 3e-2, 0.15
+CHECK_NORM_FLOOR = 1e-3
+CHECK_BATCH = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -312,6 +361,187 @@ def stream_check(params, dev):
          fp32_streams=len(streams["kernel"]))
 
 
+# ------------------------------------------------------------- flash parity
+def flash_case(seq: int, causal: bool, gen: torch.Generator, dev):
+    """The three flash kernels against their plain versions at one shape."""
+    shape = (FLASH_B, seq, FLASH_H, FLASH_D)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (want_out.float() * g.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = fa.flash_dkdv(q, k, v, g, want_lse, delta, causal)
+    dq = fa.flash_dq(q, k, v, g, want_lse, delta, causal)
+    torch.cuda.synchronize()
+    pk, pv = fa.flash_dkdv_plain(q, k, v, g, want_lse, delta, causal)
+    pq = fa.flash_dq_plain(q, k, v, g, want_lse, delta, causal)
+    errs = {}
+    for name, got, want, tol in (("fwd", out, want_out, FLASH_TOL),
+                                 ("lse", lse, want_lse, LSE_TOL),
+                                 ("dk", dk, pk, FLASH_TOL), ("dv", dv, pv, FLASH_TOL),
+                                 ("dq", dq, pq, FLASH_TOL)):
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash {name} S={seq} causal={causal}: max |err| {err} > tol {tol}")
+        errs[name] = err
+
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    times = {
+        "fwd": (time_ms(lambda: fa.flash_fwd(q, k, v, causal), groups=7, per_group=5),
+                time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal), groups=5,
+                        per_group=3),
+                time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                is_causal=causal))),
+        "dkdv": (time_ms(lambda: fa.flash_dkdv(q, k, v, g, want_lse, delta, causal),
+                         groups=7, per_group=5),
+                 time_ms(lambda: fa.flash_dkdv_plain(q, k, v, g, want_lse, delta,
+                                                     causal), groups=5, per_group=3)),
+        "dq": (time_ms(lambda: fa.flash_dq(q, k, v, g, want_lse, delta, causal),
+                       groups=7, per_group=5),
+               time_ms(lambda: fa.flash_dq_plain(q, k, v, g, want_lse, delta, causal),
+                       groups=5, per_group=3)),
+    }
+    # Library yardstick for the backward: SDPA's backward computes dQ, dK
+    # and dV in one call, so both backward kernels stand beside it.
+    leaves = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    gh = g.transpose(1, 2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, gh,
+                                                   retain_graph=True))
+    rows = []
+    for kind, (kernel_ms, plain_ms, *lib) in times.items():
+        nbytes = fa.kernel_bytes(q, kind)
+        flops = fa.kernel_flops(q, kind, causal)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_OPS_PER_S[torch.bfloat16]
+        err = max(errs[n] for n in {"fwd": ("fwd", "lse"), "dkdv": ("dk", "dv"),
+                                    "dq": ("dq",)}[kind])
+        row = dict(kernel=kind, B=FLASH_B, S=seq, H=FLASH_H, D=FLASH_D,
+                   causal=causal, dtype="bfloat16", max_abs_err=err, tol=FLASH_TOL,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=lib[0] if lib else sdpa_bwd,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=flops)
+        emit("flash_parity", **row)
+        rows.append(row)
+    return rows
+
+
+# -------------------------------------------------------------------- train
+def _launch_counts():
+    return {"fwd": fa.flash_fwd.launches, "dkdv": fa.flash_dkdv.launches,
+            "dq": fa.flash_dq.launches}
+
+
+def train_run(model: str, batch_size: int, steps: int, card: str, dev):
+    """Build through AutoDist (AllReduce, default SGD), one warm-up step,
+    then the counted ``step.run`` window."""
+    spec = get_model_spec(model, max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    cfg = spec.config
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(batch_size, device=dev)
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=AllReduce(), device=dev)
+    t0 = time.perf_counter()
+    step = autodist.build(spec.loss_fn, params, batch)
+    build_s = time.perf_counter() - t0
+    state = step.init(params)
+    state, _ = step.run(state, batch, 1)                # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # The main path's window: counts to 0 just before, read just after.
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, metrics = step.run(state, batch, steps)
+    losses = metrics["loss"].tolist()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    check(all(np.isfinite(losses)), f"{model}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{model}: loss did not fall {losses}")
+    for kind, n in launches.items():
+        check(n == cfg.num_layers * steps,
+              f"{model}: flash {kind} launches {n} != {cfg.num_layers} x {steps}")
+    tokens = batch_size * TRAIN_SEQ * steps
+    row = dict(model=model, seq=TRAIN_SEQ, batch=batch_size, steps=steps,
+               attention_impl="flash", strategy="AllReduce", optimizer="sgd 0.01",
+               build_s=build_s, losses=losses, wall_s=wall,
+               ms_per_step=wall / steps * 1e3, tokens_per_s=tokens / wall,
+               mfu=spec.flops_per_example * batch_size * steps / wall
+               / PEAK_OPS_PER_S[torch.bfloat16],
+               kernel_launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               card=card)
+    emit("train", **row)
+    return row
+
+
+def _loss_and_grads(spec, params, batch):
+    leaves = {n: t.detach().clone().requires_grad_(True)
+              for n, t in flatten_params(params).items()}
+    loss = spec.loss_fn(unflatten_params(leaves), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), dict(zip(leaves, grads))
+
+
+def _rel(a: dict, b: dict) -> float:
+    """Relative L2 distance of two gradient dicts, as one vector each."""
+    num = sum(((a[n].float() - g.float()) ** 2).sum() for n, g in b.items())
+    den = sum((g.float() ** 2).sum() for g in b.values())
+    return torch.sqrt(num / den).item()
+
+
+def train_check(dev):
+    """Kernel path vs plain path (and both vs fp32), one step at full width;
+    PSLoadBalancing's first-step loss vs AllReduce's."""
+    specs = {name: get_model_spec("bert_base", max_seq_len=TRAIN_SEQ,
+                                  attention_impl=impl, **extra)
+             for name, impl, extra in (("flash", "flash", {}), ("dot", "dot", {}),
+                                       ("fp32", "dot", {"dtype": "float32"}))}
+    flash = specs["flash"]
+    params = flash.init(SEED + 4, device=dev)
+    batch = flash.example_batch(CHECK_BATCH, device=dev)
+    runs = {name: _loss_and_grads(spec, params, batch) for name, spec in specs.items()}
+    (loss_f, grads_f), (loss_d, grads_d), (loss_32, grads_32) = (
+        runs["flash"], runs["dot"], runs["fp32"])
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    check(loss_rel <= CHECK_LOSS_RTOL,
+          f"flash vs dot loss {loss_f} vs {loss_d}: rel {loss_rel} > {CHECK_LOSS_RTOL}")
+    whole = {"flash_vs_fp32": _rel(grads_f, grads_32), "dot_vs_fp32": _rel(grads_d, grads_32),
+             "flash_vs_dot": _rel(grads_f, grads_d)}
+    for name, rel in whole.items():
+        check(rel <= CHECK_GLOBAL_RTOL, f"whole gradient {name} rel {rel} > "
+              f"{CHECK_GLOBAL_RTOL}")
+    global_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads_d.values()))
+    worst, worst_name, compared = 0.0, "", 0
+    for name, gd in grads_d.items():
+        norm = gd.float().norm()
+        if norm < CHECK_NORM_FLOOR * global_norm:
+            continue
+        rel = ((grads_f[name].float() - gd.float()).norm() / norm).item()
+        check(rel <= CHECK_GRAD_RTOL, f"grad {name}: flash vs dot rel {rel} > "
+              f"{CHECK_GRAD_RTOL}")
+        compared += 1
+        if rel > worst:
+            worst, worst_name = rel, name
+
+    first = {}
+    for name, builder in (("AllReduce", AllReduce()), ("PSLoadBalancing", PSLoadBalancing())):
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=builder, device=dev)
+        step = autodist.build(flash.loss_fn, params, batch)
+        _, m = step.run(step.init(params), batch, 1)
+        first[name] = m["loss"][0].item()
+    ps_rel = abs(first["PSLoadBalancing"] - first["AllReduce"]) / abs(first["AllReduce"])
+    check(ps_rel <= 1e-5, f"PSLoadBalancing first loss {first} differ")
+    emit("train_check", model="bert_base", seq=TRAIN_SEQ, batch=CHECK_BATCH,
+         loss_flash=loss_f, loss_dot=loss_d, loss_fp32=loss_32, loss_rel=loss_rel,
+         loss_rtol=CHECK_LOSS_RTOL, whole_gradient_rel=whole,
+         whole_rtol=CHECK_GLOBAL_RTOL, worst_tensor_rel=worst,
+         worst_tensor=worst_name, tensor_rtol=CHECK_GRAD_RTOL, tensors_compared=compared,
+         tensors_total=len(grads_d), first_step_loss=first, ps_vs_allreduce_rel=ps_rel)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -326,11 +556,14 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    libs = ("paged_attention", "flash_attention")
+    _build.build(libs)                       # one nvcc per source, started together
     pa.build_kernel()
-    ptxas = [ln.strip() for ln in _build.build_logs.get("paged_attention", "").splitlines()
-             if "registers" in ln or "smem" in ln]
+    fa.build_kernel()
+    ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+                    if "registers" in ln or "smem" in ln][:12] for name in libs}
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=_build.build_seconds.get("paged_attention"), ptxas=ptxas[:12])
+         nvcc_seconds={n: _build.build_seconds.get(n) for n in libs}, ptxas=ptxas)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -341,6 +574,14 @@ def main() -> int:
     params = tt.init_params(get_model("transformer"), seed=SEED, device=dev)
     serve_rows = [serve_run(params, kv_quant, dev) for kv_quant in (False, True)]
     stream_check(params, dev)
+    del params
+
+    flash_rows = [r for seq, causal in ((TRAIN_SEQ, False), (TRAIN_SEQ, True),
+                                        (128, False), (256, True))
+                  for r in flash_case(seq, causal, gen, dev)]
+    train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
+                  train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
+    train_check(dev)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -356,6 +597,27 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
     }]
+    # Flash kernels: the main shape is bert_base's, S=512 non-causal.
+    replaces = {"fwd": "autodist_tpu/ops/flash_attention.py:46",
+                "dkdv": "autodist_tpu/ops/flash_attention.py:100",
+                "dq": "autodist_tpu/ops/flash_attention.py:155"}
+    for kind, where in replaces.items():
+        row = next(r for r in flash_rows if r["kernel"] == kind
+                   and r["S"] == TRAIN_SEQ and not r["causal"])
+        kernels.append({
+            "name": f"flash_attention_{kind}",
+            "route": "cuda",
+            "source": "autodist_tpu_torch/csrc/flash_attention.cu",
+            "replaces": where,
+            "launches": sum(t["kernel_launches"][kind] for t in train_rows),
+            "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                               if r["kernel"] == kind),
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

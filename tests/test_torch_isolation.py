@@ -36,7 +36,14 @@ def test_scan_sees_the_whole_port():
     assert "chip_smoke.py" in names
     assert "autodist_tpu_torch/ops/paged_attention.py" in names
     assert "autodist_tpu_torch/serve/engine.py" in names
-    assert (ROOT / "autodist_tpu_torch" / "csrc" / "paged_attention.cu").exists()
+    for new in ("ops/flash_attention.py", "models/spec.py", "const.py",
+                "resource_spec.py", "model_item.py", "strategy/ir.py", "strategy/base.py",
+                "strategy/all_reduce_strategy.py", "strategy/ps_strategy.py",
+                "strategy/ps_lb_strategy.py", "strategy/__init__.py", "kernel/mesh.py",
+                "kernel/lowering.py", "kernel/__init__.py", "api.py"):
+        assert f"autodist_tpu_torch/{new}" in names, new
+    for src in ("paged_attention.cu", "flash_attention.cu"):
+        assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()
     # The scanner itself catches both spellings.
     probe = ROOT / "autodist_tpu_torch" / "__init__.py"
     assert list(_imported_modules(probe)) == []

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Where the time of one training step goes, for the PyTorch/CUDA port.
+
+    python3 tools/torch_train_profile.py [--model bert_base] [--batch 32]
+        [--attention flash] [--steps 5] [--out FILE]
+
+Builds the zoo model at seq 512 (seeded random weights) through
+``AutoDist(strategy_builder=AllReduce()).build`` on the card, runs two
+warm-up steps, then times ``step.run`` and profiles the same window:
+
+- host wall per step (host clock around work ending in a synchronize);
+- device busy time per step: the sum of the CUDA kernels' durations from
+  ``torch.profiler``, and the busy share of the wall;
+- device time by group: the flash-attention kernels, matrix products
+  (cuBLAS / CUTLASS kernels), and everything else; the top kernels.
+
+Prints one JSON line and writes the full table to ``--out`` (default
+``profile_out/torch_train_profile.json``). Needs an NVIDIA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from autodist_tpu_torch.api import AutoDist  # noqa: E402
+from autodist_tpu_torch.models import get_model_spec  # noqa: E402
+from autodist_tpu_torch.strategy import AllReduce  # noqa: E402
+
+_GEMM_MARKERS = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if "flash_" in low:
+        return "flash_attention"
+    if any(m in low for m in _GEMM_MARKERS):
+        return "matmul"
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--model", default="bert_base")
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--attention", default="flash", help="flash | dot")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default=os.path.join("profile_out",
+                                                  "torch_train_profile.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    spec = get_model_spec(args.model, max_seq_len=args.seq,
+                          attention_impl=args.attention)
+    params = spec.init(0, device="cuda")
+    batch = spec.example_batch(args.batch, device="cuda")
+    step = AutoDist(strategy_builder=AllReduce()).build(spec.loss_fn, params, batch)
+    state, _ = step.run(step.init(params), batch, 2)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step.run(state, batch, args.steps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step.run(state, batch, args.steps)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        tot, n = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / args.steps
+    groups = {}
+    for name, (t, _) in kernels.items():
+        groups[_group(name)] = groups.get(_group(name), 0.0) + t / 1e3 / args.steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    tokens = args.batch * args.seq
+    row = {
+        "model": args.model, "seq": args.seq, "batch": args.batch,
+        "attention_impl": args.attention, "steps": args.steps,
+        "host_wall_ms": wall_ms,
+        "tokens_per_s": tokens / wall_ms * 1e3,
+        "mfu": spec.flops_per_example * args.batch / (wall_ms / 1e3) / 989e12,
+        "device_busy_ms": busy_ms if kernels else "not measured",
+        "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
+        "device_ms_by_group": groups if kernels else "not measured",
+        "kernels_per_step": sum(n for _, n in kernels.values()) / args.steps,
+        "top_kernels_ms_per_step": {n[:90]: t / 1e3 / args.steps for n, (t, _) in top},
+        "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(row, f, indent=1)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
