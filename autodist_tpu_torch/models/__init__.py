@@ -1,6 +1,7 @@
-"""Model zoo of the port: the ``transformer`` and the BERT configs."""
+"""Model zoo of the port: the ``transformer``, the BERT configs and ``resnet``."""
 from __future__ import annotations
 
+from autodist_tpu_torch.models import resnet as _resnet  # noqa: F401  (registers "resnet")
 from autodist_tpu_torch.models.spec import ModelSpec, get_model_spec, register_model
 from autodist_tpu_torch.models.transformer import TransformerConfig
 

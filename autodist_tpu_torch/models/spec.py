@@ -9,6 +9,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
+import torch
+
+from autodist_tpu_torch.utils.device import resolve_device
+
 _MODEL_REGISTRY: Dict[str, Callable[..., "ModelSpec"]] = {}
 
 
@@ -24,6 +29,21 @@ class ModelSpec:
     config: Any = None
     # FLOPs of one forward+backward pass per example, for MFU accounting.
     flops_per_example: Optional[float] = None
+
+
+def image_example_batch(image_size: int, num_classes: int):
+    """Deterministic synthetic NHWC image batch factory of the CNN zoo: the
+    JAX package's numbers (numpy ``default_rng(0)``: fp32 images, then
+    int32 labels), as tensors on ``device`` (default ``"cuda"``)."""
+    def example_batch(batch_size: int, device=None):
+        dev = resolve_device(device)
+        rng = np.random.default_rng(0)
+        images = rng.standard_normal(
+            (batch_size, image_size, image_size, 3)).astype(np.float32)
+        labels = rng.integers(0, num_classes, (batch_size,)).astype(np.int32)
+        return {"images": torch.from_numpy(images).to(dev),
+                "labels": torch.from_numpy(labels).to(dev)}
+    return example_batch
 
 
 def register_model(name: str):

@@ -11,15 +11,17 @@ Drives the port's two main paths with seeded random weights:
   bf16 KV pages and once with int8 pages;
 - training through ``AutoDist.build`` / ``step.run``: ``bert_base`` (vocab
   30522, 12 layers, d_model 768, MLM) at seq 512 with flash attention,
-  batch 32, AllReduce, default SGD; and the causal ``transformer`` at seq
-  512 with flash attention.
+  batch 32, AllReduce, default SGD; the causal ``transformer`` at seq 512
+  with flash attention; and ``resnet`` at its defaults (ResNet-50, 224 px,
+  1000 classes, bf16 compute) at batch 128.
 
 Phases, each printing one JSON line:
 
 1. ``device``: CUDA must be present; prints the ``nvidia-smi`` name and
    power limit.
-2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu`` and
-   ``csrc/flash_attention.cu`` with nvcc from this checkout, both at once.
+2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu``,
+   ``csrc/flash_attention.cu`` and ``csrc/fused_conv_stats.cu`` with nvcc
+   from this checkout, all three at once.
 3. ``kernel_parity``: the paged CUDA kernel against its plain version at
    the main path's shapes (decode B=32 Q=1, prefill B=1 Q=16, verify B=32
    Q=5; H=12, D=64, page_len 16, 32-page shuffled tables, positions that
@@ -36,14 +38,28 @@ Phases, each printing one JSON line:
    plain versions on the same bf16 inputs (B=32, H=12, D=64; S=512 causal
    and not, S=128 and S=256), timed beside the plain versions, SDPA
    (forward; backward for the two backward kernels) and the bound.
-7. ``train``: bert_base (10 steps) and the causal transformer (4 steps)
+7. ``conv_stats_parity``: the fused 1x1-conv + BatchNorm-statistics kernel
+   against its plain version at ResNet-50's bottleneck shapes at batch 128
+   (the JAX script's ``SHAPES``) in bf16, and at the first in fp32; a
+   repeated launch bitwise equal; timed beside the plain version,
+   ``torch.matmul`` + moments, ``torch.matmul`` alone and the bound.
+8. ``train``: bert_base (10 steps) and the causal transformer (4 steps)
    through ``AutoDist(strategy_builder=AllReduce()).build`` and
-   ``step.run``; every loss finite, the last below the first, and each
-   flash kernel launched exactly ``num_layers x steps`` times.
-8. ``train_check``: one step's loss and gradients through the flash
+   ``step.run``, each flash kernel launched exactly ``num_layers x steps``
+   times; and ResNet-50 (10 steps), the fused kernel launched exactly
+   ``36 x steps`` times and no flash kernel; every loss finite, the last
+   below the first.
+9. ``train_check``: one step's loss and gradients through the flash
    kernels against the plain (``dot``) path, and both against the same
    model in fp32, at full width within stated bf16 bounds; and
    PSLoadBalancing's first-step loss equal to AllReduce's.
+10. ``resnet_check``: ResNet-50 at full width, batch 8, one step's loss and
+    gradients: the bf16 kernel path against the model in fp32 on the card
+    within stated bf16 bounds (whole model and block by block), and the
+    fp32 card run against the fp32 plain path on the CPU within
+    summation-order bounds; one forward of every depth (18–152) at 224 px
+    launches the kernel once per 1x1 conv; PSLoadBalancing's first-step
+    loss equal to AllReduce's.
 
 Then the kernel table line, the card line and, last, the result line.
 Exits non-zero (printing no result) without CUDA, outside a checkout of the
@@ -66,10 +82,14 @@ import torch.nn.functional as F
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.api import AutoDist
 from autodist_tpu_torch.models import get_model, get_model_spec
+from autodist_tpu_torch.models import layers as L
+from autodist_tpu_torch.models import resnet as rn
 from autodist_tpu_torch.models import transformer as tt
-from autodist_tpu_torch.models.convert import flatten_params, unflatten_params
+from autodist_tpu_torch.models.convert import (flatten_params, map_params,
+                                                unflatten_params)
 from autodist_tpu_torch.ops import _build
 from autodist_tpu_torch.ops import flash_attention as fa
+from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.ops import paged_attention as pa
 from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
@@ -119,6 +139,42 @@ LM_BATCH, LM_STEPS = 8, 4
 CHECK_LOSS_RTOL, CHECK_GLOBAL_RTOL, CHECK_GRAD_RTOL = 1e-2, 3e-2, 0.15
 CHECK_NORM_FLOOR = 1e-3
 CHECK_BATCH = 8
+# conv_stats_parity: ResNet-50's bottleneck 1x1 convs at batch 128, 224 px,
+# [M = B*H*W, K, N] (examples/benchmark/fused_conv_stats.py SHAPES).
+CONV_SHAPES = ((128 * 56 * 56, 64, 256), (128 * 56 * 56, 256, 64),
+               (128 * 28 * 28, 512, 128), (128 * 28 * 28, 128, 512))
+# Kernel vs plain version on the same inputs. Each side sums in fp32 in its
+# own order, and a sum of n terms in any order is within n * 2^-24 of the
+# terms' magnitudes (the worst case); so
+# - y: |dy| <= 2K * 2^-24 * (|x| @ |w|), plus in bf16 one step of the
+#   output (2^-7 of |y|) for the rounding of the two sums;
+# - s1, s2: |ds| <= 1e-4 * (sum |y32|, sum y32^2): the kernel chains at most
+#   16 x 32 rows, then about 60 partials, under 600 terms (6e-5).
+CONV_Y_STEP = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
+CONV_STAT_TOL = 1e-4
+RESNET_BATCH, RESNET_STEPS = 128, 10
+# resnet_check, ResNet-50 at full width, batch 8.
+# - fp32 on the card (kernel, cuDNN without TF32) against fp32 on the CPU
+#   (plain version): they differ in summation order only. At
+#   initialisation the model amplifies such differences with depth, so the
+#   whole gradient is held to 3x the CPU's own change when the batch is
+#   reversed (the same sums in another order), measured in the phase; the
+#   loss (1e-5) and the head's gradient (1e-4), which see the forward and
+#   no backward through BatchNorm, are held directly.
+# - bf16 against fp32 on the card: the same amplification carries bf16's
+#   rounding (2^-8) to O(1) differences in the deep gradients, as it does
+#   in the JAX model (tests/test_torch_resnet.py), so the whole model's
+#   gradient difference is reported, not bounded. The loss, a batch average
+#   of log-sum-exps, moves far less and is held to 5e-2. Block by block, at
+#   each stage's first bottleneck (with its stride and its projection),
+#   against a random upstream gradient: the output within
+#   2e-2 (a few bf16 roundings of 2^-8), the whole block gradient within
+#   0.15 and each tensor of at least 1e-3 of its norm within 0.2 (ReLU masks
+#   flip where bf16 rounds a value across 0, and sums of signed gradients
+#   cancel, as in train_check's bound).
+RESNET_FP32_LOSS_RTOL, RESNET_FP32_HEAD_RTOL, RESNET_SPREAD_FACTOR = 1e-5, 1e-4, 3.0
+RESNET_BF16_LOSS_RTOL = 5e-2
+RESNET_BLOCK_Y_RTOL, RESNET_BLOCK_GRAD_RTOL, RESNET_BLOCK_TENSOR_RTOL = 2e-2, 0.15, 0.2
 
 
 def emit(phase: str, **fields) -> None:
@@ -254,7 +310,7 @@ def serve_run(params, kv_quant: bool, dev):
                for i in range(N_REQUESTS)]
 
     # The main path's window: counts to 0 just before, read just after.
-    pa.paged_attention.launches = 0
+    reset_launches()
     engine.decode_invocations = engine.prefill_invocations = 0
     batcher = ContinuousBatcher(engine, max_queue=256, registry=registry)
     reqs = [batcher.submit(p, MAX_NEW) for p in prompts]
@@ -428,10 +484,72 @@ def flash_case(seq: int, causal: bool, gen: torch.Generator, dev):
     return rows
 
 
+# ------------------------------------------------------- conv stats parity
+def _matmul_moments(x, w):
+    """The library rendering: ``torch.matmul``, then two fp32 column sums."""
+    y = x @ w
+    y32 = y.float()
+    return y, y32.sum(0), (y32 * y32).sum(0)
+
+
+def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev):
+    """The fused conv-stats kernel against its plain version at one shape:
+    post-ReLU activations (``|N(0, 1)|``, what the model's 1x1 convs read)
+    and He-scaled weights."""
+    x = torch.randn((m, k), generator=gen, device=dev).abs_().to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=dev) * (2.0 / k) ** 0.5).to(dtype)
+    y, s1, s2 = fcs.fused_matmul_stats(x, w)
+    again = fcs.fused_matmul_stats(x, w)
+    torch.cuda.synchronize()
+    repeat_bitwise = all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+    del again
+    py, p1, p2 = fcs.fused_matmul_stats_plain(x, w)
+    y_err = (y.float() - py.float()).abs()
+    y_bound = (CONV_Y_STEP[dtype] * torch.maximum(y.float().abs(), py.float().abs())
+               + 2 * k * 2.0 ** -24 * (x.float().abs() @ w.float().abs()))
+    y_ok = bool((y_err <= y_bound).all())
+    y_ratio = (y_err / y_bound.clamp_min(1e-30)).max().item()
+    max_abs_err = y_err.max().item()
+    del y_err, y_bound, py
+    y32_abs_sum = (x.float() @ w.float()).abs_().sum(0)
+    s1_rel = ((s1 - p1).abs() / y32_abs_sum).max().item()
+    s2_rel = ((s2 - p2).abs() / p2).max().item()
+    del y32_abs_sum
+
+    kernel_ms = time_ms(lambda: fcs.fused_matmul_stats(x, w))
+    plain_ms = time_ms(lambda: fcs.fused_matmul_stats_plain(x, w), groups=7, per_group=5)
+    library_ms = time_ms(lambda: _matmul_moments(x, w))
+    matmul_ms = time_ms(lambda: x @ w)
+    nbytes, flops = fcs.kernel_bytes(x, w), fcs.kernel_flops(x, w)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
+    row = dict(M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=max_abs_err, y_err_over_bound=y_ratio, s1_rel=s1_rel,
+               s2_rel=s2_rel, stat_tol=CONV_STAT_TOL, repeat_bitwise=repeat_bitwise,
+               tiles_per_block=fcs.tiles_per_block(m, n), kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms, matmul_ms=matmul_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
+    emit("conv_stats_parity", **row)
+    shape = f"conv stats {m}x{k}x{n} {row['dtype']}"
+    check(y_ok, f"{shape}: y beyond its bound (worst err/bound {y_ratio})")
+    check(s1_rel <= CONV_STAT_TOL and s2_rel <= CONV_STAT_TOL,
+          f"{shape}: sums rel {s1_rel}, {s2_rel} > {CONV_STAT_TOL}")
+    check(repeat_bitwise, f"{shape}: a repeated launch differs")
+    return row
+
+
 # -------------------------------------------------------------------- train
 def _launch_counts():
     return {"fwd": fa.flash_fwd.launches, "dkdv": fa.flash_dkdv.launches,
             "dq": fa.flash_dq.launches}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0: just before each main-path window."""
+    pa.paged_attention.launches = 0
+    fa.reset_launches()
+    fcs.fused_matmul_stats.launches = 0
 
 
 def train_run(model: str, batch_size: int, steps: int, card: str, dev):
@@ -451,7 +569,7 @@ def train_run(model: str, batch_size: int, steps: int, card: str, dev):
     torch.cuda.synchronize()
 
     # The main path's window: counts to 0 just before, read just after.
-    fa.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state, metrics = step.run(state, batch, steps)
@@ -463,6 +581,7 @@ def train_run(model: str, batch_size: int, steps: int, card: str, dev):
     for kind, n in launches.items():
         check(n == cfg.num_layers * steps,
               f"{model}: flash {kind} launches {n} != {cfg.num_layers} x {steps}")
+    check(fcs.fused_matmul_stats.launches == 0, f"{model}: fused conv kernel launched")
     tokens = batch_size * TRAIN_SEQ * steps
     row = dict(model=model, seq=TRAIN_SEQ, batch=batch_size, steps=steps,
                attention_impl="flash", strategy="AllReduce", optimizer="sgd 0.01",
@@ -477,10 +596,10 @@ def train_run(model: str, batch_size: int, steps: int, card: str, dev):
     return row
 
 
-def _loss_and_grads(spec, params, batch):
+def _loss_and_grads(loss_fn, params, batch):
     leaves = {n: t.detach().clone().requires_grad_(True)
               for n, t in flatten_params(params).items()}
-    loss = spec.loss_fn(unflatten_params(leaves), batch)
+    loss = loss_fn(unflatten_params(leaves), batch)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.item(), dict(zip(leaves, grads))
 
@@ -502,7 +621,8 @@ def train_check(dev):
     flash = specs["flash"]
     params = flash.init(SEED + 4, device=dev)
     batch = flash.example_batch(CHECK_BATCH, device=dev)
-    runs = {name: _loss_and_grads(spec, params, batch) for name, spec in specs.items()}
+    runs = {name: _loss_and_grads(spec.loss_fn, params, batch)
+            for name, spec in specs.items()}
     (loss_f, grads_f), (loss_d, grads_d), (loss_32, grads_32) = (
         runs["flash"], runs["dot"], runs["fp32"])
     loss_rel = abs(loss_f - loss_d) / abs(loss_d)
@@ -542,6 +662,157 @@ def train_check(dev):
          worst_tensor=worst_name, tensor_rtol=CHECK_GRAD_RTOL, tensors_compared=compared,
          tensors_total=len(grads_d), first_step_loss=first, ps_vs_allreduce_rel=ps_rel)
 
+def train_resnet(card: str, dev):
+    """ResNet-50 at its defaults (224 px, 1000 classes, bf16) through
+    AutoDist (AllReduce, default SGD): one warm-up step, then the counted
+    ``step.run`` window."""
+    spec = get_model_spec("resnet")
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(RESNET_BATCH, device=dev)
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=AllReduce(), device=dev)
+    t0 = time.perf_counter()
+    step = autodist.build(spec.loss_fn, params, batch)
+    build_s = time.perf_counter() - t0
+    state = step.init(params)
+    state, _ = step.run(state, batch, 1)                # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # The main path's window: counts to 0 just before, read just after.
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, metrics = step.run(state, batch, RESNET_STEPS)
+    losses = metrics["loss"].tolist()
+    wall = time.perf_counter() - t0
+    launches = fcs.fused_matmul_stats.launches
+    flash = _launch_counts()
+    per_step = rn.fused_launches_per_forward(50)
+    row = dict(model=spec.name, image_size=224, batch=RESNET_BATCH, steps=RESNET_STEPS,
+               strategy="AllReduce", optimizer="sgd 0.01", build_s=build_s,
+               losses=losses, wall_s=wall, ms_per_step=wall / RESNET_STEPS * 1e3,
+               images_per_s=RESNET_BATCH * RESNET_STEPS / wall,
+               mfu=spec.flops_per_example * RESNET_BATCH * RESNET_STEPS / wall
+               / PEAK_OPS_PER_S[torch.bfloat16],
+               kernel_launches={"fused_conv_stats": launches, **flash},
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, card=card)
+    emit("train", **row)
+    check(all(np.isfinite(losses)), f"resnet50: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"resnet50: loss did not fall {losses}")
+    check(launches == per_step * RESNET_STEPS,
+          f"resnet50: fused conv launches {launches} != {per_step} x {RESNET_STEPS}")
+    check(not any(flash.values()), f"resnet50: flash kernels launched {flash}")
+    return row
+
+
+def _bottleneck_grads(p, x, gy, stride, dtype):
+    """One bottleneck block's output and the gradients of ``sum(y * gy)``
+    with respect to its input and params."""
+    leaves = {n: t.detach().clone().requires_grad_(True)
+              for n, t in flatten_params(p).items()}
+    xin = x.to(dtype).requires_grad_(True)
+    y = rn._bottleneck(unflatten_params(leaves), xin, stride, dtype)
+    grads = torch.autograd.grad((y.float() * gy).sum(), [xin, *leaves.values()])
+    return y.float(), dict(zip(["input", *leaves], grads))
+
+
+def resnet_check(dev):
+    """ResNet-50 at full width, batch 8: the fp32 kernel path on the card
+    against the fp32 plain path on the CPU; the bf16 kernel path against
+    fp32 on the card, whole model and block by block; the kernel's launches
+    in one forward of every depth at 224 px; PSLoadBalancing's first-step
+    loss vs AllReduce's."""
+    spec = get_model_spec("resnet")
+    params = spec.init(SEED + 5, device=dev)
+    batch = spec.example_batch(CHECK_BATCH, device=dev)
+
+    def loss32(p, b):
+        return L.softmax_xent(rn.forward(p, b["images"], 50, dtype=torch.float32),
+                              b["labels"])
+
+    loss_16, grads_16 = _loss_and_grads(spec.loss_fn, params, batch)
+    loss_32, grads_32 = _loss_and_grads(loss32, params, batch)
+    cpu = torch.device("cpu")
+    cpu_params = map_params(lambda t: t.to(cpu), params)
+    cpu_batch = {k: v.to(cpu) for k, v in batch.items()}
+    loss_cpu, grads_cpu = _loss_and_grads(loss32, cpu_params, cpu_batch)
+    _, grads_flip = _loss_and_grads(loss32, cpu_params,
+                                    {k: v.flip(0) for k, v in cpu_batch.items()})
+    grads_cpu = {n: g.to(dev) for n, g in grads_cpu.items()}
+    spread = _rel({n: g.to(dev) for n, g in grads_flip.items()}, grads_cpu)
+    head = [n for n in grads_cpu if n.startswith("head/")]
+    fp32 = {"loss_card": loss_32, "loss_cpu": loss_cpu,
+            "loss_rel": abs(loss_32 - loss_cpu) / abs(loss_cpu),
+            "head_rel": _rel({n: grads_32[n] for n in head},
+                             {n: grads_cpu[n] for n in head}),
+            "whole_rel": _rel(grads_32, grads_cpu), "cpu_spread_batch_reversed": spread}
+    bf16 = {"loss_bf16": loss_16, "loss_rel": abs(loss_16 - loss_32) / abs(loss_32),
+            "whole_gradient_rel_reported": _rel(grads_16, grads_32)}
+    del grads_16, grads_32, grads_cpu, grads_flip
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    blocks = {}
+    for si, (hw, cin) in enumerate(((56, 64), (56, 256), (28, 512), (14, 1024))):
+        name, stride = f"stage{si}_block0", 1 if si == 0 else 2
+        x = torch.randn((CHECK_BATCH, hw, hw, cin), generator=gen, device=dev).relu_()
+        cout = params[name]["conv3"]["kernel"].shape[-1]
+        hw_out = -(-hw // stride)
+        gy = torch.randn((CHECK_BATCH, hw_out, hw_out, cout), generator=gen, device=dev)
+        y16, g16 = _bottleneck_grads(params[name], x, gy, stride, torch.bfloat16)
+        y32, g32 = _bottleneck_grads(params[name], x, gy, stride, torch.float32)
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in g32.values()))
+        per = {n: ((g16[n].float() - g.float()).norm() / g.float().norm()).item()
+               for n, g in g32.items() if g.float().norm() >= CHECK_NORM_FLOOR * norm}
+        worst = max(per, key=per.get)
+        blocks[name] = {"y_rel": ((y16 - y32).norm() / y32.norm()).item(),
+                        "whole_rel": _rel(g16, g32), "worst_tensor": worst,
+                        "worst_tensor_rel": per[worst]}
+
+    # Every 1x1 conv of every depth at 224 px is a shape the kernel takes.
+    by_depth, finite = {}, True
+    for depth in (18, 34, 50, 101, 152):
+        dparams = get_model_spec("resnet", depth=depth).init(SEED, device=dev)
+        fcs.fused_matmul_stats.launches = 0
+        with torch.no_grad():
+            logits = rn.forward(dparams, batch["images"][:2], depth)
+        by_depth[depth] = fcs.fused_matmul_stats.launches
+        finite = finite and bool(torch.isfinite(logits).all())
+        del dparams
+
+    first = {}
+    for name, builder in (("AllReduce", AllReduce()), ("PSLoadBalancing", PSLoadBalancing())):
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=builder, device=dev)
+        step = autodist.build(spec.loss_fn, params, batch)
+        _, m = step.run(step.init(params), batch, 1)
+        first[name] = m["loss"][0].item()
+    ps_rel = abs(first["PSLoadBalancing"] - first["AllReduce"]) / abs(first["AllReduce"])
+    emit("resnet_check", model="resnet50", batch=CHECK_BATCH, fp32_card_vs_cpu=fp32,
+         bf16_vs_fp32=bf16, bf16_vs_fp32_blocks=blocks, first_step_loss=first,
+         ps_vs_allreduce_rel=ps_rel, fused_launches_per_forward_by_depth=by_depth)
+    for depth, n in by_depth.items():
+        check(n == rn.fused_launches_per_forward(depth),
+              f"resnet{depth}: {n} fused launches a forward")
+    check(finite, "a resnet depth gave non-finite logits")
+    check(fp32["loss_rel"] <= RESNET_FP32_LOSS_RTOL,
+          f"resnet fp32 card vs cpu loss rel {fp32['loss_rel']}")
+    check(fp32["head_rel"] <= RESNET_FP32_HEAD_RTOL,
+          f"resnet fp32 card vs cpu head gradient rel {fp32['head_rel']}")
+    check(fp32["whole_rel"] <= RESNET_SPREAD_FACTOR * spread,
+          f"resnet fp32 card vs cpu gradient rel {fp32['whole_rel']} > "
+          f"{RESNET_SPREAD_FACTOR} x the cpu's own spread {spread}")
+    check(bf16["loss_rel"] <= RESNET_BF16_LOSS_RTOL,
+          f"resnet bf16 vs fp32 loss rel {bf16['loss_rel']}")
+    for name, b in blocks.items():
+        check(b["y_rel"] <= RESNET_BLOCK_Y_RTOL, f"{name} bf16 output rel {b['y_rel']}")
+        check(b["whole_rel"] <= RESNET_BLOCK_GRAD_RTOL,
+              f"{name} bf16 gradient rel {b['whole_rel']}")
+        check(b["worst_tensor_rel"] <= RESNET_BLOCK_TENSOR_RTOL,
+              f"{name} bf16 {b['worst_tensor']} rel {b['worst_tensor_rel']}")
+    check(ps_rel <= 1e-5, f"resnet PSLoadBalancing first loss {first} differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -556,10 +827,11 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    libs = ("paged_attention", "flash_attention")
+    libs = ("paged_attention", "flash_attention", "fused_conv_stats")
     _build.build(libs)                       # one nvcc per source, started together
     pa.build_kernel()
     fa.build_kernel()
+    fcs.build_kernel()
     ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
                     if "registers" in ln or "smem" in ln][:12] for name in libs}
     emit("build", seconds=time.perf_counter() - t0,
@@ -579,9 +851,13 @@ def main() -> int:
     flash_rows = [r for seq, causal in ((TRAIN_SEQ, False), (TRAIN_SEQ, True),
                                         (128, False), (256, True))
                   for r in flash_case(seq, causal, gen, dev)]
+    conv_rows = [conv_stats_case(m, k, n, torch.bfloat16, gen, dev) for m, k, n in CONV_SHAPES]
+    conv_rows.append(conv_stats_case(*CONV_SHAPES[0], torch.float32, gen, dev))
     train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
                   train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
+    resnet_row = train_resnet(card, dev)
     train_check(dev)
+    resnet_check(dev)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -618,6 +894,23 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # The fused conv-stats kernel: the main shape is the first bottleneck
+    # conv of ResNet-50 at batch 128, bf16; the library call is
+    # torch.matmul plus the two fp32 column sums.
+    row = conv_rows[0]
+    kernels.append({
+        "name": "fused_conv_stats",
+        "route": "cuda",
+        "source": "autodist_tpu_torch/csrc/fused_conv_stats.cu",
+        "replaces": "examples/benchmark/fused_conv_stats.py:54",
+        "launches": resnet_row["kernel_launches"]["fused_conv_stats"],
+        "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
+        "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

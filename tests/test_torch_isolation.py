@@ -40,9 +40,10 @@ def test_scan_sees_the_whole_port():
                 "resource_spec.py", "model_item.py", "strategy/ir.py", "strategy/base.py",
                 "strategy/all_reduce_strategy.py", "strategy/ps_strategy.py",
                 "strategy/ps_lb_strategy.py", "strategy/__init__.py", "kernel/mesh.py",
-                "kernel/lowering.py", "kernel/__init__.py", "api.py"):
+                "kernel/lowering.py", "kernel/__init__.py", "api.py",
+                "ops/fused_conv_stats.py", "models/resnet.py", "models/layers.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
-    for src in ("paged_attention.cu", "flash_attention.cu"):
+    for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()
     # The scanner itself catches both spellings.
     probe = ROOT / "autodist_tpu_torch" / "__init__.py"

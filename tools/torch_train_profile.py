@@ -3,16 +3,21 @@
 
     python3 tools/torch_train_profile.py [--model bert_base] [--batch 32]
         [--attention flash] [--steps 5] [--out FILE]
+    python3 tools/torch_train_profile.py --model resnet [--batch 128]
 
-Builds the zoo model at seq 512 (seeded random weights) through
-``AutoDist(strategy_builder=AllReduce()).build`` on the card, runs two
-warm-up steps, then times ``step.run`` and profiles the same window:
+Builds the zoo model (a transformer at seq 512, or ResNet-50 at 224 px;
+seeded random weights) through ``AutoDist(strategy_builder=AllReduce()).build``
+on the card, runs two warm-up steps, then times ``step.run`` and profiles the
+same window:
 
 - host wall per step (host clock around work ending in a synchronize);
 - device busy time per step: the sum of the CUDA kernels' durations from
   ``torch.profiler``, and the busy share of the wall;
-- device time by group: the flash-attention kernels, matrix products
-  (cuBLAS / CUTLASS kernels), and everything else; the top kernels.
+- device time by group: the port's kernels (flash attention, the fused
+  1x1-conv + BatchNorm-statistics kernel), cuDNN convolutions, matrix
+  products (cuBLAS / CUTLASS kernels), elementwise and reduction kernels
+  (BatchNorm, ReLU, casts, the optimizer), and everything else; the top
+  kernels.
 
 Prints one JSON line and writes the full table to ``--out`` (default
 ``profile_out/torch_train_profile.json``). Needs an NVIDIA GPU.
@@ -36,21 +41,31 @@ from autodist_tpu_torch.models import get_model_spec  # noqa: E402
 from autodist_tpu_torch.strategy import AllReduce  # noqa: E402
 
 _GEMM_MARKERS = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
+_CONV_MARKERS = ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")
+_ELEMENTWISE_MARKERS = ("elementwise", "reduce", "batch_norm", "vectorized", "unrolled",
+                        "copy", "fill")
 
 
 def _group(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
         return "flash_attention"
+    if "fused_conv_stats" in low or "sum_partials" in low:
+        return "fused_conv_stats"
+    if any(m in low for m in _CONV_MARKERS):
+        return "conv"
     if any(m in low for m in _GEMM_MARKERS):
         return "matmul"
+    if any(m in low for m in _ELEMENTWISE_MARKERS):
+        return "elementwise"
     return "other"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model", default="bert_base")
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 32 (transformers), 128 (resnet)")
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--attention", default="flash", help="flash | dot")
     ap.add_argument("--steps", type=int, default=5)
@@ -63,8 +78,15 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    spec = get_model_spec(args.model, max_seq_len=args.seq,
-                          attention_impl=args.attention)
+    if args.model == "resnet":
+        spec = get_model_spec("resnet")
+        args.batch = args.batch or 128
+        per_example, unit = 1, "images_per_s"
+    else:
+        spec = get_model_spec(args.model, max_seq_len=args.seq,
+                              attention_impl=args.attention)
+        args.batch = args.batch or 32
+        per_example, unit = args.seq, "tokens_per_s"
     params = spec.init(0, device="cuda")
     batch = spec.example_batch(args.batch, device="cuda")
     step = AutoDist(strategy_builder=AllReduce()).build(spec.loss_fn, params, batch)
@@ -88,12 +110,12 @@ def main() -> int:
     for name, (t, _) in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + t / 1e3 / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    tokens = args.batch * args.seq
     row = {
-        "model": args.model, "seq": args.seq, "batch": args.batch,
-        "attention_impl": args.attention, "steps": args.steps,
+        "model": spec.name, "batch": args.batch, "steps": args.steps,
+        **({} if args.model == "resnet" else {"seq": args.seq,
+                                              "attention_impl": args.attention}),
         "host_wall_ms": wall_ms,
-        "tokens_per_s": tokens / wall_ms * 1e3,
+        unit: args.batch * per_example / wall_ms * 1e3,
         "mfu": spec.flops_per_example * args.batch / (wall_ms / 1e3) / 989e12,
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
