@@ -145,6 +145,8 @@ def _check_kernel_args(**tensors):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async tiles)")
         if name in ("lse", "delta"):
             if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s):
                 raise ValueError(f"{name} must be float32 [B, H, S]")

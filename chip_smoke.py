@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
    power limit.
 2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu``,
    ``csrc/flash_attention.cu`` and ``csrc/fused_conv_stats.cu`` with nvcc
-   from this checkout, all three at once.
+   from this checkout, all three at once; prints each kernel's registers
+   and spill bytes (``-Xptxas -v``) and, for the two tensor-core flash
+   kernels, the count of ``HMMA`` instructions in their SASS (``cuobjdump``,
+   "not found" without it); fails on a spill or a kernel without HMMA.
 3. ``kernel_parity``: the paged CUDA kernel against its plain version at
    the main path's shapes (decode B=32 Q=1, prefill B=1 Q=16, verify B=32
    Q=5; H=12, D=64, page_len 16, 32-page shuffled tables, positions that
@@ -35,9 +38,13 @@ Phases, each printing one JSON line:
    the plain path within a stated bound, and identical greedy streams of
    an fp32 2-layer full-width model.
 6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
-   plain versions on the same bf16 inputs (B=32, H=12, D=64; S=512 causal
-   and not, S=128 and S=256), timed beside the plain versions, SDPA
-   (forward; backward for the two backward kernels) and the bound.
+   plain versions on the same inputs (B=32, H=12, D=64; bf16 at S=512
+   causal and not, S=128 and S=256 causal; fp32 at S=512, the FMA
+   kernels), each output within the stated tolerances; the bf16 O, dK and
+   dV also element by element within ``flash_bounds`` (err/bound and the
+   relative L2 distance reported); timed beside the plain versions, SDPA
+   pinned to one backend (forward; backward for the two backward kernels)
+   and the bound.
 7. ``conv_stats_parity``: the fused 1x1-conv + BatchNorm-statistics kernel
    against its plain version at ResNet-50's bottleneck shapes at batch 128
    (the JAX script's ``SHAPES``) in bf16, and at the first in fp32; a
@@ -61,6 +68,8 @@ Phases, each printing one JSON line:
     launches the kernel once per 1x1 conv; PSLoadBalancing's first-step
     loss equal to AllReduce's.
 
+Kernels and library calls are timed as CUDA graphs of repeated calls (card
+time without the host's, ``device_ms``), plain versions as eager calls.
 Then the kernel table line, the card line and, last, the result line.
 Exits non-zero (printing no result) without CUDA, outside a checkout of the
 repo, or when any phase fails.
@@ -78,6 +87,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.api import AutoDist
@@ -118,7 +128,20 @@ N_REQUESTS, MAX_NEW = 64, 32
 # absolute and relative bounds them with room; the fp32 lse differs only in
 # summation order (1e-3).
 FLASH_TOL, LSE_TOL = 2e-2, 1e-3
+# fp32 inputs take the FMA kernels, which differ from the plain versions in
+# summation order only.
+FLASH_F32_TOL = 1e-4
 FLASH_B, FLASH_H, FLASH_D = 32, 12, 64
+# The bf16 forward and dK/dV kernels multiply on the tensor cores; each of
+# their outputs is also held, element by element, to a bound on what the two
+# arithmetics may differ by (flash_bounds). E is fp32's unit roundoff; a sum
+# of n terms in another order moves by at most n E of the terms' magnitudes
+# on the plain side and n 2E on the kernel's (the tensor cores align and
+# truncate inside an mma, up to one fp32 ulp an addition): 3 n E together.
+FLASH_E = 2.0 ** -24
+FLASH_BF16_STEP = 2.0 ** -7     # one bf16 step is at most 2^-7 of the value
+FLASH_SPLIT = 2.0 ** -16        # hi/lo split of P and dS: 2^-8 of 2^-8
+FLASH_MMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkdv_bf16_kernel")
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 32, 10
 LM_BATCH, LM_STEPS = 8, 4
 # Flash (kernel) path vs the plain dot path at full width, bf16 compute,
@@ -193,8 +216,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def tensor_core_report(ptxas: dict) -> dict:
+    """Registers, spill bytes and HMMA count of each tensor-core flash kernel;
+    fails on a spill or, where cuobjdump is found, on a kernel without HMMA."""
+    hmma = _build.sass_counts("flash_attention", "HMMA")
+    report = {}
+    for kernel in FLASH_MMA_KERNELS:
+        info = next((v for name, v in ptxas.items() if kernel in name), None)
+        check(info is not None, f"{kernel}: not in the ptxas report")
+        count = (next((n for name, n in hmma.items() if kernel in name), 0)
+                 if hmma is not None else "not found (no cuobjdump)")
+        check(info.get("spill_stores", 0) == 0 and info.get("spill_loads", 0) == 0,
+              f"{kernel}: register spills {info}")
+        check(hmma is None or count > 0, f"{kernel}: no HMMA instruction in its SASS")
+        report[kernel] = {**info, "hmma": count}
+    return report
+
+
 def time_ms(fn, groups: int = 15, per_group: int = 20) -> float:
-    """Median over ``groups`` CUDA-event timings of ``per_group`` calls."""
+    """Median over ``groups`` CUDA-event timings of ``per_group`` eager
+    calls: the plain versions, whose host time is small beside their work."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -208,6 +249,38 @@ def time_ms(fn, groups: int = 15, per_group: int = 20) -> float:
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / per_group)
+    return statistics.median(samples)
+
+
+def device_ms(fn, calls: int = 20, replays: int = 15, stream=None) -> float:
+    """The card's time for one call of ``fn``, without the host's time to
+    issue it: ``calls`` calls captured in one CUDA graph, the median over
+    ``replays`` CUDA-event timings of a replay, divided by ``calls``. ``fn``
+    is warmed up and captured on ``stream`` (a new side stream by default);
+    an autograd backward must have run its forward on that stream, since
+    autograd puts each backward op on its forward op's stream."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / calls)
+    del graph
     return statistics.median(samples)
 
 
@@ -249,7 +322,7 @@ def parity_case(shape: str, page_kind: str, gen: torch.Generator, dev):
     check(torch.allclose(out.float(), ref, atol=tol, rtol=tol),
           f"kernel vs plain {shape}/{page_kind}: max |err| {err} > tol {tol}")
 
-    kernel_ms = time_ms(lambda: pa.paged_attention(q4, k, v, tables, qpos, ks, vs))
+    kernel_ms = device_ms(lambda: pa.paged_attention(q4, k, v, tables, qpos, ks, vs))
     plain_ms = time_ms(lambda: pa.paged_attention_plain(q4, k, v, tables, qpos, ks, vs),
                        groups=7, per_group=5)
     # Library yardstick: SDPA over the gathered (dequantised) timeline.
@@ -257,8 +330,8 @@ def parity_case(shape: str, page_kind: str, gen: torch.Generator, dev):
     vg = pa._gather_timeline(v, vs, tables, qdt).transpose(1, 2).contiguous()
     mask = pa.position_mask(timeline, qpos)[:, None]          # [B, 1, Q, T]
     qh = q4.transpose(1, 2).contiguous()
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kg, vg,
-                                                                attn_mask=mask))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(qh, kg, vg,
+                                                                  attn_mask=mask))
     nbytes = pa.kernel_bytes(q4, k, tables, qpos, quantized=ks is not None)
     flops = pa.kernel_flops(q4, k, tables, qpos)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[qdt]
@@ -418,11 +491,44 @@ def stream_check(params, dev):
 
 
 # ------------------------------------------------------------- flash parity
-def flash_case(seq: int, causal: bool, gen: torch.Generator, dev):
+def flash_bounds(q, k, v, g, lse, delta, causal: bool, plain: dict) -> dict:
+    """Per-element bounds on |kernel - plain| for the bf16 kernels' O, dK and
+    dV: one bf16 step of the larger value (each side rounds its fp32 result
+    once) plus the arithmetic that differs, in magnitudes of the same
+    products (P the softmax from the plain lse):
+    - scores, sums of D products in other orders, and exp: each P off by
+      ``ds = 3 D E scale (|q| |k|^T) + 4 E`` of itself (both sides);
+    - O: p rounded to bf16 against the running max in the kernel and the row
+      max in the plain version, 2^-8 each: ``((2^-7 + 3 S E) P + P ds) |V|``,
+      plus ``(P ds)`` summed over keys times |O| for the normalisation;
+    - dV: P split into hi + lo (2^-16): ``((2^-16 + 3 S E) P + P ds)^T |dO|``;
+    - dK: dS = P (dP - delta) split likewise, P's error times |dP - delta|,
+      dP's own sums of D products:
+      ``((2^-16 + 3 S E + ds) |dS| + 3 D E P (|dO| |V|^T))^T |q scale|``."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    e = FLASH_E
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    ds = (3 * d * e * scale) * torch.einsum("bqhd,bkhd->bhqk", q32.abs(), k32.abs()) + 4 * e
+    p = torch.exp(fa._scores(q32 * scale, k32, causal) - lse[..., None])
+    pds = p * ds
+    del ds
+    o_mag = (torch.einsum("bhqk,bkhd->bqhd", (FLASH_BF16_STEP + 3 * s * e) * p + pds,
+                          v32.abs())
+             + pds.sum(-1).permute(0, 2, 1)[..., None] * plain["o"].float().abs())
+    dv_mag = torch.einsum("bhqk,bqhd->bkhd", (FLASH_SPLIT + 3 * s * e) * p + pds, g32.abs())
+    dsd = (torch.einsum("bqhd,bkhd->bhqk", g32, v32) - delta[..., None]).abs()
+    w = (FLASH_SPLIT + 3 * s * e) * p * dsd + pds * dsd
+    del dsd, pds
+    w += (3 * d * e) * p * torch.einsum("bqhd,bkhd->bhqk", g32.abs(), v32.abs())
+    dk_mag = torch.einsum("bhqk,bqhd->bkhd", w, (q32 * scale).abs())
+    return {"o": o_mag, "dk": dk_mag, "dv": dv_mag}
+
+
+def flash_case(seq: int, causal: bool, dtype, gen: torch.Generator, dev):
     """The three flash kernels against their plain versions at one shape."""
     shape = (FLASH_B, seq, FLASH_H, FLASH_D)
-    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                  for _ in range(4))
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
     out, lse = fa.flash_fwd(q, k, v, causal)
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, causal)
     delta = (want_out.float() * g.float()).sum(-1).permute(0, 2, 1).contiguous()
@@ -431,51 +537,80 @@ def flash_case(seq: int, causal: bool, gen: torch.Generator, dev):
     torch.cuda.synchronize()
     pk, pv = fa.flash_dkdv_plain(q, k, v, g, want_lse, delta, causal)
     pq = fa.flash_dq_plain(q, k, v, g, want_lse, delta, causal)
-    errs = {}
-    for name, got, want, tol in (("fwd", out, want_out, FLASH_TOL),
-                                 ("lse", lse, want_lse, LSE_TOL),
-                                 ("dk", dk, pk, FLASH_TOL), ("dv", dv, pv, FLASH_TOL),
-                                 ("dq", dq, pq, FLASH_TOL)):
-        err = (got.float() - want.float()).abs().max().item()
-        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-              f"flash {name} S={seq} causal={causal}: max |err| {err} > tol {tol}")
-        errs[name] = err
+    bf16 = dtype == torch.bfloat16
+    tol = FLASH_TOL if bf16 else FLASH_F32_TOL
+    case = f"flash S={seq} causal={causal} {str(dtype).replace('torch.', '')}"
+    errs, rel_l2 = {}, {}
+    for name, got, want, t in (("o", out, want_out, tol), ("lse", lse, want_lse, min(tol, LSE_TOL)),
+                               ("dk", dk, pk, tol), ("dv", dv, pv, tol),
+                               ("dq", dq, pq, tol)):
+        diff = got.float() - want.float()
+        errs[name] = diff.abs().max().item()
+        rel_l2[name] = (diff.norm() / want.float().norm()).item()
+        check(torch.allclose(got.float(), want.float(), atol=t, rtol=t),
+              f"{case}: {name} max |err| {errs[name]} > tol {t}")
+    # err/bound of the worst element, 1 = at the bound (bf16: tensor cores).
+    over = {}
+    if bf16:
+        bounds = flash_bounds(q, k, v, g, want_lse, delta, causal, {"o": want_out})
+        for name, got, want in (("o", out, want_out), ("dk", dk, pk), ("dv", dv, pv)):
+            bound = (FLASH_BF16_STEP * torch.maximum(got.float().abs(), want.float().abs())
+                     + bounds[name])
+            over[name] = ((got.float() - want.float()).abs() / bound.clamp_min(1e-30)
+                          ).max().item()
+        del bounds, bound
+        for name, ratio in over.items():
+            check(ratio <= 1.0, f"{case}: {name} beyond its bound (worst err/bound {ratio})")
 
+    # SDPA pinned to one backend, so that its times do not move between runs:
+    # flash attention for bf16, memory-efficient for fp32 (flash takes none).
+    # Kernels and SDPA are timed as CUDA graphs (device_ms): card time only.
+    backend = SDPBackend.FLASH_ATTENTION if bf16 else SDPBackend.EFFICIENT_ATTENTION
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel(backend):
+        sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                    is_causal=causal))
+        # SDPA's backward computes dQ, dK and dV in one call: both backward
+        # kernels stand beside it. Its forward runs on the capture stream.
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            gh = g.transpose(1, 2)
+        sdpa_bwd = device_ms(lambda: torch.autograd.grad(sdpa_out, leaves, gh,
+                                                         retain_graph=True),
+                             stream=stream)
+        del sdpa_out, leaves
     times = {
-        "fwd": (time_ms(lambda: fa.flash_fwd(q, k, v, causal), groups=7, per_group=5),
+        "fwd": (device_ms(lambda: fa.flash_fwd(q, k, v, causal)),
                 time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal), groups=5,
-                        per_group=3),
-                time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                                is_causal=causal))),
-        "dkdv": (time_ms(lambda: fa.flash_dkdv(q, k, v, g, want_lse, delta, causal),
-                         groups=7, per_group=5),
+                        per_group=3), sdpa_fwd),
+        "dkdv": (device_ms(lambda: fa.flash_dkdv(q, k, v, g, want_lse, delta, causal)),
                  time_ms(lambda: fa.flash_dkdv_plain(q, k, v, g, want_lse, delta,
-                                                     causal), groups=5, per_group=3)),
-        "dq": (time_ms(lambda: fa.flash_dq(q, k, v, g, want_lse, delta, causal),
-                       groups=7, per_group=5),
+                                                     causal), groups=5, per_group=3),
+                 sdpa_bwd),
+        "dq": (device_ms(lambda: fa.flash_dq(q, k, v, g, want_lse, delta, causal)),
                time_ms(lambda: fa.flash_dq_plain(q, k, v, g, want_lse, delta, causal),
-                       groups=5, per_group=3)),
+                       groups=5, per_group=3), sdpa_bwd),
     }
-    # Library yardstick for the backward: SDPA's backward computes dQ, dK
-    # and dV in one call, so both backward kernels stand beside it.
-    leaves = [t.detach().clone().requires_grad_(True) for t in (qh, kh, vh)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-    gh = g.transpose(1, 2)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, gh,
-                                                   retain_graph=True))
+    outputs = {"fwd": ("o", "lse"), "dkdv": ("dk", "dv"), "dq": ("dq",)}
     rows = []
-    for kind, (kernel_ms, plain_ms, *lib) in times.items():
+    for kind, (kernel_ms, plain_ms, library_ms) in times.items():
         nbytes = fa.kernel_bytes(q, kind)
         flops = fa.kernel_flops(q, kind, causal)
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_OPS_PER_S[torch.bfloat16]
-        err = max(errs[n] for n in {"fwd": ("fwd", "lse"), "dkdv": ("dk", "dv"),
-                                    "dq": ("dq",)}[kind])
+        t_ops = flops / PEAK_OPS_PER_S[dtype]
+        names = outputs[kind]
         row = dict(kernel=kind, B=FLASH_B, S=seq, H=FLASH_H, D=FLASH_D,
-                   causal=causal, dtype="bfloat16", max_abs_err=err, tol=FLASH_TOL,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=lib[0] if lib else sdpa_bwd,
+                   causal=causal, dtype=str(dtype).replace("torch.", ""),
+                   design="tensor cores" if bf16 and kind != "dq" else "fp32 FMA",
+                   max_abs_err=max(errs[n] for n in names), tol=tol,
+                   err_over_bound={n: over[n] for n in names if n in over} or None,
+                   rel_l2={n: rel_l2[n] for n in names},
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library=f"sdpa {'forward' if kind == 'fwd' else 'backward'} "
+                           f"({backend.name})",
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, flops=flops)
@@ -516,10 +651,10 @@ def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev):
     s2_rel = ((s2 - p2).abs() / p2).max().item()
     del y32_abs_sum
 
-    kernel_ms = time_ms(lambda: fcs.fused_matmul_stats(x, w))
+    kernel_ms = device_ms(lambda: fcs.fused_matmul_stats(x, w))
     plain_ms = time_ms(lambda: fcs.fused_matmul_stats_plain(x, w), groups=7, per_group=5)
-    library_ms = time_ms(lambda: _matmul_moments(x, w))
-    matmul_ms = time_ms(lambda: x @ w)
+    library_ms = device_ms(lambda: _matmul_moments(x, w))
+    matmul_ms = device_ms(lambda: x @ w)
     nbytes, flops = fcs.kernel_bytes(x, w), fcs.kernel_flops(x, w)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
     row = dict(M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
@@ -832,10 +967,10 @@ def main() -> int:
     pa.build_kernel()
     fa.build_kernel()
     fcs.build_kernel()
-    ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
-                    if "registers" in ln or "smem" in ln][:12] for name in libs}
+    ptxas = {name: _build.ptxas_report(name) for name in libs}
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds={n: _build.build_seconds.get(n) for n in libs}, ptxas=ptxas)
+         nvcc_seconds={n: _build.build_seconds.get(n) for n in libs}, ptxas=ptxas,
+         flash_tensor_core=tensor_core_report(ptxas["flash_attention"]))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -848,9 +983,12 @@ def main() -> int:
     stream_check(params, dev)
     del params
 
-    flash_rows = [r for seq, causal in ((TRAIN_SEQ, False), (TRAIN_SEQ, True),
-                                        (128, False), (256, True))
-                  for r in flash_case(seq, causal, gen, dev)]
+    flash_rows = [r for seq, causal, dtype in ((TRAIN_SEQ, False, torch.bfloat16),
+                                               (TRAIN_SEQ, True, torch.bfloat16),
+                                               (128, False, torch.bfloat16),
+                                               (256, True, torch.bfloat16),
+                                               (TRAIN_SEQ, False, torch.float32))
+                  for r in flash_case(seq, causal, dtype, gen, dev)]
     conv_rows = [conv_stats_case(m, k, n, torch.bfloat16, gen, dev) for m, k, n in CONV_SHAPES]
     conv_rows.append(conv_stats_case(*CONV_SHAPES[0], torch.float32, gen, dev))
     train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
@@ -878,8 +1016,8 @@ def main() -> int:
                 "dkdv": "autodist_tpu/ops/flash_attention.py:100",
                 "dq": "autodist_tpu/ops/flash_attention.py:155"}
     for kind, where in replaces.items():
-        row = next(r for r in flash_rows if r["kernel"] == kind
-                   and r["S"] == TRAIN_SEQ and not r["causal"])
+        row = next(r for r in flash_rows if r["kernel"] == kind and r["S"] == TRAIN_SEQ
+                   and not r["causal"] and r["dtype"] == "bfloat16")
         kernels.append({
             "name": f"flash_attention_{kind}",
             "route": "cuda",

@@ -168,6 +168,124 @@ def test_kernel_argument_checks():
         tfa._check_kernel_args(q=q, k=q.transpose(1, 2).contiguous().transpose(1, 2), v=q)
 
 
+def test_kernel_arguments_must_be_16_byte_aligned():
+    """The bf16 kernels stage tiles with 16-byte cp.async: a contiguous view
+    that starts off a 16-byte boundary is refused before any launch."""
+    n = 1 * 128 * 2 * 64
+    q = torch.zeros(n)[None].reshape(1, 128, 2, 64)
+    off = torch.zeros(n + 1)[1:].reshape(1, 128, 2, 64)     # 4 bytes in
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    tfa._check_kernel_args(q=q, k=q, v=q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_kernel_args(q=q, k=off, v=q)
+
+
+# ----------------------------------------------- the tensor-core kernels' numerics
+# The bf16 forward and dK/dV kernels multiply bf16 operands with fp32 sums on
+# the tensor cores. The helpers below repeat their operand rounding in plain
+# torch, over the kernels' 64-wide tiles, so that the CPU can hold the design
+# to the reference's arithmetic.
+TILE = 64
+#: Relative L2 distance of dK, dV before the output rounding.
+MMA_REL_L2 = 1e-4
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _emulate_mma_fwd(q, k, v, causal):
+    """(O fp32 before its rounding, lse) as the forward kernel computes
+    them: fp32 scores of bf16 operands, online softmax over 64-key tiles with
+    p rounded to bf16 against the running max, fp32 P.V sums."""
+    b, s, h, d = q.shape
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    m = torch.full((b, h, s), tfa.NEG_INF)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, TILE):
+        sc = torch.einsum("bqhd,bkhd->bhqk", q32, k32[:, k0:k0 + TILE]) * (d ** -0.5)
+        if causal:
+            keep = torch.arange(s)[:, None] >= torch.arange(k0, k0 + TILE)[None, :]
+            sc = torch.where(keep, sc, torch.tensor(tfa.NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", _bf16(p),
+                                                    v32[:, k0:k0 + TILE])
+        m = m_new
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).permute(0, 2, 1, 3), m + torch.log(l_safe)
+
+
+def _emulate_mma_dkdv(q, k, v, dout, lse, delta, causal, split=True):
+    """dK, dV in fp32 before their rounding, as the dK/dV kernel computes
+    them: S = (q scale) k^T and dP = dO v^T from bf16 operands with fp32
+    sums; P and dS carried into dV += P^T dO and dK += dS^T (q scale) as
+    hi + lo bf16 (``split=False``: rounded to bf16 once); the sums over
+    64-query tiles accumulated in fp32."""
+    d = q.shape[-1]
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, dout))
+    q32 = q32 * (d ** -0.5)
+    p = torch.exp(tfa._scores(q32, k32, causal) - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g32, v32) - delta[..., None])
+
+    def operand(x):
+        hi = _bf16(x)
+        return hi + _bf16(x - hi) if split else hi
+
+    pe, dse = operand(p), operand(ds)
+    dk, dv = torch.zeros_like(k32), torch.zeros_like(v32)
+    for q0 in range(0, q.shape[1], TILE):
+        rows = slice(q0, q0 + TILE)
+        dv += torch.einsum("bhqk,bqhd->bkhd", pe[:, :, rows], g32[:, rows])
+        dk += torch.einsum("bhqk,bqhd->bkhd", dse[:, :, rows], q32[:, rows])
+    return dk, dv
+
+
+def _rel_l2(got, want):
+    got, want = _np(got), _np(want)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tensor_core_forward_rounding_matches_plain_and_jax(causal):
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(6, "bfloat16")
+    o32, lse = _emulate_mma_fwd(tq, tk, tv, causal)
+    jout, res = jfa._flash_fwd(jq, jk, jv, causal, 128, 128, True)
+    want_out, want_lse = tfa.flash_fwd_plain(tq, tk, tv, causal)
+    for ref, name in ((want_out, "plain"), (jout, "jax")):
+        _close(o32.to(torch.bfloat16), ref, TOL["bfloat16"], f"O vs {name}")
+    _close(lse, want_lse, LSE_TOL["bfloat16"], "lse vs plain")
+    _close(lse, np.asarray(res[4]).reshape(B, H, S), LSE_TOL["bfloat16"], "lse vs jax")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tensor_core_dkdv_split_keeps_fp32_semantics(causal):
+    """The hi/lo split of P and dS keeps dK, dV within 1e-4 relative L2 of
+    the reference's fp32 arithmetic (the plain version and the JAX Pallas
+    kernel, both in fp32 on the same bf16 values), before the output
+    rounding; one bf16 rounding of P and dS does not."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(7, "bfloat16")
+    jout, res = jfa._flash_fwd(jq, jk, jv, causal, 128, 128, True)
+    lse = torch.from_numpy(np.array(res[4]).reshape(B, H, S))
+    out = torch.from_numpy(np.array(_np(jout))).to(torch.bfloat16)
+    delta = (out.float() * tg.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = _emulate_mma_dkdv(tq, tk, tv, tg, lse, delta, causal)
+    pk, pv = tfa.flash_dkdv_plain(*(t.float() for t in (tq, tk, tv, tg)), lse, delta, causal)
+    f32 = [jnp.asarray(_np(t)) for t in (tq, tk, tv)]
+    jres = (*f32, jnp.asarray(_np(out)), res[4])
+    _, jdk, jdv = jfa._flash_bwd(causal, 128, 128, True, jres, jnp.asarray(_np(tg)))
+    for got, plain, jax_ref, name in ((dk, pk, jdk, "dk"), (dv, pv, jdv, "dv")):
+        assert _rel_l2(got, plain) <= MMA_REL_L2, name
+        assert _rel_l2(got, jax_ref) <= MMA_REL_L2, name
+        assert _rel_l2(plain, jax_ref) <= MMA_REL_L2, name
+        _close(got.to(torch.bfloat16), jax_ref, TOL["bfloat16"], name)
+    rk, rv = _emulate_mma_dkdv(tq, tk, tv, tg, lse, delta, causal, split=False)
+    assert _rel_l2(rk, pk) > MMA_REL_L2 and _rel_l2(rv, pv) > MMA_REL_L2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,dtype", CASES, ids=IDS)
 def test_cuda_kernels_match_plain_versions(causal, dtype):

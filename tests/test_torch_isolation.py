@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``autodist_tpu_torch/`` and neither
-``chip_smoke.py`` imports ``jax`` or the JAX package ``autodist_tpu``
-(an AST scan of every import statement, lazy ones inside functions included).
+"""The port stands alone: no file of ``autodist_tpu_torch/``, neither
+``chip_smoke.py`` nor the port's ``tools/torch_*.py`` scripts import ``jax``
+or the JAX package ``autodist_tpu`` (an AST scan of every import statement,
+lazy ones inside functions included).
 """
 import ast
 import pathlib
@@ -8,7 +9,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "autodist_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "autodist_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("torch_*.py")))
 BANNED = ("jax", "jaxlib", "autodist_tpu")
 
 
@@ -34,6 +36,7 @@ def test_no_jax_or_reference_package_imports(path):
 def test_scan_sees_the_whole_port():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert "chip_smoke.py" in names
+    assert "tools/torch_flash_quick.py" in names
     assert "autodist_tpu_torch/ops/paged_attention.py" in names
     assert "autodist_tpu_torch/serve/engine.py" in names
     for new in ("ops/flash_attention.py", "models/spec.py", "const.py",
