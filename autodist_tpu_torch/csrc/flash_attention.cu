@@ -5,7 +5,8 @@
 //                                                  flash_fwd_kernel (fp32)
 //   _dkdv_kernel  (launched by _flash_bwd)      <- flash_dkdv_bf16_kernel (bf16),
 //                                                  flash_dkdv_kernel (fp32)
-//   _dq_kernel    (launched by _flash_bwd)      <- flash_dq_kernel (both)
+//   _dq_kernel    (launched by _flash_bwd)      <- flash_dq_bf16_kernel (bf16),
+//                                                  flash_dq_kernel (fp32)
 // and keeps their arithmetic: scores with fp32 sums, scale 1/sqrt(D), causal
 // mask value -1e30 (not -inf, so a fully masked row gives the same lse as
 // the TPU kernel), online softmax with fp32 m / l / acc, p rounded to V's
@@ -40,10 +41,10 @@
 //
 // Two designs. bf16 inputs, the main path, take the tensor-core kernels
 // (the "bf16 path" section): mma.sync m16n8k16 with bf16 operands and fp32
-// accumulation, bf16 tiles staged by cp.async. fp32 inputs, and dQ in both
-// dtypes, take the FMA kernels (fp32 tiles in shared memory, products as fp32
-// FMAs on the CUDA cores, 67 TFLOP/s peak and one shared-memory load an FMA),
-// which run far above the bounds. The measured times are in PERF.md.
+// accumulation, bf16 tiles staged by cp.async. fp32 inputs take the FMA
+// kernels (fp32 tiles in shared memory, products as fp32 FMAs on the CUDA
+// cores, 67 TFLOP/s peak and one shared-memory load an FMA), which run far
+// above the bounds. The measured times are in PERF.md.
 //
 // Plain C interface, built by nvcc into a shared library and loaded with
 // ctypes (autodist_tpu_torch/ops/_build.py).
@@ -75,15 +76,6 @@ constexpr float kNegInf = -1e30f;  // the JAX package's _NEG_INF
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
 // Max / sum over the 4 consecutive lanes of a warp that hold one row: of an
 // fp32 FMA tile, or of an mma accumulator fragment (lanes 4g .. 4g + 3).
 __device__ __forceinline__ float row_max(float v) {
@@ -96,14 +88,13 @@ __device__ __forceinline__ float row_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Stage rows [0, 64) of a [*, row_stride] slice into dst[64][kPad] as fp32,
-// times mul (1, or the softmax scale for the backward's pre-scaled q).
-template <typename T>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src, long row_stride,
+// Stage rows [0, 64) of a [*, row_stride] slice into dst[64][kPad], times
+// mul (1, or the softmax scale for the backward's pre-scaled q).
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long row_stride,
                                            float mul) {
   for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
-    dst[r * kPad + d] = to_f32(src[r * row_stride + d]) * mul;
+    dst[r * kPad + d] = src[r * row_stride + d] * mul;
   }
 }
 
@@ -280,17 +271,17 @@ flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------------------------- dQ
-// Replaces autodist_tpu/ops/flash_attention.py::_dq_kernel. Bound at the
-// training shape: operations (3 products per tile pair). Design: the query
-// and dO tiles stay in shared memory for the whole key loop; dS needs no
-// barrier across warps, since a row's dS is made and used by its own lanes.
-template <typename T>
+// ----------------------------------------------------------------- dQ, fp32
+// Replaces autodist_tpu/ops/flash_attention.py::_dq_kernel for fp32 inputs.
+// Bound at the training shape: operations (3 products per tile pair).
+// Design: the query and dO tiles stay in shared memory for the whole key
+// loop; dS needs no barrier across warps, since a row's dS is made and used
+// by its own lanes.
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int seq, int n_heads, float scale, int causal) {
+                float* __restrict__ dq, int seq, int n_heads, float scale, int causal) {
   extern __shared__ float smem[];
   float* q_s = smem;                 // [64][65] query tile, times scale
   float* do_s = q_s + kTileFloats;   // [64][65] dO tile
@@ -353,9 +344,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kPer; ++j) dq_acc[j] = fmaf(dsv, kr[kLanes * j], dq_acc[j]);
     }
   }
-  T* dqp = dq + base + (long)q_row * rs;
+  float* dqp = dq + base + (long)q_row * rs;
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) dqp[g + kLanes * j] = from_f32<T>(dq_acc[j] * scale);
+  for (int j = 0; j < kPer; ++j) dqp[g + kLanes * j] = dq_acc[j] * scale;
 }
 
 // ================================================================ bf16 path
@@ -789,12 +780,145 @@ flash_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(smem_bytes + kTileBytes, row0, dv_acc, dv + base + (long)kb * kTile * rs, rs);
 }
 
+// ----------------------------------------------------------------- dQ, bf16
+// Replaces autodist_tpu/ops/flash_attention.py::_dq_kernel for bf16 inputs.
+// Bound at the training shape: operations, 0.0391 ms for the three
+// products' 39 GFLOP at the bf16 peak; this kernel runs 4 products' worth of
+// tensor-core work (S, dP, and dS K twice, for the split below).
+// Arithmetic, as in dK/dV: S = q k^T and dP = dO v^T are exact bf16
+// products with fp32 sums, and S times scale = 2^-3 afterwards is exactly
+// the reference's (q scale) k^T (D = 64); dS = P (dP - delta) is a true fp32
+// operand of dQ += dS K, split into hi = bf16(x) and lo = bf16(x - hi) and
+// multiplied twice (2^-16 relative). dQ is summed as dS K and multiplied by
+// the scale once at the end, as the reference does.
+// Design: the forward's layout. One block per (64-query tile, b*h) loops
+// over 64-key tiles (up to the diagonal tile when causal, only that tile
+// masked); warp w owns query rows 16 w .. 16 w + 15 and keeps in registers
+// their q and dO A fragments, lse and delta of its rows g and g + 8, and a
+// 16 x 64 fp32 dQ accumulator: no atomics, no reduction across warps, so
+// results are deterministic. K and V stream through two swizzled cp.async
+// buffers. Each key tile is taken in halves of 32 keys (S and dP
+// accumulators for 32 keys, not 64, keep the kernel clear of spills): S and
+// dP read K and V with ldmatrix; P and dS are formed on the accumulators;
+// dS, split hi/lo from registers, is the A operand of dQ += dS K with K read
+// through ldmatrix.trans.
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dq, int seq, int n_heads, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  // [q | dO | k0 | v0 | k1 | v1], each a swizzled 64 x 64 tile; q stages dQ
+  // at the end.
+  const uint32_t s0 = smem_addr(smem_bytes);
+  const int qb = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / n_heads, h = bh % n_heads;
+  const long rs = (long)n_heads * kD;
+  const long base = (long)b * seq * rs + (long)h * kD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16;
+  const int n_kb = causal ? qb + 1 : seq / kTile;
+
+  load_tile(s0, q + base + (long)qb * kTile * rs, rs);
+  load_tile(s0 + kTileBytes, dout + base + (long)qb * kTile * rs, rs);
+  load_tile(s0 + 2 * kTileBytes, k + base, rs);
+  load_tile(s0 + 3 * kTileBytes, v + base, rs);
+  cp_async_commit();
+
+  const float* lse_r = lse + (long)bh * seq + qb * kTile + row0 + g;
+  const float* delta_r = delta + (long)bh * seq + qb * kTile + row0 + g;
+  const float lse_g[2] = {lse_r[0], lse_r[8]};      // rows g, g + 8
+  const float delta_g[2] = {delta_r[0], delta_r[8]};
+
+  uint32_t qf[4][4], df[4][4];
+  float acc[8][4];  // [j]: dims 8 j .. 8 j + 7
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (kb == 0) {
+      load_a_frags(s0, row0, qf);
+      load_a_frags(s0 + kTileBytes, row0, df);
+    }
+    if (kb + 1 < n_kb) {
+      const uint32_t nxt = s0 + kTileBytes * (2 + 2 * ((kb + 1) & 1));
+      load_tile(nxt, k + base + (long)(kb + 1) * kTile * rs, rs);
+      load_tile(nxt + kTileBytes, v + base + (long)(kb + 1) * kTile * rs, rs);
+      cp_async_commit();
+    }
+    const uint32_t ks = s0 + kTileBytes * (2 + 2 * (kb & 1)), vs = ks + kTileBytes;
+    const bool diag = causal && kb == qb;
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = 32 * half;
+      float sc[4][4], dp[4][4];  // [j]: keys k0 + 8 j .. k0 + 8 j + 7
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t bf[4];
+          load_b_rows(ks, k0 + 16 * jp, kk, bf);
+          mma_bf16(sc[2 * jp], qf[kk], bf[0], bf[1]);
+          mma_bf16(sc[2 * jp + 1], qf[kk], bf[2], bf[3]);
+          load_b_rows(vs, k0 + 16 * jp, kk, bf);
+          mma_bf16(dp[2 * jp], df[kk], bf[0], bf[1]);
+          mma_bf16(dp[2 * jp + 1], df[kk], bf[2], bf[3]);
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * scale;
+          if (diag && k0 + 8 * j + 2 * t + (e & 1) > row0 + g + 8 * (e >> 1)) x = kNegInf;
+          const float p = expf(x - lse_g[e >> 1]);
+          dp[j][e] = p * (dp[j][e] - delta_g[e >> 1]);  // dS
+        }
+      // dQ += dS K: keys k0 + 16 kc .. + 15 of dS are tiles 2 kc, 2 kc + 1.
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t dh[4], dl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 2 * kc + (i >> 1), e = 2 * (i & 1);
+          split_bf16(dp[j][e], dp[j][e + 1], dh[i], dl[i]);
+        }
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) {
+          uint32_t bf[4];
+          load_b_cols(ks, k0 + 16 * kc, dd, bf);
+          mma_bf16(acc[2 * dd], dh, bf[0], bf[1]);
+          mma_bf16(acc[2 * dd], dl, bf[0], bf[1]);
+          mma_bf16(acc[2 * dd + 1], dh, bf[2], bf[3]);
+          mma_bf16(acc[2 * dd + 1], dl, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= scale;
+  store_rows(smem_bytes, row0, acc, dq + base + (long)qb * kTile * rs, rs);
+}
+
 // ------------------------------------------------------------------ launch
 constexpr size_t kFwdSmem = sizeof(float) * 3 * kTileFloats;
 constexpr size_t kDkdvSmem = sizeof(float) * (6 * kTileFloats + 2 * kTile);
 constexpr size_t kDqSmem = sizeof(float) * 5 * kTileFloats;
 constexpr size_t kFwdBf16Smem = 5 * kTileBytes;                          // 40 KB
 constexpr size_t kDkdvBf16Smem = 6 * kTileBytes + 4 * kTile * sizeof(float);  // 49 KB
+constexpr size_t kDqBf16Smem = 6 * kTileBytes;                           // 48 KB
 
 bool shape_ok(int batch, int seq, int n_heads, int head_dim) {
   return head_dim == kD && seq > 0 && seq % kTile == 0 && batch > 0 && n_heads > 0 &&
@@ -820,17 +944,6 @@ cudaError_t launch(void (*kernel)(Params...), int threads, size_t smem, int batc
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq_out, int batch, int seq,
-               int n_heads, float scale, int causal, cudaStream_t stream) {
-  return launch(flash_dq_kernel<T>, kThreads, kDqSmem, batch, seq, n_heads, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq_out), seq, n_heads,
-                scale, causal);
-}
-
 }  // namespace
 
 // Each returns 0 on success, else the cudaError_t of the launch (or
@@ -838,7 +951,7 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
 // head_dim must be 64, seq a multiple of 64, batch * heads at most 65535,
 // bf16 pointers 16-byte aligned; dtype 0 fp32, 1 bf16). Tensors are
 // [B, S, H, D] contiguous; lse and delta [B*H, S] fp32. bf16 takes the
-// tensor-core forward and dK/dV kernels, fp32 the FMA kernels.
+// tensor-core kernels, fp32 the FMA kernels.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int batch, int seq, int n_heads,
                                    int head_dim, int dtype, int causal, float scale,
@@ -894,10 +1007,18 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
   if (!shape_ok(batch, seq, n_heads, head_dim)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dq<float>(q, k, v, dout, lse, delta, dq_out, batch, seq, n_heads, scale,
-                     causal, s);
-  if (dtype == kBF16)
-    return dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_out, batch, seq, n_heads,
-                             scale, causal, s);
+    return launch(flash_dq_kernel, kThreads, kDqSmem, batch, seq, n_heads, s,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(dout),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  static_cast<float*>(dq_out), seq, n_heads, scale, causal);
+  if (dtype == kBF16) {
+    if (!aligned16({q, k, v, dout, lse, delta, dq_out})) return cudaErrorInvalidValue;
+    return launch(flash_dq_bf16_kernel, kMmaThreads, kDqBf16Smem, batch, seq, n_heads, s,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                  static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  static_cast<bf16*>(dq_out), seq, n_heads, scale, causal);
+  }
   return cudaErrorInvalidValue;
 }

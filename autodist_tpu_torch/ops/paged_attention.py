@@ -14,6 +14,8 @@ implementations:
   kernel ``_paged_kernel``). On a CUDA tensor it launches the kernel or
   raises; on a CPU tensor it runs the plain version
   (:func:`paged_attention_plain`), because there is no kernel to run there.
+  The kernel splits each row's timeline into runs of pages
+  (:func:`split_plan`) and merges the splits by log-sum-exp.
 
 ``"auto"`` resolves by device (:func:`resolve_impl`): the kernel on CUDA,
 the gather path on the CPU.
@@ -24,6 +26,7 @@ per-head fp32 scales (:func:`quantize_kv` / :func:`dequantize_kv`).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +38,17 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 64)
 KERNEL_MAX_PAGE_LEN = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: The kernel's layout: a block of WARPS warps per (q-tile, split, head,
+#: row), each warp taking RUN_SLOTS timeline slots at a time; a q-tile is
+#: one query when Q == 1, else Q_TILE.
+WARPS, RUN_SLOTS, Q_TILE = 4, 16, 4
+#: The split count aims for about SPLIT_BLOCKS_PER_SM blocks on each SM;
+#: each split past the first costs the merge's launch (PERF.md: at 32
+#: pages, 1 split is as fast as any at decode and verify, 8 the fastest at
+#: prefill).
+SPLIT_BLOCKS_PER_SM = 3
+#: Most pages a split stages in shared memory (the kernel's limit).
+MAX_PAGES_PER_SPLIT = 8192
 
 
 def mask_value(dtype=torch.float32) -> float:
@@ -180,13 +194,39 @@ def _check_kernel_args(q4, k_pages, v_pages, page_tables, q_positions,
         raise ValueError("empty batch, query or page-table dimension")
 
 
+def split_plan(n_q: int, batch: int, n_heads: int, n_tables: int, page_len: int,
+               n_sm: int, n_split=None):
+    """``(n_split, pages_per_split)`` of the kernel's page walk, from what
+    the host knows without reading the device: each (row, head, q-tile)'s
+    timeline of ``n_tables`` pages is cut into ``n_split`` runs of
+    ``pages_per_split`` whole pages (the last may be shorter, none is
+    empty). By default as many splits as fit SPLIT_BLOCKS_PER_SM blocks on
+    each of ``n_sm`` SMs, but no more than one run of RUN_SLOTS slots for
+    each of a block's WARPS warps; ``n_split`` asks for a count instead
+    (clipped to 1 .. ``n_tables``)."""
+    tiles = 1 if n_q == 1 else -(-n_q // Q_TILE)
+    if n_split is None:
+        runs = -(-n_tables * page_len // RUN_SLOTS)
+        most = max(1, min(n_tables, runs // WARPS))
+        n_split = min(SPLIT_BLOCKS_PER_SM * n_sm // (batch * n_heads * tiles), most)
+    n_split = max(1, min(int(n_split), n_tables),
+                  -(-n_tables // MAX_PAGES_PER_SPLIT))
+    per_split = -(-n_tables // n_split)
+    return -(-n_tables // per_split), per_split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _kernel_fn():
     from autodist_tpu_torch.ops import _build
 
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -200,23 +240,41 @@ def paged_attention(q4, k_pages, v_pages, page_tables, q_positions,
                     k_scale=None, v_scale=None):
     """Attention of ``q4 [B, Q, H, D]`` over each row's KV pages through
     ``page_tables [B, P]`` under ``slot <= q_positions [B, Q]`` — the
-    contract of the JAX package's ``_kernel_attention``. Returns
-    ``[B, Q, H, D]`` in q's dtype.
+    contract of the JAX package's ``_kernel_attention`` for positions >= 0.
+    Returns ``[B, Q, H, D]`` in q's dtype.
 
     CUDA tensors launch ``csrc/paged_attention.cu`` on the current stream
-    (counted in ``paged_attention.launches``) or raise; CPU tensors run
-    :func:`paged_attention_plain`.
+    at :func:`split_plan`'s split count (one count in
+    ``paged_attention.launches`` a call, the merge of the splits included)
+    or raise; nothing is read back from the device, so the call can be
+    captured in a CUDA graph. CPU tensors run :func:`paged_attention_plain`.
     """
     if q4.device.type == "cpu":
         return paged_attention_plain(q4, k_pages, v_pages, page_tables,
                                      q_positions, k_scale, v_scale)
+    return _launch(q4, k_pages, v_pages, page_tables, q_positions, k_scale, v_scale)
+
+
+def _launch(q4, k_pages, v_pages, page_tables, q_positions, k_scale=None,
+            v_scale=None, n_split=None):
+    """The CUDA branch of :func:`paged_attention`. ``n_split`` forces a
+    split count in place of the plan's: a hook for the checks that hold
+    every split count against the plain version; no caller of the model
+    sets it."""
     if q4.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q4.device}")
     _check_kernel_args(q4, k_pages, v_pages, page_tables, q_positions,
                        k_scale, v_scale)
     fn = _kernel_fn()
     b, n_q, h, d = q4.shape
+    page_len, n_tables = k_pages.shape[1], page_tables.shape[1]
+    splits, per_split = split_plan(n_q, b, h, n_tables, page_len,
+                                   _sm_count(q4.device.index or 0), n_split)
     out = torch.empty_like(q4)
+    # The splits' (m, l) then acc, in one fp32 workspace, merged by a
+    # second kernel.
+    part = (torch.empty(splits * b * n_q * h * (d + 2), dtype=torch.float32,
+                        device=q4.device) if splits > 1 else None)
     quantized = k_scale is not None
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     with torch.cuda.device(q4.device):
@@ -224,7 +282,8 @@ def paged_attention(q4, k_pages, v_pages, page_tables, q_positions,
                 k_scale.data_ptr() if quantized else None,
                 v_scale.data_ptr() if quantized else None,
                 page_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-                b, n_q, h, d, k_pages.shape[1], page_tables.shape[1],
+                part.data_ptr() if part is not None else None,
+                b, n_q, h, d, page_len, n_tables, per_split,
                 _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {rc}")
@@ -342,5 +401,5 @@ __all__ = [
     "NEG_INF", "mask_value", "position_mask", "apply_mask", "quantize_kv",
     "dequantize_kv", "paged_attention", "paged_attention_plain", "build_kernel",
     "resolve_impl", "paged_decode_attention", "paged_prefill_attention",
-    "paged_verify_attention", "kernel_bytes", "kernel_flops",
+    "paged_verify_attention", "kernel_bytes", "kernel_flops", "split_plan",
 ]

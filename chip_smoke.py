@@ -22,14 +22,16 @@ Phases, each printing one JSON line:
 2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu``,
    ``csrc/flash_attention.cu`` and ``csrc/fused_conv_stats.cu`` with nvcc
    from this checkout, all three at once; prints each kernel's registers
-   and spill bytes (``-Xptxas -v``) and, for the two tensor-core flash
+   and spill bytes (``-Xptxas -v``) and, for the three tensor-core flash
    kernels, the count of ``HMMA`` instructions in their SASS (``cuobjdump``,
    "not found" without it); fails on a spill or a kernel without HMMA.
 3. ``kernel_parity``: the paged CUDA kernel against its plain version at
    the main path's shapes (decode B=32 Q=1, prefill B=1 Q=16, verify B=32
    Q=5; H=12, D=64, page_len 16, 32-page shuffled tables, positions that
-   reach the last slot), with fp32, bf16 and int8 pages, timed beside the
-   plain version, SDPA over the gathered timeline, and the bound.
+   reach the last slot), with fp32, bf16 and int8 pages, at the split count
+   of its own plan (reported) and at ``PAGED_SPLITS``, a repeated launch
+   bitwise equal at each; timed beside the plain version, SDPA over the
+   gathered timeline, and the bound.
 4. ``serve``: 64 mixed-length requests (max_new 32) per KV mode; every one
    completes, no page leaks, and the kernel's launch count equals
    ``num_layers x (prefill chunks + decode steps)``; then 4 ``POST
@@ -40,9 +42,9 @@ Phases, each printing one JSON line:
 6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
    plain versions on the same inputs (B=32, H=12, D=64; bf16 at S=512
    causal and not, S=128 and S=256 causal; fp32 at S=512, the FMA
-   kernels), each output within the stated tolerances; the bf16 O, dK and
-   dV also element by element within ``flash_bounds`` (err/bound and the
-   relative L2 distance reported); timed beside the plain versions, SDPA
+   kernels), each output within the stated tolerances; the bf16 O, dK, dV
+   and dQ also element by element within ``flash_bounds`` (err/bound and
+   the relative L2 distance reported); timed beside the plain versions, SDPA
    pinned to one backend (forward; backward for the two backward kernels)
    and the bound.
 7. ``conv_stats_parity``: the fused 1x1-conv + BatchNorm-statistics kernel
@@ -115,6 +117,9 @@ H, D, PAGE_LEN, P = 12, 64, 16, 32
 # the kernel rounds its fp32 result to bf16 once (relative 2^-9), so 1e-2
 # bounds it with room; fp32 inputs differ only in summation order.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Split counts of the paged kernel's walk that kernel_parity checks and
+# times beside the main path's own (pa.split_plan).
+PAGED_SPLITS = (1, 2, 4, 8)
 # Teacher-forced max |Δlogit| of the kernel path vs the plain (bf16 gather)
 # path at full width: the two round attention to bf16 at different points
 # (the kernel once, at its output; the gather path also in its einsums). At
@@ -132,16 +137,22 @@ FLASH_TOL, LSE_TOL = 2e-2, 1e-3
 # summation order only.
 FLASH_F32_TOL = 1e-4
 FLASH_B, FLASH_H, FLASH_D = 32, 12, 64
-# The bf16 forward and dK/dV kernels multiply on the tensor cores; each of
-# their outputs is also held, element by element, to a bound on what the two
-# arithmetics may differ by (flash_bounds). E is fp32's unit roundoff; a sum
+# The bf16 forward, dK/dV and dQ kernels multiply on the tensor cores; each
+# of their outputs is also held, element by element, to a bound on what the
+# two arithmetics may differ by (flash_bounds). E is fp32's unit roundoff; a sum
 # of n terms in another order moves by at most n E of the terms' magnitudes
 # on the plain side and n 2E on the kernel's (the tensor cores align and
 # truncate inside an mma, up to one fp32 ulp an addition): 3 n E together.
 FLASH_E = 2.0 ** -24
 FLASH_BF16_STEP = 2.0 ** -7     # one bf16 step is at most 2^-7 of the value
 FLASH_SPLIT = 2.0 ** -16        # hi/lo split of P and dS: 2^-8 of 2^-8
-FLASH_MMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkdv_bf16_kernel")
+# The bf16 dK, dV and dQ carry the reference's fp32 arithmetic to about
+# 2^-16 before their rounding, so they differ from the plain versions only
+# where the two fp32 values round to neighbouring bf16 values: about 1e-4
+# relative L2 in all (1.0e-4 to 1.1e-4 measured on the H100, PERF.md).
+FLASH_GRAD_REL_L2 = 2e-4
+FLASH_MMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_dkdv_bf16_kernel",
+                     "flash_dq_bf16_kernel")
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 32, 10
 LM_BATCH, LM_STEPS = 8, 4
 # Flash (kernel) path vs the plain dot path at full width, bf16 compute,
@@ -311,18 +322,28 @@ def parity_case(shape: str, page_kind: str, gen: torch.Generator, dev):
                            max=timeline - 1)
     qpos = qpos.to(torch.int32).contiguous()
 
-    out = pa.paged_attention(q4, k, v, tables, qpos, ks, vs)
-    torch.cuda.synchronize()
     # Reference: the plain version in fp32 on the same (bf16 / int8) values.
     ref = pa.paged_attention_plain(
         q4.float(), k if ks is not None else k.float(),
         v if vs is not None else v.float(), tables, qpos, ks, vs)
-    err = (out.float() - ref).abs().max().item()
     tol = TOL[qdt]
-    check(torch.allclose(out.float(), ref, atol=tol, rtol=tol),
-          f"kernel vs plain {shape}/{page_kind}: max |err| {err} > tol {tol}")
-
-    kernel_ms = device_ms(lambda: pa.paged_attention(q4, k, v, tables, qpos, ks, vs))
+    # The main path's split count, and the others of PAGED_SPLITS: each within
+    # the tolerance, timed; a repeated launch bitwise equal.
+    n_split, per_split = pa.split_plan(n_q, b, H, P, PAGE_LEN, pa._sm_count(0))
+    errs, same, split_ms = {}, {}, {}
+    for n in sorted({n_split, *PAGED_SPLITS}):
+        out = pa._launch(q4, k, v, tables, qpos, ks, vs, n_split=n)
+        again = pa._launch(q4, k, v, tables, qpos, ks, vs, n_split=n)
+        torch.cuda.synchronize()
+        errs[n] = (out.float() - ref).abs().max().item()
+        same[n] = torch.equal(out, again)
+        check(torch.allclose(out.float(), ref, atol=tol, rtol=tol),
+              f"kernel vs plain {shape}/{page_kind} at {n} splits: max |err| "
+              f"{errs[n]} > tol {tol}")
+        check(same[n], f"{shape}/{page_kind} at {n} splits: a repeated launch differs")
+        split_ms[n] = device_ms(lambda: pa._launch(q4, k, v, tables, qpos, ks, vs, n_split=n))
+    err = max(errs.values())
+    kernel_ms = split_ms[n_split]
     plain_ms = time_ms(lambda: pa.paged_attention_plain(q4, k, v, tables, qpos, ks, vs),
                        groups=7, per_group=5)
     # Library yardstick: SDPA over the gathered (dequantised) timeline.
@@ -336,8 +357,10 @@ def parity_case(shape: str, page_kind: str, gen: torch.Generator, dev):
     flops = pa.kernel_flops(q4, k, tables, qpos)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[qdt]
     row = dict(shape=shape, pages=page_kind, B=b, Q=n_q, H=H, D=D,
-               page_len=PAGE_LEN, P=P, max_abs_err=err, tol=tol,
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               page_len=PAGE_LEN, P=P, n_split=n_split, pages_per_split=per_split,
+               max_abs_err=err, tol=tol, repeat_bitwise=all(same.values()),
+               kernel_ms=kernel_ms, kernel_ms_by_split=split_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, flops=flops)
@@ -492,8 +515,8 @@ def stream_check(params, dev):
 
 # ------------------------------------------------------------- flash parity
 def flash_bounds(q, k, v, g, lse, delta, causal: bool, plain: dict) -> dict:
-    """Per-element bounds on |kernel - plain| for the bf16 kernels' O, dK and
-    dV: one bf16 step of the larger value (each side rounds its fp32 result
+    """Per-element bounds on |kernel - plain| for the bf16 kernels' O, dK, dV
+    and dQ: one bf16 step of the larger value (each side rounds its fp32 result
     once) plus the arithmetic that differs, in magnitudes of the same
     products (P the softmax from the plain lse):
     - scores, sums of D products in other orders, and exp: each P off by
@@ -504,7 +527,9 @@ def flash_bounds(q, k, v, g, lse, delta, causal: bool, plain: dict) -> dict:
     - dV: P split into hi + lo (2^-16): ``((2^-16 + 3 S E) P + P ds)^T |dO|``;
     - dK: dS = P (dP - delta) split likewise, P's error times |dP - delta|,
       dP's own sums of D products:
-      ``((2^-16 + 3 S E + ds) |dS| + 3 D E P (|dO| |V|^T))^T |q scale|``."""
+      ``w = (2^-16 + 3 S E + ds) |dS| + 3 D E P (|dO| |V|^T)``, then
+      ``w^T |q scale|``;
+    - dQ: the same dS error summed over keys instead: ``w |K scale|``."""
     b, s, h, d = q.shape
     scale = d ** -0.5
     e = FLASH_E
@@ -522,7 +547,8 @@ def flash_bounds(q, k, v, g, lse, delta, causal: bool, plain: dict) -> dict:
     del dsd, pds
     w += (3 * d * e) * p * torch.einsum("bqhd,bkhd->bhqk", g32.abs(), v32.abs())
     dk_mag = torch.einsum("bhqk,bqhd->bkhd", w, (q32 * scale).abs())
-    return {"o": o_mag, "dk": dk_mag, "dv": dv_mag}
+    dq_mag = torch.einsum("bhqk,bkhd->bqhd", w, (k32 * scale).abs())
+    return {"o": o_mag, "dk": dk_mag, "dv": dv_mag, "dq": dq_mag}
 
 
 def flash_case(seq: int, causal: bool, dtype, gen: torch.Generator, dev):
@@ -553,7 +579,8 @@ def flash_case(seq: int, causal: bool, dtype, gen: torch.Generator, dev):
     over = {}
     if bf16:
         bounds = flash_bounds(q, k, v, g, want_lse, delta, causal, {"o": want_out})
-        for name, got, want in (("o", out, want_out), ("dk", dk, pk), ("dv", dv, pv)):
+        for name, got, want in (("o", out, want_out), ("dk", dk, pk), ("dv", dv, pv),
+                                ("dq", dq, pq)):
             bound = (FLASH_BF16_STEP * torch.maximum(got.float().abs(), want.float().abs())
                      + bounds[name])
             over[name] = ((got.float() - want.float()).abs() / bound.clamp_min(1e-30)
@@ -561,6 +588,9 @@ def flash_case(seq: int, causal: bool, dtype, gen: torch.Generator, dev):
         del bounds, bound
         for name, ratio in over.items():
             check(ratio <= 1.0, f"{case}: {name} beyond its bound (worst err/bound {ratio})")
+        for name in ("dk", "dv", "dq"):
+            check(rel_l2[name] <= FLASH_GRAD_REL_L2,
+                  f"{case}: {name} rel L2 {rel_l2[name]} > {FLASH_GRAD_REL_L2}")
 
     # SDPA pinned to one backend, so that its times do not move between runs:
     # flash attention for bf16, memory-efficient for fp32 (flash takes none).
@@ -604,7 +634,7 @@ def flash_case(seq: int, causal: bool, dtype, gen: torch.Generator, dev):
         names = outputs[kind]
         row = dict(kernel=kind, B=FLASH_B, S=seq, H=FLASH_H, D=FLASH_D,
                    causal=causal, dtype=str(dtype).replace("torch.", ""),
-                   design="tensor cores" if bf16 and kind != "dq" else "fp32 FMA",
+                   design="tensor cores" if bf16 else "fp32 FMA",
                    max_abs_err=max(errs[n] for n in names), tol=tol,
                    err_over_bound={n: over[n] for n in names if n in over} or None,
                    rel_l2={n: rel_l2[n] for n in names},

@@ -188,6 +188,14 @@ def test_kernel_arguments_must_be_16_byte_aligned():
 TILE = 64
 #: Relative L2 distance of dK, dV before the output rounding.
 MMA_REL_L2 = 1e-4
+#: Relative L2 distance of dQ before the output rounding (2.4e-6 to 2.6e-6
+#: measured here), and after it against the JAX kernel's bf16 dQ: where the
+#: two fp32 values straddle a rounding boundary they round one bf16 step
+#: apart. Over seeds 8-12, causal and not, the rounded outputs read 0.76e-4
+#: to 1.34e-4 apart; with dS rounded to bf16 once they read 2.59e-3 to
+#: 2.69e-3. The bound sits between the two (DQ_SEEDS checks it).
+DQ_REL_L2, DQ_BF16_REL_L2 = 1e-5, 2e-4
+DQ_SEEDS = (9, 10, 11, 12)
 
 
 def _bf16(x):
@@ -244,6 +252,25 @@ def _emulate_mma_dkdv(q, k, v, dout, lse, delta, causal, split=True):
     return dk, dv
 
 
+def _emulate_mma_dq(q, k, v, dout, lse, delta, causal, split=True):
+    """dQ in fp32 before its rounding, as the dQ kernel computes it: S = q k^T
+    (times scale afterwards) and dP = dO v^T from bf16 operands with fp32
+    sums; dS carried into dQ += dS k as hi + lo bf16 (``split=False``:
+    rounded to bf16 once); the sums over 64-key tiles accumulated in fp32;
+    the scale applied once at the end."""
+    d = q.shape[-1]
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, dout))
+    p = torch.exp(tfa._scores(q32, k32, causal) * (d ** -0.5) - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g32, v32) - delta[..., None])
+    hi = _bf16(ds)
+    dse = hi + _bf16(ds - hi) if split else hi
+    dq = torch.zeros_like(q32)
+    for k0 in range(0, k.shape[1], TILE):
+        cols = slice(k0, k0 + TILE)
+        dq += torch.einsum("bhqk,bkhd->bqhd", dse[..., cols], k32[:, cols])
+    return dq * (d ** -0.5)
+
+
 def _rel_l2(got, want):
     got, want = _np(got), _np(want)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
@@ -284,6 +311,52 @@ def test_tensor_core_dkdv_split_keeps_fp32_semantics(causal):
         _close(got.to(torch.bfloat16), jax_ref, TOL["bfloat16"], name)
     rk, rv = _emulate_mma_dkdv(tq, tk, tv, tg, lse, delta, causal, split=False)
     assert _rel_l2(rk, pk) > MMA_REL_L2 and _rel_l2(rv, pv) > MMA_REL_L2
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_tensor_core_dq_split_keeps_fp32_semantics(causal):
+    """The hi/lo split of dS keeps dQ within DQ_REL_L2 of the reference's
+    fp32 arithmetic (the plain version and the JAX Pallas ``_dq_kernel``, in
+    interpret mode, both in fp32 on the same bf16 values) before the output
+    rounding, and within DQ_BF16_REL_L2 of the JAX kernel's bf16 dQ after it;
+    one bf16 rounding of dS does not."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(8, "bfloat16")
+    jout, res = jfa._flash_fwd(jq, jk, jv, causal, 128, 128, True)
+    lse = torch.from_numpy(np.array(res[4]).reshape(B, H, S))
+    out = torch.from_numpy(np.array(_np(jout))).to(torch.bfloat16)
+    delta = (out.float() * tg.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = _emulate_mma_dq(tq, tk, tv, tg, lse, delta, causal)
+    pq = tfa.flash_dq_plain(*(t.float() for t in (tq, tk, tv, tg)), lse, delta, causal)
+    f32 = [jnp.asarray(_np(t)) for t in (tq, tk, tv)]
+    jres = (*f32, jnp.asarray(_np(out)), res[4])
+    jdq32 = jfa._flash_bwd(causal, 128, 128, True, jres, jnp.asarray(_np(tg)))[0]
+    jdq16 = jfa._flash_bwd(causal, 128, 128, True, res, jg)[0]
+    assert _rel_l2(dq, pq) <= DQ_REL_L2
+    assert _rel_l2(dq, jdq32) <= DQ_REL_L2
+    assert _rel_l2(pq, jdq32) <= DQ_REL_L2
+    assert _rel_l2(dq.to(torch.bfloat16), jdq16) <= DQ_BF16_REL_L2
+    _close(dq.to(torch.bfloat16), jdq16, TOL["bfloat16"], "dq")
+    rough = _emulate_mma_dq(tq, tk, tv, tg, lse, delta, causal, split=False)
+    assert _rel_l2(rough, pq) > 10 * DQ_REL_L2
+    assert _rel_l2(rough.to(torch.bfloat16), jdq16) > 10 * DQ_BF16_REL_L2
+
+
+@pytest.mark.parametrize("seed", DQ_SEEDS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_dq_bf16_bound_separates_split_from_one_rounding(causal, seed):
+    """On other inputs too, the bf16 dQ of the hi/lo split stays within
+    DQ_BF16_REL_L2 of the JAX kernel's, and one bf16 rounding of dS lands
+    more than ten times the bound away."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(seed, "bfloat16")
+    jout, res = jfa._flash_fwd(jq, jk, jv, causal, 128, 128, True)
+    lse = torch.from_numpy(np.array(res[4]).reshape(B, H, S))
+    out = torch.from_numpy(np.array(_np(jout))).to(torch.bfloat16)
+    delta = (out.float() * tg.float()).sum(-1).permute(0, 2, 1).contiguous()
+    jdq16 = jfa._flash_bwd(causal, 128, 128, True, res, jg)[0]
+    dq = _emulate_mma_dq(tq, tk, tv, tg, lse, delta, causal)
+    rough = _emulate_mma_dq(tq, tk, tv, tg, lse, delta, causal, split=False)
+    assert _rel_l2(dq.to(torch.bfloat16), jdq16) <= DQ_BF16_REL_L2
+    assert _rel_l2(rough.to(torch.bfloat16), jdq16) > 10 * DQ_BF16_REL_L2
 
 
 @pytest.mark.cuda

@@ -7,13 +7,18 @@ Builds the full-width ``transformer`` (seeded random weights) in the port's
 ``InferenceEngine`` on the card, fills all 32 decode rows (prompts of 16
 tokens), then times and profiles decode steps and prefill chunks:
 
-- host wall per step (host clock around work ending in a synchronize);
+- host wall per step (host clock around each call, ending in a
+  synchronize): the mean and the median over ``--steps`` calls;
+- time to first token of one request of TTFT_PROMPT tokens (three prefill
+  chunks) on an otherwise idle engine, admission to first token, median
+  and range over ``--steps`` requests;
 - device busy time per step: the sum of the CUDA kernels' durations from
   ``torch.profiler`` over the same steps, and the busy share of the wall;
-- the top kernels by device time, and the paged-attention kernel's share;
+- the top kernels by device time, and the paged-attention kernels' share
+  (its split walk and its merge);
 - the top host operators by their own CPU time.
 
-Prints one JSON line per program (decode, prefill) and writes the full
+Prints one JSON line per program (prefill, TTFT, decode) and writes the full
 tables to ``--out`` (default ``profile_out/torch_serve_profile.json``).
 Needs an NVIDIA GPU.
 """
@@ -36,6 +41,10 @@ from autodist_tpu_torch.models import get_model  # noqa: E402
 from autodist_tpu_torch.models import transformer as tt  # noqa: E402
 from autodist_tpu_torch.serve.engine import InferenceEngine  # noqa: E402
 
+#: Prompt tokens of the TTFT request: the longest prompt of chip_smoke.py's
+#: serve phase, three chunks of 16.
+TTFT_PROMPT = 44
+
 
 def _kernel_times(prof):
     """{kernel name: (total device us, calls)} from the profiler's events."""
@@ -50,15 +59,17 @@ def _kernel_times(prof):
     return out
 
 
-def _measure(label, fn, steps, attn_name="paged_attention_kernel"):
+def _measure(label, fn, steps, attn_name="paged_"):   # paged_{split,merge}_kernel
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    walls = []
     for _ in range(steps):
+        t0 = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sum(walls) / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
@@ -72,6 +83,7 @@ def _measure(label, fn, steps, attn_name="paged_attention_kernel"):
     row = {
         "program": label,
         "host_wall_ms": wall_ms,
+        "host_wall_ms_median": float(np.median(walls)),
         "device_busy_ms": busy_us / 1e3 if kernels else "not measured",
         "device_busy_share": (busy_us / 1e3) / wall_ms if kernels else "not measured",
         "paged_attention_ms": attn_us / 1e3 if kernels else "not measured",
@@ -110,6 +122,19 @@ def main() -> int:
         engine.release(slot)
 
     rows = [_measure("prefill_chunk", prefill, args.steps)]
+    ttft = []
+    for i in range(args.steps + 3):
+        t0 = time.perf_counter()
+        slot = engine.admit(rng.integers(1, cfg.vocab_size, size=TTFT_PROMPT), 16)
+        while engine.prefill_step(slot) is None:
+            pass
+        if i >= 3:                                         # 3 warm-up requests
+            ttft.append((time.perf_counter() - t0) * 1e3)
+        engine.release(slot)
+    rows.append({"program": f"ttft_{TTFT_PROMPT}_tokens_idle",
+                 "ttft_ms_median": float(np.median(ttft)),
+                 "ttft_ms_min": min(ttft), "ttft_ms_max": max(ttft)})
+    print(json.dumps(rows[-1]), flush=True)
     for _ in range(32):
         slot = engine.admit(rng.integers(1, cfg.vocab_size, size=16), 400)
         while engine.prefill_step(slot) is None:

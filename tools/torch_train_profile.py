@@ -17,7 +17,12 @@ same window:
   1x1-conv + BatchNorm-statistics kernel), cuDNN convolutions, matrix
   products (cuBLAS / CUTLASS kernels), elementwise and reduction kernels
   (BatchNorm, ReLU, casts, the optimizer), and everything else; the top
-  kernels.
+  kernels;
+- the top host operators by their own CPU time per step, and the host's
+  own speed before and after the window (``host_probe``: microseconds per
+  call of a small CPU-only PyTorch op, which no kernel change moves), so
+  that runs whose host wall differs can be told apart from runs on a
+  slower or busier host.
 
 Prints one JSON line and writes the full table to ``--out`` (default
 ``profile_out/torch_train_profile.json``). Needs an NVIDIA GPU.
@@ -61,6 +66,16 @@ def _group(name: str) -> str:
     return "other"
 
 
+def host_probe(calls: int = 20000) -> float:
+    """Microseconds per ``add_`` on a small CPU tensor: the host's dispatch
+    speed at this moment, the same for every version of the port."""
+    x = torch.zeros(8)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        x.add_(1.0)
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--model", default="bert_base")
@@ -92,6 +107,7 @@ def main() -> int:
     step = AutoDist(strategy_builder=AllReduce()).build(spec.loss_fn, params, batch)
     state, _ = step.run(step.init(params), batch, 2)          # warm-up
     torch.cuda.synchronize()
+    probe_before = host_probe()
     t0 = time.perf_counter()
     state, _ = step.run(state, batch, args.steps)
     torch.cuda.synchronize()
@@ -99,6 +115,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, _ = step.run(state, batch, args.steps)
         torch.cuda.synchronize()
+    probe_after = host_probe()
     kernels = {}
     for e in prof.events():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -122,6 +139,10 @@ def main() -> int:
         "device_ms_by_group": groups if kernels else "not measured",
         "kernels_per_step": sum(n for _, n in kernels.values()) / args.steps,
         "top_kernels_ms_per_step": {n[:90]: t / 1e3 / args.steps for n, (t, _) in top},
+        "host_probe_us": [probe_before, probe_after],
+        "top_host_ops_ms_per_step": {
+            a.key[:80]: a.self_cpu_time_total / 1e3 / args.steps
+            for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:15]},
         "card": card,
     }
     print(json.dumps(row), flush=True)
