@@ -9,12 +9,22 @@ of that output. One kernel computes all three:
 - ``s1 = sum_rows(y32)`` and ``s2 = sum_rows(y32 * y32)`` in fp32, from the
   unrounded fp32 product.
 
+The bf16 kernel, the main path's, is a Hopper design: TMA copies into a ring
+of shared-memory stages, ``wgmma`` from a producer warp and two consumer
+warpgroups, and the statistics taken from the accumulator registers (see the
+source's header). fp32 inputs take an FMA kernel, off the main path.
+
 :func:`fused_matmul_stats_plain` is the plain PyTorch version, the JAX
 script's ``xla_matmul_stats``. :func:`fused_matmul_stats` launches the CUDA
 kernel of ``csrc/fused_conv_stats.cu`` (which replaces the Pallas TPU kernel
 ``_kernel``) on CUDA tensors and counts the launch, or raises; on CPU and meta
 tensors it runs the plain version, because there is no kernel to run there.
 :class:`FusedConvStatsFn` makes it differentiable in ``x`` and ``w``.
+
+The schedule (:func:`block_n`, :func:`tiles_per_block`, :func:`smem_plan`)
+mirrors the kernel's so that the CPU tests reach it, and
+:func:`chain_length` gives the longest addition chain of the column sums,
+on which the kernel's tolerance rests.
 """
 from __future__ import annotations
 
@@ -24,12 +34,26 @@ import math
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: The kernel's tile: 128 rows of M by 64 columns of N.
+#: Rows of an M tile (both kernels); the fp32 kernel's N tile.
 BLOCK_M, BLOCK_N = 128, 64
-#: Enough blocks to give each of the H100's 132 SMs about eight.
-_TARGET_BLOCKS = 1056
-_MAX_PER_BLOCK = 16
-_MAX_GROUPS = 65535
+#: The H100 SXM's streaming multiprocessors: the bf16 kernel runs one block
+#: on each (its shared memory fills an SM).
+SMS = 132
+#: At most this many M tiles a bf16 block carries its sums across, so that
+#: the longest addition chain stays near a thousand terms even at M = 2^30.
+MAX_RUN = 512
+#: fp32 kernel: enough blocks to give each SM about eight, at most 16 tiles
+#: a block, at most 65535 groups (the grid's y limit).
+_FP32_TARGET_BLOCKS = 1056
+_FP32_MAX_PER_BLOCK = 16
+_FP32_MAX_GROUPS = 65535
+# The bf16 kernel's shared memory (csrc/fused_conv_stats.cu::make_plan).
+_SMEM_LIMIT = 232448
+_SMEM_USABLE = _SMEM_LIMIT - 1024
+_X_STAGE = BLOCK_M * 128
+_BOX = 64 * 128
+_MIN_STAGES, _MAX_STAGES = 3, 6
+_BARRIERS = 8 * (2 * _MAX_STAGES + 1)
 
 
 def fused_matmul_stats_plain(x, w):
@@ -65,12 +89,68 @@ def check_kernel_args(x, w) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def tiles_per_block(m: int, n: int) -> int:
-    """M tiles each block walks: enough blocks to fill the card, at most 16
-    tiles, and at most 65535 groups (the grid's y limit)."""
-    tiles_m, tiles_n = math.ceil(m / BLOCK_M), math.ceil(n / BLOCK_N)
-    per = max(1, min(_MAX_PER_BLOCK, tiles_m * tiles_n // _TARGET_BLOCKS))
-    return max(per, math.ceil(tiles_m / _MAX_GROUPS))
+def block_n(n: int) -> int:
+    """Columns of the bf16 kernel's N tile: 64, 128 or 256, the least that
+    covers N up to 256, so that x is read from device memory once."""
+    return 64 if n <= 64 else 128 if n <= 128 else 256
+
+
+def tiles_per_block(m: int, n: int, dtype=torch.bfloat16) -> int:
+    """M tiles each block walks (its run). bf16: as many as spread the M
+    tiles of each N tile over the 132 SMs in one wave, at most
+    :data:`MAX_RUN`. fp32: about eight blocks an SM, at most 16 tiles, at
+    most 65535 groups."""
+    tiles_m = math.ceil(m / BLOCK_M)
+    if dtype == torch.bfloat16:
+        tiles_n = math.ceil(n / block_n(n))
+        return max(1, min(MAX_RUN, math.ceil(tiles_m / max(1, SMS // tiles_n))))
+    tiles_n = math.ceil(n / BLOCK_N)
+    per = max(1, min(_FP32_MAX_PER_BLOCK, tiles_m * tiles_n // _FP32_TARGET_BLOCKS))
+    return max(per, math.ceil(tiles_m / _FP32_MAX_GROUPS))
+
+
+def groups(m: int, n: int, dtype=torch.bfloat16) -> int:
+    """Runs along M: rows of the ``[groups, N]`` partials."""
+    return math.ceil(math.ceil(m / BLOCK_M) / tiles_per_block(m, n, dtype))
+
+
+def smem_plan(k: int, n: int) -> dict:
+    """The bf16 kernel's shared memory at ``(k, n)``: N tile ``bn``, 64-deep
+    K chunks, ring ``stages``, whether w stays ``resident`` for the run
+    (when it fits beside at least 3 stages), and the dynamic ``smem`` bytes.
+    Mirrors ``make_plan`` in the CUDA source (``chip_smoke.py`` compares)."""
+    bn = block_n(n)
+    k_chunks = math.ceil(k / 64)
+    w_chunk = bn // 64 * _BOX
+    epilogue = 2 * w_chunk + 2 * 8 * bn * 4
+    room = _SMEM_USABLE - epilogue - _BARRIERS
+    w_all = k_chunks * w_chunk
+    resident = int((room - w_all) // _X_STAGE >= _MIN_STAGES)
+    if resident:
+        stages = min(_MAX_STAGES, (room - w_all) // _X_STAGE)
+        smem = stages * _X_STAGE + w_all
+    else:
+        stages = min(_MAX_STAGES, room // (_X_STAGE + w_chunk))
+        smem = stages * (_X_STAGE + w_chunk)
+    return dict(bn=bn, k_chunks=k_chunks, stages=stages, resident=resident,
+                smem=smem + epilogue + _BARRIERS + 1024)
+
+
+def chain_length(m: int, n: int, dtype=torch.bfloat16) -> int:
+    """The most additions any product term goes through on its way into s1
+    or s2 (one more for the square in s2 is inside the first step). A sum of
+    terms in any order is within ``chain * 2^-24`` of their magnitudes, so
+    ``chip_smoke.py``'s 1e-4 on the sums needs this under about 1,677.
+
+    bf16: 1 (a thread's two rows of a tile) + 3 (xor shuffles over 8 lanes)
+    + 7 (8 warps in order) + the run + the partials, ``ceil(groups / 32)``
+    per lane, then a 5-level tree. fp32: each thread adds 32 rows of every
+    tile of its run, then 3 (4 row groups) + the partials."""
+    per, g = tiles_per_block(m, n, dtype), groups(m, n, dtype)
+    partials = math.ceil(g / 32) + 5
+    if dtype == torch.bfloat16:
+        return 1 + 3 + 7 + per + partials
+    return 32 * per + 3 + partials
 
 
 def _kernel():
@@ -88,6 +168,19 @@ def build_kernel() -> None:
     _kernel()
 
 
+def built_plan(k: int, n: int) -> dict:
+    """The CUDA library's own :func:`smem_plan` at ``(k, n)`` (builds it)."""
+    from autodist_tpu_torch.ops import _build
+
+    fn = _build.load("fused_conv_stats").fused_conv_stats_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+    out = (ctypes.c_int * 5)()
+    fn(k, n, out)
+    return dict(zip(("bn", "k_chunks", "stages", "resident", "smem"), out))
+
+
 def fused_matmul_stats(x, w):
     """``(y [M, N] in x's dtype, s1 [N] fp32, s2 [N] fp32)``. CUDA tensors
     launch ``fused_conv_stats`` (counted in ``fused_matmul_stats.launches``)
@@ -98,10 +191,9 @@ def fused_matmul_stats(x, w):
         raise ValueError(f"fused_matmul_stats: unsupported device {x.device}")
     check_kernel_args(x, w)
     (m, k), n = x.shape, w.shape[1]
-    per = tiles_per_block(m, n)
-    groups = math.ceil(math.ceil(m / BLOCK_M) / per)
+    per = tiles_per_block(m, n, x.dtype)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, groups, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((2, groups(m, n, x.dtype), n), dtype=torch.float32, device=x.device)
     s1 = torch.empty((n,), dtype=torch.float32, device=x.device)
     s2 = torch.empty((n,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -157,5 +249,6 @@ def kernel_flops(x, w) -> int:
 
 
 __all__ = ["fused_matmul_stats_plain", "fused_matmul_stats", "FusedConvStatsFn",
-           "check_kernel_args", "tiles_per_block", "build_kernel", "kernel_bytes",
-           "kernel_flops", "BLOCK_M", "BLOCK_N"]
+           "check_kernel_args", "block_n", "tiles_per_block", "groups", "smem_plan",
+           "chain_length", "build_kernel", "built_plan", "kernel_bytes", "kernel_flops",
+           "BLOCK_M", "BLOCK_N", "SMS", "MAX_RUN"]

@@ -22,9 +22,11 @@ Phases, each printing one JSON line:
 2. ``build``: builds ``autodist_tpu_torch/csrc/paged_attention.cu``,
    ``csrc/flash_attention.cu`` and ``csrc/fused_conv_stats.cu`` with nvcc
    from this checkout, all three at once; prints each kernel's registers
-   and spill bytes (``-Xptxas -v``) and, for the three tensor-core flash
-   kernels, the count of ``HMMA`` instructions in their SASS (``cuobjdump``,
-   "not found" without it); fails on a spill or a kernel without HMMA.
+   and spill bytes (``-Xptxas -v``) and the count of tensor-core
+   instructions in the SASS (``cuobjdump``, "not found" without it): HMMA
+   in the three flash kernels, HGMMA in the six instances of the bf16
+   conv-stats kernel; fails on a spill or a kernel without them, and on a
+   conv-stats shared-memory plan that differs from the wrapper's mirror.
 3. ``kernel_parity``: the paged CUDA kernel against its plain version at
    the main path's shapes (decode B=32 Q=1, prefill B=1 Q=16, verify B=32
    Q=5; H=12, D=64, page_len 16, 32-page shuffled tables, positions that
@@ -48,10 +50,12 @@ Phases, each printing one JSON line:
    pinned to one backend (forward; backward for the two backward kernels)
    and the bound.
 7. ``conv_stats_parity``: the fused 1x1-conv + BatchNorm-statistics kernel
-   against its plain version at ResNet-50's bottleneck shapes at batch 128
-   (the JAX script's ``SHAPES``) in bf16, and at the first in fp32; a
+   against its plain version at the 15 distinct shapes of ResNet-50's 36
+   bottleneck 1x1 convs at batch 128 in bf16, and at the first in fp32; a
    repeated launch bitwise equal; timed beside the plain version,
-   ``torch.matmul`` + moments, ``torch.matmul`` alone and the bound.
+   ``torch.matmul`` + moments, ``torch.matmul`` alone and the bound; then
+   ``conv_stats_forward``: Σ launches x ms over a forward beside Σ launches x
+   bound.
 8. ``train``: bert_base (10 steps) and the causal transformer (4 steps)
    through ``AutoDist(strategy_builder=AllReduce()).build`` and
    ``step.run``, each flash kernel launched exactly ``num_layers x steps``
@@ -173,17 +177,22 @@ LM_BATCH, LM_STEPS = 8, 4
 CHECK_LOSS_RTOL, CHECK_GLOBAL_RTOL, CHECK_GRAD_RTOL = 1e-2, 3e-2, 0.15
 CHECK_NORM_FLOOR = 1e-3
 CHECK_BATCH = 8
-# conv_stats_parity: ResNet-50's bottleneck 1x1 convs at batch 128, 224 px,
-# [M = B*H*W, K, N] (examples/benchmark/fused_conv_stats.py SHAPES).
-CONV_SHAPES = ((128 * 56 * 56, 64, 256), (128 * 56 * 56, 256, 64),
-               (128 * 28 * 28, 512, 128), (128 * 28 * 28, 128, 512))
+# conv_stats_parity: the 15 distinct shapes of ResNet-50's 36 bottleneck 1x1
+# convs at batch 128, 224 px, [M = B*H*W, K, N], with each one's launches in
+# a forward (models/resnet.py; stages 0-3). The first is the main shape.
+CONV_SHAPES = (((401408, 64, 256), 4), ((401408, 64, 64), 1), ((401408, 256, 64), 2),
+               ((401408, 256, 128), 1), ((100352, 128, 512), 4), ((100352, 256, 512), 1),
+               ((100352, 512, 128), 3), ((100352, 512, 256), 1), ((25088, 256, 1024), 6),
+               ((25088, 512, 1024), 1), ((25088, 1024, 256), 5), ((25088, 1024, 512), 1),
+               ((6272, 512, 2048), 3), ((6272, 1024, 2048), 1), ((6272, 2048, 512), 2))
 # Kernel vs plain version on the same inputs. Each side sums in fp32 in its
 # own order, and a sum of n terms in any order is within n * 2^-24 of the
 # terms' magnitudes (the worst case); so
 # - y: |dy| <= 2K * 2^-24 * (|x| @ |w|), plus in bf16 one step of the
 #   output (2^-7 of |y|) for the rounding of the two sums;
-# - s1, s2: |ds| <= 1e-4 * (sum |y32|, sum y32^2): the kernel chains at most
-#   16 x 32 rows, then about 60 partials, under 600 terms (6e-5).
+# - s1, s2: |ds| <= 1e-4 * (sum |y32|, sum y32^2): no term goes through more
+#   than fcs.chain_length additions (45 at most at these shapes in bf16, 369
+#   in fp32; each case checks it against 1e-4 / 2^-24 = 1,677).
 CONV_Y_STEP = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
 CONV_STAT_TOL = 1e-4
 RESNET_BATCH, RESNET_STEPS = 128, 10
@@ -657,10 +666,13 @@ def _matmul_moments(x, w):
     return y, y32.sum(0), (y32 * y32).sum(0)
 
 
-def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev):
+def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev,
+                    launches: int = 0):
     """The fused conv-stats kernel against its plain version at one shape:
     post-ReLU activations (``|N(0, 1)|``, what the model's 1x1 convs read)
-    and He-scaled weights."""
+    and He-scaled weights. ``launches``: the shape's launches in a ResNet-50
+    forward, carried into the row."""
+    chain = fcs.chain_length(m, n, dtype)
     x = torch.randn((m, k), generator=gen, device=dev).abs_().to(dtype)
     w = (torch.randn((k, n), generator=gen, device=dev) * (2.0 / k) ** 0.5).to(dtype)
     y, s1, s2 = fcs.fused_matmul_stats(x, w)
@@ -688,20 +700,59 @@ def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev):
     nbytes, flops = fcs.kernel_bytes(x, w), fcs.kernel_flops(x, w)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
     row = dict(M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
-               max_abs_err=max_abs_err, y_err_over_bound=y_ratio, s1_rel=s1_rel,
-               s2_rel=s2_rel, stat_tol=CONV_STAT_TOL, repeat_bitwise=repeat_bitwise,
-               tiles_per_block=fcs.tiles_per_block(m, n), kernel_ms=kernel_ms,
+               launches_per_forward=launches, max_abs_err=max_abs_err,
+               y_err_over_bound=y_ratio, s1_rel=s1_rel, s2_rel=s2_rel,
+               stat_tol=CONV_STAT_TOL, chain_length=chain, repeat_bitwise=repeat_bitwise,
+               tiles_per_block=fcs.tiles_per_block(m, n, dtype),
+               groups=fcs.groups(m, n, dtype), kernel_ms=kernel_ms,
                plain_ms=plain_ms, library_ms=library_ms, matmul_ms=matmul_ms,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, flops=flops)
+    if dtype == torch.bfloat16:
+        row["plan"] = fcs.smem_plan(k, n)
     emit("conv_stats_parity", **row)
     shape = f"conv stats {m}x{k}x{n} {row['dtype']}"
+    check(chain * 2.0 ** -24 <= CONV_STAT_TOL,
+          f"{shape}: addition chain {chain} too long for {CONV_STAT_TOL}")
     check(y_ok, f"{shape}: y beyond its bound (worst err/bound {y_ratio})")
     check(s1_rel <= CONV_STAT_TOL and s2_rel <= CONV_STAT_TOL,
           f"{shape}: sums rel {s1_rel}, {s2_rel} > {CONV_STAT_TOL}")
     check(repeat_bitwise, f"{shape}: a repeated launch differs")
     return row
+
+
+def conv_forward_totals(rows) -> dict:
+    """Σ launches x ms over the bf16 rows: a ResNet-50 forward's fused
+    conv-stats work, beside its bound and the library calls."""
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    total = {key: sum(r["launches_per_forward"] * r[key] for r in bf16)
+             for key in ("kernel_ms", "bound_ms", "matmul_ms", "library_ms")}
+    return dict(launches=sum(r["launches_per_forward"] for r in bf16), **total)
+
+
+def conv_tensor_core_report(ptxas: dict) -> dict:
+    """Registers, spill bytes and HGMMA count of each instance of the bf16
+    conv-stats kernel; fails on a spill or, where cuobjdump is found, on an
+    instance without HGMMA. Also holds the wrapper's shared-memory plan
+    (fcs.smem_plan) to the library's own at every CONV_SHAPES shape."""
+    hgmma = _build.sass_counts("fused_conv_stats", "HGMMA")
+    report = {}
+    for name, info in ptxas.items():
+        if "conv_stats_wgmma_kernel" not in name:
+            continue
+        count = (next((c for sass_name, c in hgmma.items() if sass_name == name), 0)
+                 if hgmma is not None else "not found (no cuobjdump)")
+        check(info.get("spill_stores", 0) == 0 and info.get("spill_loads", 0) == 0,
+              f"{name}: register spills {info}")
+        check(hgmma is None or count > 0, f"{name}: no HGMMA instruction in its SASS")
+        report[name] = {**info, "hgmma": count}
+    check(len(report) == 6, f"conv stats: {len(report)} wgmma kernel instances, not 6")
+    for (_, k, n), _ in CONV_SHAPES:
+        check(fcs.built_plan(k, n) == fcs.smem_plan(k, n),
+              f"conv stats plan at K={k} N={n}: {fcs.built_plan(k, n)} in the library, "
+              f"{fcs.smem_plan(k, n)} in the wrapper")
+    return report
 
 
 # -------------------------------------------------------------------- train
@@ -1000,7 +1051,8 @@ def main() -> int:
     ptxas = {name: _build.ptxas_report(name) for name in libs}
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds={n: _build.build_seconds.get(n) for n in libs}, ptxas=ptxas,
-         flash_tensor_core=tensor_core_report(ptxas["flash_attention"]))
+         flash_tensor_core=tensor_core_report(ptxas["flash_attention"]),
+         conv_tensor_core=conv_tensor_core_report(ptxas["fused_conv_stats"]))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1019,8 +1071,10 @@ def main() -> int:
                                                (256, True, torch.bfloat16),
                                                (TRAIN_SEQ, False, torch.float32))
                   for r in flash_case(seq, causal, dtype, gen, dev)]
-    conv_rows = [conv_stats_case(m, k, n, torch.bfloat16, gen, dev) for m, k, n in CONV_SHAPES]
-    conv_rows.append(conv_stats_case(*CONV_SHAPES[0], torch.float32, gen, dev))
+    conv_rows = [conv_stats_case(*shape, torch.bfloat16, gen, dev, launches)
+                 for shape, launches in CONV_SHAPES]
+    conv_rows.append(conv_stats_case(*CONV_SHAPES[0][0], torch.float32, gen, dev))
+    emit("conv_stats_forward", **conv_forward_totals(conv_rows))
     train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
                   train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
     resnet_row = train_resnet(card, dev)

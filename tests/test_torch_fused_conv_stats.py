@@ -13,14 +13,20 @@ x ``(2048, 64)`` and w ``(64, 128)``. Tolerances:
   ``sum y32²`` (fp32 sums over the rows taken in different orders).
 
 ``FusedConvStatsFn``'s ``dx``/``dw`` are held against autograd through the
-plain version in fp64 (1e-10) and ``gradcheck``. The ``cuda``-marked cases
-hold the CUDA kernel against the plain version on the card (a ragged M,
-K = N from 64 to 2048, bf16 and fp32; a repeated launch bitwise equal) and
-skip here. There the summation-order terms take the worst-case bound of a
-sum of n fp32 terms in any order, ``n * 2^-24`` of the terms' magnitudes,
-for each side: ``2K * 2^-24`` for y, and 1e-4 for the sums (the kernel adds
-at most 16 x 32 rows in a chain, then about 60 partials: under 600 terms).
+plain version in fp64 (1e-10) and ``gradcheck``. The bf16 CUDA kernel's
+column sums are emulated here in fp32 in its own order (a thread's two rows,
+an xor tree over 8 lanes, 8 warps in order, the run of M tiles, the
+partials over 32 lanes and a 5-level tree) and held to the same tolerances.
+The ``cuda``-marked cases hold the CUDA kernel against the plain version on
+the card (ragged M, K = N from 64 to 2048, ResNet-50's main and deepest
+shapes, bf16 and fp32; a repeated launch bitwise equal) and skip here.
+There the summation-order terms take the worst-case bound of a sum of n
+fp32 terms in any order, ``n * 2^-24`` of the terms' magnitudes, for each
+side: ``2K * 2^-24`` for y, and 1e-4 for the sums, which holds while no term
+goes through more than 1e-4 / 2^-24 = 1,677 additions
+(``fcs.chain_length``).
 """
+import collections
 import math
 import os
 import sys
@@ -30,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from autodist_tpu_torch.models import resnet as rn
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples", "benchmark"))
@@ -125,14 +133,25 @@ def test_shapes_the_kernel_does_not_take_raise():
 
 
 def test_tiling_and_yardsticks():
-    # ResNet-50's first bottleneck shape at batch 128, 224 px.
+    # ResNet-50's first bottleneck shape at batch 128, 224 px: one 256-wide N
+    # tile, so x is read once; 3136 M tiles over 131 blocks of 24.
     m, k, n = 128 * 56 * 56, 64, 256
     x, w = torch.empty((m, k), dtype=torch.bfloat16, device="meta"), torch.empty(
         (k, n), dtype=torch.bfloat16, device="meta")
-    assert fcs.tiles_per_block(m, n) == 11               # 3136 x 4 tiles / 1056
-    assert fcs.tiles_per_block(1000, 64) == 1
+    assert [fcs.block_n(v) for v in (8, 24, 64, 72, 128, 200, 256, 512, 2048)] == [
+        64, 64, 64, 128, 128, 256, 256, 256, 256]
+    assert fcs.tiles_per_block(m, n) == 24 and fcs.groups(m, n) == 131
+    # N = 1024: 4 N tiles share the SMs, 33 runs of 6 tiles each: 132 blocks.
+    assert fcs.tiles_per_block(25088, 1024) == 6 and fcs.groups(25088, 1024) == 33
+    assert fcs.tiles_per_block(1000, 64) == 1 and fcs.groups(1000, 64) == 8
+    # Runs stop at MAX_RUN tiles however large M grows.
     huge = 1 << 30
-    assert math.ceil(math.ceil(huge / 128) / fcs.tiles_per_block(huge, 64)) <= 65535
+    assert fcs.tiles_per_block(huge, 64) == fcs.MAX_RUN == 512
+    assert fcs.groups(huge, 64) == huge // 128 // 512
+    # The fp32 FMA kernel keeps its own schedule: 64-wide N tiles, about
+    # eight blocks an SM, at most 65535 groups.
+    assert fcs.tiles_per_block(m, n, torch.float32) == 11      # 3136 x 4 tiles / 1056
+    assert fcs.groups(huge, 64, torch.float32) <= 65535
     nbytes, flops = fcs.kernel_bytes(x, w), fcs.kernel_flops(x, w)
     assert nbytes == (m * k + k * n + m * n) * 2 + 8 * n
     assert flops == 2 * m * k * n
@@ -140,8 +159,131 @@ def test_tiling_and_yardsticks():
     assert abs(bound_ms - 0.0767) < 1e-3 and nbytes / 3.35e12 > flops / 989e12
 
 
+@pytest.mark.parametrize("shape", [s for s, _ in chip_smoke.CONV_SHAPES],
+                         ids=["x".join(map(str, s)) for s, _ in chip_smoke.CONV_SHAPES])
+def test_smem_plan_fits_and_keeps_w_resident_where_it_fits(shape):
+    """The shared-memory plan at each ResNet-50 shape: within the 227 KB a
+    block may have, a ring of 3 to 6 stages, w resident exactly when all its
+    K chunks fit beside 3 stages (so always at K <= 128, for every N)."""
+    _, k, n = shape
+    plan = fcs.smem_plan(k, n)
+    assert plan["bn"] == fcs.block_n(n) and plan["k_chunks"] == math.ceil(k / 64)
+    assert plan["smem"] <= 232448 and 3 <= plan["stages"] <= 6
+    w_all = plan["k_chunks"] * plan["bn"] * 128
+    epilogue = 2 * plan["bn"] * 128 + 2 * 8 * plan["bn"] * 4
+    fits = w_all + 3 * 128 * 128 + epilogue + 104 + 1024 <= 232448
+    assert plan["resident"] == int(fits)
+    if k <= 128:
+        assert plan["resident"]
+
+
+def test_resnet50_forward_launches_the_smoke_shapes():
+    """chip_smoke's CONV_SHAPES are the 1x1 convs of the port's ResNet-50
+    forward at batch 128, 224 px (traced on meta tensors), with their
+    launches: 15 shapes, 36 launches."""
+    params = rn.init_params(0, 50, 1000, device="cpu")
+    params = torch.utils._pytree.tree_map(lambda t: t.to("meta"), params)
+    seen = collections.Counter()
+    apply = fcs.FusedConvStatsFn.apply
+
+    def record(x, w):
+        seen[(x.shape[0], x.shape[1], w.shape[1])] += 1
+        return apply(x, w)
+
+    fcs.FusedConvStatsFn.apply = record
+    try:
+        rn.forward(params, torch.empty((128, 224, 224, 3), device="meta"), 50)
+    finally:
+        fcs.FusedConvStatsFn.apply = apply
+    assert dict(seen) == dict(chip_smoke.CONV_SHAPES)
+    assert sum(seen.values()) == rn.fused_launches_per_forward(50) == 36
+
+
+@pytest.mark.parametrize("m,n", [s[::2] for s, _ in chip_smoke.CONV_SHAPES]
+                         + [(1 << 30, 64), (1 << 30, 2048), (2 ** 31 - 1, 256)])
+def test_chain_length_stays_under_the_sum_tolerance(m, n):
+    """No term of s1 or s2 goes through more than 1e-4 / 2^-24 additions in
+    the bf16 kernel, at ResNet-50's shapes (45 at most) and at a huge M
+    (1040 at M = 2^30); the fp32 kernel at ResNet-50's shapes."""
+    chain = fcs.chain_length(m, n)
+    assert chain * 2.0 ** -24 <= chip_smoke.CONV_STAT_TOL
+    if m < 1 << 30:
+        assert chain <= 45
+        assert fcs.chain_length(m, n, torch.float32) * 2.0 ** -24 <= chip_smoke.CONV_STAT_TOL
+    elif m == 1 << 30:
+        assert chain == 1040
+
+
+def _emulated_sums(y32, per):
+    """s1, s2 of the fp32 product ``y32 [M, N]`` summed as the bf16 kernel
+    sums them, in fp32: per 128-row tile, thread (warp w, lane group i)
+    adds rows 16w + i and 16w + i + 8; an xor tree adds the 8 lane groups;
+    the 8 warps add in order; each run of ``per`` tiles chains its tile
+    sums; the partials of the runs add over 32 lanes in order, then in a
+    5-level tree."""
+    f32 = np.float32
+    m, n = y32.shape
+    tiles = math.ceil(m / 128)
+    y = np.zeros((tiles * 128, n), f32)
+    y[:m] = y32
+    y = y.reshape(tiles, 8, 2, 8, n)                    # tile, warp, +8, lane group
+    pair = [y[:, :, 0] + y[:, :, 1], y[:, :, 0] * y[:, :, 0] + y[:, :, 1] * y[:, :, 1]]
+    out = []
+    for v in pair:                                        # [tiles, 8 warps, 8 groups, n]
+        for step in (1, 2, 4):                            # lanes xor 4, 8, 16
+            v = v + v[:, :, np.arange(8) ^ step]
+        v = v[:, :, 0]
+        tile_sum = v[:, 0]
+        for w in range(1, 8):
+            tile_sum = tile_sum + v[:, w]
+        groups_ = math.ceil(tiles / per)
+        part = np.zeros((groups_, n), f32)
+        for g in range(groups_):
+            run = np.zeros(n, f32)
+            for t in range(g * per, min(g * per + per, tiles)):
+                run = run + tile_sum[t]
+            part[g] = run
+        lanes = np.zeros((32, n), f32)
+        for lane in range(32):
+            for g in range(lane, groups_, 32):
+                lanes[lane] = lanes[lane] + part[g]
+        for s in (16, 8, 4, 2, 1):
+            lanes[:s] = lanes[:s] + lanes[s:2 * s]
+        out.append(lanes[0])
+    return out
+
+
+@pytest.mark.parametrize("per", [1, 3, None])
+def test_kernel_summation_order_matches_jax_pallas_interpret_and_plain(per):
+    """The bf16 kernel's summation order, emulated in fp32 on the product of
+    bf16 inputs (exact in fp32 up to the product's own rounding), against the
+    JAX Pallas kernel in interpret mode, its ``xla_matmul_stats`` and the
+    port's plain version, within the tolerances above. M = 5120 gives 40
+    tiles: 40 runs of one tile (more than the 32 lanes), 14 runs of 3, or
+    the wrapper's schedule."""
+    m, k, n = 5120, 64, 128
+    x, w = _inputs(5, m, k, n)
+    jx, jw = jnp.asarray(np.abs(x), "bfloat16"), jnp.asarray(w, "bfloat16")
+    x64, w64 = np.asarray(jx, np.float64), np.asarray(jw, np.float64)
+    y64 = x64 @ w64
+    per = per or fcs.tiles_per_block(m, n)
+    s1, s2 = _emulated_sums(y64.astype(np.float32), per)
+    for impl in (lambda a, b: fused_matmul_stats(a, b, block_m=512, interpret=True),
+                 xla_matmul_stats):
+        _, js1, js2 = impl(jx, jw)
+        _check_stats(s1, js1, y64, "s1")
+        _check_stats(s2, js2, y64 * y64, "s2")
+    tx = torch.from_numpy(x64.astype(np.float32)).to(torch.bfloat16)
+    tw = torch.from_numpy(w64.astype(np.float32)).to(torch.bfloat16)
+    _, p1, p2 = fcs.fused_matmul_stats_plain(tx, tw)
+    _check_stats(s1, p1.numpy(), y64, "s1")
+    _check_stats(s2, p2.numpy(), y64 * y64, "s2")
+    assert fcs.chain_length(m, n) == 11 + fcs.tiles_per_block(m, n) + math.ceil(
+        fcs.groups(m, n) / 32) + 5
+
+
 CUDA_SHAPES = [(1000, 64, 64), (4097, 256, 128), (300, 2048, 2048), (25088, 64, 256),
-               (6272, 512, 128)]
+               (6272, 512, 128), (401408, 64, 256), (6272, 2048, 512)]
 
 
 @pytest.mark.cuda

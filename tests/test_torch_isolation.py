@@ -37,6 +37,7 @@ def test_scan_sees_the_whole_port():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert "chip_smoke.py" in names
     assert "tools/torch_flash_quick.py" in names
+    assert "tools/torch_conv_quick.py" in names
     assert "tools/torch_paged_quick.py" in names
     assert "tools/torch_ab_profile.py" in names
     assert "autodist_tpu_torch/ops/paged_attention.py" in names

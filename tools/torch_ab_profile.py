@@ -36,6 +36,9 @@ def metrics(kind: str, doc: dict) -> dict:
     if kind == "train":
         out = {k: doc[k] for k in TRAIN_KEYS}
         out["host_probe_us"] = max(doc["host_probe_us"])
+        groups = doc["device_ms_by_group"]
+        if isinstance(groups, dict) and "fused_conv_stats" in groups:
+            out["fused_conv_stats_ms"] = groups["fused_conv_stats"]
         return out
     return {f"{row['program']}/{k}": row[k] for row in doc["rows"]
             for k in SERVE_KEYS if k in row}

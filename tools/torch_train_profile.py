@@ -55,7 +55,7 @@ def _group(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
         return "flash_attention"
-    if "fused_conv_stats" in low or "sum_partials" in low:
+    if "conv_stats" in low or "sum_partials" in low:
         return "fused_conv_stats"
     if any(m in low for m in _CONV_MARKERS):
         return "conv"
