@@ -18,16 +18,21 @@ pruned and validated by the :class:`StrategyCompiler`, lowered by the
 :class:`GraphTransformer` into the :class:`DistributedTrainStep`. One
 AutoDist per process; the default builder is ``PSLoadBalancing``. It runs on
 ``cuda`` unless ``device="cpu"`` is passed; asking for CUDA without it
-raises. ``tune``, ``build_inference``, ``build_pipeline``,
+raises. ``remat`` rematerialises the forward in the backward
+(:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
+(``kernel/lowering.py``). ``tune``, ``build_inference``, ``build_pipeline``,
 ``elastic_rebuild``, fault tolerance, observability and asynchronous PS are
 not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.const import ENV
@@ -56,6 +61,61 @@ def _cast_compute(loss_fn: Callable, compute_dtype: str) -> Callable:
     def wrapped(params, batch):
         return loss_fn(map_params(
             lambda t: t.to(dtype) if t.is_floating_point() else t, params), batch)
+
+    return wrapped
+
+
+_aten = torch.ops.aten
+_MATMULS = (_aten.mm.default, _aten.addmm.default)
+_DOTS = _MATMULS + (_aten.bmm.default, _aten.convolution.default)
+#: The JAX package's ``jax.checkpoint_policies`` names -> the aten ops whose
+#: outputs the policy saves (``None``: every op). ``True`` saves nothing.
+_REMAT_SAVED = {
+    "nothing_saveable": (),
+    "everything_saveable": None,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _MATMULS,
+    "checkpoint_dots_with_no_batch_dims": _MATMULS,
+}
+
+
+def _remat_contexts(saved):
+    """``context_fn`` of ``torch.utils.checkpoint``: save the outputs of the
+    ops in ``saved`` (every op when ``None``), recompute the rest."""
+    def policy(ctx, op, *args, **kwargs):
+        keep = saved is None or op in saved
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(loss_fn: Callable, remat: Union[bool, str]) -> Callable:
+    """The loss under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
+    the backward runs the forward again instead of keeping its activations
+    (the JAX package's ``jax.checkpoint(loss_fn, policy=...)``). ``True``
+    and ``"nothing_saveable"`` save nothing; ``"everything_saveable"``
+    saves every op's output; ``"dots_saveable"`` and ``"checkpoint_dots"``
+    save the outputs of ``aten.mm``, ``aten.addmm``, ``aten.bmm`` and
+    ``aten.convolution`` (JAX's policy saves ``dot_general`` and
+    ``conv_general_dilated``); the two ``*_no_batch_dims`` policies save
+    ``mm`` and ``addmm`` but neither ``bmm`` nor a convolution (JAX's dots
+    without batch dims). The hand-written kernels'
+    ``autograd.Function``s (flash attention, fused conv-stats) are not aten
+    ops, so every policy runs them again. Anything else raises
+    ``ValueError``, as in the JAX package."""
+    if remat is True:
+        saved = ()
+    elif isinstance(remat, str) and remat in _REMAT_SAVED:
+        saved = _REMAT_SAVED[remat]
+    else:
+        raise ValueError(f"unknown remat policy {remat!r}; use True or one of "
+                         f"{tuple(_REMAT_SAVED)}")
+    context_fn = noop_context_fn if saved == () else (lambda: _remat_contexts(saved))
+
+    @functools.wraps(loss_fn)
+    def wrapped(params, batch):
+        return checkpoint(loss_fn, params, batch, use_reentrant=False,
+                          context_fn=context_fn)
 
     return wrapped
 
@@ -133,21 +193,21 @@ class AutoDist:
     def build(self, loss_fn: Callable, params: Any, example_batch: Any = None,
               optimizer: Union[OptimizerSpec, Optimizer, None] = None,
               has_aux: bool = False, sparse_names: Sequence[str] = (),
-              host_offload: bool = False,
-              grad_accum_steps: int = 1, remat: bool = False,
+              expert_names: Sequence[str] = (), host_offload: bool = False,
+              grad_accum_steps: int = 1, remat: Union[bool, str] = False,
               compute_dtype: Optional[str] = None) -> DistributedTrainStep:
         """Capture -> strategy -> compile -> lower. ``optimizer`` is an
         :class:`OptimizerSpec` (default SGD at 0.01) or an
         :class:`Optimizer`; ``compute_dtype="bfloat16"`` casts floating
-        params on entry to the loss (master weights stay fp32).
-        ``host_offload``, ``grad_accum_steps > 1`` and ``remat`` raise
-        ``NotImplementedError`` until they are ported (ROADMAP.md)."""
-        if remat:
-            raise NotImplementedError("remat is not ported yet; see ROADMAP.md")
+        params on entry to the loss (master weights stay fp32);
+        ``grad_accum_steps=k`` averages ``k`` micro-batches a step;
+        ``remat`` is ``True`` or a policy name (:func:`_remat`).
+        ``host_offload`` raises ``NotImplementedError`` until it is ported
+        (ROADMAP.md)."""
         opt_spec, tx = _resolve_optimizer(optimizer)
         model_item = ModelItem.from_params(
             params, optimizer_spec=opt_spec, loss_fn=loss_fn, example_batch=example_batch,
-            sparse_names=sparse_names)
+            sparse_names=sparse_names, expert_names=expert_names)
         strategy = self._build_or_load_strategy(model_item)
         compiled = StrategyCompiler(model_item).compile(strategy)
         if compute_dtype is not None:
@@ -156,6 +216,9 @@ class AutoDist:
         plan = GraphTransformer(compiled, model_item, self.mesh,
                                 host_offload=host_offload).transform()
         logging.debug("sharding plan:\n%s", plan.describe())
+        if remat:
+            # After capture and the cast, as in the JAX package.
+            loss_fn = _remat(loss_fn, remat)
         step = DistributedTrainStep(plan, loss_fn, tx, has_aux=has_aux,
                                     grad_accum_steps=grad_accum_steps)
         self._built, self._strategy, self._model_item = step, compiled, model_item

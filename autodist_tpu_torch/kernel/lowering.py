@@ -10,7 +10,15 @@ computes on a one-device mesh. What needs more than one device, or is not
 ported yet, raises ``NotImplementedError`` naming ROADMAP.md instead of
 training as something else: a mesh of more than one device, gradient
 compressors, bucketing, ``shard_update`` (ZeRO-1), staleness, asynchronous
-PS, per-shard configs, host offload and gradient accumulation.
+PS, per-shard configs and host offload.
+
+Gradient accumulation (``grad_accum_steps=k``) follows the JAX core: every
+batched leaf ``[B, ...]`` splits into ``k`` micro-batches of ``B/k`` rows
+(``ValueError`` when ``k`` does not divide ``B``), a broadcast leaf (rank 0
+or leading dim at most 1) goes to every micro-step whole, and the loss, the
+gradients and the aux average as ``a + x/k`` from zeros (the aux in at least
+fp32). The JAX package scans over the micro-batches; here it is a Python
+loop, each micro-step's activations freed by its backward before the next.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
@@ -136,11 +144,14 @@ class ShardingPlan:
         return "\n".join(lines)
 
 
-def _stack(values):
-    """Per-step metrics -> one leading step axis (dicts leaf by leaf)."""
-    if isinstance(values[0], dict):
-        return {k: _stack([v[k] for v in values]) for k in values[0]}
-    return torch.stack(values)
+def _is_broadcast(t) -> bool:
+    """The JAX package's ``is_broadcast_leaf``: rank 0 or leading dim <= 1."""
+    return t.dim() == 0 or t.shape[0] <= 1
+
+
+def _zeros_at_least_f32(t):
+    return torch.zeros(t.shape, dtype=torch.promote_types(t.dtype, torch.float32),
+                       device=t.device)
 
 
 class DistributedTrainStep:
@@ -148,18 +159,17 @@ class DistributedTrainStep:
 
     def __init__(self, plan: ShardingPlan, loss_fn: Callable, optimizer: Optimizer,
                  has_aux: bool = False, grad_accum_steps: int = 1):
-        if grad_accum_steps != 1:
-            raise _not_ported(f"grad_accum_steps={grad_accum_steps}")
+        if grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         self.plan = plan
         self.loss_fn = loss_fn
         self.tx = optimizer
         self.has_aux = has_aux
+        self.accum = grad_accum_steps
 
     def _to_device(self, tree):
         dev = self.plan.device
-        if isinstance(tree, dict):
-            return map_params(lambda t: t.to(dev, non_blocking=True), tree)
-        return tree.to(dev, non_blocking=True)
+        return map_params(lambda t: t.to(dev, non_blocking=True), tree)
 
     def init(self, params) -> TrainState:
         """The initial state on the plan's device. Copies the params, so the
@@ -178,20 +188,64 @@ class DistributedTrainStep:
         """The user-shaped parameter view of a train state (detached)."""
         return map_params(lambda t: t.detach(), state.params)
 
-    def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        leaves = [t for t in flatten_params(state.params).values() if t.is_floating_point()]
-        out = self.loss_fn(state.params, batch)
+    def _grads(self, params, leaves, batch):
+        """``(loss, aux, grads)`` of one (micro-)batch."""
+        out = self.loss_fn(params, batch)
         loss, aux = out if self.has_aux else (out, None)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss, aux, [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+    def _accumulated_grads(self, params, leaves, batch):
+        """``(loss, aux, grads)`` averaged over ``accum`` micro-batches (the
+        JAX package's ``_accumulated_grads`` + ``_scan_accumulate``)."""
+        k = self.accum
+        for t in (flatten_params(batch).values() if isinstance(batch, dict) else [batch]):
+            if not _is_broadcast(t) and t.shape[0] % k:
+                raise ValueError(
+                    f"grad_accum_steps={k} requires every batched leaf's leading dim "
+                    f"to be divisible by {k}; got shape {tuple(t.shape)}")
+
+        def cut(t, i):
+            rows = t.shape[0] // k
+            return t if _is_broadcast(t) else t[i * rows:(i + 1) * rows]
+
+        loss_acc = torch.zeros((), dtype=torch.float32, device=self.plan.device)
+        grads_acc = [torch.zeros_like(p) for p in leaves]
+        aux_acc = None
+        for i in range(k):
+            micro = map_params(lambda t: cut(t, i), batch)
+            loss, aux, grads = self._grads(params, leaves, micro)
+            with torch.no_grad():
+                loss_acc = loss_acc + loss.detach() / k
+                grads_acc = [a + g / k for a, g in zip(grads_acc, grads)]
+                if aux is not None:
+                    if aux_acc is None:
+                        aux_acc = map_params(_zeros_at_least_f32, aux)
+                    aux_acc = map_params(lambda a, x: a + x.detach() / k, aux_acc, aux)
+        return loss_acc, aux_acc, grads_acc
+
+    def loss_and_grads(self, state: TrainState, batch):
+        """``(loss, aux, grads)`` of one step on ``batch`` without updating
+        the state: ``grads`` in the order of the floating leaves of
+        ``flatten_params(state.params)``, averaged over ``grad_accum_steps``
+        micro-batches."""
+        leaves = [t for t in flatten_params(state.params).values() if t.is_floating_point()]
+        batch = self._to_device(batch)
+        if self.accum > 1:
+            return self._accumulated_grads(state.params, leaves, batch)
+        return self._grads(state.params, leaves, batch)
+
+    def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        leaves = [t for t in flatten_params(state.params).values() if t.is_floating_point()]
+        loss, aux, grads = self.loss_and_grads(state, batch)
         with torch.no_grad():
             updates = self.tx.update(grads, state.opt_state, leaves)
             for p, u in zip(leaves, updates):
                 p.add_(u.to(p.dtype))
         metrics = {"loss": loss.detach()}
         if aux is not None:
-            metrics["aux"] = map_params(lambda t: t.detach(), aux) \
-                if isinstance(aux, dict) else aux.detach()
+            metrics["aux"] = map_params(lambda t: t.detach(), aux)
         return TrainState(state.step + 1, state.params, state.opt_state), metrics
 
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
@@ -212,10 +266,11 @@ class DistributedTrainStep:
         for i in range(num_steps):
             b = batch
             if stacked:
-                b = map_params(lambda t: t[i], batch) if isinstance(batch, dict) else batch[i]
+                b = map_params(lambda t: t[i], batch)
             state, m = self._step(state, b)
             history.append(m)
-        return state, _stack(history)
+        # Per-step metrics -> one leading step axis, leaf by leaf.
+        return state, map_params(lambda *steps: torch.stack(steps), *history)
 
     def evaluate(self, state: TrainState, batch):
         """Loss (+aux) on a batch without gradients or state mutation."""

@@ -38,10 +38,13 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     return map_params(conv, params)
 
 
-def map_params(fn: Callable[[Any], Any], params: Dict[str, Any]) -> Dict[str, Any]:
-    """``fn`` applied to every leaf, nesting and key order kept."""
-    return {k: map_params(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in params.items()}
+def map_params(fn: Callable[..., Any], params: Any, *rest: Any) -> Any:
+    """``fn`` applied to every leaf, nesting and key order kept; with
+    ``rest`` (trees of the same nesting), ``fn`` takes the matching leaves
+    of each too. A root that is not a dict is one leaf."""
+    if not isinstance(params, dict):
+        return fn(params, *rest)
+    return {k: map_params(fn, v, *(r[k] for r in rest)) for k, v in params.items()}
 
 
 def flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:

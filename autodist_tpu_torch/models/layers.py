@@ -160,6 +160,24 @@ def max_pool(x, window: int, stride: int, padding: str = "SAME"):
     return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
 
 
+def avg_pool(x, window: int, stride: int, padding: str = "SAME"):
+    """NHWC count-normalised average pool (the JAX package's): each window's
+    sum divided by the number of its taps inside the map, so border windows
+    of ``"SAME"`` divide by fewer than ``window²``. ``"SAME"`` pads can be
+    uneven, so the map is padded with zeros explicitly and divided by the
+    pooled count map. The sum is rounded to x's dtype once and then divided
+    (JAX's order); PyTorch accumulates it in fp32 before that rounding."""
+    (top, bottom), (left, right) = _pads(x, (window, window), stride, padding)
+    xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    summed = F.avg_pool2d(xc, window, stride, divisor_override=1)
+    if padding == "VALID":
+        return (summed / (window * window)).permute(0, 2, 3, 1)
+    ones = F.pad(torch.ones((1, 1) + tuple(x.shape[1:3]), dtype=x.dtype, device=x.device),
+                 (left, right, top, bottom))
+    counts = F.avg_pool2d(ones, window, stride, divisor_override=1)
+    return (summed / counts).permute(0, 2, 3, 1)
+
+
 def space_to_depth_stem(stem_conv, images, dtype):
     """The weight-equivalent stem: the 7x7/s2 conv on 3 channels as a 4x4/s1
     conv on 12 channels over the 2x2 space-to-depth input (the JAX
@@ -299,3 +317,12 @@ def per_token_xent(logits, labels):
 def softmax_xent(logits, labels):
     """Mean cross-entropy over every position."""
     return per_token_xent(logits, labels).mean()
+
+
+def sigmoid_xent(logits, labels):
+    """Mean binary cross-entropy on logits, in fp32, in the stable form
+    ``max(l, 0) − l·y + log1p(exp(−|l|))``."""
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.float32)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))

@@ -29,8 +29,7 @@ import torch
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models.spec import (ModelSpec, image_example_batch,
-                                            register_model)
-from autodist_tpu_torch.utils.device import resolve_device
+                                            register_model, seeded_generator)
 
 # depth -> (block kind, stage sizes, fwd FLOPs @ 224x224)
 _CONFIGS: Dict[int, Tuple[str, List[int], float]] = {
@@ -103,9 +102,7 @@ def init_params(seed: int, depth: int, num_classes: int, width: int = 64,
     ``torch.Generator`` seeded with ``seed``: He-normal conv kernels, unit
     BatchNorm scales, a Glorot head; the JAX package's tree."""
     kind, stages, _ = _lookup(depth)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen, dev = seeded_generator(seed, device)
     params: Dict[str, Any] = {
         "stem": {"conv": L.conv_init(gen, 7, 7, 3, width, device=dev),
                  "bn": L.batchnorm_init(width, device=dev)},

@@ -25,7 +25,10 @@ class ModelSpec:
     init: Callable[..., Any]                    # (seed, device) -> params
     loss_fn: Callable[[Any, Any], Any]          # (params, batch) -> scalar loss
     example_batch: Callable[..., Any]           # (batch_size, device) -> batch
-    apply: Optional[Callable[..., Any]] = None  # (params, inputs) -> outputs
+    # (params, inputs) -> outputs; multi-input models (NCF) take the batch.
+    apply: Optional[Callable[..., Any]] = None
+    sparse_names: tuple = ()                    # force-marked sparse params
+    expert_names: tuple = ()                    # params with a leading expert dim
     config: Any = None
     # FLOPs of one forward+backward pass per example, for MFU accounting.
     flops_per_example: Optional[float] = None
@@ -44,6 +47,15 @@ def image_example_batch(image_size: int, num_classes: int):
         return {"images": torch.from_numpy(images).to(dev),
                 "labels": torch.from_numpy(labels).to(dev)}
     return example_batch
+
+
+def seeded_generator(seed: int, device=None):
+    """``(torch.Generator seeded with seed, device)`` on ``device`` (default
+    ``"cuda"``): what every zoo model's ``init`` draws from."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    return gen, dev
 
 
 def register_model(name: str):

@@ -10,7 +10,7 @@ specs, and the paged KV-cache serving forwards
 (:func:`forward_paged_prefill_chunk`, :func:`forward_paged_decode_step`)
 with their cache helpers. Params are a plain nested dict of tensors with
 the JAX tree's keys, so ``models/convert.py`` carries JAX parameters over
-unchanged.
+unchanged. ``TransformerConfig.remat`` checkpoints each block.
 
 Unlike the JAX forwards, which return a new cache, the paged forwards
 update the cache's tensors in place (the JAX engine donates the cache to
@@ -23,9 +23,10 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from autodist_tpu_torch.models import layers as L
-from autodist_tpu_torch.models.spec import ModelSpec, register_model
+from autodist_tpu_torch.models.spec import ModelSpec, register_model, seeded_generator
 from autodist_tpu_torch.ops import flash_attention as fa_ops
 from autodist_tpu_torch.ops import paged_attention as pa_ops
 from autodist_tpu_torch.utils.device import resolve_device
@@ -51,6 +52,9 @@ class TransformerConfig:
     paged_attention_impl: str = "auto"
     # int8 KV pages with per-position/per-head fp32 scales.
     kv_quant: bool = False
+    # Checkpoint each block: its forward runs again in the backward
+    # (jax.checkpoint in the JAX package, torch.utils.checkpoint here).
+    remat: bool = False
     mlm_mask_token: int = 0             # [MASK] id for the MLM objective
 
     def __post_init__(self):
@@ -80,9 +84,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
                 device=None) -> Dict[str, Any]:
     """Random fp32 params on ``device`` (default ``"cuda"``) from a
     ``torch.Generator`` seeded with ``seed``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen, dev = seeded_generator(seed, device)
     params: Dict[str, Any] = {
         "embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model, device=dev),
         "pos_embed": L.embedding_init(gen, cfg.max_seq_len, cfg.d_model, device=dev),
@@ -184,8 +186,16 @@ def forward(params, tokens, cfg: TransformerConfig):
     pos = torch.arange(s, device=tokens.device)
     x = x + L.embedding_lookup(params["pos_embed"], pos).to(cfg.dtype)
     for i in range(cfg.num_layers):
-        x = _block(params[f"layers_{i}"], x, cfg)
+        x = remat_block(_block, cfg.remat)(params[f"layers_{i}"], x, cfg)
     return _logits(params, x, cfg).to(torch.float32)
+
+
+def remat_block(block, remat: bool):
+    """``block`` itself, or under ``torch.utils.checkpoint.checkpoint``
+    (``use_reentrant=False``) when ``remat`` is set."""
+    if not remat:
+        return block
+    return lambda *args: checkpoint(block, *args, use_reentrant=False)
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):

@@ -12,8 +12,14 @@ Drives the port's two main paths with seeded random weights:
 - training through ``AutoDist.build`` / ``step.run``: ``bert_base`` (vocab
   30522, 12 layers, d_model 768, MLM) at seq 512 with flash attention,
   batch 32, AllReduce, default SGD; the causal ``transformer`` at seq 512
-  with flash attention; and ``resnet`` at its defaults (ResNet-50, 224 px,
-  1000 classes, bf16 compute) at batch 128.
+  with flash attention; ``resnet`` at its defaults (ResNet-50, 224 px,
+  1000 classes, bf16 compute) at batch 128; and the rest of the zoo at the
+  published widths of the JAX package's ``examples/benchmark/train.py``
+  (``ZOO``, from the port's ``models.PUBLISHED``): VGG-16 and DenseNet-121
+  at 224 px and Inception-v3 at 299 px, batch 128; the LM1B LSTM (vocab
+  8192, embed 512, hidden 1024, 2 layers, seq 32) at batch 128; NCF (6040
+  users, 3706 items, mf 64, MLP 256-256-128-64) at batch 4096; the MoE
+  transformer (4 layers, d_model 512, 8 experts) at batch 32.
 
 Phases, each printing one JSON line:
 
@@ -51,11 +57,13 @@ Phases, each printing one JSON line:
    and the bound.
 7. ``conv_stats_parity``: the fused 1x1-conv + BatchNorm-statistics kernel
    against its plain version at the 15 distinct shapes of ResNet-50's 36
-   bottleneck 1x1 convs at batch 128 in bf16, and at the first in fp32; a
-   repeated launch bitwise equal; timed beside the plain version,
-   ``torch.matmul`` + moments, ``torch.matmul`` alone and the bound; then
-   ``conv_stats_forward``: Σ launches x ms over a forward beside Σ launches x
-   bound.
+   bottleneck 1x1 convs at batch 128 in bf16, and at the first in fp32, then
+   at every distinct shape of an Inception-v3 (299 px, 40 fused convs) and
+   a DenseNet-121 (224 px, 58) forward at batch 128 in bf16, found by a
+   forward on meta tensors; a repeated launch bitwise equal; timed beside
+   the plain version, ``torch.matmul`` + moments, ``torch.matmul`` alone and
+   the bound; then ``conv_stats_forward`` for each model: Σ launches x ms
+   over a forward beside Σ launches x bound.
 8. ``train``: bert_base (10 steps) and the causal transformer (4 steps)
    through ``AutoDist(strategy_builder=AllReduce()).build`` and
    ``step.run``, each flash kernel launched exactly ``num_layers x steps``
@@ -73,6 +81,33 @@ Phases, each printing one JSON line:
     summation-order bounds; one forward of every depth (18–152) at 224 px
     launches the kernel once per 1x1 conv; PSLoadBalancing's first-step
     loss equal to AllReduce's.
+11. ``zoo_train``: each ``ZOO`` configuration through
+    ``AutoDist(strategy_builder=AllReduce()).build`` (default SGD), one
+    warm-up step and a window of ``ZOO_STEPS``: host wall a step, the rate
+    (images, tokens or examples a second), MFU where the spec has
+    ``flops_per_example``, the losses (finite, the last below the first),
+    peak memory; Inception and DenseNet launch the fused kernel 40 and 58
+    times a step (its forward, as the meta-tensor spy of phase 7 counted;
+    its backward is two products), the others never.
+12. ``zoo_check``: the zoo models with no kernel of the port (VGG-16,
+    LM1B, NCF, MoE) at their published widths in fp32, batch 8: the first
+    step's loss and whole gradient through the built step on the card
+    against the CPU's plain path from the same weights (1e-5, and 1e-4
+    relative, VGG-16's 1e-2: ``ZOO_CHECK``).
+13. ``optim_check``: the ``mlp`` in fp32, 3 steps on the card with each of
+    adagrad, rmsprop, lamb, lion, adafactor, nesterov momentum and the
+    cosine, exponential, warmup_cosine, piecewise and linear schedules,
+    against the same update rules on the CPU (1e-5 relative).
+14. ``remat_check``: bert_base (seq 512, batch 32, flash) built with no
+    remat, ``remat=True`` and ``remat="dots_saveable"`` (the whole loss
+    checkpointed) and with ``TransformerConfig.remat`` (each block): one
+    step's loss and gradients against the run without remat (1e-6 relative;
+    whether bitwise equal is reported), the flash forward launched twice a
+    layer under remat and dK/dV and dQ once, and each run's host wall and
+    peak memory.
+15. ``accum_check``: the fp32 causal transformer (full width, seq 512,
+    flash), first step at batch 8 with ``grad_accum_steps=4`` against 1:
+    loss and whole gradient within 1e-5 relative.
 
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
@@ -97,9 +132,12 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.api import AutoDist
-from autodist_tpu_torch.models import get_model, get_model_spec
+from autodist_tpu_torch.model_item import OptimizerSpec
+from autodist_tpu_torch.models import PUBLISHED, get_model, get_model_spec
 from autodist_tpu_torch.models import layers as L
+from autodist_tpu_torch.models import lstm_lm
 from autodist_tpu_torch.models import resnet as rn
+from autodist_tpu_torch.models import vgg
 from autodist_tpu_torch.models import transformer as tt
 from autodist_tpu_torch.models.convert import (flatten_params, map_params,
                                                 unflatten_params)
@@ -218,6 +256,51 @@ RESNET_BATCH, RESNET_STEPS = 128, 10
 RESNET_FP32_LOSS_RTOL, RESNET_FP32_HEAD_RTOL, RESNET_SPREAD_FACTOR = 1e-5, 1e-4, 3.0
 RESNET_BF16_LOSS_RTOL = 5e-2
 RESNET_BLOCK_Y_RTOL, RESNET_BLOCK_GRAD_RTOL, RESNET_BLOCK_TENSOR_RTOL = 2e-2, 0.15, 0.2
+# zoo_train: the published widths of examples/benchmark/train.py, nothing
+# cut (ResNet-50 has its own phase): (key, zoo name, overrides, batch, what
+# a step's rate counts).
+ZOO = tuple((key, *cfg) for key, cfg in PUBLISHED.items() if key != "resnet50")
+ZOO_STEPS = 5
+# The two zoo models whose 1x1 convs feed a BatchNorm: their fused conv-stats
+# launches a forward, and the shapes conv_stats_parity adds for them.
+CONV_ZOO = {"inceptionv3": 40, "densenet121": 58}
+# zoo_check: the zoo models with no kernel of the port, at fp32 compute and
+# batch CHECK_BATCH: card vs CPU from the same weights. The loss within
+# 1e-5 and the whole gradient within 1e-4 relative (summation order), but
+# VGG-16's within 1e-2: its convolutions take other algorithms on the two
+# devices (cuDNN's, oneDNN's), and a ReLU input or a max-pool pair that lies
+# within that difference of a tie sends its gradient another way through 13
+# convs and 5 pools of 224 px maps (1.5e-3 measured on an H100). Either
+# bound still fails a gradient off by a factor or a table update lost.
+ZOO_CHECK_LOSS_RTOL = 1e-5
+# model -> its gradient bound.
+ZOO_CHECK = {"vgg16": 1e-2, "lm1b": 1e-4, "ncf": 1e-4, "moe": 1e-4}
+# optim_check: the mlp in fp32 on the card against the same update rules on
+# the CPU, 3 steps; card and CPU differ in summation order only.
+OPTIM_RTOL, OPTIM_STEPS, OPTIM_BATCH = 1e-5, 3, 64
+OPTIM_CASES = (
+    ("momentum", {"learning_rate": 0.05, "nesterov": True}),
+    ("adagrad", {"learning_rate": 0.05}),
+    ("rmsprop", {"learning_rate": 0.01}),
+    ("lamb", {"learning_rate": 0.01, "weight_decay": 0.01}),
+    ("lion", {"learning_rate": 0.001}),
+    ("adafactor", {"learning_rate": 0.01}),
+    ("sgd", {"learning_rate": {"schedule": "cosine", "init_value": 0.1, "decay_steps": 2}}),
+    ("sgd", {"learning_rate": {"schedule": "exponential", "init_value": 0.1,
+                               "transition_steps": 2, "decay_rate": 0.5, "staircase": True}}),
+    ("sgd", {"learning_rate": {"schedule": "warmup_cosine", "peak_value": 0.1,
+                               "warmup_steps": 1, "decay_steps": 3}}),
+    ("sgd", {"learning_rate": {"schedule": "piecewise", "init_value": 0.1,
+                               "boundaries_and_scales": {"1": 0.5, "2": 0.1}}}),
+    ("sgd", {"learning_rate": {"schedule": "linear", "init_value": 0.1, "end_value": 0.01,
+                               "transition_steps": 2}}),
+)
+# remat_check and accum_check: one step's loss and gradients against the
+# run without the option. remat recomputes the same ops on the same inputs
+# (bitwise equal where the kernels and cuBLAS are deterministic, reported);
+# accumulation adds the same terms in another order: 1e-5 relative (the
+# whole gradient as one vector).
+REMAT_RTOL, ACCUM_RTOL, ACCUM_BATCH, ACCUM_K = 1e-6, 1e-5, 8, 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -667,11 +750,11 @@ def _matmul_moments(x, w):
 
 
 def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev,
-                    launches: int = 0):
+                    launches: int = 0, model: str = "resnet50"):
     """The fused conv-stats kernel against its plain version at one shape:
-    post-ReLU activations (``|N(0, 1)|``, what the model's 1x1 convs read)
-    and He-scaled weights. ``launches``: the shape's launches in a ResNet-50
-    forward, carried into the row."""
+    post-ReLU activations (``|N(0, 1)|``, what the models' 1x1 convs read)
+    and He-scaled weights. ``launches``: the shape's launches in a forward
+    of ``model``, carried into the row."""
     chain = fcs.chain_length(m, n, dtype)
     x = torch.randn((m, k), generator=gen, device=dev).abs_().to(dtype)
     w = (torch.randn((k, n), generator=gen, device=dev) * (2.0 / k) ** 0.5).to(dtype)
@@ -699,7 +782,7 @@ def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev,
     matmul_ms = device_ms(lambda: x @ w)
     nbytes, flops = fcs.kernel_bytes(x, w), fcs.kernel_flops(x, w)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_OPS_PER_S[dtype]
-    row = dict(M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
+    row = dict(model=model, M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
                launches_per_forward=launches, max_abs_err=max_abs_err,
                y_err_over_bound=y_ratio, s1_rel=s1_rel, s2_rel=s2_rel,
                stat_tol=CONV_STAT_TOL, chain_length=chain, repeat_bitwise=repeat_bitwise,
@@ -723,7 +806,7 @@ def conv_stats_case(m: int, k: int, n: int, dtype, gen: torch.Generator, dev,
 
 
 def conv_forward_totals(rows) -> dict:
-    """Σ launches x ms over the bf16 rows: a ResNet-50 forward's fused
+    """Σ launches x ms over the bf16 rows of one model: a forward's fused
     conv-stats work, beside its bound and the library calls."""
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     total = {key: sum(r["launches_per_forward"] * r[key] for r in bf16)
@@ -731,11 +814,12 @@ def conv_forward_totals(rows) -> dict:
     return dict(launches=sum(r["launches_per_forward"] for r in bf16), **total)
 
 
-def conv_tensor_core_report(ptxas: dict) -> dict:
+def conv_tensor_core_report(ptxas: dict, extra_kn=()) -> dict:
     """Registers, spill bytes and HGMMA count of each instance of the bf16
     conv-stats kernel; fails on a spill or, where cuobjdump is found, on an
     instance without HGMMA. Also holds the wrapper's shared-memory plan
-    (fcs.smem_plan) to the library's own at every CONV_SHAPES shape."""
+    (fcs.smem_plan) to the library's own at every CONV_SHAPES shape and at
+    each ``(K, N)`` of ``extra_kn``."""
     hgmma = _build.sass_counts("fused_conv_stats", "HGMMA")
     report = {}
     for name, info in ptxas.items():
@@ -748,7 +832,7 @@ def conv_tensor_core_report(ptxas: dict) -> dict:
         check(hgmma is None or count > 0, f"{name}: no HGMMA instruction in its SASS")
         report[name] = {**info, "hgmma": count}
     check(len(report) == 6, f"conv stats: {len(report)} wgmma kernel instances, not 6")
-    for (_, k, n), _ in CONV_SHAPES:
+    for k, n in sorted({(k, n) for (_, k, n), _ in CONV_SHAPES} | set(extra_kn)):
         check(fcs.built_plan(k, n) == fcs.smem_plan(k, n),
               f"conv stats plan at K={k} N={n}: {fcs.built_plan(k, n)} in the library, "
               f"{fcs.smem_plan(k, n)} in the wrapper")
@@ -1029,6 +1113,273 @@ def resnet_check(dev):
     check(ps_rel <= 1e-5, f"resnet PSLoadBalancing first loss {first} differ")
 
 
+# --------------------------------------------------------- zoo conv shapes
+def fused_conv_shapes(model: str, overrides: dict, batch: int, dev) -> dict:
+    """``{(M, K, N): launches}`` of the fused conv-stats op in one forward of
+    ``model`` at ``batch``: a forward on meta tensors (no work, no memory)
+    with a spy on the op."""
+    spec = get_model_spec(model, **overrides)
+    params = map_params(lambda t: t.to("meta"), spec.init(SEED, device=dev))
+    size = overrides["image_size"]
+    shapes: dict = {}
+    plain = fcs.fused_matmul_stats
+
+    def spy(x, w):
+        key = (x.shape[0], x.shape[1], w.shape[1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return plain(x, w)
+
+    fcs.fused_matmul_stats = spy
+    try:
+        with torch.no_grad():
+            spec.apply(params, torch.empty((batch, size, size, 3), device="meta"))
+    finally:
+        fcs.fused_matmul_stats = plain
+    return shapes
+
+
+def zoo_conv_shapes(dev) -> dict:
+    """The distinct fused conv-stats shapes of an Inception-v3 (299 px) and a
+    DenseNet-121 (224 px) forward at batch 128, each with its model and its
+    launches a forward; their launch totals checked against CONV_ZOO."""
+    out = {}
+    for key, model, overrides, batch, _ in ZOO:
+        if key not in CONV_ZOO:
+            continue
+        shapes = fused_conv_shapes(model, overrides, batch, dev)
+        check(sum(shapes.values()) == CONV_ZOO[key],
+              f"{key}: {sum(shapes.values())} fused convs a forward, not {CONV_ZOO[key]}")
+        out[key] = shapes
+    return out
+
+
+# ----------------------------------------------------------------- zoo train
+def zoo_train(card: str, dev, zoo_shapes: dict):
+    """Each ZOO configuration through AutoDist (AllReduce, default SGD at
+    0.01): one warm-up step, then the counted ``step.run`` window of
+    ZOO_STEPS steps, with the fused launches of ``zoo_shapes``'s forward a
+    step."""
+    rows = []
+    for key, model, overrides, batch_size, unit in ZOO:
+        spec = get_model_spec(model, **overrides)
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(batch_size, device=dev)
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=AllReduce(), device=dev)
+        t0 = time.perf_counter()
+        step = autodist.build(spec.loss_fn, params, batch, sparse_names=spec.sparse_names,
+                              expert_names=spec.expert_names)
+        build_s = time.perf_counter() - t0
+        state = step.init(params)
+        del params
+        state, _ = step.run(state, batch, 1)            # warm-up, not counted
+        torch.cuda.synchronize()
+
+        # The main path's window: counts to 0 just before, read just after.
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, metrics = step.run(state, batch, ZOO_STEPS)
+        losses = metrics["loss"].tolist()
+        wall = time.perf_counter() - t0
+        launches = fcs.fused_matmul_stats.launches
+        flash = _launch_counts()
+        items = batch_size
+        if unit == "tokens":
+            items *= batch["tokens"].shape[1] - 1           # the predicted positions
+        mfu = (spec.flops_per_example * batch_size * ZOO_STEPS / wall
+               / PEAK_OPS_PER_S[torch.bfloat16]) if spec.flops_per_example else None
+        row = dict(model=key, zoo=model, overrides=overrides, batch=batch_size,
+                   steps=ZOO_STEPS, strategy="AllReduce", optimizer="sgd 0.01",
+                   build_s=build_s, losses=losses, wall_s=wall,
+                   ms_per_step=wall / ZOO_STEPS * 1e3,
+                   **{f"{unit}_per_s": items * ZOO_STEPS / wall}, mfu=mfu,
+                   kernel_launches={"fused_conv_stats": launches, **flash},
+                   fused_per_step=launches / ZOO_STEPS,
+                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, card=card)
+        emit("zoo_train", **row)
+        check(all(np.isfinite(losses)), f"{key}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{key}: loss did not fall {losses}")
+        want = sum(zoo_shapes.get(key, {}).values())
+        check(launches == want * ZOO_STEPS,
+              f"{key}: fused conv launches {launches} != {want} x {ZOO_STEPS}")
+        check(not any(flash.values()), f"{key}: flash kernels launched {flash}")
+        rows.append(row)
+        del step, state, batch, metrics
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _fp32_spec(key: str):
+    """The ModelSpec of PUBLISHED ``key`` with its loss at fp32 compute."""
+    zoo, overrides, _, _ = PUBLISHED[key]
+    if key == "moe":
+        return get_model_spec(zoo, dtype="float32", **overrides)
+    spec = get_model_spec(zoo, **overrides)
+    if key == "vgg16":
+        return replace(spec, loss_fn=lambda p, b: L.softmax_xent(
+            vgg.forward(p, b["images"], 16, dtype=torch.float32), b["labels"]))
+    if key == "lm1b":      # the lstm_lm defaults: 2 layers of 1024
+        return replace(spec, loss_fn=lambda p, b: L.softmax_xent(
+            lstm_lm.forward(p, b["tokens"][:, :-1], 2, 1024, dtype=torch.float32),
+            b["tokens"][:, 1:]))
+    return spec                                       # ncf computes in fp32
+
+
+def zoo_check(dev):
+    """Each ZOO_CHECK model in fp32 at batch CHECK_BATCH: the first step's
+    loss and gradients of the built step (``step.loss_and_grads``) on the
+    card against the CPU's from the same weights."""
+    cpu = torch.device("cpu")
+    rows = []
+    for key in ZOO_CHECK:
+        spec = _fp32_spec(key)
+        params = spec.init(SEED, device=cpu)      # the CPU's draws, on both devices
+        runs = {}
+        for where in (dev, cpu):
+            p = map_params(lambda t: t.to(where), params)
+            batch = spec.example_batch(CHECK_BATCH, device=where)
+            AutoDist.reset_default()
+            step = AutoDist(strategy_builder=AllReduce(), device=where).build(
+                spec.loss_fn, p, batch, sparse_names=spec.sparse_names,
+                expert_names=spec.expert_names)
+            loss, _, grads = step.loss_and_grads(step.init(p), batch)
+            names = [n for n, t in flatten_params(p).items() if t.is_floating_point()]
+            runs[where.type] = (loss.item(), {n: g.to(cpu) for n, g in zip(names, grads)})
+        (loss_card, grads_card), (loss_cpu, grads_cpu) = runs["cuda"], runs["cpu"]
+        row = dict(model=key, batch=CHECK_BATCH, loss_card=loss_card, loss_cpu=loss_cpu,
+                   loss_rel=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                   whole_gradient_rel=_rel(grads_card, grads_cpu),
+                   gradient_norm=torch.sqrt(sum((g ** 2).sum()
+                                                for g in grads_cpu.values())).item())
+        rows.append(row)
+        del runs, params
+        torch.cuda.empty_cache()
+    emit("zoo_check", loss_rtol=ZOO_CHECK_LOSS_RTOL, grad_rtol=ZOO_CHECK,
+         rows=rows)
+    for row in rows:
+        check(row["loss_rel"] <= ZOO_CHECK_LOSS_RTOL
+              and row["whole_gradient_rel"] <= ZOO_CHECK[row["model"]],
+              f"zoo_check {row['model']}: card vs cpu {row}")
+
+
+# -------------------------------------------------------- optimizers, remat
+def _mlp_run(name, kwargs, device):
+    # The same weights on both devices: drawn on the CPU (a CUDA generator
+    # draws other numbers), then moved.
+    spec = get_model_spec("mlp")
+    params = map_params(lambda t: t.to(device), spec.init(SEED, device="cpu"))
+    batch = spec.example_batch(OPTIM_BATCH, device=device)
+    AutoDist.reset_default()
+    step = AutoDist(strategy_builder=AllReduce(), device=device).build(
+        spec.loss_fn, params, batch, optimizer=OptimizerSpec(name, kwargs))
+    state, metrics = step.run(step.init(params), batch, OPTIM_STEPS)
+    return metrics["loss"].cpu(), {n: t.detach().cpu() for n, t in
+                                   flatten_params(state.params).items()}
+
+
+def optim_check(dev):
+    """Each new optimizer and schedule: OPTIM_STEPS fp32 steps of the mlp on
+    the card against the same update rules on the CPU."""
+    cpu = torch.device("cpu")
+    rows = []
+    for name, kwargs in OPTIM_CASES:
+        card_loss, card = _mlp_run(name, kwargs, dev)
+        cpu_loss, host = _mlp_run(name, kwargs, cpu)
+        rel = max(((card[n] - t).norm() / t.norm()).item() for n, t in host.items())
+        loss_rel = ((card_loss - cpu_loss).abs() / cpu_loss.abs()).max().item()
+        label = kwargs["learning_rate"]["schedule"] if name == "sgd" else name
+        rows.append(dict(case=label, worst_param_rel=rel, loss_rel=loss_rel,
+                         losses=card_loss.tolist()))
+        check(rel <= OPTIM_RTOL and loss_rel <= OPTIM_RTOL,
+              f"optim {label}: card vs cpu params rel {rel}, losses rel {loss_rel}")
+    emit("optim_check", model="mlp", steps=OPTIM_STEPS, batch=OPTIM_BATCH,
+         rtol=OPTIM_RTOL, cases=rows)
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[n].float() - g.float()).abs().max().item() for n, g in b.items())
+
+
+def remat_check(dev):
+    """bert_base (seq 512, batch 32, flash) built with no remat,
+    ``remat=True`` and ``remat="dots_saveable"`` (the whole loss
+    checkpointed), and with ``TransformerConfig.remat`` (each block): one
+    step's loss and gradients each (flash launches, host wall, peak memory)
+    against the run without remat."""
+    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    blocks = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash",
+                            remat=True)
+    params = spec.init(SEED + 7, device=dev)
+    batch = spec.example_batch(TRAIN_BATCH, device=dev)
+    cfg = spec.config
+    runs = {}
+    for mode, loss_fn, remat in (("none", spec.loss_fn, False), ("True", spec.loss_fn, True),
+                                 ("dots_saveable", spec.loss_fn, "dots_saveable"),
+                                 ("blocks", blocks.loss_fn, False)):
+        AutoDist.reset_default()
+        step = AutoDist(strategy_builder=AllReduce(), device=dev).build(
+            loss_fn, params, batch, remat=remat)
+        state = step.init(params)
+        step.loss_and_grads(state, batch)               # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, _, grads = step.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        runs[mode] = dict(loss=loss.item(), launches=_launch_counts(),
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                          grads=dict(zip(flatten_params(state.params), grads)))
+        del step, state, grads
+    base = runs["none"]
+    rows = {}
+    for mode, run in runs.items():
+        loss_rel = abs(run["loss"] - base["loss"]) / abs(base["loss"])
+        diff = _max_diff(run["grads"], base["grads"])
+        rel = _rel(run["grads"], base["grads"])
+        bitwise = loss_rel == 0 and diff == 0
+        rows[mode] = dict(loss=run["loss"], loss_rel=loss_rel, grad_max_abs_diff=diff,
+                          grad_rel=rel, bitwise=bitwise, flash_launches=run["launches"],
+                          loss_and_grads_ms=run["ms"], peak_mem_gb=run["peak_mem_gb"])
+        fwd = cfg.num_layers * (1 if mode == "none" else 2)
+        check(run["launches"] == {"fwd": fwd, "dkdv": cfg.num_layers, "dq": cfg.num_layers},
+              f"remat={mode}: flash launches {run['launches']}")
+        check(loss_rel <= REMAT_RTOL and rel <= REMAT_RTOL,
+              f"remat={mode}: loss rel {loss_rel}, gradient rel {rel} vs no remat")
+    emit("remat_check", model="bert_base", seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+         attention_impl="flash", rtol=REMAT_RTOL, runs=rows)
+
+
+def accum_check(dev):
+    """The fp32 causal transformer (full width, seq 512, flash), first step at
+    batch ACCUM_BATCH: ``grad_accum_steps=ACCUM_K`` against 1."""
+    spec = get_model_spec("transformer", max_seq_len=TRAIN_SEQ, attention_impl="flash",
+                          dtype="float32")
+    params = spec.init(SEED + 8, device=dev)
+    batch = spec.example_batch(ACCUM_BATCH, device=dev)
+    out = {}
+    for k in (1, ACCUM_K):
+        AutoDist.reset_default()
+        step = AutoDist(strategy_builder=AllReduce(), device=dev).build(
+            spec.loss_fn, params, batch, grad_accum_steps=k)
+        state = step.init(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, _, grads = step.loss_and_grads(state, batch)
+        out[k] = (loss.item(), dict(zip(flatten_params(state.params), grads)),
+                  torch.cuda.max_memory_allocated(dev) / 1e9)
+        del step, state
+    (l1, g1, m1), (lk, gk, mk) = out[1], out[ACCUM_K]
+    loss_rel = abs(lk - l1) / abs(l1)
+    rel = _rel(gk, g1)
+    emit("accum_check", model="transformer", dtype="float32", seq=TRAIN_SEQ,
+         batch=ACCUM_BATCH, k=ACCUM_K, loss_k1=l1, loss_k=lk, loss_rel=loss_rel,
+         whole_gradient_rel=rel, rtol=ACCUM_RTOL, peak_mem_gb={"k1": m1, "k": mk})
+    check(loss_rel <= ACCUM_RTOL and rel <= ACCUM_RTOL,
+          f"grad_accum_steps={ACCUM_K}: loss rel {loss_rel}, gradient rel {rel}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1042,6 +1393,8 @@ def main() -> int:
          count=torch.cuda.device_count(), nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    zoo_shapes = zoo_conv_shapes(dev)
+    zoo_kn = {(k, n) for shapes in zoo_shapes.values() for (_, k, n) in shapes}
     t0 = time.perf_counter()
     libs = ("paged_attention", "flash_attention", "fused_conv_stats")
     _build.build(libs)                       # one nvcc per source, started together
@@ -1052,7 +1405,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds={n: _build.build_seconds.get(n) for n in libs}, ptxas=ptxas,
          flash_tensor_core=tensor_core_report(ptxas["flash_attention"]),
-         conv_tensor_core=conv_tensor_core_report(ptxas["fused_conv_stats"]))
+         conv_tensor_core=conv_tensor_core_report(ptxas["fused_conv_stats"], zoo_kn))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1074,12 +1427,22 @@ def main() -> int:
     conv_rows = [conv_stats_case(*shape, torch.bfloat16, gen, dev, launches)
                  for shape, launches in CONV_SHAPES]
     conv_rows.append(conv_stats_case(*CONV_SHAPES[0][0], torch.float32, gen, dev))
-    emit("conv_stats_forward", **conv_forward_totals(conv_rows))
+    emit("conv_stats_forward", model="resnet50", **conv_forward_totals(conv_rows))
+    for key, shapes in zoo_shapes.items():
+        model_rows = [conv_stats_case(*shape, torch.bfloat16, gen, dev, launches, key)
+                      for shape, launches in sorted(shapes.items())]
+        emit("conv_stats_forward", model=key, **conv_forward_totals(model_rows))
+        conv_rows += model_rows
     train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
                   train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
     resnet_row = train_resnet(card, dev)
     train_check(dev)
     resnet_check(dev)
+    zoo_rows = zoo_train(card, dev, zoo_shapes)
+    zoo_check(dev)
+    optim_check(dev)
+    remat_check(dev)
+    accum_check(dev)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -1118,14 +1481,16 @@ def main() -> int:
         })
     # The fused conv-stats kernel: the main shape is the first bottleneck
     # conv of ResNet-50 at batch 128, bf16; the library call is
-    # torch.matmul plus the two fp32 column sums.
+    # torch.matmul plus the two fp32 column sums. Its launches are those of
+    # the three CNNs' train windows.
     row = conv_rows[0]
     kernels.append({
         "name": "fused_conv_stats",
         "route": "cuda",
         "source": "autodist_tpu_torch/csrc/fused_conv_stats.cu",
         "replaces": "examples/benchmark/fused_conv_stats.py:54",
-        "launches": resnet_row["kernel_launches"]["fused_conv_stats"],
+        "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
+        + sum(r["kernel_launches"]["fused_conv_stats"] for r in zoo_rows),
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],

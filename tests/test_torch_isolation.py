@@ -47,7 +47,9 @@ def test_scan_sees_the_whole_port():
                 "strategy/all_reduce_strategy.py", "strategy/ps_strategy.py",
                 "strategy/ps_lb_strategy.py", "strategy/__init__.py", "kernel/mesh.py",
                 "kernel/lowering.py", "kernel/__init__.py", "api.py",
-                "ops/fused_conv_stats.py", "models/resnet.py", "models/layers.py"):
+                "ops/fused_conv_stats.py", "models/resnet.py", "models/layers.py",
+                "models/mlp.py", "models/ncf.py", "models/lstm_lm.py", "models/vgg.py",
+                "models/densenet.py", "models/inception.py", "models/moe.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()

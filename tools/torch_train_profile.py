@@ -4,11 +4,17 @@
     python3 tools/torch_train_profile.py [--model bert_base] [--batch 32]
         [--attention flash] [--steps 5] [--out FILE]
     python3 tools/torch_train_profile.py --model resnet [--batch 128]
+    python3 tools/torch_train_profile.py --model inception|densenet|vgg|lstm_lm|ncf|
+        moe_transformer|mlp [--batch N]
 
-Builds the zoo model (a transformer at seq 512, or ResNet-50 at 224 px;
-seeded random weights) through ``AutoDist(strategy_builder=AllReduce()).build``
-on the card, runs two warm-up steps, then times ``step.run`` and profiles the
-same window:
+Builds the zoo model (a transformer at seq 512; the others at the published
+widths of the JAX package's ``examples/benchmark/train.py``, the port's
+``models.PUBLISHED``: ResNet-50, DenseNet-121 and VGG-16 at 224 px,
+Inception-v3 at 299 px, the LM1B LSTM, NCF and the MoE transformer at their
+defaults; any other zoo model at its defaults, batch 4096; seeded random
+weights)
+through ``AutoDist(strategy_builder=AllReduce()).build`` on the card, runs
+two warm-up steps, then times ``step.run`` and profiles the same window:
 
 - host wall per step (host clock around work ending in a synchronize);
 - device busy time per step: the sum of the CUDA kernels' durations from
@@ -42,7 +48,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from autodist_tpu_torch.api import AutoDist  # noqa: E402
-from autodist_tpu_torch.models import get_model_spec  # noqa: E402
+from autodist_tpu_torch.models import PUBLISHED, get_model_spec  # noqa: E402
 from autodist_tpu_torch.strategy import AllReduce  # noqa: E402
 
 _GEMM_MARKERS = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
@@ -64,6 +70,13 @@ def _group(name: str) -> str:
     if any(m in low for m in _ELEMENTWISE_MARKERS):
         return "elementwise"
     return "other"
+
+
+# The transformers take --seq and --attention; every other --model (a zoo
+# name) its published (overrides, batch, the rate's unit), else
+# ({}, 4096, "examples").
+TRANSFORMERS = ("transformer", "bert_base", "bert_large")
+BY_ZOO = {zoo: (overrides, batch, unit) for zoo, overrides, batch, unit in PUBLISHED.values()}
 
 
 def host_probe(calls: int = 20000) -> float:
@@ -93,18 +106,26 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if args.model == "resnet":
-        spec = get_model_spec("resnet")
-        args.batch = args.batch or 128
-        per_example, unit = 1, "images_per_s"
+    zoo = args.model not in TRANSFORMERS
+    if zoo:
+        overrides, default_batch, unit = BY_ZOO.get(args.model, ({}, 4096, "examples"))
+        spec = get_model_spec(args.model, **overrides)
+        args.batch = args.batch or default_batch
     else:
         spec = get_model_spec(args.model, max_seq_len=args.seq,
                               attention_impl=args.attention)
         args.batch = args.batch or 32
-        per_example, unit = args.seq, "tokens_per_s"
+        unit = "tokens"
     params = spec.init(0, device="cuda")
     batch = spec.example_batch(args.batch, device="cuda")
-    step = AutoDist(strategy_builder=AllReduce()).build(spec.loss_fn, params, batch)
+    # Tokens a sequence: the positions the loss predicts (the LSTM and the
+    # MoE shift their inputs by one; the transformers shift their logits).
+    per_example = 1
+    if unit == "tokens":
+        per_example = batch["tokens"].shape[1] - 1 if zoo else args.seq
+    step = AutoDist(strategy_builder=AllReduce()).build(
+        spec.loss_fn, params, batch, sparse_names=spec.sparse_names,
+        expert_names=spec.expert_names)
     state, _ = step.run(step.init(params), batch, 2)          # warm-up
     torch.cuda.synchronize()
     probe_before = host_probe()
@@ -129,11 +150,11 @@ def main() -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     row = {
         "model": spec.name, "batch": args.batch, "steps": args.steps,
-        **({} if args.model == "resnet" else {"seq": args.seq,
-                                              "attention_impl": args.attention}),
+        **({} if zoo else {"seq": args.seq, "attention_impl": args.attention}),
         "host_wall_ms": wall_ms,
-        unit: args.batch * per_example / wall_ms * 1e3,
-        "mfu": spec.flops_per_example * args.batch / (wall_ms / 1e3) / 989e12,
+        f"{unit}_per_s": args.batch * per_example / wall_ms * 1e3,
+        "mfu": (spec.flops_per_example * args.batch / (wall_ms / 1e3) / 989e12
+                if spec.flops_per_example else None),
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_busy_share": busy_ms / wall_ms if kernels else "not measured",
         "device_ms_by_group": groups if kernels else "not measured",
