@@ -18,7 +18,17 @@ pruned and validated by the :class:`StrategyCompiler`, lowered by the
 :class:`GraphTransformer` into the :class:`DistributedTrainStep`. One
 AutoDist per process; the default builder is ``PSLoadBalancing``. It runs on
 ``cuda`` unless ``device="cpu"`` is passed; asking for CUDA without it
-raises. ``remat`` rematerialises the forward in the backward
+raises.
+
+Several processes, one per device, train as one: started by
+``torchrun`` (or ``python -m torch.distributed.run``), or given
+``init_method``, ``world_size`` and ``rank``, each ``AutoDist`` joins the
+``torch.distributed`` group (``runtime/process_group.py``: NCCL on
+``cuda:LOCAL_RANK``, gloo on the CPU, never the one in place of the other)
+and builds its mesh over it; rank 0 builds the strategy and the others
+receive it over the group. Each rank then calls the step with the same
+global batch (or assembles it with ``plan.global_batch_from_local``) and
+trains on its rows. ``remat`` rematerialises the forward in the backward
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
 (``kernel/lowering.py``). ``tune``, ``build_inference``, ``build_pipeline``,
 ``elastic_rebuild``, fault tolerance, observability and asynchronous PS are
@@ -41,6 +51,7 @@ from autodist_tpu_torch.kernel.lowering import ShardingPlan
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, OptimizerSpec
 from autodist_tpu_torch.models.convert import map_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.strategy import PSLoadBalancing, Strategy, StrategyBuilder
 from autodist_tpu_torch.strategy import StrategyCompiler, from_name
 from autodist_tpu_torch.utils import logging
@@ -136,13 +147,20 @@ class AutoDist:
 
     def __init__(self, resource_spec_file: Optional[str] = None,
                  strategy_builder: Union[StrategyBuilder, str, None] = None,
-                 resource_spec: Optional[ResourceSpec] = None, device=None):
+                 resource_spec: Optional[ResourceSpec] = None, device=None,
+                 init_method: Optional[str] = None, world_size: Optional[int] = None,
+                 rank: Optional[int] = None,
+                 timeout_s: float = pg.DEFAULT_TIMEOUT_S):
         global _default_autodist
         if _default_autodist is not None:
             raise RuntimeError("Only one AutoDist instance is supported per process; "
                                "call AutoDist.reset_default() first if you really "
                                "need another.")
         self.device = resolve_device(device)
+        self.group = pg.join(self.device, init_method, world_size, rank, timeout_s)
+        world = torch.distributed.get_world_size(self.group) if self.group is not None else 1
+        if self.group is not None:
+            self.device = pg.local_device(self.device, torch.distributed.get_rank())
         if resource_spec is not None:
             self.resource_spec = resource_spec
         elif resource_spec_file:
@@ -150,7 +168,7 @@ class AutoDist:
         elif ENV.AUTODIST_RESOURCE_SPEC.val:
             self.resource_spec = ResourceSpec(ENV.AUTODIST_RESOURCE_SPEC.val)
         else:
-            self.resource_spec = ResourceSpec.from_local_devices(self.device)
+            self.resource_spec = ResourceSpec.from_local_devices(self.device, world)
         if isinstance(strategy_builder, str):
             strategy_builder = from_name(strategy_builder)
         self.strategy_builder = strategy_builder or PSLoadBalancing()
@@ -169,13 +187,23 @@ class AutoDist:
     @property
     def mesh(self):
         if self._mesh is None:
-            self._mesh = build_mesh(self.resource_spec, device=self.device)
+            self._mesh = build_mesh(self.resource_spec, device=self.device,
+                                    group=self.group)
         return self._mesh
 
     def _build_or_load_strategy(self, model_item: ModelItem) -> Strategy:
         """The chief builds and serializes the strategy (and exports its id
         to child processes); a worker loads the chief's by
-        ``AUTODIST_STRATEGY_ID``."""
+        ``AUTODIST_STRATEGY_ID``. In a process group rank 0 builds it and
+        the other ranks receive its JSON over the group."""
+        if self.group is not None:
+            box = [None]
+            if torch.distributed.get_rank() == 0:
+                strategy = self.strategy_builder.build(model_item, self.resource_spec)
+                strategy.serialize()
+                box = [strategy.to_json()]
+            torch.distributed.broadcast_object_list(box, src=0, group=self.group)
+            return Strategy.from_json(box[0])
         if const.is_chief_process():
             strategy = self.strategy_builder.build(model_item, self.resource_spec)
             strategy.serialize()

@@ -13,9 +13,10 @@ DEFAULT_WORKING_DIR = os.path.join(tempfile.gettempdir(), "autodist-torch")
 DEFAULT_STRATEGY_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
 
 # Logical mesh axis names: "data" carries the batch, "model" variable
-# partitioning.
+# partitioning, "expert" MoE experts (the last two not ported yet).
 MESH_AXIS_DATA = "data"
 MESH_AXIS_MODEL = "model"
+MESH_AXIS_EXPERT = "expert"
 
 
 class _EnvVar:
@@ -54,6 +55,9 @@ class ENV:
     AUTODIST_WORKER = _EnvVar("")
     AUTODIST_STRATEGY_ID = _EnvVar("")
     AUTODIST_RESOURCE_SPEC = _EnvVar("")
+    #: Set by test suites: builders then partition with one reduction
+    #: device too (PartitionedPS), as the JAX package's tests do.
+    AUTODIST_IS_TESTING = _EnvVar(False)
 
 
 def is_worker() -> bool:

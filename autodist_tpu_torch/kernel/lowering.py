@@ -1,44 +1,76 @@
 """Strategy lowering: Strategy IR -> plan -> train step (PyTorch port of
 ``kernel/lowering.py``).
 
-The JAX package lowers each variable's synchronizer to ``NamedSharding``s
-over a mesh and lets XLA insert the collectives. This slice runs on one
-device, where every rendering the JAX package has collapses to the same
-thing: AllReduce and PS variables alike take the plain update (gradient of
-the loss, optimizer, new parameters), exactly what the JAX package's program
-computes on a one-device mesh. What needs more than one device, or is not
-ported yet, raises ``NotImplementedError`` naming ROADMAP.md instead of
-training as something else: a mesh of more than one device, gradient
-compressors, bucketing, ``shard_update`` (ZeRO-1), staleness, asynchronous
-PS, per-shard configs and host offload.
+The JAX step is one SPMD program: each variable's synchronizer lowers to a
+sharding over the mesh and GSPMD inserts the collectives. The port runs one
+process per device on ``torch.distributed`` and issues them itself. Rank
+``r`` of ``n`` (the data axis) takes rows block ``r`` of the global batch
+(a broadcast leaf, of rank 0 or leading dim at most 1, goes whole to every
+rank; a batched leaf ``n`` does not divide raises), computes its local mean
+loss and gradients, and syncs each variable by its plan
+(:meth:`ShardingPlan.rendering`):
 
-Gradient accumulation (``grad_accum_steps=k``) follows the JAX core: every
-batched leaf ``[B, ...]`` splits into ``k`` micro-batches of ``B/k`` rows
-(``ValueError`` when ``k`` does not divide ``B``), a broadcast leaf (rank 0
-or leading dim at most 1) goes to every micro-step whole, and the loss, the
-gradients and the aux average as ``a + x/k`` from zeros (the aux in at least
-fp32). The JAX package scans over the micro-batches; here it is a Python
-loop, each micro-step's activations freed by its backward before the next.
+- **replicated** (AllReduce, a sparse or PS variable no axis of which
+  divides, any variable at ``n == 1``): mean all-reduce of the gradient,
+  the full update on every rank;
+- **zero1** (``shard_update`` active, or dense PS with a proxy): the
+  parameter stays replicated; its gradient is reduce-scattered (mean)
+  along ``update_dim``, this rank's slice updated with slice-shaped
+  optimizer slots, and the new values all-gathered;
+- **sharded** (dense PS without a proxy, partitioned variables, row-sharded
+  sparse tables): the state holds this rank's block along ``storage_dim``
+  of the (zero-padded) storage; it is all-gathered to the logical view
+  before the forward, the gradient is reduce-scattered and the block
+  updated in place. Padded entries get zero gradients and stay zero.
+
+The JAX step has two semantics, and the port keeps both. Without ZeRO-1
+or buckets it is one GSPMD program, where every reduction over the batch
+is global: the port then reduces BatchNorm's statistics over the group
+(``runtime.process_group.batch_stats_over``). With either, JAX runs its
+manual ``shard_map`` sync, where the loss is taken per shard: BatchNorm's
+statistics stay local. A loss whose normaliser depends on the rows (a
+masked mean) is averaged over ranks in both, where the GSPMD program
+normalises over the whole batch (ROADMAP.md, Queue 3).
+
+Gradient buckets (``bucket_bytes > 0``) sync from hooks inside the
+backward (``kernel/bucketing.py``); they are off under gradient
+accumulation, as in the JAX package. Every collective of the step is
+counted by purpose and kind (``step.coll.counts``; the last step's in
+``step.last_collectives``), and the plan predicts the gradient and
+parameter wire (:meth:`ShardingPlan.collectives_per_step`).
+
+Gradient accumulation (``grad_accum_steps=k``) splits each step into ``k``
+micro-batches and averages loss, gradients and aux as ``a + x/k`` from
+zeros; as in JAX, the GSPMD semantics cut the global batch into micro
+batches and give each rank its block of each, the manual one cuts each
+rank's block. ``init`` broadcasts the caller's parameters from rank 0.
+Compressors, staleness, asynchronous PS, host offload and the expert and
+model axes raise ``NotImplementedError`` naming ROADMAP.md.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
 loop here, returning per-step stacked losses), ``evaluate`` and
 ``logical_params``. Where JAX donates the train state to the compiled step,
-the port updates the state's parameter and optimizer tensors in place
-under ``torch.no_grad()``: the state passed in is consumed, and the one
-returned holds the same (updated) tensors.
+the port updates the state's tensors in place under ``torch.no_grad()``:
+the state passed in is consumed, and the one returned holds the same
+(updated) tensors.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from autodist_tpu_torch import const
+from autodist_tpu_torch.kernel import bucketing
+from autodist_tpu_torch.kernel.degrade import is_active_compressor, zero1_degradation_reasons
 from autodist_tpu_torch.kernel.mesh import Mesh
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem
-from autodist_tpu_torch.models.convert import flatten_params, map_params
+from autodist_tpu_torch.models.convert import (
+    flatten_params, map_params, map_tree, tree_leaves)
+from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.strategy.base import check_staleness_supported, check_sync_supported
 from autodist_tpu_torch.strategy.ir import (
     AllReduceSynchronizer,
@@ -46,6 +78,7 @@ from autodist_tpu_torch.strategy.ir import (
     PSSynchronizer,
     Strategy,
 )
+from autodist_tpu_torch.utils import logging
 
 
 class SyncKind(Enum):
@@ -55,18 +88,37 @@ class SyncKind(Enum):
 
 @dataclass
 class VarPlan:
-    """Resolved per-variable lowering decision (on one device: which
-    synchronizer the strategy chose, all of them lowered to the plain
-    update)."""
+    """Resolved per-variable lowering decision. ``storage_dim`` is the axis
+    the parameter itself is sharded on over the data axis (the JAX plan's
+    ``pspec``), ``update_dim`` the axis of its optimizer slots and update
+    (``update_pspec``); ``None`` is replicated. ``storage_shape`` is the
+    zero-padded shape when no axis divides (``None``: the logical shape)."""
 
     var: VarItem
     kind: SyncKind
+    storage_dim: Optional[int] = None
+    update_dim: Optional[int] = None
+    compressor: str = "NoneCompressor"
+    group: int = 0
+    staleness: int = 0
     reduction_destination: str = ""
+    local_replication: bool = False
+    num_shards: int = 1
+    shard_destinations: Tuple[str, ...] = ()
+    storage_shape: Optional[Tuple[int, ...]] = None
+    shard_update: bool = False
+    degradations: Tuple[str, ...] = ()
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The stored (padded) shape."""
+        return tuple(self.storage_shape or self.var.shape)
 
 
 @dataclass
 class TrainState:
-    """Train state: step count, nested params dict, optimizer state."""
+    """Train state: step count, nested params dict (a sharded variable's
+    leaf is this rank's block), optimizer state."""
 
     step: int
     params: Any
@@ -77,8 +129,25 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
 
 
+def _pspec(rank: int, dim: Optional[int], axis: str) -> str:
+    """The JAX ``PartitionSpec`` string of a one-axis sharding."""
+    entries = [None] * rank if dim is not None else []
+    if dim is not None:
+        entries[dim] = axis
+    return f"PartitionSpec{tuple(entries)!r}"
+
+
+def _is_float(dtype: str) -> bool:
+    return dtype.startswith(("float", "bfloat"))
+
+
+def _itemsize(dtype: str) -> int:
+    return torch.empty((), dtype=getattr(torch, dtype)).element_size()
+
+
 class GraphTransformer:
-    """Lower a compiled Strategy over a mesh into a :class:`ShardingPlan`."""
+    """Lower a compiled Strategy over a mesh into a :class:`ShardingPlan`,
+    rule for rule as the JAX package's ``_lower_node``."""
 
     def __init__(self, strategy: Strategy, model_item: ModelItem, mesh: Mesh,
                  host_offload: bool = False):
@@ -89,64 +158,322 @@ class GraphTransformer:
         self.mesh = mesh
 
     def transform(self) -> "ShardingPlan":
-        if self.mesh.size > 1:
-            raise _not_ported(f"lowering onto a {self.mesh.size}-device mesh "
-                              "(multi-device runtime)")
-        if self.strategy.graph_config.bucket_bytes > 0:
-            raise _not_ported("gradient bucketing (bucket_bytes > 0)")
+        wide = {ax: d for ax, d in self.mesh.shape.items()
+                if ax not in (self.mesh.data_axis, const.MESH_AXIS_EXPERT) and d > 1}
+        if wide:
+            raise _not_ported(f"lowering onto mesh axes {wide} (tensor parallelism)")
         plans: Dict[str, VarPlan] = {}
         for node in self.strategy.node_config:
             var = self.model_item.var(node.var_name)
             plans[var.name] = self._lower_node(node, var)
-        # Non-trainable variables: replicated, no strategy node.
         for var in self.model_item.variables:
             plans.setdefault(var.name, VarPlan(var=var, kind=SyncKind.ALL_REDUCE))
-        return ShardingPlan(mesh=self.mesh, var_plans=plans)
+        return ShardingPlan(mesh=self.mesh, var_plans=plans,
+                            bucket_bytes=int(self.strategy.graph_config.bucket_bytes or 0))
 
     @staticmethod
-    def _lower_node(node: NodeConfig, var: VarItem) -> VarPlan:
-        if node.part_config:
-            raise _not_ported(f"per-shard part_config ({var.name})")
+    def _fold_part_config(node: NodeConfig) -> dict:
+        """Fold per-shard configs into the one wire of the variable: the
+        synchronizer kind, sync, staleness, proxy and compressor must be
+        uniform across shards (else ``ValueError``) and a uniform value
+        overrides the node's (a default compressor or a ``False``
+        ``shard_update`` defers to the node); PS shard destinations become
+        the plan's ``shard_destinations``."""
+        parts = node.part_config
+        folded: dict = {}
+        if not parts:
+            return folded
+        if len(parts) != node.num_shards:
+            raise ValueError(f"{node.var_name!r}: {len(parts)} part configs but "
+                             f"partitioner {node.partitioner!r} implies {node.num_shards}")
+        kinds = {type(p.synchronizer) for p in parts} | {type(node.synchronizer)}
+        if len(kinds) > 1:
+            raise ValueError(f"{node.var_name!r}: per-shard synchronizers mix "
+                             f"{sorted(k.__name__ for k in kinds)}; shards of one "
+                             "variable share a single gradient wire")
+
+        def uniform(field_name: str):
+            vals = {getattr(p.synchronizer, field_name) for p in parts}
+            if len(vals) > 1:
+                raise ValueError(f"{node.var_name!r}: per-shard {field_name} differs "
+                                 f"across shards ({sorted(map(str, vals))}); one "
+                                 f"variable has one gradient wire")
+            return vals.pop()
+
+        if isinstance(node.synchronizer, PSSynchronizer):
+            if not uniform("sync"):
+                check_sync_supported(False)
+            folded["staleness"] = uniform("staleness")
+            folded["proxy"] = uniform("local_replication")
+            folded["shard_destinations"] = tuple(p.synchronizer.reduction_destination
+                                                 for p in parts)
+        else:
+            part_comp = uniform("compressor")
+            if part_comp != "NoneCompressor":
+                folded["compressor"] = part_comp
+            if uniform("shard_update"):
+                folded["shard_update"] = True
+        return folded
+
+    def _lower_node(self, node: NodeConfig, var: VarItem) -> VarPlan:
         sync = node.synchronizer
+        rank = len(var.shape)
+        folded = self._fold_part_config(node)
         if isinstance(sync, AllReduceSynchronizer):
-            if sync.compressor != "NoneCompressor":
-                raise _not_ported(f"gradient compressor {sync.compressor} ({var.name})")
-            if sync.shard_update:
-                raise _not_ported(f"shard_update / ZeRO-1 ({var.name})")
-            return VarPlan(var=var, kind=SyncKind.ALL_REDUCE)
-        if not isinstance(sync, PSSynchronizer):
+            kind = SyncKind.ALL_REDUCE
+            compressor, group = folded.get("compressor", sync.compressor), sync.group
+            staleness, dest, proxy = 0, "", False
+            shard_update = folded.get("shard_update", sync.shard_update)
+        elif isinstance(sync, PSSynchronizer):
+            check_sync_supported(sync.sync)
+            kind = SyncKind.PS
+            compressor, group = "NoneCompressor", 0
+            staleness = folded.get("staleness", sync.staleness)
+            dest = sync.reduction_destination
+            proxy = folded.get("proxy", sync.local_replication)
+            shard_update = False
+        else:
             raise TypeError(f"unknown synchronizer {type(sync).__name__}")
-        check_sync_supported(sync.sync)
-        check_staleness_supported(sync.staleness)
-        return VarPlan(var=var, kind=SyncKind.PS,
-                       reduction_destination=sync.reduction_destination)
+        if is_active_compressor(compressor):
+            raise _not_ported(f"gradient compressor {compressor} ({var.name})")
+        check_staleness_supported(staleness)
+
+        n = self.mesh.data_size
+        n_expert = self.mesh.shape.get(const.MESH_AXIS_EXPERT, 1)
+
+        def divisible(axis: int) -> bool:
+            return var.shape[axis] % n == 0 and var.shape[axis] >= n
+
+        def padded(axis: int) -> Tuple[int, ...]:
+            shape = list(var.shape)
+            shape[axis] = -(-shape[axis] // n) * n
+            return tuple(shape)
+
+        storage_shape = None
+        part_axis = node.active_partition_axis
+        fallback = self._fallback_axis(var, n)
+        if var.expert and rank > 0 and n_expert > 1 and var.shape[0] % n_expert == 0:
+            raise _not_ported(f"expert-axis sharding ({var.name})")
+        if part_axis is not None and rank > 0 and divisible(part_axis):
+            storage_dim = update_dim = part_axis
+        elif part_axis is not None and rank > 0 and fallback is not None:
+            storage_dim = update_dim = fallback
+        elif part_axis is not None and rank > 0 and var.shape[part_axis] > n:
+            storage_shape = padded(part_axis)
+            storage_dim = update_dim = part_axis
+        elif var.sparse_update and rank > 0 and divisible(0):
+            storage_dim = update_dim = 0
+        elif var.sparse_update and rank > 0 and var.shape[0] > n:
+            storage_shape = padded(0)
+            storage_dim = update_dim = 0
+        elif kind is SyncKind.PS and rank > 0:
+            # Dense PS: with a proxy the parameter stays replicated and the
+            # update shards (ZeRO-1); without one it is sharded (ZeRO-3).
+            update_dim = self._weight_update_dim(var)
+            storage_dim = None if proxy else update_dim
+        elif kind is SyncKind.ALL_REDUCE and shard_update and rank > 0:
+            storage_dim, update_dim = None, self._weight_update_dim(var)
+        else:
+            storage_dim = update_dim = None
+
+        su_active, degradations = False, ()
+        if kind is SyncKind.ALL_REDUCE and shard_update:
+            degradations = zero1_degradation_reasons(
+                var.shape, sparse_update=var.sparse_update, expert=var.expert,
+                part_axis=part_axis, compressor=compressor, n_data=n,
+                n_model=self.mesh.shape.get(const.MESH_AXIS_MODEL, 1), n_expert=n_expert)
+            su_active = not degradations
+            structural = storage_dim is None and update_dim is not None
+            if su_active != structural:
+                raise RuntimeError(f"var {var.name!r}: zero1 rendering (storage_dim="
+                                   f"{storage_dim}, update_dim={update_dim}) disagrees "
+                                   f"with degradation reasons {degradations!r}")
+            if degradations:
+                logging.debug("var %s: shard_update has no effect (%s)", var.name,
+                              ", ".join(degradations))
+        return VarPlan(var=var, kind=kind, storage_dim=storage_dim, update_dim=update_dim,
+                       compressor=compressor, group=group, staleness=staleness,
+                       reduction_destination=dest, local_replication=proxy,
+                       num_shards=node.num_shards,
+                       shard_destinations=folded.get("shard_destinations", ()),
+                       storage_shape=storage_shape, shard_update=su_active,
+                       degradations=degradations)
+
+    @staticmethod
+    def _fallback_axis(var: VarItem, n: int) -> Optional[int]:
+        """Largest axis ``n`` divides evenly, or None."""
+        cands = [i for i, d in enumerate(var.shape) if d % n == 0 and d >= n]
+        return max(cands, key=lambda i: var.shape[i]) if cands else None
+
+    def _weight_update_dim(self, var: VarItem) -> Optional[int]:
+        """Largest axis the data axis divides, else None (replicated)."""
+        n = self.mesh.data_size
+        if n <= 1 or not var.shape:
+            return None
+        return self._fallback_axis(var, n)
 
 
-@dataclass
-class ShardingPlan:
-    """The lowered strategy: mesh + per-variable plans."""
-
-    mesh: Mesh
-    var_plans: Dict[str, VarPlan]
-
-    @property
-    def device(self) -> torch.device:
-        return self.mesh.devices[0]
-
-    def plan_for(self, name: str) -> VarPlan:
-        return self.var_plans[name]
-
-    def describe(self) -> str:
-        lines = [f"ShardingPlan(mesh={self.mesh.shape}, device={self.device})"]
-        for name, p in self.var_plans.items():
-            dest = f" dest={p.reduction_destination}" if p.reduction_destination else ""
-            lines.append(f"  {name}: {p.kind.value}{dest}")
-        return "\n".join(lines)
+def _block(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
+    """Block ``r`` of ``n`` of ``t`` along ``dim`` (a view)."""
+    k = t.shape[dim] // n
+    return t.narrow(dim, r * k, k)
 
 
 def _is_broadcast(t) -> bool:
     """The JAX package's ``is_broadcast_leaf``: rank 0 or leading dim <= 1."""
     return t.dim() == 0 or t.shape[0] <= 1
+
+
+def _rows(t, n: int, r: int, what: str = "global batch"):
+    """Rows block ``r`` of ``n`` of a batched leaf (a broadcast leaf whole)."""
+    if _is_broadcast(t) or n == 1:
+        return t
+    if t.shape[0] % n:
+        raise ValueError(f"{what} dim {t.shape[0]} not divisible by data-parallel "
+                         f"degree {n}")
+    return _block(t, 0, n, r)
+
+
+def _map_named(fn: Callable, params, prefix: str = ""):
+    """``fn(name, leaf)`` over nested params, nesting and key order kept."""
+    if not isinstance(params, dict):
+        return fn(prefix, params)
+    return {k: _map_named(fn, v, f"{prefix}/{k}" if prefix else str(k))
+            for k, v in params.items()}
+
+
+@dataclass
+class ShardingPlan:
+    """The lowered strategy: mesh + per-variable plans + bucket target."""
+
+    mesh: Mesh
+    var_plans: Dict[str, VarPlan]
+    bucket_bytes: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def plan_for(self, name: str) -> VarPlan:
+        return self.var_plans[name]
+
+    def rendering(self, name: str) -> Tuple[str, Optional[int]]:
+        """How the step syncs a variable: ``("replicated", None)``,
+        ``("zero1", update_dim)`` or ``("sharded", storage_dim)``. A data
+        axis of one renders every variable replicated (nothing to shard)."""
+        p = self.var_plans.get(name)
+        if p is None or self.mesh.data_size == 1:
+            return "replicated", None
+        if p.storage_dim is not None:
+            return "sharded", p.storage_dim
+        if p.update_dim is not None:
+            return "zero1", p.update_dim
+        return "replicated", None
+
+    def bucket_assignment(self) -> Tuple[Tuple[str, ...], ...]:
+        """The buckets of the eligible variables (``kernel/bucketing.py``):
+        reverse model order, greedy fill to ``bucket_bytes``."""
+        if self.bucket_bytes <= 0:
+            return ()
+        sized = []
+        for name, p in self.var_plans.items():
+            if bucketing.plan_exclusion_reasons(p):
+                continue
+            elems = 1
+            for d in (p.shape or (1,)):
+                elems *= int(d)
+            sized.append((name, elems * _itemsize(p.var.dtype)))
+        return bucketing.assign_buckets(sized, self.bucket_bytes)
+
+    def pad(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A logical leaf zero-padded to its plan's storage shape."""
+        p = self.var_plans.get(name)
+        if p is None or p.storage_shape is None or tuple(t.shape) != tuple(p.var.shape):
+            return t
+        pads = []
+        for d, s in zip(reversed(p.storage_shape), reversed(p.var.shape)):
+            pads += [0, d - s]
+        return torch.nn.functional.pad(t, pads)
+
+    def unpad(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A storage leaf sliced back to its logical shape."""
+        p = self.var_plans.get(name)
+        if p is None or p.storage_shape is None or tuple(t.shape) != tuple(p.storage_shape):
+            return t
+        for dim, s in enumerate(p.var.shape):
+            t = t.narrow(dim, 0, s)
+        return t
+
+    def pad_params(self, params):
+        """Logical -> storage view of a params tree."""
+        return _map_named(self.pad, params)
+
+    def unpad_params(self, params):
+        """Storage -> logical view of a params tree (the model's shapes)."""
+        return _map_named(self.unpad, params)
+
+    def local_batch(self, batch):
+        """This rank's rows: block ``rank`` along dim 0 of every batched
+        leaf (the JAX plan's ``batch_shardings``, ``P("data")`` on dim 0);
+        a non-divisible batched leaf raises."""
+        n, r = self.mesh.data_size, self.mesh.rank
+        return map_tree(lambda t: _rows(t, n, r), batch)
+
+    def global_batch_from_local(self, local_batch, broadcast=None):
+        """The global batch from each rank's rows (for a loader that
+        already holds this rank's slice): batched leaves all-gathered along
+        dim 0 in rank order, broadcast leaves (``broadcast``, a tree of bools
+        of the batch's nesting; default: local leading dim <= 1) whole."""
+        coll = pg.Collectives(self.mesh.group)
+        flags = iter(tree_leaves(broadcast)) if broadcast is not None else None
+
+        def leaf(t):
+            bcast = next(flags) if flags is not None else _is_broadcast(t)
+            if bcast or t.dim() == 0:
+                return t
+            return coll.all_gather(t.contiguous(), 0, "batch")
+
+        return map_tree(leaf, local_batch)
+
+    def collectives_per_step(self, bucketed: bool = True) -> Dict[str, int]:
+        """The gradient and parameter wire one step issues, by kind: a mean
+        all-reduce per replicated variable or bucket of them, a
+        reduce-scatter per ZeRO-1 or sharded variable (or bucket of ZeRO-1
+        ones), an all-gather per ZeRO-1 variable (new values) and per
+        sharded one (its logical view). The step adds its own loss metric,
+        BatchNorm and optimizer reductions under other purposes."""
+        counts = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+        buckets = self.bucket_assignment() if bucketed else ()
+        in_bucket = {name for b in buckets for name in b}
+        for b in buckets:
+            kinds = {self.rendering(name)[0] for name in b}
+            counts["all_reduce"] += "replicated" in kinds
+            counts["reduce_scatter"] += "zero1" in kinds
+        for name, p in self.var_plans.items():
+            if not _is_float(p.var.dtype):
+                continue
+            kind = self.rendering(name)[0]
+            if kind != "replicated":
+                counts["all_gather"] += 1
+            if name in in_bucket:
+                continue
+            counts["all_reduce" if kind == "replicated" else "reduce_scatter"] += 1
+        return counts
+
+    def describe(self) -> str:
+        """One line per variable, in the JAX plan's ``describe`` layout."""
+        ax = self.mesh.data_axis
+        lines = [f"ShardingPlan(mesh={dict(self.mesh.shape)})"]
+        for name, p in self.var_plans.items():
+            rank = len(p.var.shape)
+            lines.append(
+                f"  {name}: {p.kind.value} param={_pspec(rank, p.storage_dim, ax)} "
+                f"update={_pspec(rank, p.update_dim, ax)}"
+                + (" shard_update=zero1" if p.shard_update else "")
+                + (f" dest={p.reduction_destination}" if p.reduction_destination else "")
+                + (f" shard_dests={list(p.shard_destinations)}"
+                   if p.shard_destinations else ""))
+        return "\n".join(lines)
 
 
 def _zeros_at_least_f32(t):
@@ -166,117 +493,274 @@ class DistributedTrainStep:
         self.tx = optimizer
         self.has_aux = has_aux
         self.accum = grad_accum_steps
+        mesh = plan.mesh
+        self.n, self.rank = mesh.data_size, mesh.rank
+        self.coll = pg.Collectives(mesh.group)
+        if mesh.group is None and self.n > 1:
+            raise ValueError(f"a data axis of {self.n} needs a process group")
+        if mesh.group is not None and self.coll.size != self.n:
+            raise ValueError(f"data axis {self.n} != group size {self.coll.size}")
+        self.render = {name: plan.rendering(name) for name in plan.var_plans}
+        buckets = plan.bucket_assignment()
+        if buckets and grad_accum_steps > 1:
+            logging.warning("bucketed grad sync (bucket_bytes=%d) disabled under "
+                            "grad_accum_steps=%d: collectives fire once per step, after "
+                            "accumulation", plan.bucket_bytes, grad_accum_steps)
+            buckets = ()
+        self.buckets = buckets
+        # The JAX step's manual sync (shard_map): per-shard batch statistics.
+        self.manual = bool(buckets) or any(p.shard_update for p in plan.var_plans.values())
+        self.zero1_dims = {name: d for name, (kind, d) in self.render.items()
+                           if kind == "zero1"}
+        self._sharded = any(kind == "sharded" for kind, _ in self.render.values())
+        self.last_collectives: Dict[str, Dict[str, int]] = {}
 
+    # ------------------------------------------------------------- helpers
     def _to_device(self, tree):
         dev = self.plan.device
-        return map_params(lambda t: t.to(dev, non_blocking=True), tree)
+        return map_tree(lambda t: t.to(dev, non_blocking=True), tree)
 
+    def _render(self, name: str) -> Tuple[str, Optional[int]]:
+        return self.render.get(name, ("replicated", None))
+
+    def _floating(self, params) -> List[Tuple[str, torch.Tensor]]:
+        return [(n, t) for n, t in flatten_params(params).items() if t.is_floating_point()]
+
+    def _update_view(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The part of a stored leaf this rank updates: a ZeRO-1 variable's
+        block, else the stored tensor."""
+        kind, d = self._render(name)
+        return _block(t, d, self.n, self.rank) if kind == "zero1" else t
+
+    def _layout(self, params) -> List[Optional[Tuple[int, Tuple[int, ...]]]]:
+        """Per floating leaf, ``(dim, storage shape)`` when the optimizer
+        sees a block of it, else None."""
+        out = []
+        for name, _ in self._floating(params):
+            kind, d = self._render(name)
+            out.append(None if kind == "replicated" else (d, self.plan.var_plans[name].shape))
+        return out
+
+    def _psum(self, t: torch.Tensor) -> torch.Tensor:
+        self.coll.all_reduce(t, "optimizer")
+        return t
+
+    # ---------------------------------------------------------------- init
     def init(self, params) -> TrainState:
-        """The initial state on the plan's device. Copies the params, so the
-        in-place updates never touch the caller's tensors."""
+        """The initial state on this rank's device: the caller's params
+        copied, broadcast from rank 0, sharded variables padded and cut to
+        this rank's block. The in-place updates never touch the caller's
+        tensors."""
         dev = self.plan.device
 
-        def copy(t):
-            t = t.detach().to(dev, copy=True)
+        def place(name, t):
+            t = t.detach().to(dev).clone(memory_format=torch.contiguous_format)
+            self.coll.broadcast(t, "init")
+            kind, d = self._render(name)
+            if kind == "sharded":
+                t = _block(self.plan.pad(name, t), d, self.n, self.rank).contiguous()
             return t.requires_grad_(True) if t.is_floating_point() else t
 
-        params = map_params(copy, params)
-        leaves = [t for t in flatten_params(params).values() if t.is_floating_point()]
-        return TrainState(step=0, params=params, opt_state=self.tx.init(leaves))
+        params = _map_named(place, params)
+        views = [self._update_view(n, t) for n, t in self._floating(params)]
+        return TrainState(step=0, params=params,
+                          opt_state=self.tx.init(views, self._layout(params)))
 
     def logical_params(self, state: TrainState):
-        """The user-shaped parameter view of a train state (detached)."""
-        return map_params(lambda t: t.detach(), state.params)
+        """The user-shaped parameter view of a train state (detached).
+        Sharded variables are all-gathered, so every rank calls it."""
+        def view(name, t):
+            kind, d = self._render(name)
+            t = t.detach()
+            if kind == "sharded":
+                t = self.plan.unpad(name, self.coll.all_gather(t, d, "view"))
+            return t
 
-    def _grads(self, params, leaves, batch):
-        """``(loss, aux, grads)`` of one (micro-)batch."""
+        return _map_named(view, state.params)
+
+    # ------------------------------------------------------------- forward
+    def _forward_params(self, params):
+        """``(params for the loss, {name: gradient target})``: a sharded
+        variable is all-gathered into a fresh leaf (its target) and sliced
+        to its logical shape; the others are their own targets."""
+        if not self._sharded:
+            return params, dict(self._floating(params))
+        targets = {}
+
+        def view(name, t):
+            if not t.is_floating_point():
+                return t
+            kind, d = self._render(name)
+            if kind != "sharded":
+                targets[name] = t
+                return t
+            with torch.no_grad():
+                full = self.coll.all_gather(t.detach(), d, "param")
+            full = full.detach().requires_grad_(True)
+            targets[name] = full
+            return self.plan.unpad(name, full)
+
+        return _map_named(view, params), targets
+
+    def _grads(self, params, targets, batch):
+        """``(loss, aux, {name: gradient})`` of one (micro-)batch, unused
+        gradients as zeros."""
         out = self.loss_fn(params, batch)
         loss, aux = out if self.has_aux else (out, None)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss, aux, [torch.zeros_like(p) if g is None else g
-                           for p, g in zip(leaves, grads)]
+        names = list(targets)
+        grads = torch.autograd.grad(loss, [targets[n] for n in names], allow_unused=True)
+        return loss, aux, {n: torch.zeros_like(targets[n]) if g is None else g
+                           for n, g in zip(names, grads)}
 
-    def _accumulated_grads(self, params, leaves, batch):
-        """``(loss, aux, grads)`` averaged over ``accum`` micro-batches (the
-        JAX package's ``_accumulated_grads`` + ``_scan_accumulate``)."""
-        k = self.accum
-        for t in (flatten_params(batch).values() if isinstance(batch, dict) else [batch]):
+    def _micro_batches(self, batch):
+        """The ``accum`` micro-batches of this rank, in the JAX step's
+        order (see the module docstring)."""
+        k, n, r = self.accum, self.n, self.rank
+        if k == 1:
+            return [self.plan.local_batch(batch)]
+        if self.manual:
+            local = self.plan.local_batch(batch)
+            return [map_tree(lambda t: _rows(t, k, i, "rank batch"), local)
+                    for i in range(k)]
+        for t in tree_leaves(batch):
             if not _is_broadcast(t) and t.shape[0] % k:
                 raise ValueError(
                     f"grad_accum_steps={k} requires every batched leaf's leading dim "
                     f"to be divisible by {k}; got shape {tuple(t.shape)}")
+        return [map_tree(lambda t: _rows(_rows(t, k, i), n, r, "micro batch"), batch)
+                for i in range(k)]
 
-        def cut(t, i):
-            rows = t.shape[0] // k
-            return t if _is_broadcast(t) else t[i * rows:(i + 1) * rows]
-
-        loss_acc = torch.zeros((), dtype=torch.float32, device=self.plan.device)
-        grads_acc = [torch.zeros_like(p) for p in leaves]
-        aux_acc = None
-        for i in range(k):
-            micro = map_params(lambda t: cut(t, i), batch)
-            loss, aux, grads = self._grads(params, leaves, micro)
-            with torch.no_grad():
-                loss_acc = loss_acc + loss.detach() / k
-                grads_acc = [a + g / k for a, g in zip(grads_acc, grads)]
-                if aux is not None:
-                    if aux_acc is None:
-                        aux_acc = map_params(_zeros_at_least_f32, aux)
-                    aux_acc = map_params(lambda a, x: a + x.detach() / k, aux_acc, aux)
-        return loss_acc, aux_acc, grads_acc
+    def _local_loss_and_grads(self, params, targets, batch, sync=None):
+        """``(loss, aux, grads)`` averaged over the micro-batches."""
+        stats = None if self.manual else self.coll
+        micro = self._micro_batches(batch)
+        with pg.batch_stats_over(stats if self.coll.group is not None else None):
+            if sync is not None:
+                sync.hook(targets)
+            if len(micro) == 1:
+                return self._grads(params, targets, micro[0])
+            k = len(micro)
+            loss_acc = torch.zeros((), dtype=torch.float32, device=self.plan.device)
+            grads_acc = {n: torch.zeros_like(t) for n, t in targets.items()}
+            aux_acc = None
+            for mb in micro:
+                loss, aux, grads = self._grads(params, targets, mb)
+                with torch.no_grad():
+                    loss_acc = loss_acc + loss.detach() / k
+                    grads_acc = {n: a + grads[n] / k for n, a in grads_acc.items()}
+                    if aux is not None:
+                        if aux_acc is None:
+                            aux_acc = map_params(_zeros_at_least_f32, aux)
+                        aux_acc = map_params(lambda a, x: a + x.detach() / k, aux_acc, aux)
+            return loss_acc, aux_acc, grads_acc
 
     def loss_and_grads(self, state: TrainState, batch):
-        """``(loss, aux, grads)`` of one step on ``batch`` without updating
-        the state: ``grads`` in the order of the floating leaves of
-        ``flatten_params(state.params)``, averaged over ``grad_accum_steps``
+        """``(loss, aux, grads)`` of this rank's rows without syncing or
+        updating: ``grads`` in the order of the floating leaves of
+        ``flatten_params(state.params)``, with respect to their logical
+        (gathered) values, averaged over ``grad_accum_steps``
         micro-batches."""
-        leaves = [t for t in flatten_params(state.params).values() if t.is_floating_point()]
-        batch = self._to_device(batch)
-        if self.accum > 1:
-            return self._accumulated_grads(state.params, leaves, batch)
-        return self._grads(state.params, leaves, batch)
+        params, targets = self._forward_params(state.params)
+        loss, aux, grads = self._local_loss_and_grads(params, targets,
+                                                      self._to_device(batch))
+        return loss, aux, [grads[n] for n in targets]
+
+    # ---------------------------------------------------------------- step
+    def _sync(self, grads: Dict[str, torch.Tensor], done: Dict[str, torch.Tensor]):
+        """Each gradient synced by its rendering, in leaf order (those in
+        ``done`` came from the buckets)."""
+        out = {}
+        for name, g in grads.items():
+            if name in done:
+                out[name] = done[name]
+                continue
+            g = g.contiguous()
+            kind, d = self._render(name)
+            if kind == "replicated":
+                self.coll.all_reduce(g, "grad", mean=True)
+                out[name] = g
+            else:
+                out[name] = self.coll.reduce_scatter(g, d, "grad")
+        return out
 
     def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        leaves = [t for t in flatten_params(state.params).values() if t.is_floating_point()]
-        loss, aux, grads = self.loss_and_grads(state, batch)
+        before = self.coll.snapshot()
+        params, targets = self._forward_params(state.params)
+        sync = None
+        if self.buckets and self.coll.group is not None:
+            sync = bucketing.BucketSync(self.coll, self.buckets, self.zero1_dims)
+        loss, aux, grads = self._local_loss_and_grads(params, targets, batch, sync)
         with torch.no_grad():
-            updates = self.tx.update(grads, state.opt_state, leaves)
-            for p, u in zip(leaves, updates):
-                p.add_(u.to(p.dtype))
-        metrics = {"loss": loss.detach()}
-        if aux is not None:
-            metrics["aux"] = map_params(lambda t: t.detach(), aux)
+            done = sync.finish(targets) if sync is not None else {}
+            grads = self._sync(grads, done)
+            floating = self._floating(state.params)
+            views = [self._update_view(n, t) for n, t in floating]
+            updates = self.tx.update([grads[n] for n, _ in floating], state.opt_state,
+                                     views, self._layout(state.params), self._psum)
+            for (name, p), v, u in zip(floating, views, updates):
+                if self._render(name)[0] == "zero1":
+                    d = self._render(name)[1]
+                    p.copy_(self.coll.all_gather(v + u.to(p.dtype), d, "param"))
+                else:
+                    p.add_(u.to(p.dtype))
+            loss = loss.detach().clone()
+            self.coll.all_reduce(loss, "metric", mean=True)
+            metrics = {"loss": loss}
+            if aux is not None:
+                metrics["aux"] = map_params(self._mean_metric, aux)
+        after = self.coll.snapshot()
+        self.last_collectives = {
+            p: {k: v - before.get(p, {}).get(k, 0) for k, v in kinds.items()
+                if v - before.get(p, {}).get(k, 0)}
+            for p, kinds in after.items()}
+        self.last_collectives = {p: k for p, k in self.last_collectives.items() if k}
         return TrainState(state.step + 1, state.params, state.opt_state), metrics
+
+    def _mean_metric(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        if self.coll.group is None:
+            return t
+        t = t.clone() if t.is_floating_point() else t.to(torch.float32)
+        self.coll.all_reduce(t.contiguous(), "metric", mean=True)
+        return t
 
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         return self._step(state, self._to_device(batch))
 
     def run(self, state: TrainState, batch, num_steps: int, stacked: bool = False):
-        """``num_steps`` train steps. ``stacked=False``: ``batch`` is reused
-        every step; ``stacked=True``: every batch leaf has a leading
-        ``num_steps`` axis, one slice per step. Returns ``(state, metrics)``
-        with per-step stacked metric leaves (``metrics["loss"].shape ==
-        (num_steps,)``)."""
+        """``num_steps`` train steps. ``stacked=False``: ``batch`` (the
+        global batch) is reused every step; ``stacked=True``: every batch
+        leaf has a leading ``num_steps`` axis, one slice per step. Returns
+        ``(state, metrics)`` with per-step stacked metric leaves
+        (``metrics["loss"].shape == (num_steps,)``)."""
         batch = self._to_device(batch)
-        leaves = flatten_params(batch).values() if isinstance(batch, dict) else [batch]
-        if stacked and any(t.dim() < 1 or t.shape[0] != num_steps for t in leaves):
+        if stacked and any(t.dim() < 1 or t.shape[0] != num_steps
+                           for t in tree_leaves(batch)):
             raise ValueError(f"stacked=True requires every batch leaf to have leading "
                              f"dim num_steps={num_steps}")
         history = []
         for i in range(num_steps):
-            b = batch
-            if stacked:
-                b = map_params(lambda t: t[i], batch)
+            b = map_tree(lambda t: t[i], batch) if stacked else batch
             state, m = self._step(state, b)
             history.append(m)
-        # Per-step metrics -> one leading step axis, leaf by leaf.
         return state, map_params(lambda *steps: torch.stack(steps), *history)
 
     def evaluate(self, state: TrainState, batch):
-        """Loss (+aux) on a batch without gradients or state mutation."""
+        """Loss (+aux) on a global batch without gradients or state
+        mutation: each rank's rows where the batch divides (then averaged
+        over ranks, BatchNorm over the group), else the whole batch on every
+        rank."""
+        batch = self._to_device(batch)
+        try:
+            local, split = self.plan.local_batch(batch), self.n > 1
+        except ValueError:
+            local, split = batch, False
         with torch.no_grad():
-            out = self.loss_fn(state.params, self._to_device(batch))
-        if self.has_aux:
-            loss, aux = out
-            return {"loss": loss, "aux": aux}
-        return {"loss": out}
+            params, _ = self._forward_params(state.params)
+            with pg.batch_stats_over(self.coll if split else None):
+                out = self.loss_fn(params, local)
+        loss, aux = out if self.has_aux else (out, None)
+        if split:
+            loss = self._mean_metric(loss)
+            aux = map_params(self._mean_metric, aux) if aux is not None else None
+        return {"loss": loss, "aux": aux} if self.has_aux else {"loss": loss}

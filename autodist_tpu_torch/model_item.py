@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from autodist_tpu_torch.models.convert import flatten_params, map_params
+from autodist_tpu_torch.models.convert import flatten_params, map_tree, tree_leaves
 from autodist_tpu_torch.utils import logging
 
 _aten = torch.ops.aten
@@ -265,8 +265,14 @@ class Optimizer:
             self.lr = lambda count, v=float(learning_rate): v
         self.clip_norm = clip_norm
 
-    def init(self, leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    def init(self, leaves: Sequence[torch.Tensor],
+             layout: Optional[Sequence[Optional[Tuple[int, Tuple[int, ...]]]]] = None
+             ) -> Dict[str, Any]:
+        """Slots for ``leaves``; a leaf that is a block of a larger tensor
+        (``layout[i] = (dim, full shape)``, see :meth:`update`) gets
+        block-shaped slots."""
         hp, kind = self.hp, self.kind
+        layout = list(layout) if layout is not None else [None] * len(leaves)
         zeros = lambda: [torch.zeros_like(p) for p in leaves]     # noqa: E731
         state: Dict[str, Any] = {"count": 0}
         if kind in ("sgd", "momentum", "rmsprop", "adafactor") and \
@@ -282,20 +288,26 @@ class Optimizer:
         elif kind == "rmsprop":
             state["nu"] = [torch.full_like(p, hp["initial_scale"]) for p in leaves]
         elif kind == "adafactor":
-            state["v"] = [self._factored_init(p) for p in leaves]
+            state["v"] = [self._factored_init(p, _full_shape(p, lay))
+                          for p, lay in zip(leaves, layout)]
         return state
 
-    def _factored_init(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
-        dims = _factored_dims(p.shape, self.hp["min_dim_size_to_factor"]) \
+    def _factored_init(self, p: torch.Tensor, full_shape) -> Dict[str, torch.Tensor]:
+        dims = _factored_dims(full_shape, self.hp["min_dim_size_to_factor"]) \
             if self.hp["factored"] else None
         if dims is None:
             return {"v": torch.zeros_like(p)}
         d1, d0 = dims
         return {"row": torch.zeros_like(p.sum(d0)), "col": torch.zeros_like(p.sum(d1))}
 
-    def _clip(self, grads):
+    def _clip(self, grads, sharded, psum):
         # optax.clip_by_global_norm: unchanged below the norm, else g / |g| * max.
-        norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
+        # A replicated leaf counts once; the blocks' partial sums add over ranks.
+        squares = [torch.sum(g.to(torch.float32) ** 2) for g in grads]
+        total = sum(s for s, sh in zip(squares, sharded) if not sh)
+        if any(sharded):
+            total = total + psum(sum(s for s, sh in zip(squares, sharded) if sh))
+        norm = torch.sqrt(total)
         keep = norm < self.clip_norm
         return [torch.where(keep, g, (g / norm.to(g.dtype)) * self.clip_norm)
                 for g in grads]
@@ -320,36 +332,60 @@ class Optimizer:
             out.append((mu / c1) / (torch.sqrt(nu / c2 + eps_root) + eps))
         return out
 
-    def _factored_rms(self, state, grads, count):
-        """optax.factorized.scale_by_factored_rms, leaf by leaf."""
+    def _factored_rms(self, state, grads, count, layout, psum):
+        """optax.factorized.scale_by_factored_rms, leaf by leaf. The factored
+        dims are the full tensor's; a mean over the dim a block was cut on
+        adds its partial sums over ranks."""
         eps = self.hp["eps"]
         t = float(count - self.hp["decay_offset"] + 1)
         decay = 1.0 - t ** (-self.hp["decay_rate"])
         out = []
-        for v, g in zip(state["v"], grads):
+        for v, g, lay in zip(state["v"], grads, layout):
             g2 = g * g + eps
             if "v" in v:
                 v["v"].mul_(decay).add_(g2, alpha=1.0 - decay)
                 out.append(g * v["v"] ** -0.5)
                 continue
-            d1, d0 = _factored_dims(g.shape, self.hp["min_dim_size_to_factor"])
-            v["row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
-            v["col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+            full = _full_shape(g, lay)
+            cut = lay[0] if lay is not None else None
+            d1, d0 = _factored_dims(full, self.hp["min_dim_size_to_factor"])
+
+            def mean(x, dim, orig, keepdim=False):
+                if orig != cut:
+                    return x.mean(dim, keepdim=keepdim)
+                return psum(x.sum(dim, keepdim=keepdim)) / full[orig]
+
+            v["row"].mul_(decay).add_(mean(g2, d0, d0), alpha=1.0 - decay)
+            v["col"].mul_(decay).add_(mean(g2, d1, d1), alpha=1.0 - decay)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v["row"] / v["row"].mean(reduced_d1, keepdim=True)) ** -0.5
+            row_factor = (v["row"] / mean(v["row"], reduced_d1, d1, keepdim=True)) ** -0.5
             out.append(g * row_factor.unsqueeze(d0) * (v["col"] ** -0.5).unsqueeze(d1))
         return out
 
-    def _adafactor(self, state, grads, params, count):
+    @staticmethod
+    def _rms(xs, layout, psum):
+        """Per-leaf root mean square over the full tensors: the blocks'
+        partial sums add over ranks in one reduction."""
+        out = [_rms(x) if lay is None else None for x, lay in zip(xs, layout)]
+        cut = [i for i, lay in enumerate(layout) if lay is not None]
+        if cut:
+            total = psum(torch.stack([torch.sum(xs[i] * xs[i]) for i in cut]))
+            for j, i in enumerate(cut):
+                out[i] = torch.sqrt(total[j] / math.prod(layout[i][1]))
+        return out
+
+    def _adafactor(self, state, grads, params, count, layout, psum):
         hp = self.hp
-        updates = self._factored_rms(state, grads, count)
+        updates = self._factored_rms(state, grads, count, layout, psum)
         if hp["clipping_threshold"] is not None:
-            updates = [u / torch.clamp(_rms(u) / hp["clipping_threshold"], min=1.0)
-                       for u in updates]
+            rms = self._rms(updates, layout, psum)
+            updates = [u / torch.clamp(r / hp["clipping_threshold"], min=1.0)
+                       for u, r in zip(updates, rms)]
         if self.lr is not None:
             updates = [self.lr(count) * u for u in updates]
         if hp["multiply_by_parameter_scale"]:
-            updates = [u * torch.clamp(_rms(p), min=1e-3) for u, p in zip(updates, params)]
+            rms = self._rms(params, layout, psum)
+            updates = [u * torch.clamp(r, min=1e-3) for u, r in zip(updates, rms)]
         if hp["momentum"] is not None:
             m = hp["momentum"]
             for t, u in zip(state["trace"], updates):
@@ -360,15 +396,31 @@ class Optimizer:
         return [-u for u in updates]
 
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
-               params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+               params: Sequence[torch.Tensor],
+               layout: Optional[Sequence[Optional[Tuple[int, Tuple[int, ...]]]]] = None,
+               psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+               ) -> List[torch.Tensor]:
+        """The updates of ``params`` by ``grads``. Under a sharded update a
+        leaf may be one block of a larger tensor: ``layout[i] = (dim, full
+        shape)`` says which, and ``psum`` adds a partial sum over the ranks
+        holding the other blocks (an all-reduce over the data group). The
+        rules that reduce over a whole tensor use them: the global norm of
+        ``clip_norm``, lamb's trust ratio, adafactor's factored statistics,
+        update clipping and parameter scale."""
         grads = list(grads)
+        layout = list(layout) if layout is not None else [None] * len(grads)
+        sharded = [lay is not None for lay in layout]
+        if psum is None:
+            if any(sharded):
+                raise ValueError("a sharded update needs psum")
+            psum = lambda t: t                                  # noqa: E731
         if self.clip_norm is not None:
-            grads = self._clip(grads)
+            grads = self._clip(grads, sharded, psum)
         kind, hp = self.kind, self.hp
         count = state["count"]
         state["count"] = count + 1
         if kind == "adafactor":
-            return self._adafactor(state, grads, params, count)
+            return self._adafactor(state, grads, params, count, layout, psum)
         if kind in ("sgd", "momentum") and "trace" in state:
             grads = self._trace(state, grads)
         elif kind in ("adam", "adamw", "lamb"):
@@ -394,16 +446,36 @@ class Optimizer:
         if kind in ("adamw", "lamb", "lion"):
             grads = [u + hp["weight_decay"] * p for u, p in zip(grads, params)]
         if kind == "lamb":
-            grads = [u * _trust_ratio(p, u) for u, p in zip(grads, params)]
+            grads = _trust_ratios(params, grads, sharded, psum)
         updates = [-self.lr(count) * u for u in grads]
         if kind == "rmsprop" and "trace" in state:
             updates = self._trace(state, updates)
         return updates
 
 
-def _trust_ratio(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """optax.scale_by_trust_ratio's factor: ``|p| / |u|``, 1 where either is 0."""
-    pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+def _full_shape(t: torch.Tensor, lay) -> Tuple[int, ...]:
+    """The shape of the tensor ``t`` is a block of (its own without one)."""
+    return tuple(lay[1]) if lay is not None else tuple(t.shape)
+
+
+def _trust_ratios(params, updates, sharded, psum):
+    """Each update times lamb's trust ratio ``|p| / |u|``; the squared norms
+    of the blocks add over ranks in one reduction."""
+    norms = [None if sh else (torch.linalg.vector_norm(p), torch.linalg.vector_norm(u))
+             for p, u, sh in zip(params, updates, sharded)]
+    cut = [i for i, sh in enumerate(sharded) if sh]
+    if cut:
+        total = psum(torch.stack([torch.stack([torch.sum(params[i] * params[i]),
+                                               torch.sum(updates[i] * updates[i])])
+                                  for i in cut]))
+        for j, i in enumerate(cut):
+            norms[i] = torch.sqrt(total[j][0]), torch.sqrt(total[j][1])
+    return [u * _trust_ratio_from(*nrm) for u, nrm in zip(updates, norms)]
+
+
+def _trust_ratio_from(pn: torch.Tensor, un: torch.Tensor) -> torch.Tensor:
+    """optax.scale_by_trust_ratio's factor from the two norms: ``|p| / |u|``,
+    1 where either is 0."""
     zero = (pn == 0.0) | (un == 0.0)
     return torch.where(zero, torch.ones_like(pn), pn / torch.where(zero, 1.0, un))
 
@@ -451,9 +523,7 @@ class _SparseReadScan(TorchDispatchMode):
 
 
 def _to_meta(tree):
-    if isinstance(tree, dict):
-        return map_params(lambda t: torch.empty_like(t, device="meta"), tree)
-    return torch.empty_like(tree, device="meta")
+    return map_tree(lambda t: torch.empty_like(t, device="meta"), tree)
 
 
 class ModelItem:
@@ -492,8 +562,7 @@ class ModelItem:
         if example_batch is not None:
             # The batch dim is the leading dim shared by most batch leaves
             # (smallest on ties), as in the JAX package.
-            leaves = flatten_params(example_batch).values() \
-                if isinstance(example_batch, dict) else [example_batch]
+            leaves = tree_leaves(example_batch)
             dims = Counter(int(t.shape[0]) for t in leaves if getattr(t, "shape", ()))
             if dims:
                 top = max(dims.values())

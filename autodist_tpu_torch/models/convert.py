@@ -12,7 +12,7 @@ cut from them agree between the packages. No jax is imported here.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -45,6 +45,23 @@ def map_params(fn: Callable[..., Any], params: Any, *rest: Any) -> Any:
     if not isinstance(params, dict):
         return fn(params, *rest)
     return {k: map_params(fn, v, *(r[k] for r in rest)) for k, v in params.items()}
+
+
+def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of a batch-like tree: nested dicts, lists and
+    tuples (anything else is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of :func:`map_tree`'s trees, in its order."""
+    out: List[Any] = []
+    map_tree(out.append, tree)
+    return out
 
 
 def flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:

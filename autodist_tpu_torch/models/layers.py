@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
+from autodist_tpu_torch.runtime import process_group as pg
 
 
 # ------------------------------------------------------------------ initializers
@@ -220,19 +221,22 @@ def _batchnorm_autodiff(p, x, eps: float = 1e-5):
     return (((x32 - mean) * (p["scale"] * inv)) + p["bias"]).to(x.dtype)
 
 
-def _batchnorm_core_fwd(scale, bias, x, eps, stats=None):
+def _batchnorm_core_fwd(scale, bias, x, eps, stats=None, coll=None):
     """``(y, residuals)``. ``stats`` are optional precomputed fp32 column
     sums ``(sum x, sum x²)`` over the N·H·W rows, used instead of reducing
-    ``x`` again."""
+    ``x`` again. With ``coll`` (a ``Collectives``) the sums add over its
+    group, one all-reduce, and the statistics are the global batch's."""
     x32 = x.to(torch.float32)
+    n = x.numel() // x.shape[-1]
     if stats is None:
         axes = _channel_axes(x)
-        mean = x32.mean(axes)
-        var_raw = (x32 * x32).mean(axes) - mean * mean
-    else:
-        n = x.numel() // x.shape[-1]
-        mean = stats[0] / n
-        var_raw = stats[1] / n - mean * mean
+        stats = (x32.sum(axes), (x32 * x32).sum(axes))
+    if coll is not None:
+        both = torch.stack(stats)
+        coll.all_reduce(both, "stats")
+        stats, n = both.unbind(0), n * coll.size
+    mean = stats[0] / n
+    var_raw = stats[1] / n - mean * mean
     inv = torch.rsqrt(torch.clamp(var_raw, min=0.0) + eps)
     # The mean is subtracted in fp32 before the cast, so high-mean /
     # low-variance channels cancel exactly.
@@ -242,9 +246,12 @@ def _batchnorm_core_fwd(scale, bias, x, eps, stats=None):
     return y, (x, mean, inv, scale, var_raw > 0.0)
 
 
-def _batchnorm_core_bwd(res, dy):
+def _batchnorm_core_bwd(res, dy, coll=None):
     """``(dscale, dbias, dx)``: ``dx = (γ·inv)·(dy − E[dy] − x̂·E[dy·x̂])``,
-    with the variance term dropped per channel where the clamp engaged."""
+    with the variance term dropped per channel where the clamp engaged.
+    With ``coll`` the two sums of ``dx`` add over its group (one
+    all-reduce) and ``E`` is over the global batch; ``dscale`` and
+    ``dbias`` stay this rank's sums, which the gradient sync averages."""
     x, mean, inv, scale, var_live = res
     axes = _channel_axes(x)
     n = float(x.numel() // x.shape[-1])
@@ -252,35 +259,45 @@ def _batchnorm_core_bwd(res, dy):
     x_hat = (x.to(torch.float32) - mean) * inv
     sum_dy = dy32.sum(axes)
     sum_dy_xhat = (dy32 * x_hat).sum(axes)
+    dscale, dbias = sum_dy_xhat, sum_dy
+    if coll is not None:
+        both = torch.stack((sum_dy, sum_dy_xhat))
+        coll.all_reduce(both, "stats")
+        (sum_dy, sum_dy_xhat), n = both.unbind(0), n * coll.size
     var_term = torch.where(var_live, sum_dy_xhat / n, torch.zeros_like(sum_dy_xhat))
     dx = (scale * inv) * (dy32 - sum_dy / n - x_hat * var_term)
-    return sum_dy_xhat, sum_dy, dx.to(x.dtype)
+    return dscale, dbias, dx.to(x.dtype)
 
 
 class BatchNormFn(torch.autograd.Function):
     """The JAX package's ``_batchnorm_core`` custom VJP: saves only ``(x,
     mean, inv, scale, mask)``; the backward is one reduction pass and one
-    elementwise pass. Optional ``s1``/``s2`` are precomputed column sums."""
+    elementwise pass. Optional ``s1``/``s2`` are precomputed column sums.
+    Inside ``runtime.process_group.batch_stats_over(coll)`` (the
+    distributed step's GSPMD semantics) the statistics and the backward's
+    sums are reduced over the group."""
 
     @staticmethod
     def forward(ctx, scale, bias, x, eps, s1, s2):
         stats = None if s1 is None else (s1, s2)
-        y, res = _batchnorm_core_fwd(scale, bias, x, eps, stats)
+        ctx.coll = pg.batch_stats()
+        y, res = _batchnorm_core_fwd(scale, bias, x, eps, stats, ctx.coll)
         ctx.save_for_backward(*res)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        dscale, dbias, dx = _batchnorm_core_bwd(ctx.saved_tensors, dy)
+        dscale, dbias, dx = _batchnorm_core_bwd(ctx.saved_tensors, dy, ctx.coll)
         return dscale, dbias, dx, None, None, None
 
 
 def batchnorm(p, x, eps: float = 1e-5, stats: Optional[Tuple] = None):
     """Training-mode batch norm over N, H, W (batch statistics only; running
     averages are an inference concern). Statistics reduce in fp32 in one
-    pass, ``E[x²] − E[x]²`` clamped at 0, or come from ``stats = (sum x,
-    sum x²)`` over the N·H·W rows. On one device the statistics are the
-    whole batch's."""
+    pass, ``E[x²] − E[x]²`` clamped at 0, from the column sums ``(sum x,
+    sum x²)`` over the N·H·W rows (given as ``stats``, or reduced here).
+    They are this process's batch's, or the global batch's inside the
+    distributed step's GSPMD semantics (:class:`BatchNormFn`)."""
     s1, s2 = stats if stats is not None else (None, None)
     return BatchNormFn.apply(p["scale"], p["bias"], x, eps, s1, s2)
 

@@ -11,19 +11,22 @@ it has TPU chips. The file shape is the same (and the original AutoDist's)::
         gpus: 4
 
 Devices read ``<address>:GPU:<i>`` (and ``<address>:CPU:0`` for a host), as
-in the original AutoDist. The JAX package's TPU topology and HBM tables,
-its ``mesh:`` override and its per-node ``cpus``/``ssh`` entries are not
-ported; the GPU node model that replaces them is in ROADMAP.md.
+in the original AutoDist, numbered chief first, then by address: rank ``r``
+of a ``torch.distributed`` group is the ``r``-th of :attr:`gpu_devices`.
+An optional ``mesh:`` block names the logical axis sizes (``{data: 4}``);
+it must cover every GPU, and an axis other than ``data`` larger than 1
+raises at mesh build (the TensorParallel slice, ROADMAP.md). The JAX
+package's TPU topology and HBM tables and its per-node ``cpus``/``ssh``
+entries are not ported; the cost model that reads them is in ROADMAP.md.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 from dataclasses import dataclass
 from enum import Enum
 from typing import Dict, List, Optional, Sequence
-
-import torch
 
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -83,6 +86,9 @@ class ResourceSpec:
                                         chief=bool(entry.get("chief", False))))
         if not self._nodes:
             self._nodes.append(NodeSpec(address="localhost", chief=True))
+        mesh = (resource_dict or {}).get("mesh")
+        self._mesh_override: Optional[Dict[str, int]] = (
+            {str(k): int(v) for k, v in mesh.items()} if mesh else None)
         # If no node is marked chief, the first is.
         if not any(n.chief for n in self._nodes):
             self._nodes[0].chief = True
@@ -99,6 +105,10 @@ class ResourceSpec:
             raise ValueError("multi-node resource specs cannot contain loopback addresses")
         if any(n.gpus < 0 for n in self._nodes):
             raise ValueError("gpus must be >= 0")
+        if self._mesh_override and \
+                math.prod(self._mesh_override.values()) != max(self.num_gpus, 1):
+            raise ValueError(f"mesh override {self._mesh_override} does not cover "
+                             f"{self.num_gpus} gpus")
 
     # ------------------------------------------------------------- properties
     @property
@@ -125,26 +135,37 @@ class ResourceSpec:
         return [DeviceSpec(n.address, DeviceType.CPU, 0) for n in self._ordered_nodes()]
 
     def mesh_shape(self, axes: Sequence[str] = ("data",)) -> Dict[str, int]:
-        """A logical mesh shape covering every GPU: all on the first axis
+        """A logical mesh shape covering every GPU: the ``mesh:`` override
+        (the other requested axes of size 1), else all on the first axis
         (data parallelism), the others of size 1."""
+        if self._mesh_override:
+            shape = dict(self._mesh_override)
+            for ax in axes:
+                shape.setdefault(ax, 1)
+            return shape
         shape = {ax: 1 for ax in axes}
         shape[axes[0] if axes else "data"] = max(self.num_gpus, 1)
         return shape
 
     # ------------------------------------------------------- constructors/io
     @classmethod
-    def from_local_devices(cls, device=None) -> "ResourceSpec":
-        """This host as a one-node spec: its CUDA devices (``device`` default
-        ``"cuda"``; raises without CUDA), or no GPU at all for ``"cpu"``, so
-        the host CPU is the one replica."""
+    def from_local_devices(cls, device=None, world_size: int = 1) -> "ResourceSpec":
+        """This host as a one-node spec of ``world_size`` device slots, one
+        per rank of the process group (``device`` default ``"cuda"``; raises
+        without CUDA). On the CPU a single process has no GPU at all, so the
+        host CPU is the one replica; ``world_size > 1`` CPU ranks each stand
+        for one slot."""
         dev = resolve_device(device)
-        gpus = torch.cuda.device_count() if dev.type == "cuda" else 0
+        gpus = world_size if dev.type == "cuda" or world_size > 1 else 0
         return cls(resource_dict={"nodes": [{"address": "localhost", "gpus": gpus,
                                              "chief": True}]})
 
     def to_dict(self) -> dict:
-        return {"nodes": [{"address": n.address, "gpus": n.gpus, "chief": n.chief}
-                          for n in self._nodes]}
+        d = {"nodes": [{"address": n.address, "gpus": n.gpus, "chief": n.chief}
+                       for n in self._nodes]}
+        if self._mesh_override:
+            d["mesh"] = dict(self._mesh_override)
+        return d
 
     def fingerprint(self) -> str:
         """Stable hash of the spec, part of strategy ids so a strategy built

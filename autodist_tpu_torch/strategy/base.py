@@ -37,6 +37,33 @@ def check_staleness_supported(staleness: int) -> None:
             "see ROADMAP.md")
 
 
+def min_divisor_shards(n: int) -> int:
+    """Smallest divisor of ``n`` above 1 (``n`` itself when prime; 1 below
+    2): the original AutoDist's ``get_num_shards``."""
+    if n < 2:
+        return 1
+    for i in range(2, n):
+        if n % i == 0:
+            return i
+    return n
+
+
+def min_non_divisor_shards(n: int) -> int:
+    """Smallest integer of at least 2 that does not divide ``n`` (1 below
+    2): the uneven-split policy (3 for ``n == 2``, as the JAX package)."""
+    if n < 2:
+        return 1
+    for i in range(2, n + 2):
+        if n % i > 0:
+            return i
+    return n  # pragma: no cover - n + 1 never divides n
+
+
+def part_name(var_name: str, i: int) -> str:
+    """Name of shard ``i`` of a partitioned variable."""
+    return f"{var_name}/part_{i}"
+
+
 def replica_devices(resource_spec: ResourceSpec) -> List[str]:
     """The data-parallel replica set: every GPU, plus the host CPU of any
     GPU-less node."""

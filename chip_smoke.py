@@ -108,6 +108,25 @@ Phases, each printing one JSON line:
 15. ``accum_check``: the fp32 causal transformer (full width, seq 512,
     flash), first step at batch 8 with ``grad_accum_steps=4`` against 1:
     loss and whole gradient within 1e-5 relative.
+16. ``dist_train``: the multi-device step on ``torch.distributed``. One
+    NCCL rank per visible card (a power of two, at most 8) is started as a
+    process of this script (``--dist-rank``) and trains bert_base (seq 512,
+    global batch 32, flash) and ResNet-50 (224 px, global batch 128) through
+    ``AutoDist(init_method=..., world_size=..., rank=...).build`` for 1 + 5
+    Adam steps under AllReduce (``bucket_bytes`` 25 MiB), Zero1 and
+    PartitionedPS, and rank 0 also through the one-process step (no group)
+    from the same params. At world size 1 the two compute the same thing:
+    every loss and every final parameter must be bitwise equal (both run
+    with deterministic algorithms). At a larger world size the losses are
+    held to ``DIST_LOSS_RTOL``. Each step's gradient and parameter
+    collectives equal the plan's prediction; the flash kernels launch
+    ``num_layers x 5`` times each in bert_base's window and the fused
+    conv-stats kernel ``36 x 5`` in ResNet-50's. Printed: ms a step of
+    both, the collectives of a step by purpose and kind. Then a rehearsal,
+    not a card result: 4 gloo ranks on the CPU (``--dist-cpu-rank``) train
+    a small dense model 3 Adam steps under AllReduce with buckets, Zero1,
+    PartitionedPS and PS, against the one-process step within rtol 2e-5 /
+    atol 2e-6.
 
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
@@ -119,9 +138,11 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -132,7 +153,8 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.api import AutoDist
-from autodist_tpu_torch.model_item import OptimizerSpec
+from autodist_tpu_torch.kernel import DistributedTrainStep, GraphTransformer, build_mesh
+from autodist_tpu_torch.model_item import ModelItem, OptimizerSpec
 from autodist_tpu_torch.models import PUBLISHED, get_model, get_model_spec
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models import lstm_lm
@@ -145,7 +167,9 @@ from autodist_tpu_torch.ops import _build
 from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.ops import paged_attention as pa
-from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.runtime import process_group as pg
+from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing, StrategyCompiler, from_name
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
 from autodist_tpu_torch.serve.engine import InferenceEngine
 from autodist_tpu_torch.serve.server import ServeFrontend, mock_load_prompt
@@ -301,6 +325,22 @@ OPTIM_CASES = (
 # accumulation adds the same terms in another order: 1e-5 relative (the
 # whole gradient as one vector).
 REMAT_RTOL, ACCUM_RTOL, ACCUM_BATCH, ACCUM_K = 1e-6, 1e-5, 8, 4
+# dist_train: 1 + DIST_STEPS Adam steps a (model, strategy), the last
+# DIST_STEPS timed; the ranks' and the rehearsal's time limits.
+DIST_STEPS, DIST_OPT = 5, ("adam", {"learning_rate": 1e-4})
+DIST_BUILDERS = (("AllReduce", {"bucket_bytes": 25 << 20}), ("Zero1", {}),
+                 ("PartitionedPS", {}))
+DIST_TIMEOUT_S, DIST_GROUP_TIMEOUT_S = 420.0, 120.0
+# At a world size above 1 the ranks' mean of local mean losses against the
+# one-process step's: bf16 rounds the two orders of summation apart (2^-8),
+# and ResNet's BatchNorm under AllReduce with buckets and Zero1 (JAX's
+# manual sync) normalises over each rank's images, not the global batch's.
+DIST_LOSS_RTOL = {"bert_base": 1e-2, "resnet50": 5e-2}
+# The rehearsal: the e2e dense model of tests/test_e2e_numeric.py.
+REHEARSAL_RANKS, REHEARSAL_STEPS = 4, 3
+REHEARSAL_BUILDERS = (("AllReduce", {"bucket_bytes": 64}), ("Zero1", {}),
+                      ("PartitionedPS", {}), ("PS", {}))
+REHEARSAL_RTOL, REHEARSAL_ATOL = 2e-5, 2e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -1380,6 +1420,234 @@ def accum_check(dev):
           f"grad_accum_steps={ACCUM_K}: loss rel {loss_rel}, gradient rel {rel}")
 
 
+# --------------------------------------------------------------- dist_train
+def _wire(counts) -> dict:
+    """A step's gradient and parameter collectives, by kind."""
+    out = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    for purpose in ("grad", "param"):
+        for kind, n in counts.get(purpose, {}).items():
+            out[kind] += n
+    return out
+
+
+def _one_process_step(builder, loss_fn, params, batch, dev):
+    """The same strategy lowered onto this process alone (no group)."""
+    opt = OptimizerSpec(*DIST_OPT)
+    item = ModelItem.from_params(params, optimizer_spec=opt, loss_fn=loss_fn,
+                                 example_batch=batch)
+    spec = ResourceSpec.from_local_devices(dev)
+    strategy = StrategyCompiler(item).compile(builder.build(item, spec))
+    plan = GraphTransformer(strategy, item, build_mesh(spec, device=dev)).transform()
+    return DistributedTrainStep(plan, loss_fn, opt.make())
+
+
+def _train_window(step, params, batch, steps, dev):
+    """One step, then ``steps`` counted and timed: ``(state, losses of all,
+    ms a timed step, kernel launches of the timed steps, last step's
+    collectives)``."""
+    state = step.init(params)
+    state, first = step(state, batch)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        metrics.append(m["loss"])
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {"fused_conv_stats": fcs.fused_matmul_stats.launches, **_launch_counts()}
+    losses = [float(first["loss"])] + [float(x) for x in metrics]
+    return state, losses, ms, launches, step.last_collectives
+
+
+def dist_rank(rank: int, world: int, work: str) -> int:
+    """One NCCL rank of dist_train (see the module docstring)."""
+    dev = pg.local_device(torch.device("cuda"), rank)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    models = (("bert_base", get_model_spec("bert_base", max_seq_len=TRAIN_SEQ,
+                                           attention_impl="flash"), TRAIN_BATCH),
+              ("resnet50", get_model_spec("resnet"), RESNET_BATCH))
+    rows = []
+    for key, spec, batch_size in models:
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(batch_size, device=dev)
+        for name, kwargs in DIST_BUILDERS:
+            plain = None
+            if rank == 0:
+                step = _one_process_step(from_name(name, **kwargs), spec.loss_fn, params,
+                                         batch, dev)
+                state, losses, ms, _, _ = _train_window(step, params, batch, DIST_STEPS, dev)
+                plain = (flatten_params(step.logical_params(state)), losses, ms)
+                del step, state
+            AutoDist.reset_default()
+            autodist = AutoDist(strategy_builder=from_name(name, **kwargs), device="cuda",
+                                init_method=f"file://{work}/pg", world_size=world,
+                                rank=rank, timeout_s=DIST_GROUP_TIMEOUT_S)
+            step = autodist.build(spec.loss_fn, params, batch,
+                                  optimizer=OptimizerSpec(*DIST_OPT))
+            state, losses, ms, launches, wire = _train_window(step, params, batch,
+                                                              DIST_STEPS, dev)
+            logical = flatten_params(step.logical_params(state))
+            predicted = autodist.plan.collectives_per_step()
+            row = dict(model=key, strategy=name, strategy_kwargs=kwargs, world=world,
+                       global_batch=batch_size, steps=1 + DIST_STEPS, optimizer=DIST_OPT,
+                       losses=losses, ms_per_step=ms, collectives=wire,
+                       predicted_wire=predicted, batchnorm_local=step.manual,
+                       kernel_launches=launches)
+            check(_wire(wire) == predicted,
+                  f"{key}/{name}: wire {wire} != the plan's {predicted}")
+            if rank == 0:
+                plain_params, plain_losses, plain_ms = plain
+                diff = max((logical[n].float() - t.float()).abs().max().item()
+                           for n, t in plain_params.items())
+                rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+                row.update(plain_losses=plain_losses, plain_ms_per_step=plain_ms,
+                           max_param_diff=diff, max_loss_rel=rel,
+                           bitwise=diff == 0.0 and losses == plain_losses)
+                if world == 1:
+                    check(row["bitwise"], f"{key}/{name}: world size 1 not bitwise equal "
+                          f"to the one-process step (loss rel {rel}, param diff {diff})")
+                else:
+                    check(rel <= DIST_LOSS_RTOL[key], f"{key}/{name}: loss rel {rel} > "
+                          f"{DIST_LOSS_RTOL[key]}")
+                del plain, plain_params
+            rows.append(row)
+            del step, state, logical
+            torch.cuda.empty_cache()
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def _rehearsal_loss(params, batch):
+    x, y = batch
+    return torch.mean((x @ params["w"] + params["b"] - y) ** 2)
+
+
+def _rehearsal_inputs():
+    gen = torch.Generator().manual_seed(SEED)
+    params = {"w": torch.randn(12, 5, generator=gen), "b": torch.randn(5, generator=gen)}
+    return params, (torch.randn(16, 12, generator=gen), torch.randn(16, 5, generator=gen))
+
+
+def dist_cpu_rank(rank: int, world: int, work: str) -> int:
+    """One gloo rank of the CPU rehearsal."""
+    torch.set_num_threads(1)
+    params, batch = _rehearsal_inputs()
+    out = {}
+    for name, kwargs in REHEARSAL_BUILDERS:
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=from_name(name, **kwargs), device="cpu",
+                            resource_spec=ResourceSpec(resource_dict={"nodes": [
+                                {"address": "localhost", "gpus": world}]}),
+                            init_method=f"file://{work}/pg", world_size=world, rank=rank,
+                            timeout_s=DIST_GROUP_TIMEOUT_S)
+        step = autodist.build(_rehearsal_loss, params, batch,
+                              optimizer=OptimizerSpec(*DIST_OPT))
+        state = step.init(params)
+        for _ in range(REHEARSAL_STEPS):
+            state, _ = step(state, batch)
+        out[name] = {n: t.tolist() for n, t in flatten_params(
+            step.logical_params(state)).items()}
+        out[name + "/wire"] = [_wire(step.last_collectives),
+                               autodist.plan.collectives_per_step()]
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _spawn_ranks(flag: str, world: int, work: str, env: dict) -> list:
+    """Start ``world`` ranks of this script, wait (``DIST_TIMEOUT_S`` in
+    all), kill any left, and return rank by rank their results."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                               str(world), work], env=env)
+             for r in range(world)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    codes = [proc.returncode for proc in procs]
+    check(all(c == 0 for c in codes), f"{flag} ranks exited {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json"), encoding="utf-8") as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_train(card: str) -> list:
+    """The dist_train phase: NCCL ranks over the cards, then the CPU
+    rehearsal. Returns rank 0's rows."""
+    world = 1
+    while world * 2 <= min(torch.cuda.device_count(), 8):
+        world *= 2
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rows = _spawn_ranks("--dist-rank", world, work, env)[0]
+    seconds = time.perf_counter() - t0
+    for row in rows:
+        emit("dist_train", **row, ranks_seconds=seconds, card=card)
+        model, steps = row["model"], DIST_STEPS
+        launches = row["kernel_launches"]
+        if model == "bert_base":
+            layers = get_model_spec("bert_base").config.num_layers
+            for kind in ("fwd", "dkdv", "dq"):
+                check(launches[kind] == layers * steps,
+                      f"dist {model}: flash {kind} launches {launches[kind]}")
+        else:
+            per = rn.fused_launches_per_forward(50) * steps
+            check(launches["fused_conv_stats"] == per,
+                  f"dist {model}: fused conv launches {launches['fused_conv_stats']} != {per}")
+    dist_rehearsal()
+    return rows
+
+
+def dist_rehearsal() -> None:
+    """4 gloo ranks on the CPU against the one-process step."""
+    t0 = time.perf_counter()
+    cpu_env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as work:
+        ranks = _spawn_ranks("--dist-cpu-rank", REHEARSAL_RANKS, work, cpu_env)
+    params, batch = _rehearsal_inputs()
+    worst = {}
+    for name, kwargs in REHEARSAL_BUILDERS:
+        step = _one_process_step(from_name(name, **kwargs), _rehearsal_loss, params, batch,
+                                 torch.device("cpu"))
+        state = step.init(params)
+        for _ in range(REHEARSAL_STEPS):
+            state, _ = step(state, batch)
+        want = flatten_params(step.logical_params(state))
+        for r, got in enumerate(ranks):
+            for n, t in want.items():
+                check(torch.allclose(torch.tensor(got[name][n]), t, rtol=REHEARSAL_RTOL,
+                                     atol=REHEARSAL_ATOL),
+                      f"rehearsal {name} rank {r} {n} differs from one process")
+            wire, predicted = got[name + "/wire"]
+            check(wire == predicted, f"rehearsal {name}: wire {wire} != {predicted}")
+        worst[name] = max((torch.tensor(ranks[0][name][n]) - t).abs().max().item()
+                          for n, t in want.items())
+    emit("dist_train_cpu_rehearsal", note="gloo on the CPU: a rehearsal, not a card result",
+         ranks=REHEARSAL_RANKS, steps=REHEARSAL_STEPS, max_abs_diff_vs_one_process=worst,
+         rtol=REHEARSAL_RTOL, atol=REHEARSAL_ATOL, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1443,6 +1711,7 @@ def main() -> int:
     optim_check(dev)
     remat_check(dev)
     accum_check(dev)
+    dist_rows = dist_train(card)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -1470,7 +1739,7 @@ def main() -> int:
             "route": "cuda",
             "source": "autodist_tpu_torch/csrc/flash_attention.cu",
             "replaces": where,
-            "launches": sum(t["kernel_launches"][kind] for t in train_rows),
+            "launches": sum(t["kernel_launches"][kind] for t in train_rows + dist_rows),
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -1490,7 +1759,7 @@ def main() -> int:
         "source": "autodist_tpu_torch/csrc/fused_conv_stats.cu",
         "replaces": "examples/benchmark/fused_conv_stats.py:54",
         "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
-        + sum(r["kernel_launches"]["fused_conv_stats"] for r in zoo_rows),
+        + sum(r["kernel_launches"]["fused_conv_stats"] for r in zoo_rows + dist_rows),
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -1507,4 +1776,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] in ("--dist-rank", "--dist-cpu-rank"):
+        rank_main = dist_rank if sys.argv[1] == "--dist-rank" else dist_cpu_rank
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

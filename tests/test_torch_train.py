@@ -6,8 +6,10 @@ deterministic example batches:
 
 - the ``VarItem`` list (names, order, shapes, dtypes, sparse flags) of
   ``ModelItem.from_params`` with the loss traced;
-- ``Strategy.to_json()`` of AllReduce, PS and PSLoadBalancing on one yml
-  spec (``id``/``path`` blanked, ``TPU`` -> ``GPU`` in device names);
+- ``Strategy.to_json()`` of every ported builder (AllReduce, PS,
+  PSLoadBalancing, PartitionedPS, UnevenPartitionedPS, PartitionedAR,
+  RandomAxisPartitionAR, Parallax, Zero1) on one yml spec (``id``/``path``
+  blanked, ``TPU`` -> ``GPU`` in device names);
 - ``loss_fn`` value and gradients, causal and MLM, flash attention, fp32
   (JAX runs its Pallas kernels in interpret mode): 1e-5 on the loss, 1e-5
   absolute + 1e-4 relative on gradients (summation order only);
@@ -34,7 +36,7 @@ from autodist_tpu.resource_spec import ResourceSpec as JaxResourceSpec
 from autodist_tpu_torch import api as tapi
 from autodist_tpu_torch import model_item as tmi
 from autodist_tpu_torch import strategy as tstrat
-from autodist_tpu_torch.kernel import GraphTransformer, build_mesh
+from autodist_tpu_torch.kernel import GraphTransformer, Mesh, build_mesh
 from autodist_tpu_torch.models import get_model, get_model_spec
 from autodist_tpu_torch.models.convert import (
     flatten_params, params_from_jax, params_to_numpy, unflatten_params)
@@ -152,11 +154,18 @@ def _strategy_json(strategy, tpu_to_gpu=False):
     return d
 
 
-@pytest.mark.parametrize("builder", ["AllReduce", "PS", "PSLoadBalancing"])
+BUILDER_KWARGS = {"AllReduce": {"chunk_size": 5}, "PartitionedAR": {"chunk_size": 5},
+                  "RandomAxisPartitionAR": {"chunk_size": 5, "seed": 3},
+                  "Zero1": {"min_bytes": 1024, "bucket_bytes": 1 << 16}}
+
+
+@pytest.mark.parametrize("builder", [
+    "AllReduce", "PS", "PSLoadBalancing", "PartitionedPS", "UnevenPartitionedPS",
+    "PartitionedAR", "RandomAxisPartitionAR", "Parallax", "Zero1"])
 def test_strategy_json_matches_jax(builder, tmp_path):
     spec_file = tmp_path / "spec.yml"
     spec_file.write_text(SPEC_YML)
-    kwargs = {"chunk_size": 5} if builder == "AllReduce" else {}
+    kwargs = BUILDER_KWARGS.get(builder, {})
     jspec, jparams, tspec, tparams = _pair("bert_base", **dict(SMALL, num_layers=3))
     jitem = jmi.ModelItem.from_params(jparams)
     titem = tmi.ModelItem.from_params(tparams)
@@ -304,19 +313,26 @@ def test_unported_options_raise_not_implemented():
     one_host = {"nodes": [{"address": "localhost", "gpus": 0}]}
     mesh = build_mesh(ResourceSpec(resource_dict=one_host), device="cpu")
 
-    def lower(sync, bucket=0):
+    def lower(sync, bucket=0, on=mesh):
         s = Strategy(node_config=[NodeConfig("w", synchronizer=sync)])
         s.graph_config.bucket_bytes = bucket
-        return GraphTransformer(s, titem, mesh).transform()
+        return GraphTransformer(s, titem, on).transform()
 
     assert lower(AllReduceSynchronizer()).plan_for("w").kind.value == "all_reduce"
+    # ZeRO-1 and buckets lower now: on a data axis of 4 the update shards
+    # axis 0; on one device ZeRO-1 degrades to replication, as in JAX.
+    four = Mesh.logical({"data": 4})
+    assert lower(AllReduceSynchronizer(shard_update=True), on=four).plan_for(
+        "w").shard_update
+    assert lower(AllReduceSynchronizer(shard_update=True)).plan_for(
+        "w").degradations == ("non_divisible",)
+    assert lower(AllReduceSynchronizer(), bucket=1 << 20).bucket_assignment() == (("w",),)
     for sync in (AllReduceSynchronizer(compressor="HorovodCompressor"),
-                 AllReduceSynchronizer(shard_update=True),
                  PSSynchronizer(sync=False), PSSynchronizer(staleness=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lower(sync)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lower(AllReduceSynchronizer(), bucket=1 << 20)
+        lower(AllReduceSynchronizer(), on=Mesh.logical({"data": 2, "model": 2}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstrat.PSLoadBalancing(sync=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
