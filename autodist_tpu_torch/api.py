@@ -30,9 +30,10 @@ receive it over the group. Each rank then calls the step with the same
 global batch (or assembles it with ``plan.global_batch_from_local``) and
 trains on its rows. ``remat`` rematerialises the forward in the backward
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
-(``kernel/lowering.py``). ``tune``, ``build_inference``, ``build_pipeline``,
-``elastic_rebuild``, fault tolerance, observability and asynchronous PS are
-not ported yet (ROADMAP.md).
+(``kernel/lowering.py``). A strategy that is ``sync=False`` throughout is
+routed to the host-driven asynchronous PS (``runtime/async_ps.py``).
+``tune``, ``build_inference``, ``build_pipeline``, ``elastic_rebuild``,
+fault tolerance and observability are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,8 +53,10 @@ from autodist_tpu_torch.model_item import ModelItem, Optimizer, OptimizerSpec
 from autodist_tpu_torch.models.convert import map_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
+from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
 from autodist_tpu_torch.strategy import PSLoadBalancing, Strategy, StrategyBuilder
 from autodist_tpu_torch.strategy import StrategyCompiler, from_name
+from autodist_tpu_torch.strategy.ir import PSSynchronizer, iter_synchronizers
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.retry import wait_until
@@ -221,17 +224,22 @@ class AutoDist:
     def build(self, loss_fn: Callable, params: Any, example_batch: Any = None,
               optimizer: Union[OptimizerSpec, Optimizer, None] = None,
               has_aux: bool = False, sparse_names: Sequence[str] = (),
-              expert_names: Sequence[str] = (), host_offload: bool = False,
+              expert_names: Sequence[str] = (), host_offload: Union[bool, str] = False,
               grad_accum_steps: int = 1, remat: Union[bool, str] = False,
-              compute_dtype: Optional[str] = None) -> DistributedTrainStep:
+              compute_dtype: Optional[str] = None
+              ) -> Union[DistributedTrainStep, AsyncPSTrainer]:
         """Capture -> strategy -> compile -> lower. ``optimizer`` is an
         :class:`OptimizerSpec` (default SGD at 0.01) or an
         :class:`Optimizer`; ``compute_dtype="bfloat16"`` casts floating
         params on entry to the loss (master weights stay fp32);
         ``grad_accum_steps=k`` averages ``k`` micro-batches a step;
         ``remat`` is ``True`` or a policy name (:func:`_remat`).
-        ``host_offload`` raises ``NotImplementedError`` until it is ported
-        (ROADMAP.md)."""
+        ``host_offload=True`` keeps every PS variable's parameter and
+        optimizer slots on the host between steps (pinned on CUDA),
+        ``"from_strategy"`` those whose reduction destination is a host CPU
+        (``kernel/lowering.py``). A ``sync=False`` strategy returns an
+        :class:`AsyncPSTrainer`, whose ``run(state, next_batch, n_pushes)``
+        takes a batch source instead of one batch."""
         opt_spec, tx = _resolve_optimizer(optimizer)
         model_item = ModelItem.from_params(
             params, optimizer_spec=opt_spec, loss_fn=loss_fn, example_batch=example_batch,
@@ -241,6 +249,11 @@ class AutoDist:
         if compute_dtype is not None:
             # After capture: sparse detection traces the bare loss_fn.
             loss_fn = _cast_compute(loss_fn, compute_dtype)
+        trainer = self._maybe_build_async(compiled, model_item, loss_fn, tx, has_aux=has_aux,
+                                          host_offload=host_offload,
+                                          grad_accum_steps=grad_accum_steps, remat=remat)
+        if trainer is not None:
+            return trainer
         plan = GraphTransformer(compiled, model_item, self.mesh,
                                 host_offload=host_offload).transform()
         logging.debug("sharding plan:\n%s", plan.describe())
@@ -251,6 +264,42 @@ class AutoDist:
                                     grad_accum_steps=grad_accum_steps)
         self._built, self._strategy, self._model_item = step, compiled, model_item
         return step
+
+    def _maybe_build_async(self, compiled: Strategy, model_item: ModelItem,
+                           loss_fn: Callable, tx: Optimizer, *, has_aux, host_offload,
+                           grad_accum_steps, remat) -> Optional[AsyncPSTrainer]:
+        """The :class:`AsyncPSTrainer` of a strategy whose every node is an
+        asynchronous PS (``None`` when none is): one worker a replica,
+        staleness the largest of the nodes'. A strategy that mixes sync and
+        async nodes, or async with ``host_offload``, ``grad_accum_steps`` or
+        ``remat``, raises as in the JAX package."""
+        async_nodes = [n for n in compiled.node_config
+                       if any(isinstance(s, PSSynchronizer) and not s.sync
+                              for s in iter_synchronizers(n))]
+        if not async_nodes:
+            return None
+        if len(async_nodes) != len(compiled.node_config):
+            raise NotImplementedError(
+                "strategies mixing sync and async synchronizers have no rendering: "
+                "under the host-driven async loop every variable's update applies "
+                "per push. Make the strategy uniformly sync or uniformly async "
+                "(sync=False).")
+        unsupported = [name for name, on in (("host_offload", host_offload),
+                                             ("grad_accum_steps", grad_accum_steps != 1),
+                                             ("remat", remat)) if on]
+        if unsupported:
+            raise NotImplementedError(
+                f"async PS (sync=False) does not compose with {', '.join(unsupported)}; "
+                f"these knobs belong to the synchronous lowering path.")
+        staleness = max((s.staleness for n in async_nodes for s in iter_synchronizers(n)
+                         if isinstance(s, PSSynchronizer)), default=0)
+        n_workers = max(1, len(compiled.graph_config.replicas))
+        trainer = AsyncPSTrainer(loss_fn, tx, n_workers=n_workers, staleness=staleness,
+                                 has_aux=has_aux, device=self.device)
+        self._built, self._strategy, self._model_item = trainer, compiled, model_item
+        logging.info("sync=False strategy: routed to host-driven AsyncPSTrainer "
+                     "(%d workers, staleness=%d)", n_workers, staleness)
+        return trainer
 
     @property
     def strategy(self) -> Optional[Strategy]:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+from autodist_tpu_torch.kernel.compressor import is_active_compressor
+
 #: Every reason, in emission order.
 DEGRADATION_REASONS = (
     "scalar",          # rank-0 var: nothing to scatter
@@ -21,12 +23,6 @@ DEGRADATION_REASONS = (
     "sparse",          # sparse-update row-sharding claims the var first
     "non_divisible",   # no dimension divides the data axis: nothing shards
 )
-
-
-def is_active_compressor(name: Optional[str]) -> bool:
-    """True unless ``name`` is empty or the identity compressor (the JAX
-    package's ``compressor.is_active_compressor``, aliases included)."""
-    return (name or "") not in ("", "none", "NoneCompressor")
 
 
 def zero1_degradation_reasons(

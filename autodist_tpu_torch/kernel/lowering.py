@@ -44,8 +44,35 @@ micro-batches and averages loss, gradients and aux as ``a + x/k`` from
 zeros; as in JAX, the GSPMD semantics cut the global batch into micro
 batches and give each rank its block of each, the manual one cuts each
 rank's block. ``init`` broadcasts the caller's parameters from rank 0.
-Compressors, staleness, asynchronous PS, host offload and the expert and
-model axes raise ``NotImplementedError`` naming ROADMAP.md.
+
+The synchronizer's options:
+
+- **compressors** (``AllReduce(compressor=...)``, ``kernel/compressor.py``):
+  a variable that is not sharded over the data axis syncs through its
+  compressor's ``step`` (a sharded one ignores it, with a warning, as
+  JAX does). Any active compressor puts the step into the manual
+  semantics. ``state.comp_state[name]`` holds ``{"local": ..., "shared":
+  ...}``: this rank's own EF residual (JAX keeps the ranks' residuals under
+  a leading data-axis dimension) and the state every rank shares
+  (PowerSGD's ``q``, broadcast from rank 0 at ``init``);
+- **bounded staleness** (PS ``staleness=K``): ``state.stale_state[name]``
+  is a zero-filled ``[K, ...]`` buffer shaped like the gradient the
+  optimizer sees on this rank; the optimizer gets the synced gradient of
+  exactly K steps ago (zeros for the first K steps), as in JAX;
+- **host offload** (``GraphTransformer(host_offload=True |
+  "from_strategy")``): an offloaded variable's parameter and optimizer
+  slots live on the host between steps, in pinned memory when the step
+  runs on CUDA (pinning that fails raises). The step copies them to the
+  device (``non_blocking``), computes and updates there, copies the
+  results back into the same host tensors and returns once the copies are
+  complete. On ``device="cpu"`` the host is the device: the plan keeps
+  JAX's flags (as when JAX's gate passes) and the step streams between two
+  CPU tensors. JAX's own gate turns offload off with a warning off the
+  TPU; the port does not.
+
+Asynchronous PS (``sync=False``) has no rendering in this step: lowering it
+raises, and ``AutoDist.build`` routes it to ``runtime/async_ps.py``. The
+expert and model axes raise ``NotImplementedError`` naming ROADMAP.md.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
@@ -57,7 +84,7 @@ the state passed in is consumed, and the one returned holds the same
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -65,13 +92,14 @@ import torch
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.kernel import bucketing
+from autodist_tpu_torch.kernel.compressor import Compressor, get_compressor
 from autodist_tpu_torch.kernel.degrade import is_active_compressor, zero1_degradation_reasons
 from autodist_tpu_torch.kernel.mesh import Mesh
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem
 from autodist_tpu_torch.models.convert import (
     flatten_params, map_params, map_tree, tree_leaves)
 from autodist_tpu_torch.runtime import process_group as pg
-from autodist_tpu_torch.strategy.base import check_staleness_supported, check_sync_supported
+from autodist_tpu_torch.strategy.base import check_sync_supported
 from autodist_tpu_torch.strategy.ir import (
     AllReduceSynchronizer,
     NodeConfig,
@@ -108,6 +136,7 @@ class VarPlan:
     storage_shape: Optional[Tuple[int, ...]] = None
     shard_update: bool = False
     degradations: Tuple[str, ...] = ()
+    offload: bool = False
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -118,11 +147,15 @@ class VarPlan:
 @dataclass
 class TrainState:
     """Train state: step count, nested params dict (a sharded variable's
-    leaf is this rank's block), optimizer state."""
+    leaf is this rank's block), optimizer state, compressor state
+    (``{var: {"local": ..., "shared": ...}}``, this rank's) and staleness
+    buffers (``{var: [K, ...]}``); the last two are empty when unused."""
 
     step: int
     params: Any
     opt_state: Any
+    comp_state: Dict[str, Any] = field(default_factory=dict)
+    stale_state: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -145,17 +178,35 @@ def _itemsize(dtype: str) -> int:
     return torch.empty((), dtype=getattr(torch, dtype)).element_size()
 
 
+def _is_cpu_device(dest: str) -> bool:
+    """True when a device string (``host:TYPE:index``) names a host CPU; an
+    unparseable one reads as not a CPU, as in the JAX package."""
+    try:
+        _, kind, index = dest.rsplit(":", 2)
+        int(index)
+    except ValueError:
+        return False
+    return kind == "CPU"
+
+
 class GraphTransformer:
     """Lower a compiled Strategy over a mesh into a :class:`ShardingPlan`,
-    rule for rule as the JAX package's ``_lower_node``."""
+    rule for rule as the JAX package's ``_lower_node``. ``host_offload``:
+    ``False`` (never), ``True`` (every PS variable) or ``"from_strategy"``
+    (the PS variables whose node or shard reduction destination is a host
+    CPU); see the module docstring for what the step does with it."""
+
+    OFFLOAD_MODES = (False, True, "from_strategy")
 
     def __init__(self, strategy: Strategy, model_item: ModelItem, mesh: Mesh,
-                 host_offload: bool = False):
-        if host_offload:
-            raise _not_ported("host_offload")
+                 host_offload: "bool | str" = False):
+        if host_offload not in self.OFFLOAD_MODES:
+            raise ValueError(f"host_offload={host_offload!r}: expected one of "
+                             f"{self.OFFLOAD_MODES}")
         self.strategy = strategy
         self.model_item = model_item
         self.mesh = mesh
+        self.host_offload = host_offload
 
     def transform(self) -> "ShardingPlan":
         wide = {ax: d for ax, d in self.mesh.shape.items()
@@ -234,9 +285,6 @@ class GraphTransformer:
             shard_update = False
         else:
             raise TypeError(f"unknown synchronizer {type(sync).__name__}")
-        if is_active_compressor(compressor):
-            raise _not_ported(f"gradient compressor {compressor} ({var.name})")
-        check_staleness_supported(staleness)
 
         n = self.mesh.data_size
         n_expert = self.mesh.shape.get(const.MESH_AXIS_EXPERT, 1)
@@ -284,20 +332,36 @@ class GraphTransformer:
                 n_model=self.mesh.shape.get(const.MESH_AXIS_MODEL, 1), n_expert=n_expert)
             su_active = not degradations
             structural = storage_dim is None and update_dim is not None
-            if su_active != structural:
+            if su_active != (structural and "compressed" not in degradations):
                 raise RuntimeError(f"var {var.name!r}: zero1 rendering (storage_dim="
                                    f"{storage_dim}, update_dim={update_dim}) disagrees "
                                    f"with degradation reasons {degradations!r}")
-            if degradations:
+            if structural and "compressed" in degradations:
+                # The compressor syncs the whole gradient: no reduce-scatter
+                # to render, so the update stays replicated (as in JAX).
+                logging.warning("var %s: shard_update ignored — compressor %s syncs "
+                                "the full gradient (no reduce-scatter rendering); "
+                                "optimizer state stays replicated for this var",
+                                var.name, compressor)
+                update_dim = None
+            elif degradations:
                 logging.debug("var %s: shard_update has no effect (%s)", var.name,
                               ", ".join(degradations))
+        shard_dests = folded.get("shard_destinations", ())
+        offload = False
+        if kind is SyncKind.PS and self.host_offload == "from_strategy":
+            # The shard table, where there is one, decides; an empty entry
+            # falls back to the node's destination.
+            dests = [d or dest for d in shard_dests] if shard_dests else [dest]
+            offload = any(_is_cpu_device(d) for d in dests if d)
+        elif kind is SyncKind.PS and self.host_offload:
+            offload = True
         return VarPlan(var=var, kind=kind, storage_dim=storage_dim, update_dim=update_dim,
                        compressor=compressor, group=group, staleness=staleness,
                        reduction_destination=dest, local_replication=proxy,
-                       num_shards=node.num_shards,
-                       shard_destinations=folded.get("shard_destinations", ()),
+                       num_shards=node.num_shards, shard_destinations=shard_dests,
                        storage_shape=storage_shape, shard_update=su_active,
-                       degradations=degradations)
+                       degradations=degradations, offload=offload)
 
     @staticmethod
     def _fallback_axis(var: VarItem, n: int) -> Optional[int]:
@@ -356,6 +420,32 @@ class ShardingPlan:
 
     def plan_for(self, name: str) -> VarPlan:
         return self.var_plans[name]
+
+    @property
+    def has_offload(self) -> bool:
+        return any(p.offload for p in self.var_plans.values())
+
+    def compressors(self, warn: bool = False) -> Dict[str, Compressor]:
+        """Variable name -> its compressor, for the variables whose strategy
+        asks for an active one and that are not sharded over the data axis
+        (the JAX step's ``_resolve_compressors``; the others sync as their
+        rendering says, with a warning when ``warn``)."""
+        out = {}
+        for name, p in self.var_plans.items():
+            if not is_active_compressor(p.compressor):
+                continue
+            if p.storage_dim is not None:
+                if warn:
+                    logging.warning(
+                        "compressor %s on %s ignored: var is sharded over the data axis "
+                        "(sparse/ZeRO path has no gradient all-reduce to compress). "
+                        "NOTE: with any compressor active this var enters the compressed "
+                        "grad region replicated, so its sync pays full-size (table-scale) "
+                        "wire — avoid compressors on embedding-heavy AllReduce models",
+                        p.compressor, name)
+                continue
+            out[name] = get_compressor(p.compressor)
+        return out
 
     def rendering(self, name: str) -> Tuple[str, Optional[int]]:
         """How the step syncs a variable: ``("replicated", None)``,
@@ -440,9 +530,12 @@ class ShardingPlan:
         all-reduce per replicated variable or bucket of them, a
         reduce-scatter per ZeRO-1 or sharded variable (or bucket of ZeRO-1
         ones), an all-gather per ZeRO-1 variable (new values) and per
-        sharded one (its logical view). The step adds its own loss metric,
-        BatchNorm and optimizer reductions under other purposes."""
+        sharded one (its logical view); a compressed variable issues its
+        compressor's collectives instead of its all-reduce. The step adds its
+        own loss metric, BatchNorm and optimizer reductions under other
+        purposes."""
         counts = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+        compressors = self.compressors()
         buckets = self.bucket_assignment() if bucketed else ()
         in_bucket = {name for b in buckets for name in b}
         for b in buckets:
@@ -456,6 +549,10 @@ class ShardingPlan:
             if kind != "replicated":
                 counts["all_gather"] += 1
             if name in in_bucket:
+                continue
+            if name in compressors:
+                for k, c in compressors[name].collectives(p.var.shape).items():
+                    counts[k] += c
                 continue
             counts["all_reduce" if kind == "replicated" else "reduce_scatter"] += 1
         return counts
@@ -472,7 +569,8 @@ class ShardingPlan:
                 + (" shard_update=zero1" if p.shard_update else "")
                 + (f" dest={p.reduction_destination}" if p.reduction_destination else "")
                 + (f" shard_dests={list(p.shard_destinations)}"
-                   if p.shard_destinations else ""))
+                   if p.shard_destinations else "")
+                + (" offload=pinned_host" if p.offload else ""))
         return "\n".join(lines)
 
 
@@ -508,11 +606,16 @@ class DistributedTrainStep:
                             "accumulation", plan.bucket_bytes, grad_accum_steps)
             buckets = ()
         self.buckets = buckets
+        self.compressors = plan.compressors(warn=True)
         # The JAX step's manual sync (shard_map): per-shard batch statistics.
-        self.manual = bool(buckets) or any(p.shard_update for p in plan.var_plans.values())
+        self.manual = (bool(buckets) or bool(self.compressors)
+                       or any(p.shard_update for p in plan.var_plans.values()))
         self.zero1_dims = {name: d for name, (kind, d) in self.render.items()
                            if kind == "zero1"}
         self._sharded = any(kind == "sharded" for kind, _ in self.render.values())
+        self.stale = {name: p.staleness for name, p in plan.var_plans.items()
+                      if p.staleness > 0}
+        self.offloaded = {name for name, p in plan.var_plans.items() if p.offload}
         self.last_collectives: Dict[str, Dict[str, int]] = {}
 
     # ------------------------------------------------------------- helpers
@@ -545,6 +648,64 @@ class DistributedTrainStep:
         self.coll.all_reduce(t, "optimizer")
         return t
 
+    # -------------------------------------------------------- host offload
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t``: pinned when the step runs on CUDA (a
+        failure to pin raises); on the CPU device a copy."""
+        host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                           pin_memory=self.plan.device.type == "cuda")
+        return host.copy_(t.detach())
+
+    def _to_dev(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.plan.device, non_blocking=True, copy=True)
+
+    def _offload_index(self, params) -> set:
+        """Positions of the offloaded leaves among the floating ones (the
+        optimizer's per-leaf lists)."""
+        return {i for i, (n, _) in enumerate(self._floating(params)) if n in self.offloaded}
+
+    def _offloaded_slots(self, opt_state, fn: Callable, index: set) -> Dict[str, Any]:
+        """A shallow copy of ``opt_state`` whose slots of offloaded leaves
+        (entry ``i in index`` of every per-leaf list) are ``fn`` of the
+        slot."""
+        out = dict(opt_state)
+        for key, value in opt_state.items():
+            if isinstance(value, list):
+                out[key] = [map_params(fn, v) if i in index else v
+                            for i, v in enumerate(value)]
+        return out
+
+    def _stream_params(self, params):
+        """The params with each offloaded leaf copied to the device (a
+        fresh gradient target)."""
+        if not self.offloaded:
+            return params
+
+        def leaf(name, t):
+            if name not in self.offloaded:
+                return t
+            t = self._to_dev(t)
+            return t.requires_grad_(True) if t.is_floating_point() else t
+
+        return _map_named(leaf, params)
+
+    def _stream_back(self, host: TrainState, params, opt_state, index: set) -> None:
+        """The updated device copies into the host tensors of ``host``, and
+        the optimizer's count; returns once the copies are complete."""
+        dev_params = flatten_params(params)
+        for name, t in flatten_params(host.params).items():
+            if name in self.offloaded:
+                t.copy_(dev_params[name].detach(), non_blocking=True)
+        for key, value in opt_state.items():
+            if not isinstance(value, list):
+                host.opt_state[key] = value
+                continue
+            for i in index:
+                map_params(lambda h, d: h.copy_(d, non_blocking=True),
+                           host.opt_state[key][i], value[i])
+        if self.plan.device.type == "cuda":
+            torch.cuda.current_stream(self.plan.device).synchronize()
+
     # ---------------------------------------------------------------- init
     def init(self, params) -> TrainState:
         """The initial state on this rank's device: the caller's params
@@ -562,9 +723,30 @@ class DistributedTrainStep:
             return t.requires_grad_(True) if t.is_floating_point() else t
 
         params = _map_named(place, params)
-        views = [self._update_view(n, t) for n, t in self._floating(params)]
-        return TrainState(step=0, params=params,
-                          opt_state=self.tx.init(views, self._layout(params)))
+        floating = self._floating(params)
+        views = [self._update_view(n, t) for n, t in floating]
+        opt_state = self.tx.init(views, self._layout(params))
+        stale = {n: torch.zeros((self.stale[n],) + tuple(v.shape), dtype=v.dtype, device=dev)
+                 for (n, _), v in zip(floating, views) if n in self.stale}
+        if self.offloaded:
+            opt_state = self._offloaded_slots(opt_state, self._to_host,
+                                              self._offload_index(params))
+            params = _map_named(
+                lambda n, t: self._to_host(t) if n in self.offloaded else t, params)
+        return TrainState(step=0, params=params, opt_state=opt_state,
+                          comp_state=self._init_comp_state(), stale_state=stale)
+
+    def _init_comp_state(self) -> Dict[str, Any]:
+        """Each compressed variable's ``{"local", "shared"}`` state on this
+        rank's device; shared state is broadcast from rank 0."""
+        dev, out = self.plan.device, {}
+        for name, comp in self.compressors.items():
+            var = self.plan.var_plans[name].var
+            local = {k: t.to(dev) for k, t in comp.init_local(var).items()}
+            shared = {k: self.coll.broadcast(t.to(dev).contiguous(), "init")
+                      for k, t in comp.init_shared(var).items()}
+            out[name] = {"local": local, "shared": shared}
+        return out
 
     def logical_params(self, state: TrainState):
         """The user-shaped parameter view of a train state (detached).
@@ -573,6 +755,7 @@ class DistributedTrainStep:
             kind, d = self._render(name)
             t = t.detach()
             if kind == "sharded":
+                t = t.to(self.plan.device)
                 t = self.plan.unpad(name, self.coll.all_gather(t, d, "view"))
             return t
 
@@ -660,15 +843,17 @@ class DistributedTrainStep:
         ``flatten_params(state.params)``, with respect to their logical
         (gathered) values, averaged over ``grad_accum_steps``
         micro-batches."""
-        params, targets = self._forward_params(state.params)
+        params, targets = self._forward_params(self._stream_params(state.params))
         loss, aux, grads = self._local_loss_and_grads(params, targets,
                                                       self._to_device(batch))
         return loss, aux, [grads[n] for n in targets]
 
     # ---------------------------------------------------------------- step
-    def _sync(self, grads: Dict[str, torch.Tensor], done: Dict[str, torch.Tensor]):
-        """Each gradient synced by its rendering, in leaf order (those in
-        ``done`` came from the buckets)."""
+    def _sync(self, grads: Dict[str, torch.Tensor], done: Dict[str, torch.Tensor],
+              comp_state: Dict[str, Any]):
+        """Each gradient synced by its rendering or its compressor, in leaf
+        order (those in ``done`` came from the buckets); a compressor's new
+        state is copied into ``comp_state`` in place."""
         out = {}
         for name, g in grads.items():
             if name in done:
@@ -676,15 +861,35 @@ class DistributedTrainStep:
                 continue
             g = g.contiguous()
             kind, d = self._render(name)
-            if kind == "replicated":
+            if name in self.compressors:
+                st = comp_state[name]
+                out[name], local, shared = self.compressors[name].step(
+                    g, st["local"], st["shared"], self.coll)
+                for old, new in ((st["local"], local), (st["shared"], shared)):
+                    for k, t in new.items():
+                        old[k].copy_(t)
+            elif kind == "replicated":
                 self.coll.all_reduce(g, "grad", mean=True)
                 out[name] = g
             else:
                 out[name] = self.coll.reduce_scatter(g, d, "grad")
         return out
 
+    def _apply_staleness(self, grads: Dict[str, torch.Tensor],
+                         stale_state: Dict[str, torch.Tensor]) -> None:
+        """Each stale variable's fresh gradient enters the tail of its
+        buffer and the head, computed K steps ago, takes its place."""
+        for name, buf in stale_state.items():
+            delayed = buf[0].clone()
+            buf.copy_(torch.cat([buf[1:], grads[name].unsqueeze(0).to(buf.dtype)]))
+            grads[name] = delayed
+
     def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         before = self.coll.snapshot()
+        host, opt_state = state, state.opt_state
+        if self.offloaded:
+            state = TrainState(state.step, self._stream_params(state.params), opt_state,
+                               state.comp_state, state.stale_state)
         params, targets = self._forward_params(state.params)
         sync = None
         if self.buckets and self.coll.group is not None:
@@ -692,10 +897,16 @@ class DistributedTrainStep:
         loss, aux, grads = self._local_loss_and_grads(params, targets, batch, sync)
         with torch.no_grad():
             done = sync.finish(targets) if sync is not None else {}
-            grads = self._sync(grads, done)
+            grads = self._sync(grads, done, state.comp_state)
+            if self.stale:
+                self._apply_staleness(grads, state.stale_state)
             floating = self._floating(state.params)
             views = [self._update_view(n, t) for n, t in floating]
-            updates = self.tx.update([grads[n] for n, _ in floating], state.opt_state,
+            if self.offloaded:
+                # The slots come over only now, after the backward's peak.
+                index = self._offload_index(host.params)
+                opt_state = self._offloaded_slots(opt_state, self._to_dev, index)
+            updates = self.tx.update([grads[n] for n, _ in floating], opt_state,
                                      views, self._layout(state.params), self._psum)
             for (name, p), v, u in zip(floating, views, updates):
                 if self._render(name)[0] == "zero1":
@@ -703,6 +914,8 @@ class DistributedTrainStep:
                     p.copy_(self.coll.all_gather(v + u.to(p.dtype), d, "param"))
                 else:
                     p.add_(u.to(p.dtype))
+            if self.offloaded:
+                self._stream_back(host, state.params, opt_state, index)
             loss = loss.detach().clone()
             self.coll.all_reduce(loss, "metric", mean=True)
             metrics = {"loss": loss}
@@ -714,7 +927,8 @@ class DistributedTrainStep:
                 if v - before.get(p, {}).get(k, 0)}
             for p, kinds in after.items()}
         self.last_collectives = {p: k for p, k in self.last_collectives.items() if k}
-        return TrainState(state.step + 1, state.params, state.opt_state), metrics
+        return TrainState(host.step + 1, host.params, host.opt_state, host.comp_state,
+                          host.stale_state), metrics
 
     def _mean_metric(self, t: torch.Tensor) -> torch.Tensor:
         t = t.detach()
@@ -756,7 +970,7 @@ class DistributedTrainStep:
         except ValueError:
             local, split = batch, False
         with torch.no_grad():
-            params, _ = self._forward_params(state.params)
+            params, _ = self._forward_params(self._stream_params(state.params))
             with pg.batch_stats_over(self.coll if split else None):
                 out = self.loss_fn(params, local)
         loss, aux = out if self.has_aux else (out, None)

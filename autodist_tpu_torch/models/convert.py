@@ -3,7 +3,9 @@
 The JAX package's params are a pytree of arrays; handed over as plain nested
 dicts of ``np.ndarray`` (``jax.tree.map(np.asarray, params)``), they become
 the port's nested dict of tensors with the same keys and layouts
-(:func:`params_from_jax`), and back (:func:`params_to_numpy`). Flat names
+(:func:`params_from_jax`), and back (:func:`params_to_numpy`). The train
+state's compressor and staleness state carry over the same way, cut to one
+rank's part (:func:`comp_state_from_jax`, :func:`stale_state_from_jax`). Flat names
 follow the JAX package's ``model_item._path_to_name`` (``"/"``-joined keys,
 e.g. ``"layers_0/attn/wq/kernel"``) and its leaf order: ``jax.tree_util``
 flattens a dict in sorted key order (``layers_10`` before ``layers_2``), and
@@ -12,7 +14,7 @@ cut from them agree between the packages. No jax is imported here.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +28,43 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
     return map_params(lambda x: torch.as_tensor(np.array(x, copy=True), device=dev),
                       tree)
+
+
+def comp_state_from_jax(comp_state: Dict[str, Any], rank: int = 0,
+                        device=None) -> Dict[str, Any]:
+    """The JAX step's ``TrainState.comp_state`` as numpy (``{var: {"local":
+    {k: [n, ...]}, "shared": {k: ...}}}``) -> rank ``rank``'s compressor
+    state in the port: each local leaf's row ``rank`` (that rank's EF
+    residual), the shared leaves (PowerSGD's ``q``) whole."""
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return torch.as_tensor(np.array(x, copy=True), device=dev)
+
+    return {name: {"local": {k: tensor(np.asarray(v)[rank]) for k, v in st["local"].items()},
+                   "shared": {k: tensor(v) for k, v in st["shared"].items()}}
+            for name, st in comp_state.items()}
+
+
+def stale_state_from_jax(stale_state: Dict[str, Any],
+                         renderings: Dict[str, Tuple[str, Optional[int]]],
+                         n: int = 1, rank: int = 0, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX step's ``TrainState.stale_state`` as numpy (``{var: [K,
+    *storage shape]}``) -> rank ``rank``'s delay buffers in the port:
+    shaped like the gradient its optimizer sees, the block ``rank`` of
+    ``n`` along the sharded dim for a ``"zero1"`` or ``"sharded"``
+    rendering (``renderings[var] = (kind, dim)``, as
+    ``ShardingPlan.rendering`` gives), the whole buffer otherwise."""
+    dev = resolve_device(device)
+    out = {}
+    for name, buf in stale_state.items():
+        buf = np.asarray(buf)
+        kind, dim = renderings.get(name, ("replicated", None))
+        if kind != "replicated":
+            step = buf.shape[dim + 1] // n
+            buf = np.take(buf, np.arange(rank * step, (rank + 1) * step), axis=dim + 1)
+        out[name] = torch.as_tensor(np.array(buf, copy=True), device=dev)
+    return out
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

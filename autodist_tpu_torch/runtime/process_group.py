@@ -12,8 +12,10 @@ without NCCL, or a group that does not form, raises.
 :class:`Collectives` is the one place the port's collectives are issued:
 mean and sum all-reduces, reduce-scatter and all-gather along any dim
 (moved to the front and made contiguous, as NCCL splits dim 0), and the
-broadcast of ``init``. Each call adds one to ``counts[purpose][kind]``.
-Without a group every call is the identity and counts nothing.
+broadcast of ``init``. Each call adds one to ``counts[purpose][kind]`` and
+the bytes it hands the collective to ``nbytes[purpose][kind]`` (an
+all-gather: the bytes it gathers). Without a group every call is the
+identity and counts nothing.
 """
 from __future__ import annotations
 
@@ -85,12 +87,17 @@ class Collectives:
         self.group = group
         self.size = dist.get_world_size(group) if group is not None else 1
         self.counts: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
+        self.nbytes: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
 
-    def _count(self, purpose: str, kind: str) -> None:
+    def _count(self, purpose: str, kind: str, t: torch.Tensor) -> None:
         self.counts[purpose][kind] += 1
+        self.nbytes[purpose][kind] += t.numel() * t.element_size()
 
     def snapshot(self) -> Dict[str, Dict[str, int]]:
         return {p: dict(k) for p, k in self.counts.items()}
+
+    def bytes_snapshot(self) -> Dict[str, Dict[str, int]]:
+        return {p: dict(k) for p, k in self.nbytes.items()}
 
     def all_reduce(self, t: torch.Tensor, purpose: str, mean: bool = False,
                    async_op: bool = False):
@@ -99,7 +106,7 @@ class Collectives:
         is then the caller's)."""
         if self.group is None:
             return None
-        self._count(purpose, "all_reduce")
+        self._count(purpose, "all_reduce", t)
         work = dist.all_reduce(t, group=self.group, async_op=async_op)
         if async_op:
             return work
@@ -111,7 +118,7 @@ class Collectives:
         """This rank's block along ``dim`` of the group's mean of ``t``."""
         if self.group is None:
             return t
-        self._count(purpose, "reduce_scatter")
+        self._count(purpose, "reduce_scatter", t)
         front = (t.movedim(dim, 0) / self.size).contiguous()
         out = front.new_empty((front.shape[0] // self.size,) + tuple(front.shape[1:]))
         _reduce_scatter(out, front, group=self.group)
@@ -121,7 +128,7 @@ class Collectives:
         """Sum-reduce-scatter of a flat buffer laid out rank block by rank
         block; returns ``(out, work)``."""
         out = flat.new_empty(flat.numel() // self.size)
-        self._count(purpose, "reduce_scatter")
+        self._count(purpose, "reduce_scatter", flat)
         work = _reduce_scatter(out, flat, group=self.group, async_op=async_op)
         return out, work
 
@@ -129,9 +136,9 @@ class Collectives:
         """The group's blocks of ``t`` concatenated along ``dim``."""
         if self.group is None:
             return t
-        self._count(purpose, "all_gather")
         front = t.movedim(dim, 0).contiguous()
         out = front.new_empty((front.shape[0] * self.size,) + tuple(front.shape[1:]))
+        self._count(purpose, "all_gather", out)
         _all_gather(out, front, group=self.group)
         return out.movedim(0, dim)
 
@@ -139,7 +146,7 @@ class Collectives:
         """``t`` overwritten in place by rank 0's."""
         if self.group is None:
             return t
-        self._count(purpose, "broadcast")
+        self._count(purpose, "broadcast", t)
         dist.broadcast(t, src=dist.get_global_rank(self.group, 0)
                        if self.group is not dist.group.WORLD else 0, group=self.group)
         return t

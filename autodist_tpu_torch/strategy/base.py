@@ -21,20 +21,20 @@ def byte_size_load_fn(var: VarItem) -> float:
 
 
 def check_sync_supported(sync: bool) -> None:
-    """Reject asynchronous PS (``sync=False``): the port has no rendering of
-    it yet (the JAX package's host-driven AsyncPSTrainer is in ROADMAP.md)."""
+    """Reject asynchronous PS (``sync=False``) in the lowering: one train
+    step, which every rank runs in lockstep, has no rendering of a worker
+    that does not wait. ``AutoDist.build`` routes uniformly ``sync=False``
+    strategies to the host-driven ``runtime.async_ps.AsyncPSTrainer``
+    instead; ``sync=True, staleness=K`` is the deterministic bounded
+    staleness inside the step. The builders accept both, as the JAX
+    package's do."""
     if not sync:
         raise NotImplementedError(
-            "sync=False (asynchronous PS) is not ported yet; see ROADMAP.md")
-
-
-def check_staleness_supported(staleness: int) -> None:
-    """Reject bounded staleness (``staleness > 0``): its delay buffers are
-    not ported yet (ROADMAP.md)."""
-    if staleness > 0:
-        raise NotImplementedError(
-            f"staleness={staleness} (bounded-staleness PS) is not ported yet; "
-            "see ROADMAP.md")
+            "sync=False (asynchronous PS) has no rendering in the train step: its "
+            "ranks run in lockstep. Build through AutoDist.build, which routes "
+            "async strategies to the host-driven AsyncPSTrainer "
+            "(autodist_tpu_torch.runtime.async_ps) — or use sync=True with "
+            "staleness=K for deterministic bounded staleness inside the step.")
 
 
 def min_divisor_shards(n: int) -> int:

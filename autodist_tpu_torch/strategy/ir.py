@@ -4,10 +4,9 @@ The port's copy of the JAX package's ``strategy/ir.py`` (itself the original
 AutoDist's ``strategy.proto`` / ``synchronizers.proto``): dataclasses with a
 JSON round trip, field for field the same, so a strategy serialized by
 either package reads in the other. What each field means at lowering time
-in this port is in ``kernel/lowering.py``: on one device AllReduce and PS
-both lower to the plain update, and the options that need a mesh
-(compressors, ``shard_update``, staleness, bucketing, asynchronous PS) raise
-``NotImplementedError`` until their slice lands (ROADMAP.md).
+in this port is in ``kernel/lowering.py`` (compressors, ``shard_update``,
+staleness, bucketing, host offload) and ``runtime/async_ps.py``
+(``sync=False``, routed there by ``AutoDist.build``).
 """
 from __future__ import annotations
 
@@ -114,6 +113,15 @@ class NodeConfig:
         if axes and len(axes) != len(shape):
             raise ValueError(f"partitioner {self.partitioner!r} rank {len(axes)} != "
                              f"var {self.var_name!r} rank {len(shape)}")
+
+
+def iter_synchronizers(node: NodeConfig):
+    """The node's synchronizer, then each shard's: the walk every reader
+    of a node's sync settings takes (a shard's settings override the
+    node's)."""
+    yield node.synchronizer
+    for p in node.part_config:
+        yield p.synchronizer
 
 
 @dataclass

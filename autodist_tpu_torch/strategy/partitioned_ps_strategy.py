@@ -7,8 +7,7 @@ from autodist_tpu_torch.const import ENV
 from autodist_tpu_torch.model_item import ModelItem, VarItem
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.base import (
-    StrategyBuilder, byte_size_load_fn, check_staleness_supported, check_sync_supported,
-    min_divisor_shards, part_name, reduction_devices)
+    StrategyBuilder, byte_size_load_fn, min_divisor_shards, part_name, reduction_devices)
 from autodist_tpu_torch.strategy.ir import NodeConfig, PSSynchronizer, Strategy
 
 
@@ -20,8 +19,6 @@ class PartitionedPS(StrategyBuilder):
 
     def __init__(self, local_proxy_variable: bool = False, sync: bool = True,
                  staleness: int = 0):
-        check_sync_supported(sync)
-        check_staleness_supported(staleness)
         self._local_proxy_variable = local_proxy_variable
         self._sync = sync
         self._staleness = staleness

@@ -4,9 +4,7 @@ from typing import Dict
 
 from autodist_tpu_torch.model_item import ModelItem, VarItem
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.strategy.base import (
-    StrategyBuilder, byte_size_load_fn, check_staleness_supported, check_sync_supported,
-    reduction_devices)
+from autodist_tpu_torch.strategy.base import StrategyBuilder, byte_size_load_fn, reduction_devices
 from autodist_tpu_torch.strategy.ir import NodeConfig, PSSynchronizer, Strategy
 
 
@@ -15,8 +13,6 @@ class PSLoadBalancing(StrategyBuilder):
 
     def __init__(self, local_proxy_variable: bool = False, sync: bool = True,
                  staleness: int = 0):
-        check_sync_supported(sync)
-        check_staleness_supported(staleness)
         self._local_proxy_variable = local_proxy_variable
         self._sync = sync
         self._staleness = staleness

@@ -2,8 +2,7 @@
 ``strategy/ps_strategy.py``)."""
 from autodist_tpu_torch.model_item import ModelItem
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.strategy.base import (
-    StrategyBuilder, check_staleness_supported, check_sync_supported, reduction_devices)
+from autodist_tpu_torch.strategy.base import StrategyBuilder, reduction_devices
 from autodist_tpu_torch.strategy.ir import NodeConfig, PSSynchronizer, Strategy
 
 
@@ -12,8 +11,6 @@ class PS(StrategyBuilder):
 
     def __init__(self, local_proxy_variable: bool = False, sync: bool = True,
                  staleness: int = 0):
-        check_sync_supported(sync)
-        check_staleness_supported(staleness)
         self._local_proxy_variable = local_proxy_variable
         self._sync = sync
         self._staleness = staleness

@@ -126,7 +126,32 @@ Phases, each printing one JSON line:
     not a card result: 4 gloo ranks on the CPU (``--dist-cpu-rank``) train
     a small dense model 3 Adam steps under AllReduce with buckets, Zero1,
     PartitionedPS and PS, against the one-process step within rtol 2e-5 /
-    atol 2e-6.
+    atol 2e-6, and one SGD step of a 128x64 model under Horovod-EF and TopK
+    against the mean of the ranks' compressed gradients gathered by hand
+    (EF within ``REHEARSAL_BF16_STEPS`` bf16 steps, its residuals and TopK
+    bitwise).
+17. ``sync_options``: the rest of the synchronizer on one NCCL rank on
+    cuda:0, started as a process of this script (``--sync-rank``), with
+    deterministic algorithms; 1 warm-up step and a counted window each,
+    Adam at 1e-4. bert_base (seq 512, batch 32, flash) under plain
+    AllReduce and ``AllReduce(compressor=X)`` for Horovod, Horovod-EF,
+    PowerSGD and TopK: one more step's synced gradient (the step's own,
+    recorded at its sync) against the plain compressor function on the
+    card applied to that step's local gradient and state, bitwise for
+    Horovod, EF and TopK (and their new residuals), PowerSGD within
+    ``POWERSGD_TOL`` of the largest entry (fp64 Gram-Schmidt against
+    cuSOLVER); bert_base under ``PS(staleness=2)``: the first 2 steps leave
+    the loss where it was, and the parameters equal, bitwise, the plain
+    Adam update driven by the synced gradients of 2 steps before; ResNet-50
+    (224 px, batch 128) under ``PS()`` built with ``host_offload=True``
+    against the resident step: losses and parameters bitwise equal, the
+    offloaded parameters and slots pinned between steps, peak and held
+    memory of both; bert_base under ``PS(sync=False, staleness=1)`` with 2
+    workers on cuda:0, ``round_robin`` (bitwise equal to the same schedule
+    by hand with the port's step and optimizer) and ``threads`` (every push
+    applied, lags within the bound). Every run: finite losses that fall, the
+    flash kernels ``num_layers x`` gradients and the conv-stats kernel ``36
+    x`` steps launched in the window, each step's wire equal to the plan's.
 
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
@@ -169,6 +194,7 @@ from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.ops import paged_attention as pa
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
+from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
 from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing, StrategyCompiler, from_name
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
 from autodist_tpu_torch.serve.engine import InferenceEngine
@@ -341,6 +367,38 @@ REHEARSAL_RANKS, REHEARSAL_STEPS = 4, 3
 REHEARSAL_BUILDERS = (("AllReduce", {"bucket_bytes": 64}), ("Zero1", {}),
                       ("PartitionedPS", {}), ("PS", {}))
 REHEARSAL_RTOL, REHEARSAL_ATOL = 2e-5, 2e-6
+# The rehearsal's compressed step: a 128x64 kernel (8192 elements, over
+# TopK's min_size of 4096) and its bias, SGD at REHEARSAL_LR, one step.
+# Gloo sums the four bf16 payloads of EF in bf16, rounding its partial
+# sums; each rounding moves a sum by at most one bf16 step (2^-8) of the
+# magnitudes summed, so the synced gradient lies within
+# REHEARSAL_BF16_STEPS such steps of the exact mean of the payloads
+# (tests/test_torch_dist_sync_options.py measures 2.90 with XLA's one
+# rounding on the other side). TopK's gathered pairs are scatter-added in
+# rank order: bitwise equal to the hand-made sum.
+REHEARSAL_COMPRESSORS = ("HorovodCompressorEF", "TopKCompressor")
+REHEARSAL_LR, REHEARSAL_BF16_STEPS = 0.05, 3
+# sync_options: one NCCL rank on cuda:0 (the checks hold one rank's wire
+# to the plain compressor function); bert_base at TRAIN_SEQ, TRAIN_BATCH,
+# flash, and ResNet-50 at RESNET_BATCH, each 1 warm-up step and a counted
+# window of SYNC_STEPS (the staleness run 1 + SYNC_STALE_STEPS, so that
+# its delayed gradients land), Adam at DIST_OPT.
+SYNC_STEPS, SYNC_STALENESS, SYNC_STALE_STEPS = 2, 2, 4
+SYNC_COMPRESSORS = ("HorovodCompressor", "HorovodCompressorEF", "PowerSGDCompressor",
+                    "TopKCompressor")
+# PowerSGD on the card (fp32 matmuls, cuSOLVER's Householder QR) against
+# the plain function in fp64 with Gram-Schmidt: the synced gradient and the
+# residual within POWERSGD_TOL of each tensor's largest entry, the new q
+# within it column by column up to sign (QR fixes the columns' signs, which
+# the product P Qn^T does not see). fp32 sums over up to 3072 terms carry
+# about 1e-6 of the largest term; the orthonormalisation multiplies that
+# by the conditioning of the two columns of P.
+POWERSGD_TOL = 1e-3
+TOPK_RATIO, TOPK_MIN_SIZE = 0.01, 4096
+ASYNC_WORKERS, ASYNC_PUSHES, ASYNC_STALENESS = 2, 4, 1
+# Host offload: the peak falls by this share of the optimizer slots' bytes,
+# and the memory held between steps by this share of all offloaded bytes.
+OFFLOAD_SAVING = (0.9, 1.1)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1537,18 +1595,46 @@ def _rehearsal_inputs():
     return params, (torch.randn(16, 12, generator=gen), torch.randn(16, 5, generator=gen))
 
 
+def _rehearsal_comp_inputs():
+    gen = torch.Generator().manual_seed(SEED + 1)
+    params = {"w": torch.randn(128, 64, generator=gen) * 0.1,
+              "b": torch.randn(64, generator=gen)}
+    return params, (torch.randn(16, 128, generator=gen), torch.randn(16, 64, generator=gen))
+
+
+def _capture_sync(step) -> list:
+    """Record each call of the step's gradient sync: ``(local gradients,
+    compressor state before, synced gradients)``, cloned."""
+    log, sync = [], step._sync
+
+    def recorded(grads, done, comp_state):
+        before = {n: {part: {k: t.clone() for k, t in st[part].items()} for part in st}
+                  for n, st in comp_state.items()}
+        local = {n: g.detach().clone() for n, g in grads.items()}
+        out = sync(grads, done, comp_state)
+        log.append((local, before, {n: g.clone() for n, g in out.items()}))
+        return out
+
+    step._sync = recorded
+    return log
+
+
 def dist_cpu_rank(rank: int, world: int, work: str) -> int:
     """One gloo rank of the CPU rehearsal."""
     torch.set_num_threads(1)
     params, batch = _rehearsal_inputs()
     out = {}
-    for name, kwargs in REHEARSAL_BUILDERS:
+
+    def autodist_for(builder):
         AutoDist.reset_default()
-        autodist = AutoDist(strategy_builder=from_name(name, **kwargs), device="cpu",
-                            resource_spec=ResourceSpec(resource_dict={"nodes": [
-                                {"address": "localhost", "gpus": world}]}),
-                            init_method=f"file://{work}/pg", world_size=world, rank=rank,
-                            timeout_s=DIST_GROUP_TIMEOUT_S)
+        return AutoDist(strategy_builder=builder, device="cpu",
+                        resource_spec=ResourceSpec(resource_dict={"nodes": [
+                            {"address": "localhost", "gpus": world}]}),
+                        init_method=f"file://{work}/pg", world_size=world, rank=rank,
+                        timeout_s=DIST_GROUP_TIMEOUT_S)
+
+    for name, kwargs in REHEARSAL_BUILDERS:
+        autodist = autodist_for(from_name(name, **kwargs))
         step = autodist.build(_rehearsal_loss, params, batch,
                               optimizer=OptimizerSpec(*DIST_OPT))
         state = step.init(params)
@@ -1558,6 +1644,22 @@ def dist_cpu_rank(rank: int, world: int, work: str) -> int:
             step.logical_params(state)).items()}
         out[name + "/wire"] = [_wire(step.last_collectives),
                                autodist.plan.collectives_per_step()]
+    cparams, cbatch = _rehearsal_comp_inputs()
+    for name in REHEARSAL_COMPRESSORS:
+        autodist = autodist_for(AllReduce(compressor=name))
+        step = autodist.build(_rehearsal_loss, cparams, cbatch,
+                              optimizer=OptimizerSpec("sgd", {"learning_rate": REHEARSAL_LR}))
+        log = _capture_sync(step)
+        state, _ = step(step.init(cparams), cbatch)
+        local, _, synced = log[0]
+        out[name] = {
+            "local": {n: g.tolist() for n, g in local.items()},
+            "synced": {n: g.tolist() for n, g in synced.items()},
+            "residual": {n: st["local"]["residual"].tolist()
+                         for n, st in state.comp_state.items() if st["local"]},
+            "params": {n: t.tolist() for n, t in flatten_params(
+                step.logical_params(state)).items()},
+            "wire": [_wire(step.last_collectives), autodist.plan.collectives_per_step()]}
     pg.leave()
     with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
         json.dump(out, f)
@@ -1643,9 +1745,436 @@ def dist_rehearsal() -> None:
             check(wire == predicted, f"rehearsal {name}: wire {wire} != {predicted}")
         worst[name] = max((torch.tensor(ranks[0][name][n]) - t).abs().max().item()
                           for n, t in want.items())
+    comp = {name: _rehearsal_compressed(name, ranks) for name in REHEARSAL_COMPRESSORS}
     emit("dist_train_cpu_rehearsal", note="gloo on the CPU: a rehearsal, not a card result",
          ranks=REHEARSAL_RANKS, steps=REHEARSAL_STEPS, max_abs_diff_vs_one_process=worst,
-         rtol=REHEARSAL_RTOL, atol=REHEARSAL_ATOL, seconds=time.perf_counter() - t0)
+         rtol=REHEARSAL_RTOL, atol=REHEARSAL_ATOL, compressed_step=comp,
+         seconds=time.perf_counter() - t0)
+
+
+def _rehearsal_compressed(name: str, ranks: list) -> dict:
+    """One compressed step of the 4 gloo ranks against the mean of their
+    compressed gradients, gathered by hand from each rank's local gradient:
+    EF within REHEARSAL_BF16_STEPS bf16 steps of the payloads' magnitudes
+    (gloo rounds its bf16 partial sums), its residual ``inp - bf16(inp)``
+    bitwise; TopK's scatter-add in rank order bitwise. Every rank's synced
+    gradient the same, the update ``p - lr g`` bitwise, the wire the
+    plan's."""
+    cparams, _ = _rehearsal_comp_inputs()
+    n = len(ranks)
+    got = [{k: {v: torch.tensor(x) for v, x in r[name][k].items()}
+            for k in ("local", "synced", "residual", "params")} for r in ranks]
+    local = [g["local"] for g in got]
+    worst = 0.0
+    for var, synced in got[0]["synced"].items():
+        for r in range(1, n):
+            check(torch.equal(got[r]["synced"][var], synced),
+                  f"rehearsal {name}: rank {r} synced {var} differs from rank 0's")
+        flat = [local[r][var].reshape(-1) for r in range(n)]
+        if name == "HorovodCompressorEF":
+            payload = [f.to(torch.bfloat16).float() for f in flat]
+            for r in range(n):
+                check(torch.equal(got[r]["residual"][var].reshape(-1), flat[r] - payload[r]),
+                      f"rehearsal EF: rank {r} residual of {var} is not inp - bf16(inp)")
+            exact = sum(p.double() for p in payload) / n
+            bound = REHEARSAL_BF16_STEPS * 2.0 ** -8 * sum(p.abs().double() for p in payload) / n
+            err = (synced.reshape(-1).double() - exact).abs()
+            check(bool((err <= bound).all()), f"rehearsal EF {var}: synced off the bf16 "
+                  f"mean by {(err / bound).max().item()} of its bound")
+            worst = max(worst, (err / bound.clamp_min(1e-30)).max().item())
+        elif flat[0].numel() >= TOPK_MIN_SIZE:
+            k = max(1, int(flat[0].numel() * TOPK_RATIO))
+            dense = torch.zeros_like(flat[0])
+            for r in range(n):
+                idx = torch.argsort(flat[r].abs(), descending=True, stable=True)[:k]
+                dense[idx] += flat[r][idx]
+                residual = flat[r].clone()
+                residual[idx] = 0.0
+                check(torch.equal(got[r]["residual"][var].reshape(-1), residual),
+                      f"rehearsal TopK: rank {r} residual of {var} differs")
+            check(torch.equal(synced.reshape(-1), dense / n),
+                  f"rehearsal TopK {var}: synced != the rank-order scatter-add")
+        else:
+            want = sum(flat) / n
+            check(torch.allclose(synced.reshape(-1), want, rtol=1e-6, atol=1e-7),
+                  f"rehearsal {name} {var}: dense mean differs")
+        want_p = cparams[var] + (-REHEARSAL_LR * synced)
+        check(torch.equal(got[0]["params"][var], want_p),
+              f"rehearsal {name} {var}: params != p - lr g")
+    for r in ranks:
+        wire, predicted = r[name]["wire"]
+        check(wire == predicted, f"rehearsal {name}: wire {wire} != {predicted}")
+    return {"ef_worst_of_bound": worst} if name == "HorovodCompressorEF" else \
+        {"topk_bitwise": True}
+
+
+# ------------------------------------------------------------- sync_options
+def _plain_compressed(name: str, g, local: dict, shared: dict):
+    """The compressor's function at one rank, written plainly on the card:
+    ``(synced gradient, residual or None, q or None)``."""
+    if name == "HorovodCompressor":
+        return g.to(torch.bfloat16).float(), None, None
+    if name == "HorovodCompressorEF":
+        inp = g + local["residual"]
+        out = inp.to(torch.bfloat16).float()
+        return out, inp - out, None
+    if name == "TopKCompressor":
+        if g.numel() < TOPK_MIN_SIZE:
+            return g, None, None
+        flat = (g + local["residual"]).reshape(-1)
+        idx = torch.argsort(flat.abs(), descending=True, stable=True)[
+            :max(1, int(flat.numel() * TOPK_RATIO))]
+        out, residual = torch.zeros_like(flat), flat.clone()
+        out[idx], residual[idx] = flat[idx], 0.0
+        return out.view_as(g), residual.view_as(g), None
+    if g.dim() < 2:                                     # PowerSGD's vectors
+        return g, None, None
+    inp = (g + local["residual"]).double()
+    mat = inp.reshape(g.shape[0], -1)
+    cols = []
+    for col in (mat @ shared["q"].double()).T:          # Gram-Schmidt
+        for c in cols:
+            col = col - (c @ col) * c
+        cols.append(col / col.norm())
+    p = torch.stack(cols, 1)
+    qn = mat.T @ p
+    approx = (p @ qn.T).reshape(g.shape)
+    return approx.float(), (inp - approx).float(), qn.float()
+
+
+def _off_by(got, want, signed_columns: bool = False) -> float:
+    """max |got - want| over the largest |want|; with ``signed_columns``
+    each column compared up to its sign."""
+    got, want = got.double(), want.double()
+    if signed_columns:
+        diff = torch.stack([torch.minimum((g - w).abs().max(), (g + w).abs().max())
+                            for g, w in zip(got.T, want.T)])
+    else:
+        diff = (got - want).abs()
+    return (diff.max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _compressor_check(name: str, step, state, log) -> dict:
+    """The step's synced gradient, residual and q against the plain
+    function on the card: bitwise, PowerSGD within POWERSGD_TOL."""
+    local, before, synced = log[-1]
+    comps = step.compressors
+    worst, compressed = 0.0, 0
+    for var, g in local.items():
+        if var not in comps:
+            check(torch.equal(synced[var], g), f"{name}: uncompressed {var} changed")
+            continue
+        st = before[var]
+        want, residual, q = _plain_compressed(name, g, st["local"], st["shared"])
+        new = state.comp_state[var]
+        if name == "PowerSGDCompressor":
+            errs = [_off_by(synced[var], want)]
+            if residual is not None:
+                errs += [_off_by(new["local"]["residual"], residual),
+                         _off_by(new["shared"]["q"], q, signed_columns=True)]
+            worst = max([worst] + errs)
+            check(max(errs) <= POWERSGD_TOL, f"{name} {var}: off the plain function by "
+                  f"{max(errs)} of its largest entry > {POWERSGD_TOL}")
+        else:
+            check(torch.equal(synced[var], want), f"{name} {var}: synced gradient is not "
+                  f"the plain function's")
+            if residual is not None:
+                check(torch.equal(new["local"]["residual"], residual),
+                      f"{name} {var}: residual is not inp - compressed")
+        compressed += residual is not None
+    return {"compressed_vars": len(comps), "with_state": compressed,
+            "powersgd_worst_of_largest": worst if name == "PowerSGDCompressor" else None}
+
+
+def _sync_window(step, params, batch, steps: int, dev):
+    """One warm-up step, then a counted window of ``steps``: ``(state,
+    losses of all, ms a window step, launches, the window's collectives a
+    step, peak memory of the window in bytes)``."""
+    state = step.init(params)
+    state, first = step(state, batch)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    losses, wire = [float(first["loss"])], []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        wire.append(_wire(step.last_collectives))
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {"fused_conv_stats": fcs.fused_matmul_stats.launches, **_launch_counts()}
+    return state, losses, ms, launches, wire, torch.cuda.max_memory_allocated(dev)
+
+
+def _check_run(key: str, model: str, losses, launches, wire, predicted, steps: int,
+               falls: bool = True) -> None:
+    check(all(np.isfinite(losses)), f"{key}: non-finite loss {losses}")
+    if falls:
+        check(losses[-1] < losses[0], f"{key}: loss did not fall {losses}")
+    for counts in wire:
+        check(counts == predicted, f"{key}: wire {counts} != the plan's {predicted}")
+    if model == "bert_base":
+        layers = get_model_spec("bert_base").config.num_layers
+        for kind in ("fwd", "dkdv", "dq"):
+            check(launches[kind] == layers * steps,
+                  f"{key}: flash {kind} launches {launches[kind]} != {layers} x {steps}")
+    else:
+        per = rn.fused_launches_per_forward(50) * steps
+        check(launches["fused_conv_stats"] == per,
+              f"{key}: fused conv launches {launches['fused_conv_stats']} != {per}")
+
+
+def _build_step(builder, loss_fn, params, batch, world: int, rank: int, work: str,
+                **kwargs):
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=builder, device="cuda",
+                        init_method=f"file://{work}/pg", world_size=world, rank=rank,
+                        timeout_s=DIST_GROUP_TIMEOUT_S)
+    step = autodist.build(loss_fn, params, batch, optimizer=OptimizerSpec(*DIST_OPT),
+                          **kwargs)
+    return autodist, step
+
+
+def _stale_replay(params, log, k: int, names) -> dict:
+    """The plain PS update driven by the synced gradients of K steps before
+    (zeros for the first K): the parameters after each step."""
+    tx = OptimizerSpec(*DIST_OPT).make()
+    flat = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    leaves = [flat[n] for n in names]
+    slots = tx.init(leaves)
+    with torch.no_grad():
+        for t in range(len(log)):
+            grads = ([log[t - k][2][n] for n in names] if t >= k
+                     else [torch.zeros_like(x) for x in leaves])
+            for p, u in zip(leaves, tx.update(grads, slots, leaves)):
+                p.add_(u.to(p.dtype))
+    return flat
+
+
+def _async_by_hand(spec, params, batch, pushes: int, workers: int, dev):
+    """The round-robin schedule by hand with the port's step: each round's
+    workers take gradients (``DistributedTrainStep.loss_and_grads``) at
+    one snapshot, then apply in worker order with the port's optimizer."""
+    from autodist_tpu_torch.kernel.lowering import TrainState
+
+    step = _one_process_step(from_name("PS"), spec.loss_fn, params, batch, dev)
+    tx = OptimizerSpec(*DIST_OPT).make()
+    names = [n for n, t in flatten_params(params).items() if t.is_floating_point()]
+    flat = {n: t.detach().clone() for n, t in flatten_params(params).items()}
+    slots = tx.init([flat[n] for n in names])
+    losses, tick = [], pushes
+    while tick > 0:
+        snap = {n: t.clone().requires_grad_(t.is_floating_point()) for n, t in flat.items()}
+        rounds = []
+        for _ in range(min(workers, tick)):
+            tick -= 1
+            loss, _, grads = step.loss_and_grads(
+                TrainState(0, unflatten_params(snap), None), batch)
+            rounds.append((float(loss.detach()), dict(zip(names, grads))))
+        for loss, grads in rounds:
+            losses.append(loss)
+            with torch.no_grad():
+                ups = tx.update([grads[n] for n in names], slots, [flat[n] for n in names])
+                for n, u in zip(names, ups):
+                    flat[n] = flat[n] + u.to(flat[n].dtype)
+    return losses, flat
+
+
+def sync_rank(rank: int, world: int, work: str) -> int:
+    """The sync_options phase's NCCL rank (see the module docstring)."""
+    dev = pg.local_device(torch.device("cuda"), rank)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    bert = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    params = bert.init(SEED, device=dev)
+    batch = bert.example_batch(TRAIN_BATCH, device=dev)
+    rows = []
+    base = dict(world=world, global_batch=TRAIN_BATCH, optimizer=DIST_OPT)
+
+    # Plain AllReduce (no buckets): the steps the compressors are timed against.
+    ad, step = _build_step(AllReduce(), bert.loss_fn, params, batch, world, rank, work)
+    _, losses, plain_ms, launches, wire, _ = _sync_window(step, params, batch, SYNC_STEPS, dev)
+    _check_run("AllReduce", "bert_base", losses, launches, wire,
+               ad.plan.collectives_per_step(), SYNC_STEPS)
+    rows.append(dict(base, model="bert_base", path="AllReduce", losses=losses,
+                     ms_per_step=plain_ms, kernel_launches=launches, collectives=wire[-1]))
+    del step
+    for name in SYNC_COMPRESSORS:
+        ad, step = _build_step(AllReduce(compressor=name), bert.loss_fn, params, batch, world,
+                          rank, work)
+        state, losses, ms, launches, wire, _ = _sync_window(step, params, batch,
+                                                            SYNC_STEPS, dev)
+        predicted = ad.plan.collectives_per_step()
+        _check_run(name, "bert_base", losses, launches, wire, predicted, SYNC_STEPS)
+        check(step.manual, f"{name}: the compressed step is not in the manual semantics")
+        log = _capture_sync(step)
+        state, _ = step(state, batch)                   # the checked step, not counted
+        row = dict(base, model="bert_base", path=f"AllReduce({name})", losses=losses,
+                   ms_per_step=ms, plain_ms_per_step=plain_ms, kernel_launches=launches,
+                   collectives=wire[-1], predicted_wire=predicted,
+                   check=_compressor_check(name, step, state, log))
+        rows.append(row)
+        del step, state, log
+        torch.cuda.empty_cache()
+
+    # Bounded staleness: PS(staleness=K) against the plain update driven by
+    # the synced gradients of K steps before.
+    ad, step = _build_step(from_name("PS", staleness=SYNC_STALENESS), bert.loss_fn, params, batch,
+                      world, rank, work)
+    log = _capture_sync(step)
+    state, losses, ms, launches, wire, _ = _sync_window(step, params, batch,
+                                                        SYNC_STALE_STEPS, dev)
+    _check_run("PS(staleness)", "bert_base", losses, launches, wire,
+               ad.plan.collectives_per_step(), SYNC_STALE_STEPS)
+    check(losses[:SYNC_STALENESS + 1] == [losses[0]] * (SYNC_STALENESS + 1),
+          f"PS(staleness): the first {SYNC_STALENESS} steps moved the params {losses}")
+    names = [n for n, _ in step._floating(state.params)]
+    replay = _stale_replay(params, log, SYNC_STALENESS, names)
+    got = flatten_params(step.logical_params(state))
+    stale_diff = max((got[n].float() - replay[n].float()).abs().max().item() for n in names)
+    check(stale_diff == 0.0, f"PS(staleness): params differ from the delayed replay by "
+          f"{stale_diff}")
+    rows.append(dict(base, model="bert_base", path=f"PS(staleness={SYNC_STALENESS})",
+                     losses=losses, ms_per_step=ms, kernel_launches=launches,
+                     collectives=wire[-1], replay_max_diff=stale_diff,
+                     buffer_bytes=sum(b.numel() * b.element_size()
+                                      for b in state.stale_state.values())))
+    del step, state, log, replay, got
+    torch.cuda.empty_cache()
+
+    # Host offload: ResNet-50 under PS, offloaded against resident.
+    resnet = get_model_spec("resnet")
+    rparams = resnet.init(SEED, device=dev)
+    rbatch = resnet.example_batch(RESNET_BATCH, device=dev)
+    runs = {}
+    for offload in (False, True):
+        ad, step = _build_step(from_name("PS"), resnet.loss_fn, rparams, rbatch, world, rank,
+                          work, host_offload=offload)
+        state, losses, ms, launches, wire, peak = _sync_window(step, rparams, rbatch,
+                                                               SYNC_STEPS, dev)
+        _check_run(f"PS(host_offload={offload})", "resnet50", losses, launches, wire,
+                   ad.plan.collectives_per_step(), SYNC_STEPS)
+        held = [t for n, t in flatten_params(state.params).items() if n in step.offloaded]
+        slots = [t for key in ("mu", "nu") for i, t in enumerate(state.opt_state[key])
+                 if held and i in step._offload_index(state.params)]
+        check(not offload or (held and all(t.is_pinned() for t in held + slots)),
+              "host offload: an offloaded leaf is not in pinned host memory between steps")
+        runs[offload] = dict(losses=losses, ms=ms, peak=peak, launches=launches,
+                             wire=wire[-1], between=torch.cuda.memory_allocated(dev),
+                             offloaded_bytes=sum(t.numel() * t.element_size()
+                                                 for t in held + slots),
+                             slot_bytes=sum(t.numel() * t.element_size() for t in slots),
+                             params={n: t.detach().cpu() for n, t in flatten_params(
+                                 step.logical_params(state)).items()})
+        del step, state, held, slots
+        torch.cuda.empty_cache()
+    diff = max((runs[True]["params"][n] - t).abs().max().item()
+               for n, t in runs[False]["params"].items())
+    check(diff == 0.0 and runs[True]["losses"] == runs[False]["losses"],
+          f"host offload: differs from the resident step (param diff {diff})")
+    # The slots come to the card only after the backward, so the step's peak
+    # falls by about them; between steps all the offloaded bytes are off it.
+    peak_saved = runs[False]["peak"] - runs[True]["peak"]
+    held_saved = runs[False]["between"] - runs[True]["between"]
+    slot_bytes, offloaded = runs[True]["slot_bytes"], runs[True]["offloaded_bytes"]
+    check(OFFLOAD_SAVING[0] * slot_bytes <= peak_saved <= OFFLOAD_SAVING[1] * slot_bytes,
+          f"host offload: peak fell by {peak_saved} bytes, not {OFFLOAD_SAVING} x the "
+          f"{slot_bytes} bytes of optimizer slots")
+    check(OFFLOAD_SAVING[0] * offloaded <= held_saved <= OFFLOAD_SAVING[1] * offloaded,
+          f"host offload: memory between steps fell by {held_saved} bytes, not "
+          f"{OFFLOAD_SAVING} x the {offloaded} bytes offloaded")
+    rows.append(dict(world=world, global_batch=RESNET_BATCH, optimizer=DIST_OPT,
+                     model="resnet50", path="PS(host_offload=True)",
+                     losses=runs[True]["losses"], ms_per_step=runs[True]["ms"],
+                     resident_ms_per_step=runs[False]["ms"],
+                     kernel_launches=runs[True]["launches"], collectives=runs[True]["wire"],
+                     offloaded_bytes=runs[True]["offloaded_bytes"], slot_bytes=slot_bytes,
+                     copied_bytes_per_step=2 * runs[True]["offloaded_bytes"],
+                     peak_bytes=runs[True]["peak"], resident_peak_bytes=runs[False]["peak"],
+                     allocated_between_steps=runs[True]["between"],
+                     resident_allocated_between_steps=runs[False]["between"],
+                     bitwise_vs_resident=True))
+    del runs, rparams, rbatch
+    torch.cuda.empty_cache()
+
+    # Asynchronous PS: 2 workers on this card. build() gives the threaded
+    # trainer; the round-robin one is the same trainer built with that schedule.
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=from_name(
+        "PS", sync=False, staleness=ASYNC_STALENESS), device="cuda",
+        resource_spec=ResourceSpec(resource_dict={"nodes": [
+            {"address": "localhost", "gpus": ASYNC_WORKERS}]}),
+        init_method=f"file://{work}/pg", world_size=world, rank=rank,
+        timeout_s=DIST_GROUP_TIMEOUT_S)
+    built = autodist.build(bert.loss_fn, params, batch, optimizer=OptimizerSpec(*DIST_OPT))
+    check(isinstance(built, AsyncPSTrainer) and built.schedule == "threads"
+          and built.n_workers == ASYNC_WORKERS, "sync=False not routed to the trainer")
+    for schedule in ("round_robin", "threads"):
+        trainer = built if schedule == "threads" else AsyncPSTrainer(
+            built.loss_fn, built.tx, built.n_workers, staleness=built.staleness,
+            schedule=schedule, has_aux=built.has_aux, device=built.device)
+        state = trainer.init(params)
+        calls = [0]
+
+        def next_batch(tick):
+            calls[0] += 1
+            return batch
+
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, m = trainer.run(state, next_batch, ASYNC_PUSHES)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) / ASYNC_PUSHES * 1e3
+        launches = _launch_counts()
+        losses = m["loss"].tolist()
+        _check_run(f"async {schedule}", "bert_base", losses, launches, [], None, calls[0])
+        check(state.version == ASYNC_PUSHES == len(losses),
+              f"async {schedule}: version {state.version}, pushes {len(losses)}")
+        check(m["max_lag"] <= ASYNC_STALENESS, f"async {schedule}: lag {m['max_lag']} over "
+              f"the bound {ASYNC_STALENESS}")
+        row = dict(world=1, global_batch=TRAIN_BATCH, optimizer=DIST_OPT, model="bert_base",
+                   path=f"PS(sync=False, staleness={ASYNC_STALENESS}), {schedule}",
+                   workers=ASYNC_WORKERS, pushes=ASYNC_PUSHES, gradients=calls[0],
+                   losses=losses, lags=m["lag"].tolist(), ms_per_push=ms,
+                   kernel_launches=launches)
+        if schedule == "round_robin":
+            hand_losses, hand = _async_by_hand(bert, params, batch, ASYNC_PUSHES,
+                                               ASYNC_WORKERS, dev)
+            got = flatten_params(state.params)
+            adiff = max((got[n].float() - t.float()).abs().max().item()
+                        for n, t in hand.items())
+            check(adiff == 0.0 and hand_losses == losses,
+                  f"async round_robin: differs from the schedule by hand (param diff "
+                  f"{adiff}, losses {losses} vs {hand_losses})")
+            row["bitwise_vs_by_hand"] = True
+            del hand
+        rows.append(row)
+        del trainer, state
+        torch.cuda.empty_cache()
+    del built
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def sync_options(card: str) -> list:
+    """The sync_options phase: one NCCL rank on cuda:0 (a process of this
+    script). Returns its rows."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rows = _spawn_ranks("--sync-rank", 1, work, env)[0]
+    for row in rows:
+        emit("sync_options", **row, ranks_seconds=time.perf_counter() - t0, card=card)
+    return rows
 
 
 def main() -> int:
@@ -1712,6 +2241,7 @@ def main() -> int:
     remat_check(dev)
     accum_check(dev)
     dist_rows = dist_train(card)
+    sync_rows = sync_options(card)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -1739,7 +2269,8 @@ def main() -> int:
             "route": "cuda",
             "source": "autodist_tpu_torch/csrc/flash_attention.cu",
             "replaces": where,
-            "launches": sum(t["kernel_launches"][kind] for t in train_rows + dist_rows),
+            "launches": sum(t["kernel_launches"][kind]
+                            for t in train_rows + dist_rows + sync_rows),
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -1759,7 +2290,8 @@ def main() -> int:
         "source": "autodist_tpu_torch/csrc/fused_conv_stats.cu",
         "replaces": "examples/benchmark/fused_conv_stats.py:54",
         "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
-        + sum(r["kernel_launches"]["fused_conv_stats"] for r in zoo_rows + dist_rows),
+        + sum(r["kernel_launches"].get("fused_conv_stats", 0)
+              for r in zoo_rows + dist_rows + sync_rows),
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -1776,7 +2308,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 5 and sys.argv[1] in ("--dist-rank", "--dist-cpu-rank"):
-        rank_main = dist_rank if sys.argv[1] == "--dist-rank" else dist_cpu_rank
-        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    RANK_MAINS = {"--dist-rank": dist_rank, "--dist-cpu-rank": dist_cpu_rank,
+                  "--sync-rank": sync_rank}
+    if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
+        sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -5,12 +5,15 @@
 ``JOB`` is a ``torch.save``d dict: ``inputs`` (per model key, ``(params,
 global batch)``) and ``cases`` (each a dict: ``id``, ``model``, ``builder``,
 ``builder_kwargs``, ``opt``, ``opt_kwargs``, ``clip_norm``, ``steps``,
-``accum``, ``overrides`` for the zoo models). The rank joins the group at
+``accum``, ``overrides`` for the zoo models, ``comp_state``: the JAX
+step's initial compressor state as numpy, carried to each rank). The rank
+joins the group at
 ``file://INIT_FILE`` (with a timeout) through ``AutoDist(init_method=...)``,
 trains each case through ``AutoDist.build`` and the step on the global
 batch, and saves ``OUT_DIR/rank<RANK>.pt``: per case the losses, the
 logical params after the last step, the collectives of each step and the
-plan's prediction. Imports only torch, numpy and the port, so a child does
+plan's prediction, and the compressor and staleness state of the trained
+step. Imports only torch, numpy and the port, so a child does
 not pay for JAX; ``tests/helpers/torch_dist.py`` starts and reads it.
 """
 import os
@@ -20,7 +23,7 @@ import torch
 
 from autodist_tpu_torch import api, model_item
 from autodist_tpu_torch.models import get_model_spec
-from autodist_tpu_torch.models.convert import flatten_params
+from autodist_tpu_torch.models.convert import comp_state_from_jax, flatten_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.strategy import from_name
@@ -85,6 +88,9 @@ def train(case, params, batch, **autodist_kwargs):
     step = ad.build(loss_for(case), params, batch, optimizer=opt,
                     grad_accum_steps=case.get("accum", 1))
     state = step.init(params)
+    if case.get("comp_state") is not None:
+        state.comp_state = comp_state_from_jax(case["comp_state"], rank=ad.plan.mesh.rank,
+                                               device="cpu")
     if case.get("local_feed"):
         # A loader that holds only this rank's rows: the plan assembles
         # the global batch from every rank's.
@@ -118,6 +124,10 @@ def main(job_path, rank, world, init_file, out_dir):
             "manual": step.manual,
             "renderings": {n: ad.plan.rendering(n) for n in ad.plan.var_plans},
             "padded": [n for n, p in ad.plan.var_plans.items() if p.storage_shape],
+            "comp_state": {n: {part: {k: t.numpy().copy() for k, t in st[part].items()}
+                               for part in ("local", "shared")}
+                           for n, st in state.comp_state.items()},
+            "stale_state": {n: t.numpy().copy() for n, t in state.stale_state.items()},
         }
     pg.leave()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

@@ -40,6 +40,7 @@ def test_scan_sees_the_whole_port():
     assert "tools/torch_conv_quick.py" in names
     assert "tools/torch_paged_quick.py" in names
     assert "tools/torch_ab_profile.py" in names
+    assert "tools/torch_dist_profile.py" in names
     assert "autodist_tpu_torch/ops/paged_attention.py" in names
     assert "autodist_tpu_torch/serve/engine.py" in names
     for new in ("ops/flash_attention.py", "models/spec.py", "const.py",
@@ -49,7 +50,8 @@ def test_scan_sees_the_whole_port():
                 "kernel/lowering.py", "kernel/__init__.py", "api.py",
                 "ops/fused_conv_stats.py", "models/resnet.py", "models/layers.py",
                 "models/mlp.py", "models/ncf.py", "models/lstm_lm.py", "models/vgg.py",
-                "models/densenet.py", "models/inception.py", "models/moe.py"):
+                "models/densenet.py", "models/inception.py", "models/moe.py",
+                "kernel/compressor.py", "runtime/async_ps.py", "runtime/process_group.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()

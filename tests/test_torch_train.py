@@ -327,23 +327,25 @@ def test_unported_options_raise_not_implemented():
     assert lower(AllReduceSynchronizer(shard_update=True)).plan_for(
         "w").degradations == ("non_divisible",)
     assert lower(AllReduceSynchronizer(), bucket=1 << 20).bucket_assignment() == (("w",),)
-    for sync in (AllReduceSynchronizer(compressor="HorovodCompressor"),
-                 PSSynchronizer(sync=False), PSSynchronizer(staleness=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lower(sync)
+    # Compressors and staleness lower now; the direct lowering of an
+    # asynchronous PS still raises (AutoDist.build routes it to the async
+    # trainer), as the JAX package's does.
+    assert lower(AllReduceSynchronizer(compressor="HorovodCompressor")).plan_for(
+        "w").compressor == "HorovodCompressor"
+    assert lower(PSSynchronizer(staleness=2)).plan_for("w").staleness == 2
+    with pytest.raises(NotImplementedError, match="AsyncPSTrainer"):
+        lower(PSSynchronizer(sync=False))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lower(AllReduceSynchronizer(), on=Mesh.logical({"data": 2, "model": 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstrat.PSLoadBalancing(sync=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstrat.PSLoadBalancing(staleness=1)
+    tstrat.PSLoadBalancing(sync=False)
+    tstrat.PSLoadBalancing(staleness=1)
     with pytest.raises(ValueError, match="disagree"):
         build_mesh(ResourceSpec(resource_dict={"nodes": [
             {"address": "localhost", "gpus": 2}]}), device="cpu")
     ad = tapi.AutoDist(strategy_builder="AllReduce", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ad.build(lambda p, b: (p["w"] ** 2).sum(), {"w": torch.ones((4, 2))},
-                 torch.zeros(1), host_offload=True)
+    step = ad.build(lambda p, b: (p["w"] ** 2).sum(), {"w": torch.ones((4, 2))},
+                    torch.zeros(1), host_offload=True)
+    assert not step.plan.has_offload            # AllReduce variables stay resident
 
 
 def test_compute_dtype_and_aux_metrics():
