@@ -7,9 +7,10 @@ params, the uncached :func:`forward` with ``dot`` or ``flash`` attention
 (``ops/flash_attention.py``, the CUDA flash kernels), :func:`loss_fn` for
 both objectives, the ``transformer`` / ``bert_base`` / ``bert_large`` model
 specs, and the paged KV-cache serving forwards
-(:func:`forward_paged_prefill_chunk`, :func:`forward_paged_decode_step`)
-with their cache helpers. Params are a plain nested dict of tensors with
-the JAX tree's keys, so ``models/convert.py`` carries JAX parameters over
+(:func:`forward_paged_prefill_chunk`, :func:`forward_paged_decode_step`,
+the speculative :func:`forward_paged_verify`; each greedy or sampled) with
+their cache helpers. Params are a plain nested dict of tensors with the JAX
+tree's keys, so ``models/convert.py`` carries JAX parameters over
 unchanged. ``TransformerConfig.remat`` checkpoints each block.
 
 Unlike the JAX forwards, which return a new cache, the paged forwards
@@ -271,20 +272,45 @@ def _paged_impl(cfg, device) -> str:
     return pa_ops.resolve_impl(cfg.paged_attention_impl, device)
 
 
+def _pages_of(page_tables, rows_pos, page_len: int):
+    """Pool page of each timeline position through its row's table
+    (``page_tables [..., P]``, ``rows_pos [..., Q]``). A position at or past
+    the table's width goes to the scratch page 0 — a chunk that starts
+    mid-page (a prefix-cache hit) or a verify window hanging off the
+    timeline ceiling writes its pad there, never into a live page."""
+    n_tables = page_tables.shape[-1]
+    pidx = rows_pos // page_len
+    pages = torch.gather(page_tables, -1, torch.clamp(pidx, max=n_tables - 1))
+    return torch.where(pidx < n_tables, pages, torch.zeros_like(pages))
+
+
+def _emit(logits, counters, samp):
+    """The emitted token: the fp32 argmax, or with ``samp`` (the per-slot
+    sampling tensors of ``serve/sampling.py``) the counter-keyed sample at
+    absolute positions ``counters``."""
+    if samp is None:
+        return _argmax(logits)
+    from autodist_tpu_torch.serve.sampling import sample_tokens
+
+    return sample_tokens(logits, counters, samp)
+
+
 def forward_paged_prefill_chunk(params, tokens, start: int, length: int, cache,
-                                page_table, cfg: TransformerConfig):
+                                page_table, cfg: TransformerConfig, samp=None):
     """One chunk of a paged prefill: ``tokens [1, C]`` are prompt positions
-    ``[start, start + C)`` (padded past ``length``); each layer writes the
-    chunk's k/v through ``page_table [P]`` and its queries attend causally
-    over the row's timeline, earlier chunks included. Returns
-    ``(next_token [1] int32, cache)``; the token is the argmax at position
-    ``length - 1``, meaningful on the chunk that holds it."""
+    ``[start, start + C)`` (padded past ``length``; ``start`` may lie
+    mid-page after a prefix-cache hit); each layer writes the chunk's k/v
+    through ``page_table [P]`` and its queries attend causally over the
+    row's timeline, earlier chunks included. Returns ``(next_token [1]
+    int32, cache)``; the token is the argmax at position ``length - 1`` (or
+    with ``samp`` the sample at counter ``length``), meaningful on the
+    chunk that holds it."""
     b, c = tokens.shape
     dev = tokens.device
     page_len = cache["k"].shape[2]
     page_table = page_table.long()
     pos = start + torch.arange(c, device=dev)                       # [C] absolute
-    page_of = page_table[pos // page_len]                           # [C]
+    page_of = _pages_of(page_table, pos, page_len)                  # [C]
     off = pos % page_len
     impl = _paged_impl(cfg, dev)
     # Clamp the positional-embedding lookup only: pad positions may sit past
@@ -306,26 +332,28 @@ def forward_paged_prefill_chunk(params, tokens, start: int, length: int, cache,
         x = _mlp(bp, x, cfg)
     frontier = min(max(int(length) - 1 - int(start), 0), c - 1)
     logits = _logits(params, x[:, frontier], cfg)                    # [1, V]
-    return _argmax(logits), cache
+    counters = torch.full((b,), int(length), dtype=torch.int64, device=dev)
+    return _emit(logits, counters, samp), cache
 
 
 def forward_paged_decode_step(params, tokens, positions, cache, page_tables,
-                              cfg: TransformerConfig,
+                              cfg: TransformerConfig, samp=None,
                               return_logits: bool = False):
     """One incremental decode step over every decode row: ``tokens [B]`` at
     absolute ``positions [B]``, ``page_tables [B, P]`` (idle rows carry
     all-scratch tables and compute finite garbage the engine ignores).
     Each layer scatters the token's k/v through the row's table and attends
-    under ``j <= positions[b]``. Returns ``(next_token [B] int32, cache)``,
-    or ``(next_token, fp32 logits [B, V], cache)`` with ``return_logits``
-    (the drift probe)."""
+    under ``j <= positions[b]``. Returns ``(next_token [B] int32, cache)``
+    (with ``samp``, the sample at counter ``positions + 1``), or
+    ``(next_token, fp32 logits [B, V], cache)`` with ``return_logits`` (the
+    drift probe, greedy)."""
     b = tokens.shape[0]
     dev = tokens.device
     page_len = cache["k"].shape[2]
     positions = positions.long()
     page_tables = page_tables.long()
-    rows = torch.arange(b, device=dev)
-    page_of = page_tables[rows, positions // page_len]              # [B]
+    # A speculative round's last draft feeds may pass the table: scratch.
+    page_of = _pages_of(page_tables, positions[:, None], page_len)[:, 0]  # [B]
     off = positions % page_len
     impl = _paged_impl(cfg, dev)
     emb_pos = torch.clamp(positions, max=cfg.max_seq_len - 1)
@@ -346,7 +374,60 @@ def forward_paged_decode_step(params, tokens, positions, cache, page_tables,
     logits = _logits(params, x, cfg)
     if return_logits:
         return _argmax(logits), logits.to(torch.float32), cache
-    return _argmax(logits), cache
+    return _emit(logits, positions + 1, samp), cache
+
+
+def forward_paged_verify(params, tokens, positions, cache, page_tables,
+                         cfg: TransformerConfig, samp=None):
+    """Speculative-decode verification, one target forward per spec round:
+    ``tokens [B, K1]`` is each row's pending token followed by its ``K1 -
+    1`` draft proposals, ``positions [B]`` the pending token's write slot,
+    ``page_tables [B, P]`` as in :func:`forward_paged_decode_step`. Each
+    layer scatters all K1 tokens' k/v at ``positions[b] + j`` (positions
+    past the table's width to the scratch page 0) and the query at offset
+    ``j`` attends over ``t <= positions[b] + j`` — the context plain decode
+    sees token by token — through ``ops/paged_attention.py::
+    paged_verify_attention`` (the CUDA kernel on the card).
+
+    Returns ``(accept [B] int32, out_tokens [B, K1] int32, cache)``:
+    ``out_tokens[b, j]`` is the target's token after the prefix through
+    ``tokens[b, j]`` (argmax, or with ``samp`` the sample at counter
+    ``positions[b] + j + 1``, plain decode's counter for that position),
+    and ``accept[b]`` counts the leading proposals equal to it (a cumprod
+    of the matches, on the device). The engine emits ``out_tokens[b,
+    :accept[b] + 1]``."""
+    b, k1 = tokens.shape
+    dev = tokens.device
+    page_len = cache["k"].shape[2]
+    page_tables = page_tables.long()
+    rows_pos = positions.long()[:, None] + torch.arange(k1, device=dev)[None, :]
+    page_of = _pages_of(page_tables, rows_pos, page_len)            # [B, K1]
+    off = rows_pos % page_len
+    impl = _paged_impl(cfg, dev)
+    emb_pos = torch.clamp(rows_pos, max=cfg.max_seq_len - 1)
+    # The draft is another model: a proposal outside the target's vocab is
+    # legal input. Clamp the EMBEDDING read only; acceptance below compares
+    # the raw proposals, so a clamped id never falsely matches.
+    emb_ids = torch.clamp(tokens, 0, cfg.vocab_size - 1)
+    x = L.embedding_lookup(params["embed"], emb_ids).to(cfg.dtype)
+    x = x + L.embedding_lookup(params["pos_embed"], emb_pos).to(cfg.dtype)
+    for i in range(cfg.num_layers):
+        bp = params[f"layers_{i}"]
+        h = L.layernorm(bp["ln1"], x)
+        q, k, v = _qkv(bp["attn"], h, cfg, (b, k1, cfg.num_heads, cfg.head_dim))
+        cache = _paged_scatter(cache, i, page_of, off, k, v)
+        ks, vs = _layer_scales(cache, i)
+        o = pa_ops.paged_verify_attention(
+            q, cache["k"][i], cache["v"][i], page_tables, rows_pos,
+            k_scale=ks, v_scale=vs, impl=impl,
+            compute_dtype=cfg.dtype).reshape(b, k1, cfg.d_model)
+        x = x + L.dense(bp["attn"]["wo"], o, compute_dtype=cfg.dtype)
+        x = _mlp(bp, x, cfg)
+    logits = _logits(params, x, cfg)                                 # [B, K1, V]
+    out = _emit(logits, rows_pos + 1, samp)
+    match = (tokens[:, 1:] == out[:, :-1]).to(torch.int32)          # [B, K]
+    accept = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+    return accept, out, cache
 
 
 def decode_model(cfg: TransformerConfig, eos_id: Optional[int] = None):
@@ -358,12 +439,15 @@ def decode_model(cfg: TransformerConfig, eos_id: Optional[int] = None):
     return DecodeModel(
         init_paged_cache=lambda n_pages, page_len, device=None: init_paged_kv_cache(
             cfg, n_pages, page_len, device=device),
-        prefill_chunk=lambda params, tokens, start, length, cache, table:
+        prefill_chunk=lambda params, tokens, start, length, cache, table, samp=None:
             forward_paged_prefill_chunk(params, tokens, start, length, cache,
-                                        table, cfg),
-        decode_paged=lambda params, tokens, positions, cache, tables:
+                                        table, cfg, samp=samp),
+        decode_paged=lambda params, tokens, positions, cache, tables, samp=None:
             forward_paged_decode_step(params, tokens, positions, cache, tables,
-                                      cfg),
+                                      cfg, samp=samp),
+        verify_paged=lambda params, tokens, positions, cache, tables, samp=None:
+            forward_paged_verify(params, tokens, positions, cache, tables, cfg,
+                                 samp=samp),
         eos_id=eos_id,
         max_len=cfg.max_seq_len,
         fp_cache_dtype=cfg.dtype,

@@ -1,10 +1,18 @@
 """CLI: ``python -m autodist_tpu_torch.serve`` — serve a zoo model over HTTP.
 
-Server mode only (the JAX package's selftests are not ported). Weights come
-from a seeded ``torch.Generator``; checkpoint restore is a later slice::
+Weights come from a seeded ``torch.Generator``; checkpoint restore is a
+later slice::
 
     python -m autodist_tpu_torch.serve --model transformer \\
         --model-arg num_layers=2 --slots 32 --port 8476 --device cuda
+
+``--draft-model transformer --draft-arg num_layers=2 --spec-k 4`` serves
+through the speculative engine (``serve/spec.py``); ``--prefix-cache``
+shares prompt prefixes copy-on-write (``serve/prefix.py``); a POST body's
+``temperature`` / ``top_k`` / ``top_p`` / ``seed`` draw the counter-based
+stochastic stream (``serve/sampling.py``). The CPU proofs, each printing
+one JSON line and exiting non-zero on a failed bar: ``--selftest-spec``,
+``--selftest-prefix``, ``--selftest-sampling``.
 """
 from __future__ import annotations
 
@@ -41,9 +49,22 @@ def build_frontend(args):
         overrides["kv_quant"] = True
     cfg = get_model(args.model, **overrides)
     params = init_params(cfg, seed=args.seed, device=args.device)
-    engine = InferenceEngine(
-        params, decode_model(cfg), n_slots=args.slots, page_len=args.page_len,
-        n_pages=args.pages, prefill_chunk=args.prefill_chunk, device=args.device)
+    kwargs = dict(n_slots=args.slots, page_len=args.page_len, n_pages=args.pages,
+                  prefill_chunk=args.prefill_chunk, device=args.device,
+                  prefix_cache=args.prefix_cache)
+    if args.draft_model:
+        from autodist_tpu_torch.serve.spec import SpecDecodeEngine
+
+        draft_overrides = _parse_overrides(args.draft_arg)
+        if args.kv_quant:
+            draft_overrides["kv_quant"] = True
+        draft_cfg = get_model(args.draft_model, **draft_overrides)
+        engine = SpecDecodeEngine(
+            params, decode_model(cfg),
+            init_params(draft_cfg, seed=args.seed + 1, device=args.device),
+            decode_model(draft_cfg), spec_k=args.spec_k, **kwargs)
+    else:
+        engine = InferenceEngine(params, decode_model(cfg), **kwargs)
     return ServeFrontend(ContinuousBatcher(engine), host=args.host, port=args.port)
 
 
@@ -62,12 +83,39 @@ def main(argv=None) -> int:
                     help="prefill chunk tokens (default: one page)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="serve from int8 KV pages with fp32 scales")
-    ap.add_argument("--seed", type=int, default=0, help="weight init seed")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt prefixes across requests (copy-on-write "
+                         "pages)")
+    ap.add_argument("--draft-model", default=None,
+                    help="zoo model name of a speculative-decode draft (same "
+                         "transformer family); enables the SpecDecodeEngine")
+    ap.add_argument("--draft-arg", action="append", metavar="K=V",
+                    help="draft model config override (repeatable)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per slot per round")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weight init seed (the draft's is seed + 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8476)
+    for name in ("spec", "prefix", "sampling"):
+        ap.add_argument(f"--selftest-{name}", action="store_true",
+                        help=f"run the CPU proof of serve/{name}.py and exit")
     args = ap.parse_args(argv)
+
+    if args.selftest_spec:
+        from autodist_tpu_torch.serve.spec import selftest_spec
+
+        return selftest_spec()
+    if args.selftest_prefix:
+        from autodist_tpu_torch.serve.prefix import selftest_prefix
+
+        return selftest_prefix()
+    if args.selftest_sampling:
+        from autodist_tpu_torch.serve.sampling import selftest_sampling
+
+        return selftest_sampling()
 
     frontend = build_frontend(args)
     # A supervisor stops the server with SIGTERM; route it through the

@@ -24,6 +24,13 @@ YET stays queued. Metrics go through the port's
 ``serve_decode_tokens_per_sec`` gauges, and ``serve_request_latency_s`` /
 ``serve_ttft_s`` / ``serve_itl_s`` histograms; int8-page engines add the
 ``serve_page_pool_{quant_capacity_x,physical_bytes,fp_equiv_bytes}`` gauges.
+Engines exposing ``spec_stats()`` (speculative decode, ``serve/spec.py``)
+publish ``serve_spec_acceptance_rate`` / ``serve_spec_tokens_per_step``; a
+decode round then emits 1..k+1 tokens a slot, truncated at EOS /
+``max_new_tokens`` / deadline where plain decode would have stopped.
+Engines with a prefix cache publish ``serve_prefix_hit_rate`` /
+``serve_prefix_shared_pages`` / ``serve_page_pool_sharing_ratio`` and split
+TTFT into ``serve_ttft_cached_s`` / ``serve_ttft_uncached_s``.
 """
 from __future__ import annotations
 
@@ -81,6 +88,9 @@ class GenRequest:
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
     queue_wait_s: Optional[float] = None   # submit -> engine admission
+    # True when admission mapped a cached prefix onto shared pages: TTFT
+    # is attributed to the cached or the uncached histogram by it.
+    cached: bool = False
     sampling: Optional[serve_sampling.SamplingParams] = None
     tokens: List[int] = field(default_factory=list)
     state: RequestState = RequestState.QUEUED
@@ -190,7 +200,12 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
         self._tick_tokens: deque = deque(maxlen=64)   # (t, n) for tokens/sec
         self._decode_tokens: deque = deque(maxlen=64)  # decode-only window
+        # Gauges registered on first use, so engines without spec decode,
+        # a prefix cache or int8 pages add no metric families.
         self._m_quant_capacity = None
+        self._m_spec_accept = self._m_spec_tps = None
+        self._m_ttft_cached = self._m_ttft_uncached = None
+        self._m_prefix_hit = self._m_prefix_shared = self._m_sharing_ratio = None
 
         reg = registry or M.registry
         self._registry = reg
@@ -218,13 +233,13 @@ class ContinuousBatcher:
         """Enqueue a request. Raises :class:`Backpressure` when the queue is
         full (or the batcher is stopped/draining) and the typed
         :class:`~autodist_tpu_torch.serve.sampling.InvalidSamplingParams`
-        for params that cannot be served (``temperature > 0`` included). A
-        request over the engine's ceiling comes back already terminal
-        ``REJECTED``."""
+        for malformed sampling params. A request over the engine's ceiling
+        comes back already terminal ``REJECTED``."""
         prompt = np.asarray(prompt, np.int32).ravel()
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        serve_sampling.check_supported(sampling)
+        if sampling is not None:
+            sampling.validate()
         req = GenRequest(
             prompt=prompt, max_new_tokens=max_new_tokens,
             deadline=(time.monotonic() + timeout_s) if timeout_s else None,
@@ -475,6 +490,7 @@ class ContinuousBatcher:
                 continue
             t_admit = time.monotonic()
             admitted = self.engine.admit(head.prompt, head.max_new_tokens,
+                                         request_id=head.request_id,
                                          sampling=head.sampling)
             if isinstance(admitted, AdmissionDenied):
                 if admitted.retryable:
@@ -514,7 +530,8 @@ class ContinuousBatcher:
                 continue
             req.t_first_token = time.monotonic()
             req.tokens.append(first)
-            self._m_ttft.observe(req.ttft_s)
+            req.cached = self.engine.slot_cached(slot)
+            self._observe_ttft(req)
             self._count_tokens(1)
             self._maybe_retire(slot, req)
 
@@ -542,12 +559,53 @@ class ContinuousBatcher:
                         break
                 self._maybe_retire(slot, req)
             self._count_tokens(n_appended, decode=True)
+        self._update_spec_metrics()
+        self._update_prefix_metrics()
         self._update_quant_metrics()
         with self._lock:
             self._m_active.set(len(self._active))
         self._m_pool_util.set(self.engine.page_utilization)
         self._m_frag.set(self.engine.page_fragmentation)
         return progress
+
+    def _observe_ttft(self, req: GenRequest) -> None:
+        ttft = req.ttft_s
+        self._m_ttft.observe(ttft)
+        if self.engine.prefix_cache is None:
+            return
+        if self._m_ttft_cached is None:
+            self._m_ttft_cached = self._registry.histogram("serve_ttft_cached_s")
+            self._m_ttft_uncached = self._registry.histogram("serve_ttft_uncached_s")
+        (self._m_ttft_cached if req.cached else self._m_ttft_uncached).observe(ttft)
+
+    def _update_spec_metrics(self) -> None:
+        """Acceptance rate and tokens a round from the engine's cumulative
+        ``spec_stats()`` (speculative engines only)."""
+        stats_fn = getattr(self.engine, "spec_stats", None)
+        if stats_fn is None:
+            return
+        stats = stats_fn()
+        if self._m_spec_accept is None:
+            self._m_spec_accept = self._registry.gauge("serve_spec_acceptance_rate")
+            self._m_spec_tps = self._registry.gauge("serve_spec_tokens_per_step")
+        self._m_spec_accept.set(float(stats["acceptance_rate"]))
+        self._m_spec_tps.set(float(stats["tokens_per_round"]))
+
+    def _update_prefix_metrics(self) -> None:
+        """Hit rate, shared pages and the logical/physical sharing ratio
+        (engines with a prefix cache only). ``serve_page_pool_utilization``
+        already counts physical pages: the pool allocates a shared page
+        once."""
+        if self.engine.prefix_cache is None:
+            return
+        if self._m_prefix_hit is None:
+            self._m_prefix_hit = self._registry.gauge("serve_prefix_hit_rate")
+            self._m_prefix_shared = self._registry.gauge("serve_prefix_shared_pages")
+            self._m_sharing_ratio = self._registry.gauge("serve_page_pool_sharing_ratio")
+        stats = self.engine.prefix_stats()
+        self._m_prefix_hit.set(float(stats["hit_rate"]))
+        self._m_prefix_shared.set(float(stats["shared_pages"]))
+        self._m_sharing_ratio.set(float(self.engine.sharing_ratio))
 
     def _update_quant_metrics(self) -> None:
         """Publish the physical-vs-fp-equivalent pool byte split (int8-page

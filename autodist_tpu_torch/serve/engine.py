@@ -9,11 +9,20 @@ over every slot row, and one fixed-size prefill chunk — long prompts prefill
 chunk by chunk, interleaved with decode ticks by the batcher. Admission
 reserves pages all-or-nothing; retirement recycles them in the same tick.
 
+Each slot carries its request id and sampling params (``serve/sampling.py``):
+the stream of a request is a pure function of ``(request_id, seed,
+position)``. With ``prefix_cache=True`` admissions map cached prompt blocks
+onto shared pages (``serve/prefix.py``), copy the partially matched frontier
+page (copy-on-write) and resume prefill mid-page.
+
 What differs from the JAX engine: there is no sharding plan or mesh — on one
 card the params are a dict of tensors on ``device``, which is what
-``AllReduce`` gives on one chip. PyTorch runs eagerly, so nothing compiles;
-the cache is updated in place by the forwards (the JAX engine donates it
-through its compiled programs to the same effect).
+``AllReduce`` gives on one chip. PyTorch runs eagerly, so nothing compiles
+and the JAX engine's compiled-program pins (2 plain, 5 speculative) have no
+meaning here; the engine counts invocations per program kind instead
+(``prefill_invocations``, ``decode_invocations``). The cache is updated in
+place by the forwards (the JAX engine donates it through its compiled
+programs to the same effect).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch.serve import pages as serve_pages
+from autodist_tpu_torch.serve import prefix as serve_prefix
 from autodist_tpu_torch.serve import sampling as serve_sampling
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -46,9 +56,16 @@ class DecodeModel:
     - ``init_paged_cache(n_pages, page_len, device) -> cache`` dict of
       tensors carrying the page dim at dim 1;
     - ``prefill_chunk(params, tokens [1,C], start, length, cache,
-      page_table [P]) -> (next_token [1], cache)``;
+      page_table [P], samp=None) -> (next_token [1], cache)``;
     - ``decode_paged(params, tokens [B], positions [B], cache,
-      page_tables [B,P]) -> (next_token [B], cache)`` with ``B == n_slots``.
+      page_tables [B,P], samp=None) -> (next_token [B], cache)`` with
+      ``B == n_slots``;
+    - ``verify_paged(params, tokens [B, K+1], positions [B], cache,
+      page_tables [B,P], samp=None) -> (accept [B], out_tokens [B, K+1],
+      cache)``: the speculative engine's batched verify (optional).
+
+    ``samp`` is None (greedy) or the per-slot sampling tensors
+    ``(temperature, top_k, top_p, key_hi, key_lo)``.
 
     ``eos_id``: generation stops when emitted (None = length-only);
     ``max_len``: the model's positional ceiling; ``fp_cache_dtype``: the fp
@@ -58,6 +75,7 @@ class DecodeModel:
     init_paged_cache: Callable[..., Any]
     prefill_chunk: Callable[..., Tuple[Any, Any]]
     decode_paged: Callable[..., Tuple[Any, Any]]
+    verify_paged: Optional[Callable[..., Tuple[Any, Any, Any]]] = None
     eos_id: Optional[int] = None
     max_len: Optional[int] = None
     fp_cache_dtype: Any = torch.bfloat16
@@ -110,6 +128,7 @@ class InferenceEngine:
         max_len: Optional[int] = None,
         serve_hbm_frac: float = 0.5,
         device=None,
+        prefix_cache: Union[bool, "serve_prefix.PrefixCache", None] = None,
     ):
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
@@ -146,14 +165,18 @@ class InferenceEngine:
         else:
             self.page_fp_equiv_bytes = page_bytes
         max_useful = self.n_slots * self.max_pages
+        # Under prefix sharing, pages past every-row-at-max-timeline still
+        # help: they hold cold cached prefixes (pages.pool_size_from_device).
+        sharing_factor = 2.0 if prefix_cache else 1.0
         if n_pages is None:
             if self.device.type == "cuda":
                 n_pages = serve_pages.pool_size_from_device(
                     self.device, page_bytes, params_bytes=_tree_bytes(self.params),
                     serve_frac=serve_hbm_frac, max_useful_pages=max_useful,
-                    min_useful_pages=self.max_pages)
+                    min_useful_pages=self.max_pages,
+                    sharing_factor=sharing_factor)
             else:
-                n_pages = max_useful + 1
+                n_pages = int(max_useful * sharing_factor) + 1
         n_pages = max(int(n_pages), self.max_pages + 1)
         self.pool = serve_pages.build_pool(
             n_pages, self.page_len, quantized=self.kv_quant,
@@ -161,6 +184,16 @@ class InferenceEngine:
             fp_equiv_bytes_per_page=float(self.page_fp_equiv_bytes))
         self._cache = decode_model.init_paged_cache(
             n_pages, self.page_len, device=self.device)
+        # Copy-on-write prefix sharing: True builds the radix cache over this
+        # pool; an already-built PrefixCache is used as given (the spec
+        # engine hands one spanning both its pools); None/False is off.
+        if isinstance(prefix_cache, serve_prefix.PrefixCache):
+            self._prefix_cache: Optional[serve_prefix.PrefixCache] = prefix_cache
+        elif prefix_cache:
+            self._prefix_cache = serve_prefix.build_prefix_cache(
+                self.pool, self.page_len)
+        else:
+            self._prefix_cache = None
 
         # Host-side slot tables (single scheduler-thread writer).
         self._phase = np.full(n_slots, _FREE, np.int8)
@@ -175,8 +208,17 @@ class InferenceEngine:
         self._lengths = np.zeros(n_slots, np.int32)
         self._last_token = np.zeros(n_slots, np.int32)
         self._prompts: List[Optional[np.ndarray]] = [None] * n_slots
+        self._request_ids: List[str] = [""] * n_slots
         self._prefill_pos = np.zeros(n_slots, np.int32)
-        # Program invocations: decode steps and prefill chunks run so far.
+        self._prefill_start = np.zeros(n_slots, np.int32)
+        # Prefix sharing: the slot's lease on tree pages, and whether its
+        # admission matched a cached prefix (the cached/uncached TTFT split).
+        self._leases: List[Optional[serve_prefix.Lease]] = [None] * n_slots
+        self._cached = np.zeros(n_slots, bool)
+        # Per-slot sampling params; greedy defaults (temperature 0).
+        self._samp = serve_sampling.slot_arrays(n_slots)
+        # Program invocations by kind: decode steps and prefill chunks run
+        # so far (the eager port's counterpart of the JAX program pins).
         self.decode_invocations = 0
         self.prefill_invocations = 0
 
@@ -241,6 +283,47 @@ class InferenceEngine:
     def decoding_slots(self) -> int:
         return int((self._phase == _DECODE).sum())
 
+    @property
+    def prefix_cache(self) -> Optional["serve_prefix.PrefixCache"]:
+        return self._prefix_cache
+
+    def slot_cached(self, slot: Slot) -> bool:
+        """Whether this slot's admission matched a cached prefix."""
+        return bool(self._cached[slot.index])
+
+    def _logical_physical_pages(self) -> Tuple[int, int]:
+        """(logical, physical) pages across live tables: logical counts
+        every table entry, physical distinct pages."""
+        logical, phys = 0, set()
+        for t in self._tables:
+            if t is None:
+                continue
+            logical += len(t.pages)
+            phys.update(t.pages)
+        return logical, len(phys)
+
+    @property
+    def sharing_ratio(self) -> float:
+        """Logical / physical pages across live tables: 1.0 with sharing
+        off (or idle), above 1.0 when admissions share pages."""
+        logical, phys = self._logical_physical_pages()
+        return logical / phys if phys else 1.0
+
+    @property
+    def shared_fraction(self) -> float:
+        """Fraction of the live logical timeline served by deduplicated
+        pages, 0..1."""
+        logical, phys = self._logical_physical_pages()
+        return 1.0 - phys / logical if logical else 0.0
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """The prefix tree's counters (zeros when sharing is off)."""
+        if self._prefix_cache is None:
+            return {"hit_rate": 0.0, "hits": 0, "lookups": 0,
+                    "cached_pages": 0, "shared_pages": 0, "evictions": 0,
+                    "inserts": 0, "cow_copies": 0, "live_refcount": 0}
+        return self._prefix_cache.stats()
+
     # --------------------------------------------------------------- admission
     def check_admissible(self, prompt_len: int,
                          max_new_tokens: int) -> Optional[AdmissionDenied]:
@@ -257,14 +340,18 @@ class InferenceEngine:
         return None
 
     def admit(self, prompt: np.ndarray, max_new_tokens: int,
+              request_id: str = "",
               sampling: Optional[serve_sampling.SamplingParams] = None,
               ) -> Union[Slot, AdmissionDenied]:
         """Reserve a decode row + pages for ``prompt`` — host bookkeeping
-        only (prefill runs chunk by chunk via :meth:`prefill_step`). Returns
-        a :class:`Slot` or a typed :class:`AdmissionDenied`; raises
+        (plus, on a prefix-cache frontier hit, one device page copy);
+        prefill runs chunk by chunk via :meth:`prefill_step`. Returns a
+        :class:`Slot` or a typed :class:`AdmissionDenied`; raises
         :class:`~autodist_tpu_torch.serve.sampling.InvalidSamplingParams`
-        for params this port cannot serve (``temperature > 0``)."""
-        serve_sampling.check_supported(sampling)
+        for malformed params. ``request_id`` with ``sampling`` keys the
+        counter-based stream: a pure function of ``(request_id, seed,
+        position)``, whichever slot, batch or cache state serves it."""
+        sp = (sampling or serve_sampling.SamplingParams()).validate()
         prompt = np.asarray(prompt, np.int32).ravel()
         total = len(prompt) + int(max_new_tokens)
         unservable = self.check_admissible(len(prompt), max_new_tokens)
@@ -274,7 +361,31 @@ class InferenceEngine:
         if not len(free):
             return AdmissionDenied(
                 f"no free decode row ({self.n_slots} active)", retryable=True)
-        table = self.pool.alloc(total)
+        lease: Optional[serve_prefix.Lease] = None
+        start_pos = 0
+        if self._prefix_cache is None:
+            table = self.pool.alloc(total)
+        else:
+            # Matched full blocks ride the SAME physical pages (refcount++
+            # under the lease); only the unmatched suffix reserves fresh
+            # pages, evicting cold cached prefixes under pressure.
+            m = self._prefix_cache.match(prompt)
+            lease = self._prefix_cache.acquire(m)
+            table = self._alloc_with_evict(total - m.n_full * self.page_len)
+            if table is None:
+                self._prefix_cache.cancel(lease)
+            else:
+                start_pos = m.n_full * self.page_len
+                if m.tail_len:
+                    # COW frontier: copy the partially matched page into the
+                    # first exclusive page and resume prefill mid-page. The
+                    # source stays pinned on the lease until release (the
+                    # spec engine's draft-side copy reads it after this).
+                    self._cow_page(m.tail_node.page, table.pages[0])
+                    start_pos += m.tail_len
+                else:
+                    self._prefix_cache.unpin_tail(lease)
+                table.pages[:0] = [nd.page for nd in lease.nodes]
         if table is None:
             return AdmissionDenied(
                 f"page pool exhausted ({self.pool.free_pages} of "
@@ -289,8 +400,43 @@ class InferenceEngine:
         self._lengths[idx] = 0
         self._last_token[idx] = 0
         self._prompts[idx] = prompt
-        self._prefill_pos[idx] = 0
+        self._request_ids[idx] = str(request_id or "")
+        self._prefill_pos[idx] = start_pos
+        self._prefill_start[idx] = start_pos
+        self._leases[idx] = lease
+        self._cached[idx] = start_pos > 0
+        hi, lo = serve_sampling.request_key(self._request_ids[idx], sp.seed)
+        for key, value in zip(serve_sampling.SAMP_KEYS,
+                              (sp.temperature, sp.top_k, sp.top_p, hi, lo)):
+            self._samp[key][idx] = value
         return Slot(idx)
+
+    def _alloc_with_evict(self, n_tokens: int) -> Optional[serve_pages.PageTable]:
+        """Pool allocation that, when the pool cannot cover ``n_tokens``,
+        evicts cold cached prefixes (LRU refcount-0 leaves) and tries again;
+        None once the tree has nothing left to give."""
+        table = self.pool.alloc(n_tokens)
+        need = serve_pages.pages_for_tokens(n_tokens, self.page_len)
+        while table is None and self._prefix_cache is not None:
+            if self._prefix_cache.evict(need) == 0:
+                return None
+            table = self.pool.alloc(n_tokens)
+        return table
+
+    @staticmethod
+    def _copy_page(cache, src_page: int, dst_page: int) -> None:
+        """Every cache leaf's ``src`` page row into ``dst`` (int8 scales
+        included), in place on the cache's device."""
+        with torch.no_grad():
+            for leaf in cache.values():
+                leaf[:, dst_page].copy_(leaf[:, src_page])
+
+    def _cow_page(self, src_page: int, dst_page: int) -> None:
+        """The copy-on-write at the divergence frontier: a device copy of
+        one KV page (never a shared write)."""
+        self._copy_page(self._cache, src_page, dst_page)
+        if self._prefix_cache is not None:
+            self._prefix_cache.cow_copies += 1
 
     def prefill_pending(self) -> List[Slot]:
         """Slots mid-prefill, in row order."""
@@ -298,6 +444,21 @@ class InferenceEngine:
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device, non_blocking=False)
+
+    def _samp_dev(self, rows) -> Optional[tuple]:
+        """The sampling tensors of slot rows ``rows`` (an index array or a
+        slice) on the device, keys as int64. Callers pass None instead when
+        :meth:`_stochastic` finds every emitting row greedy: the forwards
+        then take the argmax, which is what
+        :func:`~autodist_tpu_torch.serve.sampling.sample_tokens` returns for
+        greedy rows, without drawing noise."""
+        s = self._samp
+        return tuple(self._dev(s[k][rows].astype(np.int64) if k.startswith("key")
+                               else s[k][rows])
+                     for k in serve_sampling.SAMP_KEYS)
+
+    def _stochastic(self, rows) -> bool:
+        return bool((self._samp["temperature"][rows] > 0.0).any())
 
     def prefill_step(self, slot: Slot) -> Optional[int]:
         """Run ONE prefill chunk for ``slot``. Returns the first generated
@@ -312,21 +473,34 @@ class InferenceEngine:
         chunk = np.zeros((1, c), np.int32)
         valid = prompt[start:start + c]
         chunk[0, : len(valid)] = valid
+        last = start + c >= len(prompt)
+        # Only the final chunk's token is read: earlier chunks skip the draw.
+        row = slice(idx, idx + 1)
+        samp = self._samp_dev(row) if last and self._stochastic(row) else None
         self.prefill_invocations += 1
         with torch.no_grad():
             first, self._cache = self.decode_model.prefill_chunk(
                 self.params, self._dev(chunk), start, len(prompt), self._cache,
-                self._dev(self._table_np[idx]))
+                self._dev(self._table_np[idx]), samp=samp)
         start += c
         self._prefill_pos[idx] = start
-        if start < len(prompt):
+        if not last:
             return None
         first = int(first.cpu()[0])
         self._phase[idx] = _DECODE
         self._lengths[idx] = len(prompt)
         self._last_token[idx] = first
         self._decode_table_np[idx] = self._table_np[idx]
+        if self._leases[idx] is not None:
+            # Adopt the prompt's novel full blocks into the prefix tree.
+            self._insert_prefix(idx, prompt)
         return first
+
+    def _insert_prefix(self, idx: int, prompt: np.ndarray) -> None:
+        """Prefix-tree adoption at prefill completion (the spec engine
+        adopts target and draft pages as one node per block)."""
+        self._prefix_cache.insert(prompt, self._tables[idx].pages,
+                                  self._leases[idx])
 
     def step(self) -> Dict[Slot, int]:
         """One decode step over the full slot batch: feeds each decoding row
@@ -337,11 +511,12 @@ class InferenceEngine:
         decoding = np.flatnonzero(self._phase == _DECODE)
         if not len(decoding):
             return out
+        samp = self._samp_dev(slice(None)) if self._stochastic(decoding) else None
         self.decode_invocations += 1
         with torch.no_grad():
             tokens, self._cache = self.decode_model.decode_paged(
                 self.params, self._dev(self._last_token), self._dev(self._lengths),
-                self._cache, self._dev(self._decode_table_np))
+                self._cache, self._dev(self._decode_table_np), samp=samp)
         tokens = tokens.cpu().numpy()
         for idx in decoding:
             idx = int(idx)
@@ -356,11 +531,28 @@ class InferenceEngine:
         return {slot: [tok] for slot, tok in self.step().items()}
 
     def release(self, slot: Slot) -> None:
-        """Retire a row: its pages recycle into the pool immediately."""
+        """Retire a row: its exclusive pages recycle into the pool
+        immediately; shared (tree-owned) pages only drop a refcount and stay
+        cached for the next admission."""
         idx = slot.index
         table = self._tables[idx]
+        lease = self._leases[idx]
         if table is not None:
-            self.pool.release(table)
+            if lease is not None:
+                shared = set(lease.pages)
+                exclusive = [p for p in table.pages if p not in shared]
+                self._prefix_cache.release(lease)
+                if exclusive:
+                    self.pool.reclaim(exclusive)
+                table.pages = []
+            else:
+                self.pool.release(table)
+        self._leases[idx] = None
+        self._cached[idx] = False
+        self._prefill_start[idx] = 0
+        self._request_ids[idx] = ""
+        for key, fresh in serve_sampling.slot_arrays(1).items():
+            self._samp[key][idx] = fresh[0]
         self._tables[idx] = None
         self._phase[idx] = _FREE
         self._table_np[idx] = serve_pages.SCRATCH_PAGE
@@ -372,11 +564,14 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- generation
     def generate(self, prompt: np.ndarray, max_new_tokens: int,
+                 request_id: str = "",
                  sampling: Optional[serve_sampling.SamplingParams] = None,
                  ) -> List[int]:
-        """Single-request greedy decode — the sequential baseline. Production
+        """Single-request decode — the sequential baseline (greedy unless
+        ``sampling`` is given; ``request_id`` keys its stream). Production
         traffic goes through the batcher."""
-        admitted = self.admit(prompt, max_new_tokens, sampling=sampling)
+        admitted = self.admit(prompt, max_new_tokens, request_id=request_id,
+                              sampling=sampling)
         if isinstance(admitted, AdmissionDenied):
             raise RuntimeError(
                 f"single-request generate() not admitted: {admitted.reason}")

@@ -250,6 +250,7 @@ def pool_size_from_device(
     serve_frac: float = 0.5,
     max_useful_pages: Optional[int] = None,
     min_useful_pages: int = 1,
+    sharing_factor: float = 1.0,
 ) -> int:
     """Page count (INCLUDING the scratch page) from the card's memory.
 
@@ -259,7 +260,11 @@ def pool_size_from_device(
     JAX package read ``resource_spec.tpu.hbm_bytes``).
     ``max_useful_pages`` caps at the point more pages cannot help (every
     decode row at the full ``max_len`` timeline); ``min_useful_pages``
-    floors at a functioning pool.
+    floors at a functioning pool. ``sharing_factor`` moves that cap out
+    under copy-on-write prefix sharing (``serve/prefix.py``): cold cached
+    prefixes still turn future admissions into page-table copies, and live
+    tables count shared pages more than once (the engine passes 2.0 with a
+    prefix cache, 1.0 without, as the JAX engine does).
     """
     import torch
 
@@ -267,6 +272,6 @@ def pool_size_from_device(
     budget = max(0.0, capacity * headroom - float(params_bytes)) * serve_frac
     n = int(budget // max(float(bytes_per_page), 1.0))
     if max_useful_pages is not None:
-        n = min(n, int(max_useful_pages))
+        n = min(n, int(int(max_useful_pages) * max(float(sharing_factor), 1.0)))
     n = max(n, int(min_useful_pages))
     return n + 1  # + the reserved scratch page

@@ -9,9 +9,10 @@ the device). Routes:
 - ``POST /generate`` ``{"tokens": [...], "max_new_tokens": N,
   "timeout_s": T?, "temperature": t?, "top_k": k?, "top_p": p?, "seed": s?,
   "request_id": id?}`` → ``{"tokens": [...], "state": "done"}``; 429 on
-  backpressure, 400 on an unservable request or sampling params this port
-  cannot serve (typed ``invalid_sampling_params`` /
-  ``stochastic_sampling_not_ported``).
+  backpressure, 400 on an unservable request or malformed sampling params
+  (typed ``invalid_sampling_params``). ``temperature > 0`` draws the
+  counter-based stochastic stream of ``(request_id, seed)``
+  (``serve/sampling.py``).
 - ``GET /metrics`` → the metrics registry as OpenMetrics text.
 - ``GET /healthz`` → readiness + queue/slot gauges + page-pool utilization
   as JSON; 503 while draining.
@@ -29,11 +30,7 @@ from autodist_tpu_torch.serve.batcher import (
     ContinuousBatcher,
     RequestState,
 )
-from autodist_tpu_torch.serve.sampling import (
-    InvalidSamplingParams,
-    SamplingParams,
-    StochasticSamplingNotPorted,
-)
+from autodist_tpu_torch.serve.sampling import InvalidSamplingParams, SamplingParams
 from autodist_tpu_torch.utils import logging
 
 
@@ -205,10 +202,8 @@ class ServeFrontend:
                 request_id=payload.get("request_id") or None,
                 sampling=sampling)
         except InvalidSamplingParams as e:
-            kind = ("stochastic_sampling_not_ported"
-                    if isinstance(e, StochasticSamplingNotPorted)
-                    else "invalid_sampling_params")
-            self._respond(writer, 400, {"error": str(e), "type": kind})
+            self._respond(writer, 400, {"error": str(e),
+                                        "type": "invalid_sampling_params"})
             return
         except Backpressure as e:
             self._respond(writer, 429, {"error": str(e)})

@@ -5,10 +5,11 @@
 
 Drives the port's two main paths with seeded random weights:
 
-- paged-KV greedy serving of the full-width ``transformer`` (vocab 32000,
+- paged-KV serving of the full-width ``transformer`` (vocab 32000,
   12 layers, d_model 768, 12 heads, d_ff 3072, bf16 compute, page_len 16)
   through ``ContinuousBatcher`` and the HTTP ``ServeFrontend``, once with
-  bf16 KV pages and once with int8 pages;
+  bf16 KV pages and once with int8 pages: greedy, sampled, speculative
+  (``SpecDecodeEngine``) and prefix-shared;
 - training through ``AutoDist.build`` / ``step.run``: ``bert_base`` (vocab
   30522, 12 layers, d_model 768, MLM) at seq 512 with flash attention,
   batch 32, AllReduce, default SGD; the causal ``transformer`` at seq 512
@@ -47,6 +48,23 @@ Phases, each printing one JSON line:
 5. ``stream_check``: teacher-forced bf16 logits through the kernel path vs
    the plain path within a stated bound, and identical greedy streams of
    an fp32 2-layer full-width model.
+5b. ``serve_features``: the rest of single-engine serving on the same
+   model, 64 requests, max_new 32, bf16 and int8 pages, each run through
+   ``ContinuousBatcher`` with the paged kernel's launches equal to target
+   layers x (prefill chunks + decode steps + verify rounds) + draft layers
+   x draft steps. Stochastic sampling (temperature 0.8, top_p 0.9, top_k
+   50): every request completes, the same ``(request_id, seed)`` replays
+   bitwise, and ``sample_tokens`` on the card equals the CPU's on 1024 rows
+   of the model's logits but at near-ties. Speculative decode (k = 4) with
+   the same-weights draft and a 2-layer draft of its own weights: streams
+   equal plain greedy's or parting only at a near-tie (``_streams_agree``),
+   pools balanced; acceptance, tokens a round, ITL p50 and decode tokens/s
+   beside plain decode's. Prefix sharing: 64 requests sharing a 512-token
+   system prompt (16-64-token suffixes, every 8th diverging mid-page from
+   a cached block) against the same without the cache: streams equal, hit
+   rate, copy-on-write pages, prefill chunks saved, TTFT p50 cached and
+   cold, no page left after a purge. Then the fp32 2-layer full-width
+   model: spec streams bitwise equal plain decode's, greedy and sampled.
 6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
    plain versions on the same inputs (B=32, H=12, D=64; bf16 at S=512
    causal and not, S=128 and S=256 causal; fp32 at S=512, the FMA
@@ -196,9 +214,11 @@ from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
 from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing, StrategyCompiler, from_name
+from autodist_tpu_torch.serve import sampling as samp_ops
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
 from autodist_tpu_torch.serve.engine import InferenceEngine
 from autodist_tpu_torch.serve.server import ServeFrontend, mock_load_prompt
+from autodist_tpu_torch.serve.spec import SpecDecodeEngine, pools_balanced
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and per-type rates.
 HBM_BYTES_PER_S = 3.35e12
@@ -220,6 +240,21 @@ PAGED_SPLITS = (1, 2, 4, 8)
 STREAM_LOGIT_BOUND = 0.125
 SEED = 0
 N_REQUESTS, MAX_NEW = 64, 32
+# serve_features: stochastic sampling's params; speculative decode's k and
+# the divergent draft's depth; prefix sharing's 512-token system prompt with
+# 16-64-token suffixes (the positional table widened to 1024 to hold them),
+# every COW_EVERY-th suffix opening with COW_SHARED tokens of a cached one
+# (a copy-on-write page and a prefill that starts mid-page).
+FEATURE_SAMPLING = dict(temperature=0.8, top_p=0.9, top_k=50)
+SPEC_K, DRAFT_LAYERS = 4, 2
+SYSTEM_LEN, SUFFIX_LENS, PREFIX_MAX_SEQ = 512, (16, 65), 1024
+COW_EVERY, COW_SHARED = 8, 5
+# The card's sample_tokens against the CPU's on the same logits: the Gumbel
+# noise of the two may differ by GUMBEL_ULPS ulps at max(|g|, 1) (their
+# logs round differently; tests/test_torch_sampling.py), so a row may pick
+# another token only where the two tokens' scores lie within twice that;
+# such rows are held to NEAR_TIE_SHARE.
+SAMPLE_ROWS, GUMBEL_ULPS, NEAR_TIE_SHARE = 1024, 4, 0.005
 # Flash kernels vs their plain versions on the same bf16 inputs: both work
 # in fp32 and round each output to bf16 once (2^-8 relative), so 2e-2
 # absolute and relative bounds them with room; the fp32 lse differs only in
@@ -701,6 +736,279 @@ def stream_check(params, dev):
     emit("stream_check", bf16_max_abs_logit_diff=drift, bound=STREAM_LOGIT_BOUND,
          bf16_token_agreement=agree / (b * steps), fp32_streams_identical=same,
          fp32_streams=len(streams["kernel"]))
+
+
+# ---------------------------------------------------------- serve features
+def _served(engine, prompts, label, layers, draft_layers=0, sampling=None, rids=None):
+    """The prompts through a ContinuousBatcher on ``engine``, the paged
+    kernel's count set to 0 just before and held just after to ``layers``
+    times the target's programs run plus ``draft_layers`` times the draft's;
+    returns (streams, metrics snapshot, wall s, launches, program counts)."""
+    registry = M.MetricsRegistry()
+    counts = dict(prefill=engine.prefill_invocations, decode=engine.decode_invocations,
+                  verify=getattr(engine, "verify_invocations", 0),
+                  draft=getattr(engine, "draft_invocations", 0))
+    reset_launches()
+    batcher = ContinuousBatcher(engine, max_queue=256, registry=registry)
+    reqs = [batcher.submit(p, MAX_NEW, request_id=rids[i] if rids else None,
+                           sampling=sampling[i] if sampling else None)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    batcher.start()
+    for r in reqs:
+        r.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    batcher.stop()
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches
+    ran = dict(prefill=engine.prefill_invocations - counts["prefill"],
+               decode=engine.decode_invocations - counts["decode"],
+               verify=getattr(engine, "verify_invocations", 0) - counts["verify"],
+               draft=getattr(engine, "draft_invocations", 0) - counts["draft"])
+    check(all(r.state is RequestState.DONE and len(r.tokens) == MAX_NEW for r in reqs),
+          f"{label}: states {[r.state.value for r in reqs]}")
+    want = (layers * (ran["prefill"] + ran["decode"] + ran["verify"])
+            + draft_layers * ran["draft"])
+    check(launches == want, f"{label}: paged kernel launches {launches} != {want} "
+          f"({layers} + {draft_layers} draft layers x {ran})")
+    if engine.prefix_cache is None:
+        check(pools_balanced(engine), f"{label}: page leak")
+    return [r.tokens for r in reqs], registry.snapshot(), wall, launches, ran
+
+
+def _parting(params, cfg, prompt, got, want):
+    """Where two bf16 greedy streams part: the index and the |Δlogit| of
+    the two tokens there under the uncached forward of the common prefix
+    (0 when equal)."""
+    t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if t is None:
+        return None, 0.0
+    tokens = torch.tensor([list(prompt) + list(want[:t])], dtype=torch.int32,
+                          device=params["embed"]["embedding"].device)
+    with torch.no_grad():
+        logits = tt.forward(params, tokens, cfg)[0, -1]
+    return t, abs(float(logits[got[t]] - logits[want[t]]))
+
+
+def _streams_agree(params, cfg, prompts, got, want, label, bitwise: bool) -> dict:
+    """Equal streams, or (bf16) streams parting only at near-ties: the two
+    tokens within STREAM_LOGIT_BOUND of each other where they part."""
+    margins = [_parting(params, cfg, p, g, w)[1] for p, g, w in zip(prompts, got, want)
+               if g != w]
+    if bitwise:
+        check(not margins, f"{label}: {len(margins)} streams differ")
+    check(all(m <= STREAM_LOGIT_BOUND for m in margins),
+          f"{label}: streams part at a margin of {max(margins, default=0)} > "
+          f"{STREAM_LOGIT_BOUND}")
+    return dict(streams_equal=len(got) - len(margins), streams_parted=len(margins),
+                max_parting_margin=max(margins, default=0.0))
+
+
+def _sampling_card_vs_cpu(params, cfg, dev) -> dict:
+    """sample_tokens on the card against the CPU on the same logits (the
+    last position of 32 prompts, each under 32 counters): equal but at
+    near-ties; and its card time at a decode step's shape (32 rows)."""
+    rng = np.random.default_rng(SEED + 7)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(32, 16))).to(dev)
+    with torch.no_grad():
+        logits = tt.forward(params, tokens, cfg)[:, -1].float()
+    logits = logits.repeat_interleave(SAMPLE_ROWS // 32, dim=0).contiguous()
+    counters = torch.arange(SAMPLE_ROWS, device=dev) + 100
+    keys = np.array([samp_ops.request_key(f"cmp-{i}", 3) for i in range(SAMPLE_ROWS)],
+                    np.uint32)
+    samp = (np.full(SAMPLE_ROWS, FEATURE_SAMPLING["temperature"], np.float32),
+            np.full(SAMPLE_ROWS, FEATURE_SAMPLING["top_k"], np.int32),
+            np.full(SAMPLE_ROWS, FEATURE_SAMPLING["top_p"], np.float32),
+            keys[:, 0], keys[:, 1])
+    card = samp_ops.sample_tokens(logits, counters, samp).cpu().numpy()
+    host = samp_ops.sample_tokens(logits.cpu(), counters.cpu(), samp).numpy()
+    differ = np.flatnonzero(card != host)
+    if len(differ):
+        hi, lo = samp_ops.fold_in(torch.from_numpy(keys[differ, 0].astype(np.int64)),
+                                  torch.from_numpy(keys[differ, 1].astype(np.int64)),
+                                  counters.cpu()[differ])
+        noise = samp_ops.gumbel(hi, lo, cfg.vocab_size).numpy().astype(np.float64)
+        scaled = logits.cpu().numpy()[differ].astype(np.float64) / samp[0][0]
+        rows = np.arange(len(differ))
+        a, b = card[differ], host[differ]
+        margin = np.abs(scaled[rows, a] + noise[rows, a] - scaled[rows, b] - noise[rows, b])
+        bound = 2 * GUMBEL_ULPS * np.spacing(np.maximum(np.maximum(
+            np.abs(noise[rows, a]), np.abs(noise[rows, b])), 1.0).astype(np.float32))
+        check((margin <= bound).all(), f"sample_tokens card vs CPU: rows {differ} "
+              f"part at margins {margin} over {bound}")
+    check(len(differ) <= NEAR_TIE_SHARE * SAMPLE_ROWS,
+          f"sample_tokens card vs CPU: {len(differ)} of {SAMPLE_ROWS} rows differ")
+    step = (logits[:32].contiguous(), counters[:32].contiguous(),
+            tuple(torch.as_tensor(a[:32].astype(np.int64) if a.dtype == np.uint32
+                                  else a[:32], device=dev) for a in samp))
+    return dict(rows=SAMPLE_ROWS, rows_differ=len(differ),
+                decode_shape_ms=time_ms(lambda: samp_ops.sample_tokens(*step),
+                                        groups=7, per_group=5))
+
+
+def serve_features(params, card: str, dev) -> list:
+    """Stochastic sampling, speculative decode and prefix sharing of the
+    full-width transformer, 64 requests, max_new 32, bf16 and int8 pages;
+    then the fp32 2-layer full-width model's bitwise spec streams."""
+    rows = []
+    sample_check = _sampling_card_vs_cpu(params, get_model("transformer"), dev)
+    for kv_quant in (False, True):
+        cfg = get_model("transformer", kv_quant=kv_quant)
+        dm = tt.decode_model(cfg)
+        kw = dict(n_slots=32, page_len=PAGE_LEN, prefill_chunk=PAGE_LEN, device=dev)
+        rng = np.random.default_rng(SEED)
+        prompts = [mock_load_prompt(rng, i, vocab=cfg.vocab_size) for i in range(N_REQUESTS)]
+        rids = [f"feature-{i}" for i in range(N_REQUESTS)]
+        hot = [samp_ops.SamplingParams(**FEATURE_SAMPLING, seed=i) for i in range(N_REQUESTS)]
+        tag = "int8" if kv_quant else "bf16"
+
+        plain = InferenceEngine(params, dm, **kw)
+        plain.generate([1, 2, 3], 2)                       # warm-up, not counted
+        L = cfg.num_layers
+        greedy, g_snap, g_wall, g_launch, g_ran = _served(plain, prompts, f"plain {tag}", L)
+        first, s_snap, s_wall, s_launch, s_ran = _served(plain, prompts, f"sampled {tag}",
+                                                         L, sampling=hot, rids=rids)
+        again = _served(plain, prompts, f"sampled again {tag}", L, sampling=hot,
+                        rids=rids)[0]
+        check(first == again, f"sampled {tag}: a (request_id, seed) replays another stream")
+        check(first != greedy, f"sampled {tag}: streams equal the greedy ones")
+        rows.append(dict(path="sampling", pages=tag, **FEATURE_SAMPLING,
+                         requests=len(prompts), replay_bitwise=True,
+                         streams_equal_greedy=sum(a == b for a, b in zip(first, greedy)),
+                         ttft_p50_s=s_snap["serve_ttft_s"]["p50"],
+                         itl_p50_s=s_snap["serve_itl_s"]["p50"],
+                         decode_tokens_per_s=(len(prompts) * (MAX_NEW - 1)) / s_wall,
+                         greedy_itl_p50_s=g_snap["serve_itl_s"]["p50"],
+                         greedy_decode_tokens_per_s=(len(prompts) * (MAX_NEW - 1)) / g_wall,
+                         kernel_launches=s_launch, programs=s_ran,
+                         card_vs_cpu=sample_check if not kv_quant else None, card=card))
+        emit("serve_features", **rows[-1])
+        rows[-1]["kernel_launches"] += g_launch
+        del plain
+        torch.cuda.empty_cache()
+
+        for draft in ("same", f"{DRAFT_LAYERS}-layer"):
+            if draft == "same":
+                dcfg, dparams = cfg, params
+            else:
+                dcfg = get_model("transformer", kv_quant=kv_quant, num_layers=DRAFT_LAYERS)
+                dparams = tt.init_params(dcfg, seed=SEED + 5, device=dev)
+            spec = SpecDecodeEngine(params, dm, dparams, tt.decode_model(dcfg),
+                                    spec_k=SPEC_K, **kw)
+            spec.generate([1, 2, 3], 2)                    # warm-up, not counted
+            streams, snap, wall, launches, ran = _served(
+                spec, prompts, f"spec {draft} {tag}", L, dcfg.num_layers)
+            agree = _streams_agree(params, cfg, prompts, streams, greedy,
+                                   f"spec {draft} {tag}", bitwise=False)
+            stats = spec.spec_stats()
+            rows.append(dict(path="spec", pages=tag, draft=draft, k=SPEC_K, **agree,
+                             acceptance_rate=stats["acceptance_rate"],
+                             tokens_per_round=stats["tokens_per_round"],
+                             tokens_per_slot_round=stats["emitted"] * SPEC_K
+                             / max(stats["proposed"], 1),
+                             decode_tokens_per_target_invocation=(
+                                 len(prompts) * (MAX_NEW - 1)) / (ran["decode"] + ran["verify"]),
+                             itl_p50_s=snap["serve_itl_s"]["p50"],
+                             decode_tokens_per_s=(len(prompts) * (MAX_NEW - 1)) / wall,
+                             plain_itl_p50_s=g_snap["serve_itl_s"]["p50"],
+                             plain_decode_tokens_per_s=(len(prompts) * (MAX_NEW - 1)) / g_wall,
+                             draft_starved=stats["draft_starved"], pools_balanced=True,
+                             kernel_launches=launches, programs=ran, card=card))
+            emit("serve_features", **rows[-1])
+            del spec, dparams
+            torch.cuda.empty_cache()
+
+        rows.append(_prefix_run(kv_quant, tag, card, dev))
+    rows.append(_spec_fp32(card, dev))
+    return rows
+
+
+def _prefix_run(kv_quant: bool, tag: str, card: str, dev) -> dict:
+    """64 requests sharing a SYSTEM_LEN-token system prompt, cached against
+    cold; the prefix tree warmed by one request first."""
+    cfg = get_model("transformer", kv_quant=kv_quant, max_seq_len=PREFIX_MAX_SEQ)
+    params = tt.init_params(cfg, seed=SEED + 6, device=dev)
+    kw = dict(n_slots=32, page_len=PAGE_LEN, prefill_chunk=PAGE_LEN, device=dev)
+    rng = np.random.default_rng(SEED + 8)
+    system = rng.integers(1, cfg.vocab_size, size=SYSTEM_LEN)
+    warm = np.concatenate([system, rng.integers(1, cfg.vocab_size, size=SUFFIX_LENS[0])])
+    prompts = []
+    for i in range(N_REQUESTS):
+        suffix = rng.integers(1, cfg.vocab_size, size=int(rng.integers(*SUFFIX_LENS)))
+        if i % COW_EVERY == 1:                 # diverges mid-page from the warm-up's
+            suffix[:COW_SHARED] = warm[SYSTEM_LEN:SYSTEM_LEN + COW_SHARED]
+            suffix[COW_SHARED] = (warm[SYSTEM_LEN + COW_SHARED] % (cfg.vocab_size - 2)) + 1
+        prompts.append(np.concatenate([system, suffix]))
+    cold = InferenceEngine(params, tt.decode_model(cfg), **kw)
+    cold.generate(warm, 2)                                 # warm-up, not counted
+    want, c_snap, c_wall, c_launch, c_ran = _served(cold, prompts, f"prefix cold {tag}",
+                                                    cfg.num_layers)
+    del cold
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(params, tt.decode_model(cfg), prefix_cache=True, **kw)
+    engine.generate(warm, 2)                               # fills the tree, not counted
+    cache = engine.prefix_cache
+    before = dict(cache.stats())
+    got, snap, wall, launches, ran = _served(engine, prompts, f"prefix cached {tag}",
+                                             cfg.num_layers)
+    agree = _streams_agree(params, cfg, prompts, got, want, f"prefix {tag}",
+                           bitwise=False)
+    stats = cache.stats()
+    check(stats["cow_copies"] > before["cow_copies"], f"prefix {tag}: no copy-on-write")
+    check(cache.live_refcount == 0, f"prefix {tag}: refcounts {cache.live_refcount}")
+    shared_pages = stats["cached_pages"]
+    cache.purge()
+    check(pools_balanced(engine), f"prefix {tag}: pages leaked after purge")
+    row = dict(path="prefix", pages=tag, system_len=SYSTEM_LEN, requests=len(prompts),
+               **agree, hit_rate=(stats["hits"] - before["hits"])
+               / max(stats["lookups"] - before["lookups"], 1),
+               cow_copies=stats["cow_copies"] - before["cow_copies"],
+               cached_pages=shared_pages, prefill_chunks_cold=c_ran["prefill"],
+               prefill_chunks_cached=ran["prefill"],
+               prefill_chunks_saved=c_ran["prefill"] - ran["prefill"],
+               ttft_p50_s_cold=c_snap["serve_ttft_s"]["p50"],
+               ttft_p50_s_cached=snap["serve_ttft_cached_s"]["p50"],
+               cached_requests=snap["serve_ttft_cached_s"]["count"],
+               wall_s_cold=c_wall, wall_s_cached=wall, leaked_pages=0,
+               kernel_launches=launches, programs=ran, card=card)
+    emit("serve_features", **row)
+    row["kernel_launches"] += c_launch
+    del engine, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _spec_fp32(card: str, dev) -> dict:
+    """The 2-layer full-width model in fp32: spec streams (the same-weights
+    and a 2-layer draft of its own weights, greedy and sampled) bitwise
+    equal to plain decode's."""
+    cfg = get_model("transformer", num_layers=2, dtype="float32")
+    params = tt.init_params(cfg, seed=SEED + 2, device=dev)
+    dparams = tt.init_params(cfg, seed=SEED + 9, device=dev)
+    kw = dict(n_slots=16, page_len=PAGE_LEN, device=dev)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [mock_load_prompt(rng, i, vocab=cfg.vocab_size) for i in range(16)]
+    rids = [f"fp32-{i}" for i in range(16)]
+    hot = [samp_ops.SamplingParams(**FEATURE_SAMPLING, seed=i) for i in range(16)]
+    plain = InferenceEngine(params, tt.decode_model(cfg), **kw)
+    L = cfg.num_layers
+    want = _served(plain, prompts, "fp32 plain", L)[0]
+    want_hot = _served(plain, prompts, "fp32 plain sampled", L, sampling=hot, rids=rids)[0]
+    row = dict(path="spec_fp32", layers=2, requests=len(prompts), card=card,
+               kernel_launches=0)
+    for draft, dp in (("same", params), ("2-layer", dparams)):
+        spec = SpecDecodeEngine(params, tt.decode_model(cfg), dp, tt.decode_model(cfg),
+                                spec_k=SPEC_K, **kw)
+        got, _, _, launches, _ = _served(spec, prompts, f"fp32 spec {draft}", L, L)
+        got_hot, _, _, launches_hot, _ = _served(spec, prompts, f"fp32 spec {draft} sampled",
+                                                 L, L, sampling=hot, rids=rids)
+        check(got == want, f"fp32 spec {draft}: greedy streams differ from plain decode")
+        check(got_hot == want_hot, f"fp32 spec {draft}: sampled streams differ")
+        row[f"{draft}_acceptance_rate"] = spec.acceptance_rate
+        row["kernel_launches"] += launches + launches_hot
+    row["streams_bitwise"] = True
+    emit("serve_features", **row)
+    return row
 
 
 # ------------------------------------------------------------- flash parity
@@ -2213,6 +2521,7 @@ def main() -> int:
     params = tt.init_params(get_model("transformer"), seed=SEED, device=dev)
     serve_rows = [serve_run(params, kv_quant, dev) for kv_quant in (False, True)]
     stream_check(params, dev)
+    feature_rows = serve_features(params, card, dev)
     del params
 
     flash_rows = [r for seq, causal, dtype in ((TRAIN_SEQ, False, torch.bfloat16),
@@ -2249,7 +2558,7 @@ def main() -> int:
         "route": "cuda",
         "source": "autodist_tpu_torch/csrc/paged_attention.cu",
         "replaces": "autodist_tpu/ops/paged_attention.py:137",
-        "launches": sum(r["kernel_launches"] for r in serve_rows),
+        "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from autodist_tpu.serve.server import _N_PAGES, _PAGE_LEN, _tiny_engine
+from autodist_tpu.serve.sampling import SamplingParams as JaxSamplingParams
 from autodist_tpu.serve.server import mock_load_prompt as jax_mock_load_prompt
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.models import get_model
@@ -120,26 +121,55 @@ def test_frontend_generate_round_trip():
 
     gen, hot, health, metrics = asyncio.run(scenario())
     assert gen[0] == 200 and json.loads(gen[1])["tokens"] == want
-    assert hot[0] == 400
-    assert json.loads(hot[1])["type"] == "stochastic_sampling_not_ported"
+    # temperature > 0 is served (the stochastic draw; its stream is held to
+    # JAX's in tests/test_torch_sampling.py).
+    assert hot[0] == 200 and json.loads(hot[1])["state"] == "done"
+    assert len(json.loads(hot[1])["tokens"]) == 6
     assert health[0] == 200 and json.loads(health[1])["ok"] is True
-    assert metrics[0] == 200 and "serve_requests_completed_total 1" in metrics[1]
+    assert metrics[0] == 200 and "serve_requests_completed_total 2" in metrics[1]
 
 
 def test_stochastic_sampling_refused_typed():
-    _, jparams, _ = _tiny_engine()
+    """``temperature > 0`` is served (it was refused before the stochastic
+    draw was ported) and its stream is a pure function of ``(request_id,
+    seed)``; malformed params still get the typed rejection, and a POST
+    with them the typed 400."""
+    jeng, jparams, _ = _tiny_engine()
     teng = _port_engine(jparams, False, n_slots=4)
-    hot = S.SamplingParams(temperature=0.7)
-    with pytest.raises(S.StochasticSamplingNotPorted):
-        teng.admit([1, 2, 3], 4, sampling=hot)
+    hot = S.SamplingParams(temperature=0.7, top_k=20, top_p=0.9, seed=3)
+    prompt = [5, 17, 3, 88, 2]
+    a = teng.generate(prompt, 8, request_id="r1", sampling=hot)
+    assert a == teng.generate(prompt, 8, request_id="r1", sampling=hot)
+    assert a == jeng.generate(np.asarray(prompt, np.int32), 8, request_id="r1",
+                              sampling=JaxSamplingParams(**hot.to_dict()))
+    registry = M.MetricsRegistry()
+    with ContinuousBatcher(teng, registry=registry) as batcher:
+        req = batcher.submit(prompt, 8, request_id="r1", sampling=hot).wait(120)
+    assert req.state is RequestState.DONE and req.tokens == a
     batcher = ContinuousBatcher(teng, registry=M.MetricsRegistry())
-    with pytest.raises(S.StochasticSamplingNotPorted):
-        batcher.submit([1, 2, 3], 4, sampling=hot)
-    req = batcher.try_submit([1, 2, 3], 4, sampling=hot)
-    assert req.state is RequestState.REJECTED and "not yet ported" in req.error
+    for bad in (S.SamplingParams(top_p=0.0), S.SamplingParams(temperature=-1.0),
+                S.SamplingParams(top_k=-2)):
+        with pytest.raises(S.InvalidSamplingParams):
+            batcher.submit([1, 2, 3], 4, sampling=bad)
+        with pytest.raises(S.InvalidSamplingParams):
+            teng.admit([1, 2, 3], 4, sampling=bad)
+        req = batcher.try_submit([1, 2, 3], 4, sampling=bad)
+        assert req.state is RequestState.REJECTED
     with pytest.raises(S.InvalidSamplingParams):
-        batcher.submit([1, 2, 3], 4, sampling=S.SamplingParams(top_p=0.0))
-    # Greedy params are served.
+        S.SamplingParams.from_dict({"temperature": "hot"})
+
+    async def scenario():
+        fe = await ServeFrontend(ContinuousBatcher(teng, registry=M.MetricsRegistry()),
+                                 port=0).start()
+        try:
+            return await _http(fe.port, "POST", "/generate",
+                               {"tokens": prompt, "max_new_tokens": 4, "top_p": 0.0})
+        finally:
+            await fe.close()
+
+    code, body = asyncio.run(scenario())
+    assert code == 400 and json.loads(body)["type"] == "invalid_sampling_params"
+    # Greedy params are served as greedy.
     assert teng.generate([1, 2, 3], 3, sampling=S.SamplingParams()) == \
         teng.generate([1, 2, 3], 3)
     denied = teng.admit([1] * 60, 10)
@@ -154,14 +184,17 @@ def test_greedy_sample_tokens_matches_jax():
     logits = rng.standard_normal((6, 40)).astype(np.float32)
     logits[0, [3, 9]] = 10.0                          # tie: first max wins
     samp = jax_slot_arrays(6)
-    want = np.asarray(jax_sample_tokens(
-        logits, np.arange(6, dtype=np.int32),
-        tuple(samp[k] for k in ("temperature", "top_k", "top_p", "key_hi", "key_lo"))))
-    got = S.sample_tokens(torch.from_numpy(logits), torch.zeros(6))
+    tup = tuple(samp[k] for k in ("temperature", "top_k", "top_p", "key_hi", "key_lo"))
+    counters = np.arange(6, dtype=np.int32)
+    want = np.asarray(jax_sample_tokens(logits, counters, tup))
+    got = S.sample_tokens(torch.from_numpy(logits), torch.from_numpy(counters), tup)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[0] == 3
-    with pytest.raises(S.StochasticSamplingNotPorted):
-        S.sample_tokens(torch.from_numpy(logits), torch.full((6,), 0.5))
+    # Stochastic rows are served too (the full grid: test_torch_sampling.py).
+    hot = (np.full(6, 0.5, np.float32),) + tup[1:]
+    np.testing.assert_array_equal(
+        S.sample_tokens(torch.from_numpy(logits), torch.from_numpy(counters), hot).numpy(),
+        np.asarray(jax_sample_tokens(logits, counters, hot)))
     port = S.slot_arrays(6)
     assert {k: (v.dtype, v.tolist()) for k, v in port.items()} == \
         {k: (v.dtype, v.tolist()) for k, v in samp.items()}
