@@ -12,3 +12,7 @@ transformer (``models/transformer.py`` → ``ops/paged_attention.py`` →
 """
 
 __version__ = "0.1.0"
+
+# Registers the kernels' torch.library operators, which an exported program
+# of the port calls (ops/library.py); builds nothing.
+from autodist_tpu_torch.ops import library as _library  # noqa: E402,F401

@@ -32,8 +32,10 @@ trains on its rows. ``remat`` rematerialises the forward in the backward
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
 (``kernel/lowering.py``). A strategy that is ``sync=False`` throughout is
 routed to the host-driven asynchronous PS (``runtime/async_ps.py``).
-``tune``, ``build_inference``, ``build_pipeline``, ``elastic_rebuild``,
-fault tolerance and observability are not ported yet (ROADMAP.md).
+``build_inference`` builds a paged serving engine on the same device,
+from a checkpoint if asked (its one-shot ``apply_fn`` is not ported yet).
+``tune``, ``build_pipeline``, ``elastic_rebuild``, fault tolerance and
+observability are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -300,6 +302,55 @@ class AutoDist:
         logging.info("sync=False strategy: routed to host-driven AsyncPSTrainer "
                      "(%d workers, staleness=%d)", n_workers, staleness)
         return trainer
+
+    # ------------------------------------------------------------ inference
+    def build_inference(self, params: Any, apply_fn: Optional[Callable] = None,
+                        decode_model=None, checkpoint: Optional[str] = None,
+                        n_slots: int = 8, max_len: Optional[int] = None,
+                        page_len: int = 16, n_pages: Optional[int] = None,
+                        prefill_chunk: Optional[int] = None, draft_params: Any = None,
+                        draft_decode_model=None, draft_checkpoint: Optional[str] = None,
+                        spec_k: int = 4, draft_n_pages: Optional[int] = None,
+                        prefix_cache: bool = False):
+        """A paged inference engine on this AutoDist's device: the serving
+        counterpart of :meth:`build`. The port's engine serves on one
+        device with every parameter whole, so no strategy or sharding plan
+        is built for it (the JAX package's shards the params over its mesh).
+
+        ``decode_model`` (``models.transformer.decode_model(cfg)``) serves
+        autoregressive paged decode behind the continuous batcher: ``n_slots``
+        rows over a pool of ``page_len``-token KV pages (``n_pages``, or
+        sized from the card's memory), prompts prefilled in
+        ``prefill_chunk``-token chunks. ``checkpoint`` restores the params
+        from a ``Saver`` checkpoint (a ``ckpt-N`` or Saver directory; a
+        training checkpoint's ``params/`` subtree), ``params`` giving names
+        and shapes (meta tensors will do). ``draft_params`` +
+        ``draft_decode_model`` make it a
+        :class:`~autodist_tpu_torch.serve.spec.SpecDecodeEngine`
+        (``draft_checkpoint`` restored the same way, ``spec_k`` proposals a
+        round, ``draft_n_pages`` pages); ``prefix_cache=True`` shares prompt
+        prefixes copy-on-write. The one-shot forward (``apply_fn``,
+        ``InferenceEngine.infer``) is not ported yet: passing ``apply_fn``
+        raises."""
+        from autodist_tpu_torch.serve.engine import InferenceEngine
+        from autodist_tpu_torch.serve.spec import SpecDecodeEngine
+
+        if apply_fn is not None:
+            raise NotImplementedError("one-shot inference (apply_fn, InferenceEngine.infer) "
+                                      "is not ported yet; see ROADMAP.md")
+        if decode_model is None:
+            raise ValueError("build_inference needs decode_model (the paged decode "
+                             "adapter, e.g. models.transformer.decode_model(cfg))")
+        engine_kwargs = dict(n_slots=n_slots, page_len=page_len, n_pages=n_pages,
+                             prefill_chunk=prefill_chunk, max_len=max_len,
+                             device=self.device, prefix_cache=prefix_cache)
+        if draft_params is not None:
+            return SpecDecodeEngine.build(params, draft_params, decode_model,
+                                          draft_decode_model, checkpoint=checkpoint,
+                                          draft_checkpoint=draft_checkpoint, spec_k=spec_k,
+                                          draft_n_pages=draft_n_pages, **engine_kwargs)
+        return InferenceEngine.build(params, decode_model, checkpoint=checkpoint,
+                                     **engine_kwargs)
 
     @property
     def strategy(self) -> Optional[Strategy]:

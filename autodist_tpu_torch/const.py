@@ -11,6 +11,11 @@ import tempfile
 
 DEFAULT_WORKING_DIR = os.path.join(tempfile.gettempdir(), "autodist-torch")
 DEFAULT_STRATEGY_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
+DEFAULT_CHECKPOINT_DIR = os.path.join(DEFAULT_WORKING_DIR, "checkpoints")
+
+# The checkpoint writer's barriers on the group's store: a slow or dead
+# rank must fail the save (surfaced by Saver.wait), not hang it.
+ASYNC_SAVE_BARRIER_TIMEOUT_MS = 10 * 60 * 1000
 
 # Logical mesh axis names: "data" carries the batch, "model" variable
 # partitioning, "expert" MoE experts (the last two not ported yet).

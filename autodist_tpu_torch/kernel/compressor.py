@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from autodist_tpu_torch.models.spec import seeded_generator
+from autodist_tpu_torch.utils import prng
 
 State = Dict[str, torch.Tensor]
 
@@ -127,9 +127,10 @@ class PowerSGDCompressor(Compressor):
     (m x k): P = M Q (summed, then orthonormalised by QR), Qn = M^T P
     (summed, averaged), M^ = P Qn^T. Q persists across steps; the residual
     carries the approximation error. Rank-0/1 tensors take the plain mean
-    all-reduce. The initial Q is drawn from a ``torch.Generator`` seeded
-    with ``seed`` (the JAX package draws it from ``jax.random``, which
-    torch cannot reproduce) and broadcast from rank 0 by the step."""
+    all-reduce. The initial Q is JAX's draw, ``jax.random.normal(
+    PRNGKey(seed), (k, r))`` (``utils/prng.py``: the bits exactly, the
+    floats within a few ulps), orthonormalised by QR and broadcast from
+    rank 0 by the step."""
 
     name = "PowerSGDCompressor"
 
@@ -149,8 +150,7 @@ class PowerSGDCompressor(Compressor):
             return {}
         _, k = self._matrix_shape(var.shape)
         r = min(self.rank, k, var.shape[0])
-        gen, _ = seeded_generator(self.seed, "cpu")
-        q = torch.randn((k, r), generator=gen, dtype=getattr(torch, var.dtype))
+        q = prng.normal(prng.prng_key(self.seed), (k, r)).to(getattr(torch, var.dtype))
         return {"q": torch.linalg.qr(q).Q}
 
     def step(self, grad, local, shared, coll):

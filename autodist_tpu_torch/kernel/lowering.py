@@ -76,8 +76,13 @@ expert and model axes raise ``NotImplementedError`` naming ROADMAP.md.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
-loop here, returning per-step stacked losses), ``evaluate`` and
-``logical_params``. Where JAX donates the train state to the compiled step,
+loop here, returning per-step stacked losses), ``evaluate``,
+``logical_params``, and the checkpoint trio ``logical_state`` / ``save`` /
+``init_or_restore``: the state under the JAX ``TrainState``'s names and
+logical shapes (optimizer slots under optax's paths,
+``checkpoint/names.py``), a leaf split over ranks as this rank's block
+(``checkpoint/saver.py``'s ``ShardedLeaf``), so a checkpoint moves between
+plans and between the packages. Where JAX donates the train state to the compiled step,
 the port updates the state's tensors in place under ``torch.no_grad()``:
 the state passed in is consumed, and the one returned holds the same
 (updated) tensors.
@@ -91,11 +96,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.checkpoint.names import (
+    factored_names, optimizer_paths, restored_count)
+from autodist_tpu_torch.checkpoint.saver import ShardedLeaf, flatten_with_names
 from autodist_tpu_torch.kernel import bucketing
 from autodist_tpu_torch.kernel.compressor import Compressor, get_compressor
 from autodist_tpu_torch.kernel.degrade import is_active_compressor, zero1_degradation_reasons
 from autodist_tpu_torch.kernel.mesh import Mesh
-from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem
+from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem, _factored_dims
 from autodist_tpu_torch.models.convert import (
     flatten_params, map_params, map_tree, tree_leaves)
 from autodist_tpu_torch.runtime import process_group as pg
@@ -760,6 +768,187 @@ class DistributedTrainStep:
             return t
 
         return _map_named(view, state.params)
+
+    # ---------------------------------------------------------- checkpoints
+    def _split(self, t: torch.Tensor, logical, dim: int, per_rank: int):
+        """``(blocks, this rank's block index or None, its view of t)`` of a
+        leaf stored on each rank as the ``per_rank``-long block ``rank``
+        along ``dim`` of a storage as long as ``per_rank * n``: the blocks
+        clipped to the logical extent ``logical[dim]``, an empty one
+        dropped."""
+        size = logical[dim]
+        blocks = []
+        for j in range(self.n):
+            lo = j * per_rank
+            if lo >= size:
+                break
+            start = [0] * len(logical)
+            stop = list(logical)
+            start[dim], stop[dim] = lo, min(lo + per_rank, size)
+            blocks.append((tuple(start), tuple(stop)))
+        lo = self.rank * per_rank
+        if lo >= size:
+            return blocks, None, None
+        return blocks, self.rank, t.narrow(dim, 0, min(per_rank, size - lo))
+
+    def _leaf(self, t: torch.Tensor, logical, dim: Optional[int], per_rank: int = 0):
+        """A state tensor as a checkpoint leaf: whole (the same on every
+        rank) when ``dim`` is None, else this rank's :class:`ShardedLeaf`
+        block; and the view of ``t`` that holds its logical data."""
+        if dim is None:
+            return t, t
+        blocks, j, view = self._split(t, tuple(logical), dim, per_rank)
+        local = {j: view} if j is not None else {}
+        return ShardedLeaf(tuple(logical), t.dtype, blocks, local), view
+
+    def checkpoint_leaves(self, state: TrainState):
+        """``(name, leaf, view)`` of every leaf of the state's checkpoint:
+        ``step``; ``params/<var>``; the optimizer's slots and counts under
+        optax's paths (``checkpoint/names.py``); ``comp_state/<var>/
+        local|shared/<key>`` (a rank's local state is its row of JAX's
+        ``[n, ...]`` stack); ``stale_state/<var>``. ``leaf`` is a tensor
+        (whole, written by rank 0), a :class:`ShardedLeaf` (this rank's
+        block of a leaf split over ranks, in logical coordinates) or an int
+        (``step``, ``count``); ``view`` is the part of the state's tensor
+        holding the leaf's (or block's) logical data, where a restore
+        copies to."""
+        out = [("step", int(state.step), None)]
+        plans = self.plan.var_plans
+
+        def var_leaf(name, t, lead: int = 0, param: bool = False):
+            """A leaf shaped ``lead`` dims + the variable's block on this
+            rank: a parameter's stored block (split only when sharded), a
+            slot's or delay buffer's updated one (ZeRO-1 too)."""
+            kind, d = self._render(name)
+            p = plans.get(name)
+            if kind == "replicated" or p is None or (param and kind != "sharded"):
+                return self._leaf(t, t.shape, None)
+            logical = tuple(t.shape[:lead]) + tuple(p.var.shape)
+            return self._leaf(t, logical, lead + d, p.shape[d] // self.n)
+
+        for name, t in flatten_params(state.params).items():
+            out.append((f"params/{name}",) + var_leaf(name, t.detach(), param=True))
+        paths = optimizer_paths(self.tx)
+        opt = state.opt_state
+        for p in paths["count"]:
+            out.append((f"opt_state/{p}", int(opt["count"]), None))
+        floating = [n for n, _ in self._floating(state.params)]
+        slots = [k for k in opt if k != "count"]
+        if sorted(slots) != sorted(k for k in paths if k != "count"):
+            raise ValueError(f"optimizer state keys {slots} do not match its checkpoint "
+                             f"names {sorted(paths)}")
+        for key in slots:
+            for name, slot in zip(floating, opt[key]):
+                if key != "v":
+                    out.append((f"opt_state/{paths[key]}/{name}",) + var_leaf(name, slot))
+                    continue
+                for field, prefix in factored_names(paths["v"]).items():
+                    full = f"opt_state/{prefix}/{name}"
+                    if field not in slot:
+                        ph = torch.zeros((1,), dtype=torch.float32)   # optax's placeholder
+                        out.append((full, ph, None))
+                    elif field == "v":
+                        out.append((full,) + var_leaf(name, slot[field]))
+                    else:
+                        out.append((full,) + self._factored_leaf(name, field, slot[field]))
+        for name, st in state.comp_state.items():
+            for k, t in st["local"].items():
+                stacked = t.unsqueeze(0)
+                if self.n == 1:
+                    out.append((f"comp_state/{name}/local/{k}", stacked, stacked))
+                    continue
+                logical = (self.n,) + tuple(t.shape)
+                out.append((f"comp_state/{name}/local/{k}",)
+                           + self._leaf(stacked, logical, 0, 1))
+            for k, t in st["shared"].items():
+                out.append((f"comp_state/{name}/shared/{k}", t, t))
+        for name, buf in state.stale_state.items():
+            out.append((f"stale_state/{name}",) + var_leaf(name, buf, lead=1))
+        return out
+
+    def _factored_leaf(self, name: str, field: str, t: torch.Tensor):
+        """Adafactor's row or column statistics of a variable: the stored
+        shape without the factored dim, whole when the variable is not
+        split or is split along that dim (the ranks' statistics are then
+        the same), else split along the variable's dim as it falls in the
+        statistics."""
+        kind, d = self._render(name)
+        if kind == "replicated":
+            return self._leaf(t, t.shape, None)
+        full = self.plan.var_plans[name].shape
+        d1, d0 = _factored_dims(full, self.tx.hp["min_dim_size_to_factor"])
+        removed = d0 if field == "row" else d1
+        if d == removed:
+            return self._leaf(t, t.shape, None)
+        logical = tuple(s for i, s in enumerate(full) if i != removed)
+        return self._leaf(t, logical, d - (d > removed), full[d] // self.n)
+
+    def logical_state(self, state: TrainState) -> Dict[str, Any]:
+        """The checkpoint view of a train state: a nested dict named as the
+        JAX package's ``TrainState`` flattens (``step``, ``params/...``,
+        ``opt_state/<optax path>``, ``comp_state/...``, ``stale_state/...``)
+        with every leaf in its logical shape, so that a checkpoint restores
+        into any plan of either package. A leaf split over ranks is this
+        rank's :class:`~autodist_tpu_torch.checkpoint.ShardedLeaf` block
+        (nothing is gathered); ``step`` and counts are ints (int32 on
+        disk). ``saver.save(step.logical_state(state))`` is
+        :meth:`save`."""
+        tree: Dict[str, Any] = {}
+        for name, leaf, _ in self.checkpoint_leaves(state):
+            node = tree
+            parts = name.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = leaf
+        return tree
+
+    def load_logical(self, state: TrainState, logical) -> TrainState:
+        """Copy a restored checkpoint view (``Saver.restore(path,
+        target=step.logical_state(state))``) into ``state`` in place: each
+        leaf's logical data into the state's tensors (a padded variable's
+        padding stays zero), the step and the optimizer's count. Returns
+        ``state``."""
+        flat = dict(flatten_with_names(logical))
+        counts = {}
+        with torch.no_grad():
+            for name, _, view in self.checkpoint_leaves(state):
+                value = flat[name]
+                if name == "step":
+                    state.step = int(value)
+                elif view is None and isinstance(value, int):
+                    counts[name[len("opt_state/"):]] = value
+                elif isinstance(value, ShardedLeaf):
+                    if value.local:
+                        view.copy_(next(iter(value.local.values())))
+                elif view is not None:
+                    view.copy_(value)
+        state.opt_state["count"] = restored_count(optimizer_paths(self.tx), counts,
+                                                  state.step)
+        return state
+
+    def save(self, saver, state: TrainState, path: Optional[str] = None,
+             step: Optional[int] = None, block: bool = True) -> str:
+        """Checkpoint ``state`` in its logical shapes (:meth:`logical_state`);
+        the checkpoint step defaults to the state's own. Every rank calls
+        it; :meth:`init_or_restore` is the matching load."""
+        if step is None:
+            step = int(state.step)
+        return saver.save(self.logical_state(state), path=path, step=step, block=block)
+
+    def init_or_restore(self, params, saver=None, restore_fn=None) -> TrainState:
+        """A fresh state, or the newest checkpoint when there is one: the
+        resume entry point. The checkpoint may come from any plan of either
+        package (it holds logical shapes); each rank reads only its blocks,
+        and a padded plan re-pads them into its storage. ``restore_fn(
+        target=...)`` overrides where the state comes from (default
+        ``saver.restore_latest``)."""
+        if restore_fn is None:
+            restore_fn = saver.restore_latest
+        state = self.init(params)
+        restored = restore_fn(target=self.logical_state(state))
+        if restored is None:
+            return state
+        return self.load_logical(state, restored)
 
     # ------------------------------------------------------------- forward
     def _forward_params(self, params):

@@ -257,6 +257,9 @@ class Optimizer:
         if kind == "rmsprop" and (self.hp["centered"] or self.hp["bias_correction"]):
             raise NotImplementedError("rmsprop with centered=True or bias_correction=True "
                                       "is not ported yet; see ROADMAP.md")
+        # optax's chain holds a count where a schedule sets the rate
+        # (checkpoint/names.py).
+        self.schedule = isinstance(learning_rate, dict)
         if learning_rate is None:
             self.lr = None
         elif isinstance(learning_rate, dict):

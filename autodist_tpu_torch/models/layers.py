@@ -317,8 +317,11 @@ def conv_batchnorm(conv_p, bn_p, x, stride: int = 1, *, compute_dtype=None):
     if stride > 1:
         x = x[:, ::stride, ::stride, :]
     b, h, w, c = x.shape
-    y, s1, s2 = fcs.FusedConvStatsFn.apply(x.contiguous().reshape(-1, c),
-                                           k.reshape(c, -1))
+    rows, kernel = x.contiguous().reshape(-1, c), k.reshape(c, -1)
+    if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op
+        y, s1, s2 = torch.ops.autodist_tpu_torch.fused_matmul_stats(rows, kernel)
+    else:
+        y, s1, s2 = fcs.FusedConvStatsFn.apply(rows, kernel)
     return batchnorm(bn_p, y.reshape(b, h, w, -1), stats=(s1, s2))
 
 

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from autodist_tpu_torch.models import layers as L
 from autodist_tpu_torch.models.spec import ModelSpec, register_model, seeded_generator
+from autodist_tpu_torch.ops import crossover
 from autodist_tpu_torch.ops import flash_attention as fa_ops
 from autodist_tpu_torch.ops import paged_attention as pa_ops
 from autodist_tpu_torch.utils.device import resolve_device
@@ -43,13 +44,15 @@ class TransformerConfig:
     max_seq_len: int = 512
     causal: bool = True                 # False => BERT-style MLM
     dtype: Any = torch.bfloat16         # compute dtype (params stay fp32)
-    # dot | flash (ops/flash_attention.py) | auto (resolve_attention_impl:
-    # flash from the JAX package's default crossover of 1024 tokens when
-    # block-aligned, dot below it) for the uncached forward.
+    # dot | flash (ops/flash_attention.py) | auto (ops/crossover.py: flash
+    # from the measured H100 crossover on CUDA in the table's dtype, 1024
+    # tokens otherwise, when block-aligned; dot below it) for the uncached
+    # forward.
     attention_impl: str = "auto"
     # Serving-path attention over the paged KV pool: gather (the plain
     # PyTorch version) | kernel (csrc/paged_attention.cu on CUDA) | auto
-    # (kernel on CUDA, gather on the CPU).
+    # (ops/crossover.py: the kernel from the measured timeline crossover on
+    # CUDA, gather on the CPU).
     paged_attention_impl: str = "auto"
     # int8 KV pages with per-position/per-head fp32 scales.
     kv_quant: bool = False
@@ -119,25 +122,16 @@ def _dot_attention(q, k, v, causal: bool):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-#: The JAX package's packaged default flash crossover (``ops/crossover.py``
-#: ``DEFAULT_FLASH_CROSSOVER_SEQ``, measured on a TPU v5e). The H100
-#: crossover is not measured yet.
-DEFAULT_FLASH_CROSSOVER_SEQ = 1024
-
-
-def resolve_attention_impl(impl: str, seq_len: int) -> str:
-    """The ``attention_impl="auto"`` rule of the JAX package: "flash" at and
-    above the crossover when the sequence is block-aligned (the flash
-    kernel's own constraint), else "dot". Explicit impls pass through."""
-    if impl != "auto":
-        return impl
-    if seq_len >= DEFAULT_FLASH_CROSSOVER_SEQ and seq_len % fa_ops.BLOCK == 0:
-        return "flash"
-    return "dot"
+def resolve_attention_impl(impl: str, seq_len: int, device=None, dtype=None) -> str:
+    """The ``attention_impl="auto"`` rule (``ops/crossover.py``): "flash"
+    from the measured H100 crossover for CUDA attention in the table's
+    dtype (the packaged 1024 otherwise) when block-aligned, else "dot".
+    Explicit impls pass through."""
+    return crossover.resolve_attention_impl(impl, seq_len, device, dtype)
 
 
 def _attention(q, k, v, cfg: TransformerConfig):
-    impl = resolve_attention_impl(cfg.attention_impl, q.shape[1])
+    impl = resolve_attention_impl(cfg.attention_impl, q.shape[1], q.device, q.dtype)
     if impl == "dot":
         return _dot_attention(q, k, v, cfg.causal)
     if impl == "flash":
@@ -268,8 +262,13 @@ def _layer_scales(cache, layer):
     return None, None
 
 
-def _paged_impl(cfg, device) -> str:
-    return pa_ops.resolve_impl(cfg.paged_attention_impl, device)
+def _paged_impl(cfg, device, batch: int, table_pages: int, page_len: int) -> str:
+    """The kernel-or-gather choice of one paged forward: the measured
+    crossover for its (batch, table width, heads) on CUDA (JAX's
+    ``_resolve_paged_impl``)."""
+    return pa_ops.resolve_impl(cfg.paged_attention_impl, device, batch=batch,
+                               table_pages=table_pages, page_len=page_len,
+                               heads=cfg.num_heads)
 
 
 def _pages_of(page_tables, rows_pos, page_len: int):
@@ -312,7 +311,7 @@ def forward_paged_prefill_chunk(params, tokens, start: int, length: int, cache,
     pos = start + torch.arange(c, device=dev)                       # [C] absolute
     page_of = _pages_of(page_table, pos, page_len)                  # [C]
     off = pos % page_len
-    impl = _paged_impl(cfg, dev)
+    impl = _paged_impl(cfg, dev, 1, page_table.shape[0], page_len)
     # Clamp the positional-embedding lookup only: pad positions may sit past
     # the table (their k/v land in scratch) but must still embed in range.
     emb_pos = torch.clamp(pos, max=cfg.max_seq_len - 1)
@@ -355,7 +354,7 @@ def forward_paged_decode_step(params, tokens, positions, cache, page_tables,
     # A speculative round's last draft feeds may pass the table: scratch.
     page_of = _pages_of(page_tables, positions[:, None], page_len)[:, 0]  # [B]
     off = positions % page_len
-    impl = _paged_impl(cfg, dev)
+    impl = _paged_impl(cfg, dev, b, page_tables.shape[1], page_len)
     emb_pos = torch.clamp(positions, max=cfg.max_seq_len - 1)
     x = L.embedding_lookup(params["embed"], tokens).to(cfg.dtype)
     x = x + L.embedding_lookup(params["pos_embed"], emb_pos).to(cfg.dtype)
@@ -403,7 +402,7 @@ def forward_paged_verify(params, tokens, positions, cache, page_tables,
     rows_pos = positions.long()[:, None] + torch.arange(k1, device=dev)[None, :]
     page_of = _pages_of(page_tables, rows_pos, page_len)            # [B, K1]
     off = rows_pos % page_len
-    impl = _paged_impl(cfg, dev)
+    impl = _paged_impl(cfg, dev, b, page_tables.shape[1], page_len)
     emb_pos = torch.clamp(rows_pos, max=cfg.max_seq_len - 1)
     # The draft is another model: a proposal outside the target's vocab is
     # legal input. Clamp the EMBEDDING read only; acceptance below compares

@@ -267,10 +267,14 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = False):
     """Flash attention, ``[B, S, H, D]`` in and out, differentiable. Aligned
-    shapes run :class:`FlashAttentionFn`; the rest :func:`mha_reference`
-    (see :func:`use_reference`)."""
+    shapes run :class:`FlashAttentionFn` (under ``torch.export``, the
+    forward kernel's operator of ``ops/library.py``); the rest
+    :func:`mha_reference` (see :func:`use_reference`)."""
     if use_reference(q, k):
         return mha_reference(q, k, v, causal)
+    if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op
+        return torch.ops.autodist_tpu_torch.flash_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), bool(causal))[0]
     return FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                   bool(causal))
 

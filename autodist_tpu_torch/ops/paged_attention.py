@@ -17,8 +17,9 @@ implementations:
   The kernel splits each row's timeline into runs of pages
   (:func:`split_plan`) and merges the splits by log-sum-exp.
 
-``"auto"`` resolves by device (:func:`resolve_impl`): the kernel on CUDA,
-the gather path on the CPU.
+``"auto"`` resolves by device and shape (:func:`resolve_impl`): on CUDA the
+kernel from the measured timeline crossover (``ops/crossover.py``), the
+gather path on the CPU.
 
 Underneath either sits optional int8 KV quantisation with per-position
 per-head fp32 scales (:func:`quantize_kv` / :func:`dequantize_kv`).
@@ -29,6 +30,8 @@ import ctypes
 import functools
 
 import torch
+
+from autodist_tpu_torch.ops import crossover
 
 # The masking constant every forward path shares: -1e30 for fp32 logits; a
 # finite value well inside the range for halves (-1e30 overflows fp16).
@@ -248,7 +251,11 @@ def paged_attention(q4, k_pages, v_pages, page_tables, q_positions,
     ``paged_attention.launches`` a call, the merge of the splits included)
     or raise; nothing is read back from the device, so the call can be
     captured in a CUDA graph. CPU tensors run :func:`paged_attention_plain`.
+    Under ``torch.export`` the call is the operator of ``ops/library.py``.
     """
+    if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op
+        return torch.ops.autodist_tpu_torch.paged_attention(
+            q4, k_pages, v_pages, page_tables, q_positions, k_scale, v_scale)
     if q4.device.type == "cpu":
         return paged_attention_plain(q4, k_pages, v_pages, page_tables,
                                      q_positions, k_scale, v_scale)
@@ -296,14 +303,15 @@ paged_attention.launches = 0
 
 
 # ------------------------------------------------------------- entry points
-def resolve_impl(impl: str, device) -> str:
-    """``"auto"`` -> ``"kernel"`` on CUDA, ``"gather"`` elsewhere; explicit
-    ``"gather"``/``"kernel"`` pass through."""
-    if impl == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "gather"
-    if impl not in ("gather", "kernel"):
+def resolve_impl(impl: str, device, batch: int, table_pages: int, page_len: int,
+                 heads: int) -> str:
+    """``"auto"`` -> the measured crossover of ``ops/crossover.py`` for the
+    call's shape on CUDA, ``"gather"`` elsewhere. Explicit ``"gather"``/
+    ``"kernel"`` pass through."""
+    if impl not in ("auto", "gather", "kernel"):
         raise ValueError(f"unknown paged attention impl {impl!r} (auto|gather|kernel)")
-    return impl
+    return crossover.resolve_paged_impl(impl, batch, table_pages, page_len, heads,
+                                        device=device)
 
 
 def _index32(t):
@@ -315,7 +323,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, positions, *,
                            compute_dtype=None):
     """Decode-step attention: ``q [B, H, D]``, ``page_tables [B, P]``,
     ``positions [B]``. Returns ``[B, H, D]``."""
-    impl = resolve_impl(impl, q.device)
+    impl = resolve_impl(impl, q.device, q.shape[0], page_tables.shape[1], k_pages.shape[1],
+                        q.shape[1])
     compute_dtype = compute_dtype or q.dtype
     if impl == "kernel":
         out = paged_attention(q[:, None].contiguous(), k_pages, v_pages,
@@ -339,7 +348,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, positions, *,
                             compute_dtype=None):
     """Prefill-chunk attention: ``q [C, H, D]`` (one row's chunk),
     ``page_table [P]``, ``positions [C]`` absolute. Returns ``[C, H, D]``."""
-    impl = resolve_impl(impl, q.device)
+    impl = resolve_impl(impl, q.device, 1, page_table.shape[0], k_pages.shape[1], q.shape[1])
     compute_dtype = compute_dtype or q.dtype
     if impl == "kernel":
         out = paged_attention(q[None].contiguous(), k_pages, v_pages,
@@ -363,7 +372,8 @@ def paged_verify_attention(q, k_pages, v_pages, page_tables, rows_pos, *,
                            compute_dtype=None):
     """Spec-verify attention: ``q [B, K1, H, D]``, ``page_tables [B, P]``,
     ``rows_pos [B, K1]`` absolute query positions. Returns ``[B, K1, H, D]``."""
-    impl = resolve_impl(impl, q.device)
+    impl = resolve_impl(impl, q.device, q.shape[0], page_tables.shape[1], k_pages.shape[1],
+                        q.shape[2])
     if impl == "kernel":
         return paged_attention(q.contiguous(), k_pages, v_pages,
                                _index32(page_tables), _index32(rows_pos),

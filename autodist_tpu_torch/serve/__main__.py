@@ -1,14 +1,18 @@
 """CLI: ``python -m autodist_tpu_torch.serve`` — serve a zoo model over HTTP.
 
-Weights come from a seeded ``torch.Generator``; checkpoint restore is a
-later slice::
+The weights come from a seeded ``torch.Generator``, or from a checkpoint
+(``--checkpoint``: a ``Saver`` directory or one ``ckpt-N``, such as a
+training run's ``step.save``; either package's)::
 
     python -m autodist_tpu_torch.serve --model transformer \\
-        --model-arg num_layers=2 --slots 32 --port 8476 --device cuda
+        --model-arg num_layers=2 --slots 32 --port 8476 --device cuda \\
+        [--checkpoint DIR]
 
-``--draft-model transformer --draft-arg num_layers=2 --spec-k 4`` serves
-through the speculative engine (``serve/spec.py``); ``--prefix-cache``
-shares prompt prefixes copy-on-write (``serve/prefix.py``); a POST body's
+The engine comes from ``AutoDist.build_inference``. ``--draft-model
+transformer --draft-arg num_layers=2 --spec-k 4`` serves through the
+speculative engine (``serve/spec.py``; ``--draft-checkpoint`` restores the
+draft); ``--prefix-cache`` shares
+prompt prefixes copy-on-write (``serve/prefix.py``); a POST body's
 ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` draw the counter-based
 stochastic stream (``serve/sampling.py``). The CPU proofs, each printing
 one JSON line and exiting non-zero on a failed bar: ``--selftest-spec``,
@@ -38,10 +42,10 @@ def _parse_overrides(pairs):
 
 def build_frontend(args):
     """Engine + batcher + front end from parsed CLI args."""
+    from autodist_tpu_torch.api import AutoDist
     from autodist_tpu_torch.models import get_model
     from autodist_tpu_torch.models.transformer import decode_model, init_params
     from autodist_tpu_torch.serve.batcher import ContinuousBatcher
-    from autodist_tpu_torch.serve.engine import InferenceEngine
     from autodist_tpu_torch.serve.server import ServeFrontend
 
     overrides = _parse_overrides(args.model_arg)
@@ -50,21 +54,20 @@ def build_frontend(args):
     cfg = get_model(args.model, **overrides)
     params = init_params(cfg, seed=args.seed, device=args.device)
     kwargs = dict(n_slots=args.slots, page_len=args.page_len, n_pages=args.pages,
-                  prefill_chunk=args.prefill_chunk, device=args.device,
-                  prefix_cache=args.prefix_cache)
+                  prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+                  checkpoint=args.checkpoint)
     if args.draft_model:
-        from autodist_tpu_torch.serve.spec import SpecDecodeEngine
-
         draft_overrides = _parse_overrides(args.draft_arg)
         if args.kv_quant:
             draft_overrides["kv_quant"] = True
         draft_cfg = get_model(args.draft_model, **draft_overrides)
-        engine = SpecDecodeEngine(
-            params, decode_model(cfg),
-            init_params(draft_cfg, seed=args.seed + 1, device=args.device),
-            decode_model(draft_cfg), spec_k=args.spec_k, **kwargs)
-    else:
-        engine = InferenceEngine(params, decode_model(cfg), **kwargs)
+        kwargs.update(draft_params=init_params(draft_cfg, seed=args.seed + 1,
+                                               device=args.device),
+                      draft_decode_model=decode_model(draft_cfg),
+                      draft_checkpoint=args.draft_checkpoint, spec_k=args.spec_k)
+    AutoDist.reset_default()
+    engine = AutoDist(device=args.device).build_inference(
+        params, decode_model=decode_model(cfg), **kwargs)
     return ServeFrontend(ContinuousBatcher(engine), host=args.host, port=args.port)
 
 
@@ -93,6 +96,10 @@ def main(argv=None) -> int:
                     help="draft model config override (repeatable)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens proposed per slot per round")
+    ap.add_argument("--checkpoint", default=None,
+                    help="Saver directory or ckpt-N path to restore")
+    ap.add_argument("--draft-checkpoint", default=None,
+                    help="Saver directory or ckpt-N path for the draft")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight init seed (the draft's is seed + 1)")
     ap.add_argument("--device", default="cuda",

@@ -223,6 +223,49 @@ class InferenceEngine:
         self.prefill_invocations = 0
 
     # -------------------------------------------------------------- accounting
+    # ------------------------------------------------------------ construction
+    @staticmethod
+    def restore_params(checkpoint: str, params_template: Any, device=None) -> Any:
+        """A ``Saver`` checkpoint's params as the engine serves them: every
+        leaf whole on ``device`` (default: the card; the port's engine
+        serves on one device, so there is no plan to place by), in the
+        template's dtypes. ``checkpoint`` is a ``ckpt-N`` directory or a
+        Saver directory (its newest ``ckpt-*``); the template (tensors, meta
+        ones included) gives the names and logical shapes. A training
+        checkpoint (``step.save``: the whole logical state) keeps its
+        parameters under ``params/``: then only that subtree is read, never
+        the optimizer's slots."""
+        import os
+
+        from autodist_tpu_torch.checkpoint.saver import Saver, flatten_with_names
+
+        device = resolve_device(device)
+        if os.path.exists(os.path.join(checkpoint, "metadata.json")):
+            saver, path = Saver(os.path.dirname(checkpoint)), checkpoint
+        else:
+            saver = Saver(checkpoint)
+            path = saver.latest_checkpoint()
+            if path is None:
+                raise FileNotFoundError(f"no ckpt-* under {checkpoint!r}")
+        leaves = flatten_with_names(params_template)
+        probe = leaves[0][0] if leaves else ""
+        entries = Saver.read_metadata(path)["entries"]
+        if probe and probe not in entries and f"params/{probe}" in entries:
+            return saver.restore_subtree(path, "params", params_template, device=device)
+        return saver.restore(path, target=params_template, device=device)
+
+    @classmethod
+    def build(cls, params: Any, decode_model: DecodeModel, *,
+              checkpoint: Optional[str] = None, **engine_kwargs) -> "InferenceEngine":
+        """Standalone construction for a script without an
+        :class:`~autodist_tpu_torch.api.AutoDist` (whose ``build_inference``
+        does the same): ``checkpoint`` restores the params from a ``Saver``
+        checkpoint (:meth:`restore_params`) onto the engine's device;
+        ``params`` may then be a template of meta tensors."""
+        if checkpoint is not None:
+            params = cls.restore_params(checkpoint, params, engine_kwargs.get("device"))
+        return cls(params, decode_model, **engine_kwargs)
+
     @property
     def free_slots(self) -> int:
         return int((self._phase == _FREE).sum())

@@ -42,6 +42,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+# The threefry primitives live in utils/prng.py (PowerSGD's initial q draws
+# from them too); re-exported here under their names.
+from autodist_tpu_torch.utils.prng import fold_in, random_bits, threefry2x32
+
 __all__ = [
     "InvalidSamplingParams",
     "SamplingParams",
@@ -154,53 +158,6 @@ def slot_arrays(n_slots: int):
             "top_p": np.ones(n_slots, np.float32),
             "key_hi": np.zeros(n_slots, np.uint32),
             "key_lo": np.zeros(n_slots, np.uint32)}
-
-
-# ------------------------------------------------------------ threefry2x32
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_KS_PARITY = 0x1BD11BDA
-
-
-def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash (20 rounds) of counters ``(x1, x2)`` under
-    key ``(k1, k2)``: ``int64`` tensors holding uint32 values, broadcast
-    together; returns two such tensors. Every add is masked to 32 bits, so
-    the results are JAX's ``threefry2x32_p`` bits exactly."""
-    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
-    x1 = (x1 + ks[0]) & _M32
-    x2 = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _M32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _M32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x1, x2
-
-
-def fold_in(key_hi, key_lo, data):
-    """``jax.random.fold_in`` on raw threefry keys: the new key is the hash
-    of the counter pair ``(0, data)`` (``threefry_seed`` of a uint32 puts
-    it in the low word). All arguments are ``int64`` tensors of uint32
-    values, broadcast; returns the new ``(hi, lo)``."""
-    return threefry2x32(key_hi, key_lo, torch.zeros_like(data), data & _M32)
-
-
-def random_bits(key_hi, key_lo, n: int):
-    """``jax.random.bits(key, (n,))`` under the partitionable threefry
-    (JAX's default here): counters are the 64-bit iota split into a high
-    word (0 below 2^32) and a low word, and the 32-bit result is the xor of
-    the two hash words. ``key_*`` are ``int64 [...]``; returns ``int64
-    [..., n]`` holding uint32 values."""
-    lo = torch.arange(n, dtype=torch.int64, device=key_hi.device)
-    b1, b2 = threefry2x32(key_hi[..., None], key_lo[..., None],
-                          torch.zeros_like(lo), lo)
-    return b1 ^ b2
 
 
 def gumbel(key_hi, key_lo, n: int):

@@ -135,6 +135,22 @@ class SpecDecodeEngine(InferenceEngine):
         self.bucket_proposed: Dict[str, int] = {}
         self.bucket_accepted: Dict[str, int] = {}
 
+    @classmethod
+    def build(cls, params: Any, draft_params: Any, decode_model: DecodeModel,
+              draft_decode_model: DecodeModel, *, checkpoint: Optional[str] = None,
+              draft_checkpoint: Optional[str] = None, **engine_kwargs
+              ) -> "SpecDecodeEngine":
+        """Standalone two-model construction: ``checkpoint`` and
+        ``draft_checkpoint`` restored onto the engine's device through
+        :meth:`InferenceEngine.restore_params` (a training checkpoint's
+        ``params/`` subtree only)."""
+        device = engine_kwargs.get("device")
+        if checkpoint is not None:
+            params = cls.restore_params(checkpoint, params, device)
+        if draft_checkpoint is not None:
+            draft_params = cls.restore_params(draft_checkpoint, draft_params, device)
+        return cls(params, decode_model, draft_params, draft_decode_model, **engine_kwargs)
+
     @property
     def page_pool_bytes(self) -> int:
         """Target pool + draft pool device bytes."""

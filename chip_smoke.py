@@ -48,6 +48,14 @@ Phases, each printing one JSON line:
 5. ``stream_check``: teacher-forced bf16 logits through the kernel path vs
    the plain path within a stated bound, and identical greedy streams of
    an fp32 2-layer full-width model.
+5c. ``checkpoint_serve``: the full-width transformer trained
+   ``CKPT_SERVE_STEPS`` steps, saved (``step.save``), and served from its
+   checkpoint through ``AutoDist.build_inference(checkpoint=...)`` (a
+   template of meta tensors) and through ``SpecDecodeEngine.build(
+   checkpoint=, draft_checkpoint=)`` (a 2-layer draft from a params-only
+   checkpoint), 32 requests each: the restored params bitwise the trained
+   ones, the streams equal serving them from memory, the paged kernel's
+   launches counted as in serve_features.
 5b. ``serve_features``: the rest of single-engine serving on the same
    model, 64 requests, max_new 32, bf16 and int8 pages, each run through
    ``ContinuousBatcher`` with the paged kernel's launches equal to target
@@ -82,6 +90,12 @@ Phases, each printing one JSON line:
    the plain version, ``torch.matmul`` + moments, ``torch.matmul`` alone and
    the bound; then ``conv_stats_forward`` for each model: Σ launches x ms
    over a forward beside Σ launches x bound.
+7b. ``crossover``: the committed H100 tables (``ops/measured/``, written
+   by ``tools/torch_crossover_sweep.py``): ``"auto"`` resolves bert_base's
+   seq 512 to flash on the card in bf16 (dot in fp32, which the table does
+   not cover) and the serve runs' decode shape as the paged table says;
+   bert_base (batch 32) timed with dot and with flash
+   (CUDA events, median of 3 windows of 5 steps): flash must be faster.
 8. ``train``: bert_base (10 steps) and the causal transformer (4 steps)
    through ``AutoDist(strategy_builder=AllReduce()).build`` and
    ``step.run``, each flash kernel launched exactly ``num_layers x steps``
@@ -126,6 +140,20 @@ Phases, each printing one JSON line:
 15. ``accum_check``: the fp32 causal transformer (full width, seq 512,
     flash), first step at batch 8 with ``grad_accum_steps=4`` against 1:
     loss and whole gradient within 1e-5 relative.
+15b. ``checkpoint_train``: one process of this script (``--ckpt-rank``,
+    deterministic algorithms): bert_base (seq 512, batch 32, adamw with
+    ``clip_norm`` 1.0, "auto" attention) and ResNet-50 (batch 128,
+    momentum) through ``AutoDist.build``: 10 steps unbroken, twice (bitwise
+    repeatable or not, reported), and 5 steps, ``step.save``, a fresh step
+    ``init_or_restore``d, 5 more: the resumed losses equal the unbroken
+    run's bitwise (or within its own spread, and which case held is
+    printed); one ``block=False`` save, ``wait()``, the same files; save and
+    restore ms and the checkpoint's MB; every flash (or conv-stats) launch
+    of the 30 steps counted.
+15c. ``saved_model``: bert_base's forward (batch 8, seq 512) exported
+    (``SavedModelBuilder``, ``torch.export``), loaded and run: bitwise the
+    eager forward, the flash forward's operator in the program once a layer
+    and its kernel launched that many times by the loaded program.
 16. ``dist_train``: the multi-device step on ``torch.distributed``. One
     NCCL rank per visible card (a power of two, at most 8) is started as a
     process of this script (``--dist-rank``) and trains bert_base (seq 512,
@@ -140,7 +168,10 @@ Phases, each printing one JSON line:
     collectives equal the plan's prediction; the flash kernels launch
     ``num_layers x 5`` times each in bert_base's window and the fused
     conv-stats kernel ``36 x 5`` in ResNet-50's. Printed: ms a step of
-    both, the collectives of a step by purpose and kind. Then a rehearsal,
+    both, the collectives of a step by purpose and kind. ``dist_checkpoint``
+    (in each Zero1 row): the Zero1 state, saved by every rank, restores
+    into the one-process (unsharded) step bitwise, and that step's
+    checkpoint back into the Zero1 step bitwise. Then a rehearsal,
     not a card result: 4 gloo ranks on the CPU (``--dist-cpu-rank``) train
     a small dense model 3 Adam steps under AllReduce with buckets, Zero1,
     PartitionedPS and PS, against the one-process step within rtol 2e-5 /
@@ -196,6 +227,8 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.api import AutoDist
+from autodist_tpu_torch.checkpoint import SavedModelBuilder, Saver, load_saved_model
+from autodist_tpu_torch.checkpoint.saver import ShardedLeaf, flatten_with_names
 from autodist_tpu_torch.kernel import DistributedTrainStep, GraphTransformer, build_mesh
 from autodist_tpu_torch.model_item import ModelItem, OptimizerSpec
 from autodist_tpu_torch.models import PUBLISHED, get_model, get_model_spec
@@ -207,6 +240,7 @@ from autodist_tpu_torch.models import transformer as tt
 from autodist_tpu_torch.models.convert import (flatten_params, map_params,
                                                 unflatten_params)
 from autodist_tpu_torch.ops import _build
+from autodist_tpu_torch.ops import crossover as xo
 from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.ops import paged_attention as pa
@@ -434,6 +468,28 @@ ASYNC_WORKERS, ASYNC_PUSHES, ASYNC_STALENESS = 2, 4, 1
 # Host offload: the peak falls by this share of the optimizer slots' bytes,
 # and the memory held between steps by this share of all offloaded bytes.
 OFFLOAD_SAVING = (0.9, 1.1)
+# crossover: bert_base at TRAIN_SEQ and TRAIN_BATCH with dot and with flash,
+# each timed as the median of CROSSOVER_WINDOWS CUDA-event windows of
+# CROSSOVER_STEPS steps; the serve runs' decode shape (32 rows, a 512-token
+# timeline of 32 pages) for the paged rule.
+CROSSOVER_STEPS, CROSSOVER_WINDOWS = 5, 3
+SERVE_ROWS, SERVE_TABLE_PAGES = 32, 512 // PAGE_LEN
+# checkpoint_train: CKPT_STEPS unbroken steps (twice), and CKPT_SPLIT steps,
+# a save, a fresh step restored from it and the rest; bert_base under adamw
+# with clip_norm 1.0 ("auto" attention: flash at 512 from the H100 table),
+# ResNet-50 under momentum, both through AutoDist.build (AllReduce).
+CKPT_STEPS, CKPT_SPLIT = 10, 5
+CKPT_MODELS = (("bert_base", "bert_base", {"max_seq_len": TRAIN_SEQ}, TRAIN_BATCH,
+                ("adamw", {"learning_rate": 1e-4}), 1.0),
+               ("resnet50", "resnet", {}, RESNET_BATCH, ("momentum", {"learning_rate": 0.01}),
+                None))
+# checkpoint_serve: the full-width transformer trained CKPT_SERVE_STEPS steps
+# (batch LM_BATCH, seq TRAIN_SEQ) and served from its checkpoint,
+# CKPT_SERVE_REQUESTS requests of MAX_NEW tokens; the spec engine's draft
+# is a DRAFT_LAYERS-layer model from a params-only checkpoint.
+CKPT_SERVE_STEPS, CKPT_SERVE_REQUESTS = 2, 32
+# saved_model: bert_base's forward at TRAIN_SEQ, batch EXPORT_BATCH.
+EXPORT_BATCH = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -1859,13 +1915,15 @@ def dist_rank(rank: int, world: int, work: str) -> int:
                                   optimizer=OptimizerSpec(*DIST_OPT))
             state, losses, ms, launches, wire = _train_window(step, params, batch,
                                                               DIST_STEPS, dev)
+            dist_ckpt = (_dist_checkpoint(key, step, state, spec, params, batch, work, rank,
+                                          dev) if name == "Zero1" else None)
             logical = flatten_params(step.logical_params(state))
             predicted = autodist.plan.collectives_per_step()
             row = dict(model=key, strategy=name, strategy_kwargs=kwargs, world=world,
                        global_batch=batch_size, steps=1 + DIST_STEPS, optimizer=DIST_OPT,
                        losses=losses, ms_per_step=ms, collectives=wire,
                        predicted_wire=predicted, batchnorm_local=step.manual,
-                       kernel_launches=launches)
+                       kernel_launches=launches, dist_checkpoint=dist_ckpt)
             check(_wire(wire) == predicted,
                   f"{key}/{name}: wire {wire} != the plan's {predicted}")
             if rank == 0:
@@ -2485,6 +2543,332 @@ def sync_options(card: str) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ crossover
+def crossover_phase(card: str, dev) -> dict:
+    """The H100 tables' rules on the card, and bert_base at 512 with dot and
+    with flash: "auto" must resolve to flash there, and flash be faster."""
+    seq = xo.flash_crossover_seq()
+    timeline = xo.paged_crossover_timeline(SERVE_ROWS, H)
+    # bert_base attends in bf16, the table's dtype; fp32 keeps the default.
+    auto = tt.resolve_attention_impl("auto", TRAIN_SEQ, dev, torch.bfloat16)
+    auto_fp32 = tt.resolve_attention_impl("auto", TRAIN_SEQ, dev, torch.float32)
+    check(auto == "flash", f"auto at {TRAIN_SEQ} resolves to {auto} (crossover {seq})")
+    check(auto_fp32 == "dot", f"fp32 auto at {TRAIN_SEQ} resolves to {auto_fp32}, not "
+          f"the default {xo.DEFAULT_FLASH_CROSSOVER_SEQ}'s dot")
+    paged = pa.resolve_impl("auto", dev, batch=SERVE_ROWS, table_pages=SERVE_TABLE_PAGES,
+                            page_len=PAGE_LEN, heads=H)
+    expect = "kernel" if SERVE_TABLE_PAGES * PAGE_LEN >= timeline else "gather"
+    check(paged == expect, f"paged auto at the decode shape: {paged}, the table says {expect}")
+    ms = {}
+    for impl in ("dot", "flash"):
+        spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl=impl)
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(TRAIN_BATCH, device=dev)
+        AutoDist.reset_default()
+        step = AutoDist(strategy_builder=AllReduce(), device=dev).build(
+            spec.loss_fn, params, batch)
+        box = {"state": step.init(params)}
+
+        def one():
+            box["state"], _ = step(box["state"], batch)
+
+        ms[impl] = time_ms(one, groups=CROSSOVER_WINDOWS, per_group=CROSSOVER_STEPS)
+        del step, box, params, batch
+        torch.cuda.empty_cache()
+    check(ms["flash"] < ms["dot"], f"flash {ms['flash']} ms not faster than dot {ms['dot']}")
+    row = dict(flash_crossover_seq=seq, paged_crossover_timeline=timeline,
+               auto_at_seq=auto, auto_at_seq_fp32=auto_fp32,
+               paged_auto_at_decode=paged, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+               dot_ms_per_step=ms["dot"], flash_ms_per_step=ms["flash"],
+               flash_speedup=ms["dot"] / ms["flash"], card=card)
+    emit("crossover", **row)
+    return row
+
+
+# ------------------------------------------------------------ checkpoints
+def _deterministic(rank: int):
+    """This rank's device, with the deterministic settings of dist_train."""
+    dev = pg.local_device(torch.device("cuda"), rank)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    return dev
+
+
+def _dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files) / 1e6
+
+
+def _ckpt_step(spec, params, batch, opt, clip, dev):
+    AutoDist.reset_default()
+    return AutoDist(strategy_builder=AllReduce(), device=dev).build(
+        spec.loss_fn, params, batch, optimizer=OptimizerSpec(opt[0], dict(opt[1]),
+                                                             clip_norm=clip))
+
+
+def _run_losses(step, state, batch, n: int):
+    metrics = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        metrics.append(m["loss"])
+    return state, [float(x) for x in metrics]
+
+
+def ckpt_rank(rank: int, world: int, work: str) -> int:
+    """checkpoint_train's process (see the module docstring)."""
+    dev = _deterministic(rank)
+    rows = []
+    for key, name, overrides, batch_size, opt, clip in CKPT_MODELS:
+        spec = get_model_spec(name, **overrides)
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(batch_size, device=dev)
+        reset_launches()
+        runs = []
+        for _ in range(2):
+            step = _ckpt_step(spec, params, batch, opt, clip, dev)
+            runs.append(_run_losses(step, step.init(params), batch, CKPT_STEPS)[1])
+            del step
+            torch.cuda.empty_cache()
+        step = _ckpt_step(spec, params, batch, opt, clip, dev)
+        state, first = _run_losses(step, step.init(params), batch, CKPT_SPLIT)
+        saver = Saver(os.path.join(work, key))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        path = step.save(saver, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        async_path = step.save(saver, state, path=os.path.join(work, f"{key}-async",
+                                                               f"ckpt-{CKPT_SPLIT}"),
+                               block=False)
+        async_call_ms = (time.perf_counter() - t0) * 1e3
+        saver.wait()
+        async_ms = (time.perf_counter() - t0) * 1e3
+        check(Saver.read_metadata(async_path) == Saver.read_metadata(path),
+              f"{key}: async checkpoint metadata differs")
+        blocking = dict(flatten_with_names(Saver().restore(path)))
+        for n, t in flatten_with_names(Saver().restore(async_path)):
+            check(torch.equal(t, blocking[n]), f"{key}: async checkpoint {n} differs")
+        del step, state, blocking
+        torch.cuda.empty_cache()
+        fresh = _ckpt_step(spec, params, batch, opt, clip, dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state = fresh.init_or_restore(params, Saver(os.path.join(work, key)))
+        torch.cuda.synchronize(dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(state.step == CKPT_SPLIT and state.opt_state["count"] == CKPT_SPLIT,
+              f"{key}: restored step {state.step}, count {state.opt_state['count']}")
+        state, second = _run_losses(fresh, state, batch, CKPT_STEPS - CKPT_SPLIT)
+        launches = {"fused_conv_stats": fcs.fused_matmul_stats.launches, **_launch_counts()}
+        want = runs[0][CKPT_SPLIT:]
+        if runs[0] == runs[1]:
+            case = "bitwise"
+            check(first + second == runs[0], f"{key}: resumed losses {first + second} != "
+                  f"unbroken {runs[0]}")
+            off = spread = 0.0
+        else:
+            case = "within the unbroken run's spread"
+            spread = max(abs(a - b) for a, b in zip(runs[0][CKPT_SPLIT:],
+                                                     runs[1][CKPT_SPLIT:]))
+            off = max(abs(a - b) for a, b in zip(second, want))
+            check(off <= spread, f"{key}: resumed losses off by {off} > spread {spread}")
+        steps = 3 * CKPT_STEPS
+        if key == "bert_base":
+            layers = spec.config.num_layers
+            for kind in ("fwd", "dkdv", "dq"):
+                check(launches[kind] == layers * steps,
+                      f"{key}: flash {kind} launches {launches[kind]} != {layers} x {steps}")
+        else:
+            per = rn.fused_launches_per_forward(50) * steps
+            check(launches["fused_conv_stats"] == per,
+                  f"{key}: fused conv launches {launches['fused_conv_stats']} != {per}")
+        rows.append(dict(model=key, batch=batch_size, optimizer=opt, clip_norm=clip,
+                         steps=CKPT_STEPS, split=CKPT_SPLIT, case=case,
+                         unbroken=runs[0], unbroken_again=runs[1], resumed=first + second,
+                         max_off=off, spread=spread, save_ms=save_ms,
+                         async_call_ms=async_call_ms, async_total_ms=async_ms,
+                         restore_ms=restore_ms, checkpoint_mb=_dir_mb(path),
+                         entries=len(Saver.read_metadata(path)["entries"]),
+                         kernel_launches=launches))
+        del fresh, state, params, batch
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def checkpoint_train(card: str) -> list:
+    """The checkpoint_train phase: one process of this script on cuda:0
+    with deterministic algorithms. Returns its rows."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rows = _spawn_ranks("--ckpt-rank", 1, work, env)[0]
+    for row in rows:
+        emit("checkpoint_train", **row, process_seconds=time.perf_counter() - t0, card=card)
+    return rows
+
+
+def _holds_checkpoint(step, state, path: str) -> bool:
+    """Every leaf of this rank's state equal, bitwise, to the checkpoint's
+    region of it."""
+    full = dict(flatten_with_names(Saver().restore(path)))
+    for name, leaf, _ in step.checkpoint_leaves(state):
+        if isinstance(leaf, int):
+            if int(full[name]) != leaf:
+                return False
+            continue
+        parts = ([(leaf.blocks[j], t) for j, t in leaf.local.items()]
+                 if isinstance(leaf, ShardedLeaf) else [(None, leaf)])
+        for region, t in parts:
+            want = full[name]
+            if region is not None:
+                want = want[tuple(slice(a, b) for a, b in zip(*region))]
+            if not torch.equal(t.detach().cpu(), want):
+                return False
+    return True
+
+
+def _dist_checkpoint(key, step, state, spec, params, batch, work, rank, dev) -> dict:
+    """dist_checkpoint: the Zero1 state saved by every rank restores into
+    the one-process (unsharded) step bitwise, and that step's save restores
+    into the Zero1 step bitwise."""
+    path = step.save(Saver(os.path.join(work, f"zero1-{key}")), state)
+    back = os.path.join(work, f"zero1-back-{key}")
+    out = dict(entries=len(Saver.read_metadata(path)["entries"]), mb=_dir_mb(path))
+    if rank == 0:
+        one = _one_process_step(AllReduce(), spec.loss_fn, params, batch, dev)
+        ostate = one.init_or_restore(params, Saver(os.path.dirname(path)))
+        out["into_one_process_bitwise"] = _holds_checkpoint(one, ostate, path)
+        check(out["into_one_process_bitwise"], f"{key}: Zero1 checkpoint restored into the "
+              f"one-process step differs")
+        one.save(Saver(back), ostate)
+        del one, ostate
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    rstate = step.init_or_restore(params, Saver(back))
+    out["back_into_zero1_bitwise"] = _holds_checkpoint(
+        step, rstate, os.path.join(back, f"ckpt-{rstate.step}"))
+    check(out["back_into_zero1_bitwise"], f"{key}: one-process checkpoint restored into "
+          f"the Zero1 step differs")
+    return out
+
+
+def checkpoint_serve(card: str, dev) -> list:
+    """The full-width transformer trained a few steps, saved, and served
+    from its ckpt-N through AutoDist.build_inference, then through
+    SpecDecodeEngine.build with a params-only draft checkpoint: the same
+    streams as the same params served from memory."""
+    spec = get_model_spec("transformer", max_seq_len=TRAIN_SEQ)
+    cfg, dm = spec.config, tt.decode_model(spec.config)
+    params = spec.init(SEED + 8, device=dev)
+    batch = spec.example_batch(LM_BATCH, device=dev)
+    AutoDist.reset_default()
+    step = AutoDist(strategy_builder=AllReduce(), device=dev).build(spec.loss_fn, params, batch)
+    state, _ = step.run(step.init(params), batch, CKPT_SERVE_STEPS)
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [mock_load_prompt(rng, i, vocab=cfg.vocab_size)
+               for i in range(CKPT_SERVE_REQUESTS)]
+    kw = dict(n_slots=32, page_len=PAGE_LEN, prefill_chunk=PAGE_LEN, device=dev)
+    rows = []
+    with tempfile.TemporaryDirectory() as work:
+        path = step.save(Saver(os.path.join(work, "train")), state)
+        trained = step.logical_params(state)
+        del step, state
+        template = map_params(lambda t: torch.empty_like(t, device="meta"), trained)
+        dcfg = get_model("transformer", num_layers=DRAFT_LAYERS)
+        dparams = tt.init_params(dcfg, seed=SEED + 9, device=dev)
+        Saver(os.path.join(work, "draft")).save(dparams, step=0)
+        dtemplate = map_params(lambda t: torch.empty_like(t, device="meta"), dparams)
+        for mode in ("plain", "spec"):
+            AutoDist.reset_default()
+            t0 = time.perf_counter()
+            if mode == "plain":
+                engine = AutoDist(device=dev).build_inference(
+                    template, decode_model=dm, checkpoint=os.path.dirname(path),
+                    n_slots=32, page_len=PAGE_LEN, prefill_chunk=PAGE_LEN)
+                memory = InferenceEngine(trained, dm, **kw)
+                draft_layers = 0
+            else:
+                engine = SpecDecodeEngine.build(
+                    template, dtemplate, dm, tt.decode_model(dcfg), checkpoint=path,
+                    draft_checkpoint=os.path.join(work, "draft"), spec_k=SPEC_K, **kw)
+                memory = SpecDecodeEngine(trained, dm, dparams, tt.decode_model(dcfg),
+                                          spec_k=SPEC_K, **kw)
+                draft_layers = DRAFT_LAYERS
+            torch.cuda.synchronize(dev)
+            build_s = time.perf_counter() - t0
+            restored = flatten_params(engine.params)
+            check(all(torch.equal(restored[n], t) for n, t in flatten_params(trained).items()),
+                  f"checkpoint_serve {mode}: restored params differ from the trained ones")
+            for e in (engine, memory):
+                e.generate([1, 2, 3], 2)                       # warm-up, not counted
+            got, snap, wall, launches, ran = _served(engine, prompts, f"ckpt {mode}",
+                                                     cfg.num_layers, draft_layers)
+            want = _served(memory, prompts, f"memory {mode}", cfg.num_layers,
+                           draft_layers)[0]
+            check(got == want, f"checkpoint_serve {mode}: "
+                  f"{sum(a != b for a, b in zip(got, want))} streams differ from memory's")
+            rows.append(dict(mode=mode, requests=len(prompts), max_new=MAX_NEW,
+                             train_steps=CKPT_SERVE_STEPS, checkpoint_mb=_dir_mb(path),
+                             build_with_restore_s=build_s, streams_equal=len(got),
+                             kernel_launches=launches, programs=ran,
+                             decode_tokens_per_s=(len(prompts) * (MAX_NEW - 1)) / wall,
+                             card=card))
+            emit("checkpoint_serve", **rows[-1])
+            del engine, memory
+            torch.cuda.empty_cache()
+    return rows
+
+
+def saved_model_phase(card: str, dev) -> dict:
+    """bert_base's forward exported, loaded and run: bitwise equal to the
+    eager forward, the flash forward kernel launched in the loaded program
+    once a layer."""
+    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ)
+    cfg = spec.config
+    params = spec.init(SEED, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, (EXPORT_BATCH, TRAIN_SEQ))).to(dev)
+
+    def forward(p, t):
+        return tt.forward(p, t, cfg)
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        SavedModelBuilder(forward).save(work, params, tokens)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = load_saved_model(work)
+        load_s = time.perf_counter() - t0
+        mb = _dir_mb(work)
+    ops = [str(n.target) for n in serve.exported.graph.nodes
+           if str(n.target).startswith("autodist_tpu_torch.")]
+    check(ops.count("autodist_tpu_torch.flash_fwd.default") == cfg.num_layers,
+          f"saved_model: the program calls {ops}")
+    with torch.no_grad():
+        eager = forward(params, tokens)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    got = serve(tokens)
+    torch.cuda.synchronize(dev)
+    launches = _launch_counts()
+    check(launches["fwd"] == cfg.num_layers,
+          f"saved_model: flash forward launches {launches['fwd']} != {cfg.num_layers}")
+    check(torch.equal(got, eager), f"saved_model: exported output differs from eager by "
+          f"{(got - eager).abs().max().item()}")
+    row = dict(model="bert_base", seq=TRAIN_SEQ, batch=EXPORT_BATCH, export_s=export_s,
+               load_s=load_s, mb=mb, program_ops=len(ops), bitwise=True,
+               kernel_launches=launches, card=card)
+    emit("saved_model", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2523,6 +2907,7 @@ def main() -> int:
     stream_check(params, dev)
     feature_rows = serve_features(params, card, dev)
     del params
+    ckpt_serve_rows = checkpoint_serve(card, dev)
 
     flash_rows = [r for seq, causal, dtype in ((TRAIN_SEQ, False, torch.bfloat16),
                                                (TRAIN_SEQ, True, torch.bfloat16),
@@ -2539,6 +2924,7 @@ def main() -> int:
                       for shape, launches in sorted(shapes.items())]
         emit("conv_stats_forward", model=key, **conv_forward_totals(model_rows))
         conv_rows += model_rows
+    crossover_phase(card, dev)
     train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
                   train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
     resnet_row = train_resnet(card, dev)
@@ -2549,6 +2935,8 @@ def main() -> int:
     optim_check(dev)
     remat_check(dev)
     accum_check(dev)
+    ckpt_rows = checkpoint_train(card)
+    saved_row = saved_model_phase(card, dev)
     dist_rows = dist_train(card)
     sync_rows = sync_options(card)
 
@@ -2558,7 +2946,8 @@ def main() -> int:
         "route": "cuda",
         "source": "autodist_tpu_torch/csrc/paged_attention.cu",
         "replaces": "autodist_tpu/ops/paged_attention.py:137",
-        "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows),
+        "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows
+                        + ckpt_serve_rows),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2579,7 +2968,8 @@ def main() -> int:
             "source": "autodist_tpu_torch/csrc/flash_attention.cu",
             "replaces": where,
             "launches": sum(t["kernel_launches"][kind]
-                            for t in train_rows + dist_rows + sync_rows),
+                            for t in train_rows + dist_rows + sync_rows + ckpt_rows)
+            + saved_row["kernel_launches"][kind],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -2600,7 +2990,7 @@ def main() -> int:
         "replaces": "examples/benchmark/fused_conv_stats.py:54",
         "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
         + sum(r["kernel_launches"].get("fused_conv_stats", 0)
-              for r in zoo_rows + dist_rows + sync_rows),
+              for r in zoo_rows + dist_rows + sync_rows + ckpt_rows),
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -2618,7 +3008,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     RANK_MAINS = {"--dist-rank": dist_rank, "--dist-cpu-rank": dist_cpu_rank,
-                  "--sync-rank": sync_rank}
+                  "--sync-rank": sync_rank, "--ckpt-rank": ckpt_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -12,16 +12,20 @@ joins the group at
 trains each case through ``AutoDist.build`` and the step on the global
 batch, and saves ``OUT_DIR/rank<RANK>.pt``: per case the losses, the
 logical params after the last step, the collectives of each step and the
-plan's prediction, and the compressor and staleness state of the trained
-step. Imports only torch, numpy and the port, so a child does
+plan's prediction, the compressor and staleness state of the trained
+step, and a case's checkpoint work (``save``: a directory to write the
+trained state to; ``restore``: directories to restore a fresh state from,
+each reported as this rank's data of every leaf). Imports only torch, numpy and the port, so a child does
 not pay for JAX; ``tests/helpers/torch_dist.py`` starts and reads it.
 """
 import os
 import sys
 
+import numpy as np
 import torch
 
 from autodist_tpu_torch import api, model_item
+from autodist_tpu_torch.checkpoint import Saver, ShardedLeaf
 from autodist_tpu_torch.models import get_model_spec
 from autodist_tpu_torch.models.convert import comp_state_from_jax, flatten_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
@@ -51,8 +55,8 @@ def masked_loss(params, batch):
     return torch.sum(err * mask) / torch.sum(mask)
 
 
-LOSSES = {"dense": dense_loss, "embed": embed_loss, "masked": masked_loss,
-          "masked_equal": masked_loss}
+LOSSES = {"dense": dense_loss, "dense8": dense_loss, "embed": embed_loss,
+          "masked": masked_loss, "masked_equal": masked_loss}
 
 
 def resnet_loss(depth):
@@ -103,6 +107,45 @@ def train(case, params, batch, **autodist_kwargs):
     return ad, step, state, losses, wire, float(step.evaluate(state, batch)["loss"])
 
 
+def _local_blocks(step, state):
+    """This rank's data of each checkpoint leaf: ``{name: (start, stop,
+    array)}`` in logical coordinates (whole leaves from ``(0, ...)``)."""
+    out = {}
+    for name, leaf, view in step.checkpoint_leaves(state):
+        if isinstance(leaf, int):
+            out[name] = ((), (), np.asarray(leaf))
+        elif isinstance(leaf, ShardedLeaf):
+            for j in leaf.local:
+                start, stop = leaf.blocks[j]
+                out[name] = (start, stop, view.detach().numpy().copy())
+        else:
+            shape = tuple(view.shape)
+            out[name] = ((0,) * len(shape), shape, view.detach().numpy().copy())
+    return out
+
+
+def checkpoint(case, ad, step, state, params):
+    """A case's checkpoint work: ``save`` writes the trained state under
+    that directory (every rank its own blocks) and reports the files this
+    rank wrote; ``restore`` (a list of directories) restores each into a
+    fresh state of the same step and reports this rank's data of every
+    leaf."""
+    out = {}
+    if case.get("save"):
+        saver = Saver(case["save"])
+        _, files = saver._collect(step.logical_state(state))
+        out["files"] = sorted(f for f, _, _ in files)
+        out["path"] = step.save(saver, state)
+    for directory in case.get("restore", ()):
+        restored = step.init_or_restore(params, Saver(directory))
+        out.setdefault("restored", {})[directory] = {
+            "step": restored.step, "count": restored.opt_state["count"],
+            "blocks": _local_blocks(step, restored),
+            "params": {k: v.detach().numpy().copy() for k, v in
+                       flatten_params(step.logical_params(restored)).items()}}
+    return out
+
+
 def main(job_path, rank, world, init_file, out_dir):
     torch.set_num_threads(1)
     job = torch.load(job_path, weights_only=False)
@@ -128,6 +171,7 @@ def main(job_path, rank, world, init_file, out_dir):
                                for part in ("local", "shared")}
                            for n, st in state.comp_state.items()},
             "stale_state": {n: t.numpy().copy() for n, t in state.stale_state.items()},
+            "checkpoint": checkpoint(case, ad, step, state, params),
         }
     pg.leave()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

@@ -113,6 +113,39 @@ def test_ef_residual_is_the_bf16_rounding():
     assert local["residual"].abs().max() > 0
 
 
+#: PowerSGD's initial q against JAX's draw: the bits exactly; the normal
+#: floats within Q_ULPS ulps (XLA's erfinv polynomial, evaluated with other
+#: fused operations: 3 measured); the orthonormal q after the QR (LAPACK's
+#: Householder on both sides) within Q_QR_ATOL, a few ulps of its entries.
+Q_ULPS, Q_QR_ATOL = 4, 1e-6
+
+
+@pytest.mark.parametrize("seed", (0, 5))
+@pytest.mark.parametrize("shape,rank", [((256, 64), 2), ((256, 8, 8), 2),
+                                        ((768, 3072), 4), ((4, 2), 8)],
+                         ids=["256x64", "256x8x8", "768x3072", "4x2"])
+def test_powersgd_initial_q_is_jax_draw(shape, rank, seed):
+    from autodist_tpu_torch.utils import prng
+
+    k = int(np.prod(shape[1:]))
+    r = min(rank, k, shape[0])
+    key = jax.random.PRNGKey(seed)
+    hi, lo = prng.prng_key(seed)
+    bits = prng.random_bits(torch.tensor(hi), torch.tensor(lo), k * r).reshape(k, r)
+    np.testing.assert_array_equal(bits.numpy(),
+                                  np.asarray(jax.random.bits(key, (k, r))).astype(np.int64))
+    want = np.asarray(jax.random.normal(key, (k, r), jnp.float32))
+    got = prng.normal((hi, lo), (k, r)).numpy()
+    ulps = np.abs(got - want) / np.spacing(np.abs(want))
+    assert ulps.max() <= Q_ULPS, ulps.max()
+    jq = jc.PowerSGDCompressor(rank=rank, seed=seed).init_shared(
+        JVarItem(name="v", shape=shape, dtype="float32"))["q"]
+    tq = tc.PowerSGDCompressor(rank=rank, seed=seed).init_shared(
+        VarItem(name="v", shape=shape, dtype="float32"))["q"]
+    assert tuple(tq.shape) == tuple(jq.shape) and tq.dtype == torch.float32
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=0, atol=Q_QR_ATOL)
+
+
 WIRE_CASES = [
     ("PowerSGDCompressor", {"rank": 2}, (256, 64), 1),
     ("PowerSGDCompressor", {"rank": 2}, (256, 8, 8), 1),

@@ -134,11 +134,12 @@ def test_position_mask_and_apply():
 
 
 def test_resolve_impl_by_device():
-    assert tpa.resolve_impl("auto", "cpu") == "gather"
-    assert tpa.resolve_impl("auto", "cuda") == "kernel"
-    assert tpa.resolve_impl("gather", "cuda") == "gather"
+    shape = dict(batch=32, table_pages=32, page_len=16, heads=12)
+    assert tpa.resolve_impl("auto", "cpu", **shape) == "gather"
+    assert tpa.resolve_impl("auto", "cuda", **shape) == "kernel"
+    assert tpa.resolve_impl("gather", "cuda", **shape) == "gather"
     with pytest.raises(ValueError):
-        tpa.resolve_impl("flash", "cpu")
+        tpa.resolve_impl("flash", "cpu", **shape)
 
 
 def test_kernel_byte_and_flop_counts():

@@ -170,6 +170,7 @@ def test_server_flags_build_the_spec_engine_with_a_prefix_cache():
         prefill_chunk=None, prefix_cache=True, draft_model="transformer",
         draft_arg=["num_layers=1", "d_model=32", "num_heads=2", "d_ff=64",
                    "vocab_size=128", "max_seq_len=64"], spec_k=3,
+        checkpoint=None, draft_checkpoint=None,
         host="127.0.0.1", port=0)
     engine = build_frontend(args).batcher.engine
     assert engine.spec_k == 3 and engine.prefix_cache is not None
