@@ -28,7 +28,12 @@ Several processes, one per device, train as one: started by
 and builds its mesh over it; rank 0 builds the strategy and the others
 receive it over the group. Each rank then calls the step with the same
 global batch (or assembles it with ``plan.global_batch_from_local``) and
-trains on its rows. ``remat`` rematerialises the forward in the backward
+trains on its rows. A ``mesh:`` block of ``{data, model}`` or ``{data,
+expert}`` (over ``mesh_axes``, default ``("data", "model")`` as in JAX)
+shards the variables the plan puts on that axis (``TensorParallel``'s
+Megatron pairs, the MoE's experts under ``expert_names``) and runs the
+forward on ``DTensor``s (``kernel/lowering.py``); the transformer family
+trains so, other models raise. ``remat`` rematerialises the forward in the backward
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
 (``kernel/lowering.py``). A strategy that is ``sync=False`` throughout is
 routed to the host-driven asynchronous PS (``runtime/async_ps.py``).
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import functools
 import os
+import re
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
@@ -147,6 +153,19 @@ def _resolve_optimizer(optimizer):
     return OptimizerSpec("custom"), optimizer
 
 
+def _check_shardable(plan: ShardingPlan, model_item: ModelItem) -> None:
+    """Under a model or expert axis larger than 1 only the transformer
+    family (a ``layers_<i>/attn`` block) trains; the others raise."""
+    axis = plan.mesh.shard_axis
+    if axis is None:
+        return
+    if not any(re.match(r"layers_\d+/attn/", v.name) for v in model_item.variables):
+        raise NotImplementedError(
+            f"a {axis} axis of {plan.mesh.shape[axis]} trains the transformer family "
+            "only; the CNNs (fused_conv_stats under local_map), lstm_lm, ncf and other "
+            "models are not ported to it yet; see ROADMAP.md")
+
+
 class AutoDist:
     """Distributed-training entry point bound to one cluster description."""
 
@@ -155,13 +174,15 @@ class AutoDist:
                  resource_spec: Optional[ResourceSpec] = None, device=None,
                  init_method: Optional[str] = None, world_size: Optional[int] = None,
                  rank: Optional[int] = None,
-                 timeout_s: float = pg.DEFAULT_TIMEOUT_S):
+                 timeout_s: float = pg.DEFAULT_TIMEOUT_S,
+                 mesh_axes: Sequence[str] = ("data", "model")):
         global _default_autodist
         if _default_autodist is not None:
             raise RuntimeError("Only one AutoDist instance is supported per process; "
                                "call AutoDist.reset_default() first if you really "
                                "need another.")
         self.device = resolve_device(device)
+        self.mesh_axes = tuple(mesh_axes)
         self.group = pg.join(self.device, init_method, world_size, rank, timeout_s)
         world = torch.distributed.get_world_size(self.group) if self.group is not None else 1
         if self.group is not None:
@@ -193,7 +214,7 @@ class AutoDist:
     def mesh(self):
         if self._mesh is None:
             self._mesh = build_mesh(self.resource_spec, device=self.device,
-                                    group=self.group)
+                                    group=self.group, axes=self.mesh_axes)
         return self._mesh
 
     def _build_or_load_strategy(self, model_item: ModelItem) -> Strategy:
@@ -259,6 +280,7 @@ class AutoDist:
         plan = GraphTransformer(compiled, model_item, self.mesh,
                                 host_offload=host_offload).transform()
         logging.debug("sharding plan:\n%s", plan.describe())
+        _check_shardable(plan, model_item)
         if remat:
             # After capture and the cast, as in the JAX package.
             loss_fn = _remat(loss_fn, remat)

@@ -71,8 +71,28 @@ The synchronizer's options:
   TPU; the port does not.
 
 Asynchronous PS (``sync=False``) has no rendering in this step: lowering it
-raises, and ``AutoDist.build`` routes it to ``runtime/async_ps.py``. The
-expert and model axes raise ``NotImplementedError`` naming ROADMAP.md.
+raises, and ``AutoDist.build`` routes it to ``runtime/async_ps.py``.
+
+**Tensor and expert parallelism.** On a mesh whose ``model`` (or
+``expert``) axis is larger than 1, the lowering puts partitioned, fallback,
+padded and sparse row-split variables on that axis (the JAX package's
+``_shard_axis_name``) and the MoE's ``[E, ...]`` kernels on ``expert``; the
+plan renders them ``("partitioned", dim)`` / ``("expert", 0)``, JAX's
+``promised_wire`` names. The state holds this rank's block. The step
+renders the JAX step's GSPMD forward with ``torch.distributed.tensor``:
+each split block enters the loss as a ``DTensor`` (``Shard(dim)`` on the
+axis's one-dim ``DeviceMesh``), every other parameter and each batch leaf
+as a ``Replicate`` one, and the forward and its backward run under
+``DTensor``'s sharding propagation and ``implicit_replication`` (for the
+plain tensors a model makes itself), which derive the collectives as GSPMD
+does. The choice keeps the models sharding-agnostic, as JAX's are under
+GSPMD: explicit Megatron collectives would need model code that knows the
+mesh. ``from_local``'s backward hands each block its gradient (a
+``Partial`` gradient of a replicated parameter reduced over the axis), and
+the data-axis sync above then runs on those local blocks over the data
+subgroup; the optimizer updates blocks in place, its slots block-shaped,
+and sums whole-tensor norms (``clip_norm``, lamb, adafactor) over the
+model group. ``DTensor``'s collectives are counted under the axis's name.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
@@ -89,7 +109,8 @@ the state passed in is consumed, and the one returned holds the same
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import contextlib
+from dataclasses import dataclass, field, replace
 from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -102,7 +123,7 @@ from autodist_tpu_torch.checkpoint.saver import ShardedLeaf, flatten_with_names
 from autodist_tpu_torch.kernel import bucketing
 from autodist_tpu_torch.kernel.compressor import Compressor, get_compressor
 from autodist_tpu_torch.kernel.degrade import is_active_compressor, zero1_degradation_reasons
-from autodist_tpu_torch.kernel.mesh import Mesh
+from autodist_tpu_torch.kernel.mesh import SHARD_AXES, Mesh
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem, _factored_dims
 from autodist_tpu_torch.models.convert import (
     flatten_params, map_params, map_tree, tree_leaves)
@@ -145,11 +166,19 @@ class VarPlan:
     shard_update: bool = False
     degradations: Tuple[str, ...] = ()
     offload: bool = False
+    #: The mesh axis ``storage_dim`` is sharded over: the data axis, or
+    #: ``model`` / ``expert`` (the JAX plan's ``pspec`` axis name).
+    storage_axis: str = const.MESH_AXIS_DATA
 
     @property
     def shape(self) -> Tuple[int, ...]:
         """The stored (padded) shape."""
         return tuple(self.storage_shape or self.var.shape)
+
+    @property
+    def model_sharded(self) -> bool:
+        """Sharded over the model or expert axis (a ``DTensor`` in the step)."""
+        return self.storage_dim is not None and self.storage_axis in SHARD_AXES
 
 
 @dataclass
@@ -164,10 +193,6 @@ class TrainState:
     opt_state: Any
     comp_state: Dict[str, Any] = field(default_factory=dict)
     stale_state: Dict[str, torch.Tensor] = field(default_factory=dict)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md")
 
 
 def _pspec(rank: int, dim: Optional[int], axis: str) -> str:
@@ -217,10 +242,6 @@ class GraphTransformer:
         self.host_offload = host_offload
 
     def transform(self) -> "ShardingPlan":
-        wide = {ax: d for ax, d in self.mesh.shape.items()
-                if ax not in (self.mesh.data_axis, const.MESH_AXIS_EXPERT) and d > 1}
-        if wide:
-            raise _not_ported(f"lowering onto mesh axes {wide} (tensor parallelism)")
         plans: Dict[str, VarPlan] = {}
         for node in self.strategy.node_config:
             var = self.model_item.var(node.var_name)
@@ -229,6 +250,13 @@ class GraphTransformer:
             plans.setdefault(var.name, VarPlan(var=var, kind=SyncKind.ALL_REDUCE))
         return ShardingPlan(mesh=self.mesh, var_plans=plans,
                             bucket_bytes=int(self.strategy.graph_config.bucket_bytes or 0))
+
+    def _shard_axis_name(self) -> str:
+        """The axis variable partitioning lands on: ``model`` when it is
+        larger than 1, else the data axis (ZeRO-style sharding)."""
+        if self.mesh.shape.get(const.MESH_AXIS_MODEL, 1) > 1:
+            return const.MESH_AXIS_MODEL
+        return self.mesh.data_axis
 
     @staticmethod
     def _fold_part_config(node: NodeConfig) -> dict:
@@ -295,42 +323,51 @@ class GraphTransformer:
             raise TypeError(f"unknown synchronizer {type(sync).__name__}")
 
         n = self.mesh.data_size
+        shard_ax = self._shard_axis_name()
+        n_shard = self.mesh.shape[shard_ax]
         n_expert = self.mesh.shape.get(const.MESH_AXIS_EXPERT, 1)
 
         def divisible(axis: int) -> bool:
-            return var.shape[axis] % n == 0 and var.shape[axis] >= n
+            return var.shape[axis] % n_shard == 0 and var.shape[axis] >= n_shard
 
         def padded(axis: int) -> Tuple[int, ...]:
             shape = list(var.shape)
-            shape[axis] = -(-shape[axis] // n) * n
+            shape[axis] = -(-shape[axis] // n_shard) * n_shard
             return tuple(shape)
 
         storage_shape = None
+        storage_axis = shard_ax
         part_axis = node.active_partition_axis
-        fallback = self._fallback_axis(var, n)
+        fallback = self._fallback_axis(var, n_shard)
         if var.expert and rank > 0 and n_expert > 1 and var.shape[0] % n_expert == 0:
-            raise _not_ported(f"expert-axis sharding ({var.name})")
-        if part_axis is not None and rank > 0 and divisible(part_axis):
+            # Expert parallelism: the leading (expert) dim over the expert axis.
+            storage_dim = update_dim = 0
+            storage_axis = const.MESH_AXIS_EXPERT
+        elif part_axis is not None and rank > 0 and divisible(part_axis):
             storage_dim = update_dim = part_axis
         elif part_axis is not None and rank > 0 and fallback is not None:
             storage_dim = update_dim = fallback
-        elif part_axis is not None and rank > 0 and var.shape[part_axis] > n:
+        elif part_axis is not None and rank > 0 and var.shape[part_axis] > n_shard:
             storage_shape = padded(part_axis)
             storage_dim = update_dim = part_axis
         elif var.sparse_update and rank > 0 and divisible(0):
             storage_dim = update_dim = 0
-        elif var.sparse_update and rank > 0 and var.shape[0] > n:
+        elif var.sparse_update and rank > 0 and var.shape[0] > n_shard:
             storage_shape = padded(0)
             storage_dim = update_dim = 0
         elif kind is SyncKind.PS and rank > 0:
             # Dense PS: with a proxy the parameter stays replicated and the
-            # update shards (ZeRO-1); without one it is sharded (ZeRO-3).
+            # update shards (ZeRO-1); without one it is sharded (ZeRO-3),
+            # both over the data axis.
             update_dim = self._weight_update_dim(var)
             storage_dim = None if proxy else update_dim
+            storage_axis = self.mesh.data_axis
         elif kind is SyncKind.ALL_REDUCE and shard_update and rank > 0:
             storage_dim, update_dim = None, self._weight_update_dim(var)
+            storage_axis = self.mesh.data_axis
         else:
             storage_dim = update_dim = None
+            storage_axis = self.mesh.data_axis
 
         su_active, degradations = False, ()
         if kind is SyncKind.ALL_REDUCE and shard_update:
@@ -369,7 +406,8 @@ class GraphTransformer:
                        reduction_destination=dest, local_replication=proxy,
                        num_shards=node.num_shards, shard_destinations=shard_dests,
                        storage_shape=storage_shape, shard_update=su_active,
-                       degradations=degradations, offload=offload)
+                       degradations=degradations, offload=offload,
+                       storage_axis=storage_axis)
 
     @staticmethod
     def _fallback_axis(var: VarItem, n: int) -> Optional[int]:
@@ -383,6 +421,10 @@ class GraphTransformer:
         if n <= 1 or not var.shape:
             return None
         return self._fallback_axis(var, n)
+
+
+#: The renderings of variables split over the model or expert axis.
+_MODEL_KINDS = ("partitioned", "expert")
 
 
 def _block(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
@@ -442,7 +484,7 @@ class ShardingPlan:
         for name, p in self.var_plans.items():
             if not is_active_compressor(p.compressor):
                 continue
-            if p.storage_dim is not None:
+            if p.storage_dim is not None and not p.model_sharded:
                 if warn:
                     logging.warning(
                         "compressor %s on %s ignored: var is sharded over the data axis "
@@ -457,9 +499,16 @@ class ShardingPlan:
 
     def rendering(self, name: str) -> Tuple[str, Optional[int]]:
         """How the step syncs a variable: ``("replicated", None)``,
-        ``("zero1", update_dim)`` or ``("sharded", storage_dim)``. A data
-        axis of one renders every variable replicated (nothing to shard)."""
+        ``("zero1", update_dim)`` or ``("sharded", storage_dim)`` over the
+        data axis, or ``("partitioned", storage_dim)`` / ``("expert", 0)``
+        over the model / expert axis (JAX's ``promised_wire`` names; the
+        step holds this rank's block and its gradient is all-reduced over
+        the data axis). A data axis of one renders the others replicated
+        (nothing to shard)."""
         p = self.var_plans.get(name)
+        if p is not None and p.model_sharded:
+            kind = "expert" if p.storage_axis == const.MESH_AXIS_EXPERT else "partitioned"
+            return kind, p.storage_dim
         if p is None or self.mesh.data_size == 1:
             return "replicated", None
         if p.storage_dim is not None:
@@ -514,7 +563,7 @@ class ShardingPlan:
         """This rank's rows: block ``rank`` along dim 0 of every batched
         leaf (the JAX plan's ``batch_shardings``, ``P("data")`` on dim 0);
         a non-divisible batched leaf raises."""
-        n, r = self.mesh.data_size, self.mesh.rank
+        n, r = self.mesh.data_size, self.mesh.data_rank
         return map_tree(lambda t: _rows(t, n, r), batch)
 
     def global_batch_from_local(self, local_batch, broadcast=None):
@@ -534,14 +583,15 @@ class ShardingPlan:
         return map_tree(leaf, local_batch)
 
     def collectives_per_step(self, bucketed: bool = True) -> Dict[str, int]:
-        """The gradient and parameter wire one step issues, by kind: a mean
-        all-reduce per replicated variable or bucket of them, a
-        reduce-scatter per ZeRO-1 or sharded variable (or bucket of ZeRO-1
-        ones), an all-gather per ZeRO-1 variable (new values) and per
+        """The gradient and parameter wire one step issues over the data
+        axis, by kind: a mean all-reduce per replicated, partitioned or
+        expert variable (the last two: of this rank's block) or bucket of
+        them, a reduce-scatter per ZeRO-1 or sharded variable (or bucket of
+        ZeRO-1 ones), an all-gather per ZeRO-1 variable (new values) and per
         sharded one (its logical view); a compressed variable issues its
         compressor's collectives instead of its all-reduce. The step adds its
-        own loss metric, BatchNorm and optimizer reductions under other
-        purposes."""
+        own loss metric, BatchNorm and optimizer reductions, and ``DTensor``'s
+        own over the model or expert axis, under other purposes."""
         counts = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
         compressors = self.compressors()
         buckets = self.bucket_assignment() if bucketed else ()
@@ -554,16 +604,27 @@ class ShardingPlan:
             if not _is_float(p.var.dtype):
                 continue
             kind = self.rendering(name)[0]
-            if kind != "replicated":
+            data_wire = kind in ("zero1", "sharded")
+            if data_wire:
                 counts["all_gather"] += 1
             if name in in_bucket:
                 continue
             if name in compressors:
-                for k, c in compressors[name].collectives(p.var.shape).items():
+                for k, c in compressors[name].collectives(self.local_shape(name)).items():
                     counts[k] += c
                 continue
-            counts["all_reduce" if kind == "replicated" else "reduce_scatter"] += 1
+            counts["reduce_scatter" if data_wire else "all_reduce"] += 1
         return counts
+
+    def local_shape(self, name: str) -> Tuple[int, ...]:
+        """The shape of this rank's part of a variable in the step: a
+        partitioned or expert variable's block, else its logical shape."""
+        p = self.var_plans[name]
+        if not p.model_sharded:
+            return tuple(p.var.shape)
+        shape = list(p.shape)
+        shape[p.storage_dim] //= self.mesh.shape[p.storage_axis]
+        return tuple(shape)
 
     def describe(self) -> str:
         """One line per variable, in the JAX plan's ``describe`` layout."""
@@ -571,9 +632,10 @@ class ShardingPlan:
         lines = [f"ShardingPlan(mesh={dict(self.mesh.shape)})"]
         for name, p in self.var_plans.items():
             rank = len(p.var.shape)
+            update_ax = p.storage_axis if p.storage_dim is not None else ax
             lines.append(
-                f"  {name}: {p.kind.value} param={_pspec(rank, p.storage_dim, ax)} "
-                f"update={_pspec(rank, p.update_dim, ax)}"
+                f"  {name}: {p.kind.value} param={_pspec(rank, p.storage_dim, p.storage_axis)} "
+                f"update={_pspec(rank, p.update_dim, update_ax)}"
                 + (" shard_update=zero1" if p.shard_update else "")
                 + (f" dest={p.reduction_destination}" if p.reduction_destination else "")
                 + (f" shard_dests={list(p.shard_destinations)}"
@@ -600,8 +662,18 @@ class DistributedTrainStep:
         self.has_aux = has_aux
         self.accum = grad_accum_steps
         mesh = plan.mesh
-        self.n, self.rank = mesh.data_size, mesh.rank
+        self.n, self.rank = mesh.data_size, mesh.data_rank
         self.coll = pg.Collectives(mesh.group)
+        # Tensor / expert parallelism: the one-dim DeviceMesh of that axis.
+        self.shard_axis = mesh.shard_axis
+        self.dmesh = mesh.shard_mesh()
+        if self.shard_axis is not None and self.dmesh is None:
+            raise ValueError(f"mesh axis {self.shard_axis} needs a process group")
+        self.n_shard = mesh.shape[self.shard_axis] if self.shard_axis else 1
+        self.shard_rank = mesh.coords[self.shard_axis] if self.shard_axis else 0
+        self.world = self.coll.over(mesh.world_group) if self.shard_axis else self.coll
+        self.shard_coll = (self.coll.over(self.dmesh.get_group())
+                           if self.shard_axis else None)
         if mesh.group is None and self.n > 1:
             raise ValueError(f"a data axis of {self.n} needs a process group")
         if mesh.group is not None and self.coll.size != self.n:
@@ -625,6 +697,13 @@ class DistributedTrainStep:
                       if p.staleness > 0}
         self.offloaded = {name for name, p in plan.var_plans.items() if p.offload}
         self.last_collectives: Dict[str, Dict[str, int]] = {}
+        self.model_cut = any(kind in _MODEL_KINDS for kind, _ in self.render.values())
+        data_cut = any(kind in ("zero1", "sharded") for kind, _ in self.render.values())
+        if self.model_cut and data_cut and (optimizer.clip_norm is not None
+                                            or optimizer.kind in ("lamb", "adafactor")):
+            raise NotImplementedError(
+                f"{optimizer.kind} (or clip_norm) over variables split on both the data "
+                f"and the {self.shard_axis} axis is not ported yet; see ROADMAP.md")
 
     # ------------------------------------------------------------- helpers
     def _to_device(self, tree):
@@ -653,8 +732,57 @@ class DistributedTrainStep:
         return out
 
     def _psum(self, t: torch.Tensor) -> torch.Tensor:
-        self.coll.all_reduce(t, "optimizer")
+        """Sum over the ranks holding the other blocks of the split leaves:
+        the model (expert) group when those are split on that axis."""
+        (self.shard_coll if self.model_cut else self.coll).all_reduce(t, "optimizer")
         return t
+
+    # ------------------------------------------------- tensor parallelism
+    def _placements(self, name: str):
+        from torch.distributed.tensor import Replicate, Shard
+
+        kind, d = self._render(name)
+        return [Shard(d)] if kind in _MODEL_KINDS else [Replicate()]
+
+    def _dtensor(self, t: torch.Tensor, placements=None):
+        """``t`` (this rank's block, or the whole) as a ``DTensor`` on the
+        model / expert mesh (``Replicate`` by default); differentiable."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(t, self.dmesh, placements or [Replicate()],
+                                  run_check=False)
+
+    @contextlib.contextmanager
+    def _sharded_forward(self):
+        """The block a forward (and its backward) runs in: under tensor or
+        expert parallelism, ``DTensor``'s implicit replication of plain
+        tensors (the models' own ``arange``s and masks) and the count of
+        its collectives under the axis's purpose; else nothing."""
+        if self.shard_axis is None:
+            yield
+            return
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with self.coll.count_dtensor(self.shard_axis), implicit_replication():
+            yield
+
+    @staticmethod
+    def _local(t):
+        """A loss or metric as a plain tensor (a ``DTensor`` made whole)."""
+        from torch.distributed.tensor import DTensor
+
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def _loss(self, params, batch):
+        """``(loss, aux)`` of the loss function, plain tensors."""
+        if self.shard_axis is not None:
+            batch = map_tree(self._dtensor, batch)
+        out = self.loss_fn(params, batch)
+        loss, aux = out if self.has_aux else (out, None)
+        if self.shard_axis is not None:
+            loss = self._local(loss)
+            aux = map_params(self._local, aux) if aux is not None else None
+        return loss, aux
 
     # -------------------------------------------------------- host offload
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
@@ -724,10 +852,13 @@ class DistributedTrainStep:
 
         def place(name, t):
             t = t.detach().to(dev).clone(memory_format=torch.contiguous_format)
-            self.coll.broadcast(t, "init")
+            self.world.broadcast(t, "init")
             kind, d = self._render(name)
             if kind == "sharded":
                 t = _block(self.plan.pad(name, t), d, self.n, self.rank).contiguous()
+            elif kind in _MODEL_KINDS:
+                t = _block(self.plan.pad(name, t), d, self.n_shard,
+                           self.shard_rank).contiguous()
             return t.requires_grad_(True) if t.is_floating_point() else t
 
         params = _map_named(place, params)
@@ -749,7 +880,7 @@ class DistributedTrainStep:
         rank's device; shared state is broadcast from rank 0."""
         dev, out = self.plan.device, {}
         for name, comp in self.compressors.items():
-            var = self.plan.var_plans[name].var
+            var = replace(self.plan.var_plans[name].var, shape=self.plan.local_shape(name))
             local = {k: t.to(dev) for k, t in comp.init_local(var).items()}
             shared = {k: self.coll.broadcast(t.to(dev).contiguous(), "init")
                       for k, t in comp.init_shared(var).items()}
@@ -765,20 +896,22 @@ class DistributedTrainStep:
             if kind == "sharded":
                 t = t.to(self.plan.device)
                 t = self.plan.unpad(name, self.coll.all_gather(t, d, "view"))
+            elif kind in _MODEL_KINDS:
+                t = self.plan.unpad(name, self.shard_coll.all_gather(
+                    t.to(self.plan.device), d, "view"))
             return t
 
         return _map_named(view, state.params)
 
     # ---------------------------------------------------------- checkpoints
-    def _split(self, t: torch.Tensor, logical, dim: int, per_rank: int):
+    def _split(self, t: torch.Tensor, logical, dim: int, per_rank: int, n: int, r: int):
         """``(blocks, this rank's block index or None, its view of t)`` of a
-        leaf stored on each rank as the ``per_rank``-long block ``rank``
-        along ``dim`` of a storage as long as ``per_rank * n``: the blocks
-        clipped to the logical extent ``logical[dim]``, an empty one
-        dropped."""
+        leaf stored on each rank as the ``per_rank``-long block ``r`` along
+        ``dim`` of a storage as long as ``per_rank * n``: the blocks clipped
+        to the logical extent ``logical[dim]``, an empty one dropped."""
         size = logical[dim]
         blocks = []
-        for j in range(self.n):
+        for j in range(n):
             lo = j * per_rank
             if lo >= size:
                 break
@@ -786,22 +919,30 @@ class DistributedTrainStep:
             stop = list(logical)
             start[dim], stop[dim] = lo, min(lo + per_rank, size)
             blocks.append((tuple(start), tuple(stop)))
-        lo = self.rank * per_rank
+        lo = r * per_rank
         if lo >= size:
             return blocks, None, None
-        return blocks, self.rank, t.narrow(dim, 0, min(per_rank, size - lo))
+        return blocks, r, t.narrow(dim, 0, min(per_rank, size - lo))
 
-    def _leaf(self, t: torch.Tensor, logical, dim: Optional[int], per_rank: int = 0):
+    def _leaf(self, t: torch.Tensor, logical, dim: Optional[int], per_rank: int = 0,
+              axis: str = "data", restore: bool = False):
         """A state tensor as a checkpoint leaf: whole (the same on every
         rank) when ``dim`` is None, else this rank's :class:`ShardedLeaf`
-        block; and the view of ``t`` that holds its logical data."""
+        block of a split over the data axis or (``axis="model"``) the model
+        or expert axis; and the view of ``t`` that holds its logical data.
+        Of the ranks holding one block, only the first along the other axis
+        writes it; as a ``restore`` target every rank lists its block."""
         if dim is None:
             return t, t
-        blocks, j, view = self._split(t, tuple(logical), dim, per_rank)
-        local = {j: view} if j is not None else {}
+        if axis == "data":
+            n, r, first = self.n, self.rank, self.shard_rank == 0
+        else:
+            n, r, first = self.n_shard, self.shard_rank, self.rank == 0
+        blocks, j, view = self._split(t, tuple(logical), dim, per_rank, n, r)
+        local = {j: view} if j is not None and (first or restore) else {}
         return ShardedLeaf(tuple(logical), t.dtype, blocks, local), view
 
-    def checkpoint_leaves(self, state: TrainState):
+    def checkpoint_leaves(self, state: TrainState, restore: bool = False):
         """``(name, leaf, view)`` of every leaf of the state's checkpoint:
         ``step``; ``params/<var>``; the optimizer's slots and counts under
         optax's paths (``checkpoint/names.py``); ``comp_state/<var>/
@@ -811,20 +952,24 @@ class DistributedTrainStep:
         block of a leaf split over ranks, in logical coordinates) or an int
         (``step``, ``count``); ``view`` is the part of the state's tensor
         holding the leaf's (or block's) logical data, where a restore
-        copies to."""
+        copies to. ``restore``: the leaves as a restore target (see
+        :meth:`_leaf`)."""
         out = [("step", int(state.step), None)]
         plans = self.plan.var_plans
 
         def var_leaf(name, t, lead: int = 0, param: bool = False):
             """A leaf shaped ``lead`` dims + the variable's block on this
-            rank: a parameter's stored block (split only when sharded), a
-            slot's or delay buffer's updated one (ZeRO-1 too)."""
+            rank: a parameter's stored block (split only when sharded over
+            an axis), a slot's or delay buffer's updated one (ZeRO-1 too)."""
             kind, d = self._render(name)
             p = plans.get(name)
-            if kind == "replicated" or p is None or (param and kind != "sharded"):
+            if kind == "replicated" or p is None or (param and kind == "zero1"):
                 return self._leaf(t, t.shape, None)
             logical = tuple(t.shape[:lead]) + tuple(p.var.shape)
-            return self._leaf(t, logical, lead + d, p.shape[d] // self.n)
+            if kind in _MODEL_KINDS:
+                return self._leaf(t, logical, lead + d, p.shape[d] // self.n_shard,
+                                  "model", restore)
+            return self._leaf(t, logical, lead + d, p.shape[d] // self.n, restore=restore)
 
         for name, t in flatten_params(state.params).items():
             out.append((f"params/{name}",) + var_leaf(name, t.detach(), param=True))
@@ -850,8 +995,13 @@ class DistributedTrainStep:
                     elif field == "v":
                         out.append((full,) + var_leaf(name, slot[field]))
                     else:
-                        out.append((full,) + self._factored_leaf(name, field, slot[field]))
+                        out.append((full,) + self._factored_leaf(name, field, slot[field],
+                                                                 restore))
         for name, st in state.comp_state.items():
+            if plans[name].model_sharded:
+                raise NotImplementedError(
+                    f"checkpointing the compressor state of {name}, split over the "
+                    f"{self.shard_axis} axis, is not ported yet; see ROADMAP.md")
             for k, t in st["local"].items():
                 stacked = t.unsqueeze(0)
                 if self.n == 1:
@@ -859,14 +1009,15 @@ class DistributedTrainStep:
                     continue
                 logical = (self.n,) + tuple(t.shape)
                 out.append((f"comp_state/{name}/local/{k}",)
-                           + self._leaf(stacked, logical, 0, 1))
+                           + self._leaf(stacked, logical, 0, 1, restore=restore))
             for k, t in st["shared"].items():
                 out.append((f"comp_state/{name}/shared/{k}", t, t))
         for name, buf in state.stale_state.items():
             out.append((f"stale_state/{name}",) + var_leaf(name, buf, lead=1))
         return out
 
-    def _factored_leaf(self, name: str, field: str, t: torch.Tensor):
+    def _factored_leaf(self, name: str, field: str, t: torch.Tensor,
+                       restore: bool = False):
         """Adafactor's row or column statistics of a variable: the stored
         shape without the factored dim, whole when the variable is not
         split or is split along that dim (the ranks' statistics are then
@@ -881,9 +1032,13 @@ class DistributedTrainStep:
         if d == removed:
             return self._leaf(t, t.shape, None)
         logical = tuple(s for i, s in enumerate(full) if i != removed)
-        return self._leaf(t, logical, d - (d > removed), full[d] // self.n)
+        if kind in _MODEL_KINDS:
+            return self._leaf(t, logical, d - (d > removed), full[d] // self.n_shard,
+                              "model", restore)
+        return self._leaf(t, logical, d - (d > removed), full[d] // self.n,
+                          restore=restore)
 
-    def logical_state(self, state: TrainState) -> Dict[str, Any]:
+    def logical_state(self, state: TrainState, restore: bool = False) -> Dict[str, Any]:
         """The checkpoint view of a train state: a nested dict named as the
         JAX package's ``TrainState`` flattens (``step``, ``params/...``,
         ``opt_state/<optax path>``, ``comp_state/...``, ``stale_state/...``)
@@ -892,9 +1047,10 @@ class DistributedTrainStep:
         rank's :class:`~autodist_tpu_torch.checkpoint.ShardedLeaf` block
         (nothing is gathered); ``step`` and counts are ints (int32 on
         disk). ``saver.save(step.logical_state(state))`` is
-        :meth:`save`."""
+        :meth:`save`. As a restore target (``restore``) a block held by
+        several ranks is listed on each."""
         tree: Dict[str, Any] = {}
-        for name, leaf, _ in self.checkpoint_leaves(state):
+        for name, leaf, _ in self.checkpoint_leaves(state, restore):
             node = tree
             parts = name.split("/")
             for part in parts[:-1]:
@@ -904,14 +1060,14 @@ class DistributedTrainStep:
 
     def load_logical(self, state: TrainState, logical) -> TrainState:
         """Copy a restored checkpoint view (``Saver.restore(path,
-        target=step.logical_state(state))``) into ``state`` in place: each
+        target=step.logical_state(state, restore=True))``) into ``state`` in place: each
         leaf's logical data into the state's tensors (a padded variable's
         padding stays zero), the step and the optimizer's count. Returns
         ``state``."""
         flat = dict(flatten_with_names(logical))
         counts = {}
         with torch.no_grad():
-            for name, _, view in self.checkpoint_leaves(state):
+            for name, _, view in self.checkpoint_leaves(state, restore=True):
                 value = flat[name]
                 if name == "step":
                     state.step = int(value)
@@ -945,7 +1101,7 @@ class DistributedTrainStep:
         if restore_fn is None:
             restore_fn = saver.restore_latest
         state = self.init(params)
-        restored = restore_fn(target=self.logical_state(state))
+        restored = restore_fn(target=self.logical_state(state, restore=True))
         if restored is None:
             return state
         return self.load_logical(state, restored)
@@ -955,32 +1111,35 @@ class DistributedTrainStep:
         """``(params for the loss, {name: gradient target})``: a sharded
         variable is all-gathered into a fresh leaf (its target) and sliced
         to its logical shape; the others are their own targets."""
-        if not self._sharded:
+        if not self._sharded and self.shard_axis is None:
             return params, dict(self._floating(params))
         targets = {}
+        wrap = self._dtensor if self.shard_axis is not None else (lambda t, pl=None: t)
 
         def view(name, t):
             if not t.is_floating_point():
-                return t
+                return wrap(t)
             kind, d = self._render(name)
             if kind != "sharded":
                 targets[name] = t
-                return t
+                return self.plan.unpad(name, wrap(t, self._placements(name)))
             with torch.no_grad():
                 full = self.coll.all_gather(t.detach(), d, "param")
             full = full.detach().requires_grad_(True)
             targets[name] = full
-            return self.plan.unpad(name, full)
+            return self.plan.unpad(name, wrap(full))
 
         return _map_named(view, params), targets
 
     def _grads(self, params, targets, batch):
         """``(loss, aux, {name: gradient})`` of one (micro-)batch, unused
-        gradients as zeros."""
-        out = self.loss_fn(params, batch)
-        loss, aux = out if self.has_aux else (out, None)
+        gradients as zeros (this rank's block of a partitioned or expert
+        variable's)."""
         names = list(targets)
-        grads = torch.autograd.grad(loss, [targets[n] for n in names], allow_unused=True)
+        with self._sharded_forward():
+            loss, aux = self._loss(params, batch)
+            grads = torch.autograd.grad(loss, [targets[n] for n in names],
+                                        allow_unused=True)
         return loss, aux, {n: torch.zeros_like(targets[n]) if g is None else g
                            for n, g in zip(names, grads)}
 
@@ -1057,7 +1216,7 @@ class DistributedTrainStep:
                 for old, new in ((st["local"], local), (st["shared"], shared)):
                     for k, t in new.items():
                         old[k].copy_(t)
-            elif kind == "replicated":
+            elif kind == "replicated" or kind in _MODEL_KINDS:
                 self.coll.all_reduce(g, "grad", mean=True)
                 out[name] = g
             else:
@@ -1160,9 +1319,8 @@ class DistributedTrainStep:
             local, split = batch, False
         with torch.no_grad():
             params, _ = self._forward_params(self._stream_params(state.params))
-            with pg.batch_stats_over(self.coll if split else None):
-                out = self.loss_fn(params, local)
-        loss, aux = out if self.has_aux else (out, None)
+            with pg.batch_stats_over(self.coll if split else None), self._sharded_forward():
+                loss, aux = self._loss(params, local)
         if split:
             loss = self._mean_metric(loss)
             aux = map_params(self._mean_metric, aux) if aux is not None else None

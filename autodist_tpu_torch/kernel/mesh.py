@@ -1,13 +1,22 @@
 """Device mesh from a ResourceSpec (PyTorch port of ``kernel/mesh.py``).
 
-One process per device: a :class:`Mesh` is the logical axis sizes plus this
-process's rank, its device and the ``torch.distributed`` group the data
-axis spans (``None`` in a single process). The spec's GPU count must equal
-the group's world size, or :func:`build_mesh` raises. Planning reads only
-the axis sizes, so :meth:`Mesh.logical` gives a mesh of any size without a
-group, for plans and their tests. An axis other than ``data`` larger than
-1 (``model``, ``expert``) raises ``NotImplementedError``: tensor and expert
-parallelism are not ported yet (ROADMAP.md).
+One process per device: a :class:`Mesh` is the logical axis sizes
+(row-major over ``axis_names``: rank ``r``'s coordinates are ``r``'s digits
+in the axis sizes), this process's rank, its device and the
+``torch.distributed`` groups it trains over. The spec's GPU count must
+equal the group's world size, or :func:`build_mesh` raises. Planning reads
+only the axis sizes, so :meth:`Mesh.logical` gives a mesh of any size
+without a group, for plans and their tests.
+
+Besides the batch (``data``) axis, one of ``model`` (tensor parallelism)
+or ``expert`` (expert parallelism) may be larger than 1. Such a mesh
+carries a ``torch.distributed`` ``DeviceMesh`` of two dims, the data axis
+and that axis (``device_mesh``), whose data-dim subgroup is ``group``: the
+ranks that share this rank's model (or expert) coordinate, over which the
+gradients are synced. The batch is sharded over the data axis only, as the
+JAX package's ``data_sharding`` does: the ranks of one model group see the
+same rows. ``seq`` and ``pipe`` axes, and a mesh with both ``model`` and
+``expert`` larger than 1, raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,23 +35,30 @@ AXES = (const.MESH_AXIS_DATA, const.MESH_AXIS_MODEL)
 #: Axes with a role other than carrying the batch (the JAX package's
 #: ``const.ALL_MESH_AXES`` minus ``data``).
 NON_DATA_AXES = (const.MESH_AXIS_MODEL, "seq", const.MESH_AXIS_EXPERT, "pipe")
+#: The non-data axes a parameter can be sharded over in the port.
+SHARD_AXES = (const.MESH_AXIS_MODEL, const.MESH_AXIS_EXPERT)
 
 
 @dataclass(frozen=True)
 class Mesh:
     """Named logical axes (row-major over ``axis_names``), this process's
-    rank and device, and the group of the data axis."""
+    rank and device, the group of the data axis and, with a model or
+    expert axis, the ``DeviceMesh`` over (data axis, that axis)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     rank: int = 0
     device: torch.device = torch.device("cpu")
     group: Any = field(default=None, compare=False)
+    device_mesh: Any = field(default=None, compare=False)
+    world_group: Any = field(default=None, compare=False)
 
     @classmethod
     def logical(cls, shape: Dict[str, int], device="cpu") -> "Mesh":
         """A mesh of ``shape`` with no group: enough to plan on."""
-        shape = {**{ax: 1 for ax in AXES}, **dict(shape)}
+        shape = dict(shape)
+        for ax in AXES:
+            shape.setdefault(ax, 1)         # after the given axes, as JAX's mesh_shape
         return cls(axis_names=tuple(shape), shape=shape, device=torch.device(device))
 
     @property
@@ -61,6 +77,33 @@ class Mesh:
     @property
     def data_size(self) -> int:
         return self.shape[self.data_axis]
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on each axis (row-major)."""
+        out, r = {}, self.rank
+        for ax in reversed(self.axis_names):
+            out[ax] = r % self.shape[ax]
+            r //= self.shape[ax]
+        return {ax: out[ax] for ax in self.axis_names}
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's block of the batch: its data-axis coordinate."""
+        return self.coords[self.data_axis]
+
+    @property
+    def shard_axis(self) -> Optional[str]:
+        """The model or expert axis when it is larger than 1, else None."""
+        wide = [ax for ax in SHARD_AXES if self.shape.get(ax, 1) > 1]
+        return wide[0] if wide else None
+
+    def shard_mesh(self):
+        """The one-dim ``DeviceMesh`` of :attr:`shard_axis` this rank lies
+        on (None without one)."""
+        if self.device_mesh is None:
+            return None
+        return self.device_mesh[self.shard_axis]
 
 
 def _data_axis_name(names: Sequence[str], sizes: Dict[str, int]) -> str:
@@ -87,28 +130,58 @@ def data_axis(mesh: Mesh) -> str:
     return _data_axis_name(mesh.axis_names, mesh.shape)
 
 
+def _check_axes(shape: Dict[str, int], batch_axis: str) -> None:
+    """Raise for the axes the port does not render: a wide axis other than
+    the batch one, ``model`` and ``expert``, or both of those wide."""
+    other = {ax: d for ax, d in shape.items()
+             if d > 1 and ax != batch_axis and ax not in SHARD_AXES}
+    if other:
+        raise NotImplementedError(f"mesh axes {other} (sequence/pipeline parallelism) "
+                                  "are not ported yet; see ROADMAP.md")
+    wide = [ax for ax in SHARD_AXES if shape.get(ax, 1) > 1]
+    if len(wide) > 1:
+        raise NotImplementedError(f"a mesh with both {wide} larger than 1 is not "
+                                  "ported yet; see ROADMAP.md")
+
+
 def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
-               group=None) -> Mesh:
-    """The logical ("data", "model") mesh of this process: its rank in
+               group=None, axes: Sequence[str] = AXES) -> Mesh:
+    """The logical mesh over ``axes`` of this process: its rank in
     ``group`` (world size 1 without one) and its device, ``cuda:LOCAL_RANK``
-    (``device`` default ``"cuda"``) or the CPU. The spec's axis sizes must
-    multiply to the world size."""
+    (``device`` default ``"cuda"``) or the CPU. The spec's axis sizes (its
+    ``mesh:`` block in any row-major order, the other ``axes`` of size 1)
+    must multiply to the world size. With a model or expert axis larger
+    than 1 the ``DeviceMesh`` of the data axis and that axis is built over
+    ``group`` (every rank calls this) and the data group is its subgroup."""
     dev = resolve_device(device)
     world = torch.distributed.get_world_size(group) if group is not None else 1
     rank = torch.distributed.get_rank(group) if group is not None else 0
     if resource_spec is None:
-        shape = {ax: 1 for ax in AXES}
-        shape[AXES[0]] = world
+        shape = {ax: 1 for ax in axes}
+        shape[tuple(axes)[0]] = world
     else:
-        shape = resource_spec.mesh_shape(AXES)
+        shape = resource_spec.mesh_shape(tuple(axes))
     n = math.prod(shape.values())
     if n != world:
         raise ValueError(f"mesh shape {shape} needs {n} processes but the group has "
                          f"{world} ({dev.type}): resource spec and runtime disagree")
-    mesh = Mesh(axis_names=tuple(shape), shape=dict(shape), rank=rank,
-                device=pg.local_device(dev, rank), group=group)
-    wide = {ax: d for ax, d in shape.items() if ax != mesh.data_axis and d > 1}
-    if wide:
-        raise NotImplementedError(f"mesh axes {wide} (tensor/expert parallelism) are "
-                                  "not ported yet; see ROADMAP.md")
-    return mesh
+    names = tuple(shape)
+    batch_axis = _data_axis_name(names, shape)
+    _check_axes(shape, batch_axis)
+    device = pg.local_device(dev, rank)
+    mesh = Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
+                group=group, world_group=group)
+    wide = mesh.shard_axis
+    if wide is None:
+        return mesh
+    if group is None:
+        raise ValueError(f"mesh axis {wide}={shape[wide]} needs a process group")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    grid = torch.arange(world).reshape([shape[ax] for ax in names])
+    grid = grid.permute(names.index(batch_axis), names.index(wide),
+                        *[i for i, ax in enumerate(names) if ax not in (batch_axis, wide)])
+    grid = grid.reshape(shape[batch_axis], shape[wide])
+    dmesh = DeviceMesh(device.type, grid, mesh_dim_names=(batch_axis, wide))
+    return Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
+                group=dmesh.get_group(batch_axis), device_mesh=dmesh, world_group=group)

@@ -6,12 +6,24 @@ dict of parameter tensors plus a loss function; ``ModelItem`` records one
 sorted leaf order, shape, dtype, trainable and sparse-update flags) and the
 optimizer as an explicit :class:`OptimizerSpec`.
 
-Sparse-update detection traces one forward of the loss on ``meta`` tensors
-(shapes only, nothing is computed or allocated) under a
-``TorchDispatchMode``: a parameter read by a row gather (``aten.index``,
-``index_select``, ``embedding``, ``gather``), directly or through a view or
-a dtype cast, is sparse — the JAX package's jaxpr ``gather`` scan, which
-marks the same parameters.
+Sparse-update detection and the tensor-parallel roles come from one
+forward of the loss on ``meta`` tensors (shapes only, nothing is computed
+or allocated) under a ``TorchDispatchMode``, the dispatch-level
+counterpart of the JAX package's jaxpr scan (``_trace_analysis``):
+
+- a parameter read by a row gather (``aten.index``, ``index_select``,
+  ``embedding``, ``gather``), directly or through a view or a dtype cast,
+  is sparse (JAX's ``gather``/``take``/``dynamic_slice``);
+- contractions (``mm``, ``bmm``, ``addmm``, ``baddbmm``, ``convolution``:
+  JAX's ``dot_general`` and ``conv_general_dilated``) taint their output
+  with their parameter; every other op unions its operands' taints; a
+  parameter's first contraction on an activation tainted by a
+  column-parallel parameter makes it ``row``, else ``column``
+  (``VarItem.tp_role``, rank >= 2 only). A parameter reaches a contraction
+  through views (``t``, ``transpose``, ``permute``, reshapes, slices),
+  ``_unsafe_view`` and dtype casts. Einsum and ``@`` on 3-D operands reach
+  dispatch as views and ``mm``/``bmm``, as ``dot_general`` in JAX; the tied
+  output projection ``x @ embed.T`` contracts the table in both.
 
 :meth:`OptimizerSpec.make` writes optax 0.2.6's update rules out as tensor
 code (:class:`Optimizer`), defaults included: every optimizer of the JAX
@@ -19,8 +31,8 @@ package's registry (``sgd``, the default, ``momentum``, ``adam``,
 ``adamw``, ``adagrad``, ``rmsprop``, ``lamb``, ``lion``, ``adafactor``),
 global-norm clipping (``clip_norm``) and every learning-rate schedule of
 its ``make_schedule``. ``expert_names`` marks the parameters whose leading
-dim indexes MoE experts. The tensor-parallel role inference is in
-ROADMAP.md, with the TensorParallel strategy builder that reads it.
+dim indexes MoE experts. :meth:`ModelItem.to_json` / ``from_json`` carry
+the variables (roles included) and the optimizer spec, as in JAX.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
 
 from autodist_tpu_torch.models.convert import flatten_params, map_tree, tree_leaves
 from autodist_tpu_torch.utils import logging
@@ -41,7 +54,12 @@ _aten = torch.ops.aten
 _SPARSE_READS = (_aten.index, _aten.index_select, _aten.embedding, _aten.gather)
 # Ops whose output stands for their input (dtype casts and copies; views are
 # recognised by their schema).
-_ALIASING = (_aten._to_copy, _aten.clone, _aten.detach, _aten.alias)
+_ALIASING = (_aten._to_copy, _aten.clone, _aten.detach, _aten.alias, _aten._unsafe_view)
+# Contractions and the positions of their two operands (the JAX scan's
+# dot_general / conv_general_dilated); addmm/baddbmm's first operand is
+# added pointwise.
+_CONTRACTIONS = {_aten.mm: (0, 1), _aten.bmm: (0, 1), _aten.addmm: (1, 2),
+                 _aten.baddbmm: (1, 2), _aten.convolution: (0, 1)}
 
 
 def _marker_match(name: str, markers: Sequence[str]) -> bool:
@@ -65,6 +83,8 @@ class VarItem:
     sparse_update: bool = False
     # The leading dim indexes experts (MoE), as in the JAX package.
     expert: bool = False
+    # Tensor-parallel role from the dataflow scan: "column", "row" or "".
+    tp_role: str = ""
 
     @property
     def size(self) -> int:
@@ -501,27 +521,61 @@ class OptimizerSpec:
         return Optimizer(self.name, clip_norm=self.clip_norm, **self.kwargs)
 
 
-# ------------------------------------------------------------ sparse tracing
-class _SparseReadScan(TorchDispatchMode):
-    """Marks leaves (by index) read by a row gather, through views/casts."""
+# ------------------------------------------------------------ dataflow trace
+class _DataflowScan(TorchDispatchMode):
+    """Sparse reads and tensor-parallel roles of the leaves (by index):
+    ``alias`` maps a tensor standing for a leaf (through views and casts)
+    to it, ``reach`` a tensor to the leaves whose contraction output it is
+    a pointwise function of (see the module docstring)."""
 
     def __init__(self, leaf_index: Dict[int, int]):
         super().__init__()
         self.alias = dict(leaf_index)     # id(tensor) -> leaf index
-        self.keep: List[torch.Tensor] = []  # holds aliased tensors so ids stay unique
+        self.reach: Dict[int, frozenset] = {}
+        self.keep: List[torch.Tensor] = []  # holds traced tensors so ids stay unique
         self.sparse: set = set()
+        self.roles: Dict[int, str] = {}
+
+    def _taint(self, outs, taint: frozenset) -> None:
+        for t in outs:
+            self.reach[id(t)] = taint
+            self.keep.append(t)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        packet = func.overloadpacket
+        outs = [t for t in _pytree_leaves(out) if isinstance(t, torch.Tensor)]
         src = args[0] if args and isinstance(args[0], torch.Tensor) else None
         idx = self.alias.get(id(src)) if src is not None else None
-        if idx is not None:
-            if func.overloadpacket in _SPARSE_READS:
-                self.sparse.add(idx)
-            elif (func.overloadpacket in _ALIASING or func.is_view) and \
-                    isinstance(out, torch.Tensor):
-                self.alias[id(out)] = idx
-                self.keep.append(out)
+        if idx is not None and packet in _SPARSE_READS:
+            self.sparse.add(idx)
+        if packet in _CONTRACTIONS:
+            operands = [args[i] for i in _CONTRACTIONS[packet]]
+            params = [self.alias[id(t)] for t in operands if id(t) in self.alias]
+            rest = [t for t in _pytree_leaves((args, kwargs or {}))
+                    if isinstance(t, torch.Tensor) and id(t) not in self.alias]
+            act = frozenset().union(*(self.reach.get(id(t), frozenset()) for t in rest))
+            if len(params) == 1:
+                p = params[0]
+                if p not in self.roles:
+                    col = any(self.roles.get(q) == "column" for q in act)
+                    self.roles[p] = "row" if col else "column"
+                # A contraction is a taint boundary: its output is this
+                # parameter's linear map (plus addmm's pointwise operand).
+                bias = args[0] if packet in (_aten.addmm, _aten.baddbmm) else None
+                extra = self.reach.get(id(bias), frozenset()) if bias is not None else frozenset()
+                self._taint(outs, frozenset((p,)) | extra)
+            else:
+                self._taint(outs, act | frozenset(params))
+            return out
+        if idx is not None and (packet in _ALIASING or func.is_view) and outs:
+            self.alias[id(outs[0])] = idx
+            self.keep.append(outs[0])
+        taint = frozenset().union(*(self.reach.get(id(t), frozenset())
+                                    for t in _pytree_leaves((args, kwargs or {}))
+                                    if isinstance(t, torch.Tensor)))
+        if taint:
+            self._taint(outs, taint)
         return out
 
 
@@ -548,17 +602,19 @@ class ModelItem:
                     ) -> "ModelItem":
         """One VarItem per leaf of the nested ``params`` dict, in JAX order.
         With ``loss_fn`` + ``example_batch`` the sparse-update parameters
-        are detected from a meta-tensor trace; ``sparse_names`` force-marks
-        more; ``expert_names`` marks the expert parameters."""
+        and the tensor-parallel roles are found by a meta-tensor trace;
+        ``sparse_names`` force-marks more; ``expert_names`` marks the expert
+        parameters."""
         flat = flatten_params(params)
-        detected = set()
+        detected, roles = set(), {}
         if loss_fn is not None and example_batch is not None:
-            detected = cls._trace_sparse(loss_fn, params, example_batch)
+            detected, roles = cls._trace_analysis(loss_fn, params, example_batch)
         variables = [
             VarItem(name=name, shape=tuple(t.shape), dtype=_dtype_name(t),
                     trainable=trainable_filter(name) if trainable_filter else True,
                     sparse_update=i in detected or _marker_match(name, sparse_names),
-                    expert=_marker_match(name, expert_names))
+                    expert=_marker_match(name, expert_names),
+                    tp_role=roles.get(i, "") if t.dim() >= 2 else "")
             for i, (name, t) in enumerate(flat.items())
         ]
         batch_size = None
@@ -573,20 +629,21 @@ class ModelItem:
         return cls(variables, optimizer_spec=optimizer_spec, batch_size=batch_size)
 
     @staticmethod
-    def _trace_sparse(loss_fn: Callable, params, example_batch) -> set:
-        """Leaf indices read by a row gather in one meta-tensor forward."""
+    def _trace_analysis(loss_fn: Callable, params, example_batch):
+        """``(sparse leaf indices, {leaf index: "column" | "row"})`` of one
+        meta-tensor forward (JAX's ``ModelItem._trace_analysis``)."""
         meta_params = _to_meta(params)
         meta_batch = _to_meta(example_batch)
         leaf_index = {id(t): i for i, t in enumerate(flatten_params(meta_params).values())}
-        scan = _SparseReadScan(leaf_index)
+        scan = _DataflowScan(leaf_index)
         try:
             with torch.no_grad(), scan:
                 loss_fn(meta_params, meta_batch)
         except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
             # Detection is best-effort, as in the JAX package.
-            logging.warning("sparse-update trace failed (%s); marking none", e)
-            return set()
-        return scan.sparse
+            logging.warning("dataflow trace failed (%s); marking none", e)
+            return set(), {}
+        return scan.sparse, scan.roles
 
     # -------------------------------------------------------------- accessors
     @property
@@ -606,3 +663,30 @@ class ModelItem:
             if v.name == name:
                 return v
         raise KeyError(name)
+
+    # ---------------------------------------------------------- serialization
+    def to_json(self) -> dict:
+        """The JAX package's layout: variables (``tp_role`` only where
+        set), optimizer, batch size."""
+        return {
+            "variables": [
+                {"name": v.name, "shape": list(v.shape), "dtype": v.dtype,
+                 "trainable": v.trainable, "sparse_update": v.sparse_update,
+                 "expert": v.expert, **({"tp_role": v.tp_role} if v.tp_role else {})}
+                for v in self._variables],
+            "optimizer": {
+                "name": self.optimizer_spec.name, "kwargs": self.optimizer_spec.kwargs,
+                **({"clip_norm": self.optimizer_spec.clip_norm}
+                   if self.optimizer_spec.clip_norm is not None else {})},
+            **({"batch_size": self.batch_size} if self.batch_size is not None else {}),
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ModelItem":
+        return cls([VarItem(name=v["name"], shape=tuple(v["shape"]), dtype=v["dtype"],
+                            trainable=v.get("trainable", True),
+                            sparse_update=v.get("sparse_update", False),
+                            expert=v.get("expert", False), tp_role=v.get("tp_role", ""))
+                    for v in d.get("variables", [])],
+                   optimizer_spec=OptimizerSpec(**d.get("optimizer", {})),
+                   batch_size=d.get("batch_size"))

@@ -104,8 +104,48 @@ def embedding_lookup(p, ids):
     """Row gather — the sparse-update read that ``ModelItem``'s trace marks
     (an ``aten.index`` of the table). Unlike ``jnp.take`` (which fills
     out-of-range rows with NaN), an out-of-range id raises here: callers
-    clamp positions first."""
-    return p["embedding"][ids.long()]
+    clamp positions first. A ``DTensor`` table split by rows (tensor
+    parallelism shards the vocab axis, as JAX's plan does) is read
+    vocab-parallel (:func:`_vocab_parallel_lookup`), where indexing would
+    gather the whole table."""
+    table = p["embedding"]
+    if _split_by_rows(table):
+        return _vocab_parallel_lookup(table, ids.long())
+    return table[ids.long()]
+
+
+def _split_by_rows(t) -> bool:
+    """A ``DTensor`` split by rows over its (one-dim) mesh."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(t, DTensor) and tuple(t.placements) == (Shard(0),)
+
+
+def _rows_held(table, ids, lo: int):
+    """This rank's part of a row gather: the rows of ``table`` (rows ``lo``
+    on of the whole) that ``ids`` name, zeros for the others."""
+    local = ids - lo
+    held = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(held, local, torch.zeros_like(local)), table)
+    return rows * held[..., None].to(rows.dtype)
+
+
+def _vocab_parallel_lookup(table, ids):
+    """Megatron's vocab-parallel embedding on a ``Shard(0)`` table: each
+    rank gathers the rows it holds (``local_map``), the partial sums are
+    all-reduced once. The same values as the whole table's gather (one
+    nonzero term a row), in any torch version's ``DTensor``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()], run_check=False)
+    lo = mesh.get_local_rank() * (table.shape[0] // mesh.size())
+    lookup = local_map(_rows_held, out_placements=[Partial()],
+                       in_placements=([Shard(0)], [Replicate()], None),
+                       redistribute_inputs=True)
+    return lookup(table, ids, lo).redistribute(mesh, [Replicate()])
 
 
 # ------------------------------------------------------------------------- conv
@@ -330,8 +370,10 @@ def per_token_xent(logits, labels):
     """Per-position cross-entropy (fp32 logsumexp), no reduction."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return logz - label_logit
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])
+    # Subtract, then drop the label axis: a vocab-split DTensor's gather
+    # reduces its masked partial only at the gather's own shape.
+    return (logz[..., None] - label_logit)[..., 0]
 
 
 def softmax_xent(logits, labels):

@@ -14,7 +14,7 @@ and capacity slot c:
   dropped and pass through the residual;
 - ``dispatch[t, e, c]`` and ``combine = dispatch · gate`` are one-hot;
   ``expert_in = dispatchᵀ x``, a ReLU FFN per expert, ``y = combine ·
-  expert_out``;
+  expert_out`` (per expert, then summed over experts);
 - ``aux = E Σ_e fraction_e · prob_e``, averaged over the layers.
 
 Attention is the transformer's ``_attention``: at the default 127 tokens
@@ -89,7 +89,10 @@ def moe_ffn(p, x, cfg: MoEConfig):
     xin = torch.einsum("tec,td->ecd", dispatch_tec.to(dt), x)       # [E, C, d]
     h = torch.relu(torch.einsum("ecd,edf->ecf", xin, p["expert_wi"].to(dt)))
     out = torch.einsum("ecf,efd->ecd", h, p["expert_wo"].to(dt))
-    y = torch.einsum("tec,ecd->td", combine_tec.to(dt), out)
+    # Combine per expert, then over experts: one nonzero term a token, so
+    # the same values as one contraction over (e, c), and the expert dim is
+    # never flattened with another (a DTensor split over experts cannot be).
+    y = torch.einsum("tec,ecd->ted", combine_tec.to(dt), out).sum(1)
 
     aux = e * torch.sum(onehot.mean(dim=0) * gates.mean(dim=0))
     return y, aux

@@ -22,6 +22,11 @@ version too). :class:`FlashAttentionFn` ties the three together as the
 The fallback rule is the JAX package's ``_use_reference``, kept visible:
 a sequence that is not a multiple of 128, or ``S_q != S_k``, goes through
 :func:`mha_reference` (and autograd through it) in both packages.
+
+Under tensor parallelism ``q``, ``k`` and ``v`` are ``DTensor``s sharded on
+the heads dim; :func:`flash_attention` then runs through ``local_map``
+(``Shard(2)`` in and out), so the kernels see each rank's ``H / model``
+heads as plain tensors and count their launches as usual.
 """
 from __future__ import annotations
 
@@ -269,7 +274,17 @@ def flash_attention(q, k, v, causal: bool = False):
     """Flash attention, ``[B, S, H, D]`` in and out, differentiable. Aligned
     shapes run :class:`FlashAttentionFn` (under ``torch.export``, the
     forward kernel's operator of ``ops/library.py``); the rest
-    :func:`mha_reference` (see :func:`use_reference`)."""
+    :func:`mha_reference` (see :func:`use_reference`). ``DTensor`` inputs
+    run on each rank's heads (``local_map``, ``Shard(2)``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if isinstance(q, DTensor):
+        heads = [Shard(2)]
+        per_rank = local_map(flash_attention, out_placements=heads,
+                             in_placements=(heads, heads, heads, None),
+                             redistribute_inputs=True)
+        return per_rank(q, k, v, causal)
     if use_reference(q, k):
         return mha_reference(q, k, v, causal)
     if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op

@@ -15,7 +15,11 @@ mean and sum all-reduces, reduce-scatter and all-gather along any dim
 broadcast of ``init``. Each call adds one to ``counts[purpose][kind]`` and
 the bytes it hands the collective to ``nbytes[purpose][kind]`` (an
 all-gather: the bytes it gathers). Without a group every call is the
-identity and counts nothing.
+identity and counts nothing. :meth:`Collectives.over` gives the same
+counters over another group (a mesh's model axis), and
+:meth:`Collectives.count_dtensor` counts, by kind under a purpose, the
+collectives that ``DTensor`` issues itself in a block (its redistributions
+over the model and expert axes).
 """
 from __future__ import annotations
 
@@ -89,6 +93,29 @@ class Collectives:
         self.counts: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
         self.nbytes: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
 
+    def over(self, group) -> "Collectives":
+        """Collectives over ``group`` that add to this object's counters."""
+        other = Collectives(group)
+        other.counts, other.nbytes = self.counts, self.nbytes
+        return other
+
+    @contextlib.contextmanager
+    def count_dtensor(self, purpose: str) -> Iterator[None]:
+        """Count the collectives ``DTensor`` issues within the block
+        (forward and backward alike) by kind under ``purpose``
+        (``torch.distributed.tensor.debug.CommDebugMode``'s count of the
+        functional collectives; bytes are not recorded)."""
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        mode = CommDebugMode()
+        with mode:
+            yield
+        for op, n in mode.get_comm_counts().items():
+            namespace, _, name = str(op).rpartition(".")
+            if "functional" not in namespace:
+                continue        # this class's own collectives, counted where issued
+            self.counts[purpose][_DTENSOR_KINDS.get(name, name)] += n
+
     def _count(self, purpose: str, kind: str, t: torch.Tensor) -> None:
         self.counts[purpose][kind] += 1
         self.nbytes[purpose][kind] += t.numel() * t.element_size()
@@ -151,6 +178,11 @@ class Collectives:
                        if self.group is not dist.group.WORLD else 0, group=self.group)
         return t
 
+
+#: ``DTensor``'s functional collectives -> this module's kinds.
+_DTENSOR_KINDS = {"all_reduce": "all_reduce", "all_gather_into_tensor": "all_gather",
+                  "reduce_scatter_tensor": "reduce_scatter",
+                  "all_to_all_single": "all_to_all", "broadcast": "broadcast"}
 
 _stats: Optional[Collectives] = None
 

@@ -202,6 +202,17 @@ Phases, each printing one JSON line:
     flash kernels ``num_layers x`` gradients and the conv-stats kernel ``36
     x`` steps launched in the window, each step's wire equal to the plan's.
 
+18. ``tp_train``: tensor and expert parallelism at degree 1, one NCCL
+    rank on cuda:0 (``--tp-rank``, deterministic algorithms): bert_base
+    (seq 512, batch 32, flash) under ``TensorParallel`` with a ``model``
+    axis, and the MoE (12 layers, d_model 768, 8 experts, seq 128, batch
+    32) under ``AllReduce`` with its expert names and an ``expert`` axis,
+    1 + 5 Adam steps each through ``AutoDist(mesh_axes=...).build``:
+    every loss and parameter bitwise equal to the one-process AllReduce
+    step, the wire equal to the plan's, the flash kernels ``num_layers x
+    5`` times each in bert_base's window. Degree 2 has no rendering on one
+    card (``TP_MODELS``' comment).
+
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
 Then the kernel table line, the card line and, last, the result line.
@@ -490,6 +501,23 @@ CKPT_MODELS = (("bert_base", "bert_base", {"max_seq_len": TRAIN_SEQ}, TRAIN_BATC
 CKPT_SERVE_STEPS, CKPT_SERVE_REQUESTS = 2, 32
 # saved_model: bert_base's forward at TRAIN_SEQ, batch EXPORT_BATCH.
 EXPORT_BATCH = 8
+# tp_train: bert_base at full width (TRAIN_SEQ, TRAIN_BATCH, flash) under
+# TensorParallel with a model axis, and the MoE (12 layers, d_model 768, 8
+# experts, seq 128, batch 32) under AllReduce with its expert names and an
+# expert axis, each through AutoDist.build for 1 + TP_STEPS steps of
+# DIST_OPT on one NCCL rank: at degree 1 the plan degrades to data parallelism
+# and must be bitwise equal to the one-process AllReduce step. Degree 2 has
+# no rendering on this one card: NCCL refuses two ranks on one device, and
+# over gloo DTensor's all-gather of CUDA tensors crashes both ranks
+# (tools/torch_gloo_cuda_probe.py; PERF.md, ROADMAP.md). The CPU tests'
+# 4 gloo ranks are degree 2's proof.
+TP_STEPS = 5
+TP_MOE = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072, num_experts=8)
+TP_MODELS = (
+    ("bert_base", "bert_base", {"max_seq_len": TRAIN_SEQ, "attention_impl": "flash"},
+     TRAIN_BATCH, "TensorParallel", "model", ()),
+    ("moe", "moe_transformer", TP_MOE, 32, "AllReduce", "expert", ("expert_",)),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -2869,6 +2897,73 @@ def saved_model_phase(card: str, dev) -> dict:
     return row
 
 
+# ------------------------------------------------------------ tp_train
+def tp_rank(rank: int, world: int, work: str) -> int:
+    """tp_train's process (see the module docstring)."""
+    dev = _deterministic(rank)
+    rows = []
+    for key, name, overrides, batch_size, builder, axis, experts in TP_MODELS:
+        spec = get_model_spec(name, **overrides)
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(batch_size, device=dev)
+        step = _one_process_step(AllReduce(), spec.loss_fn, params, batch, dev)
+        state, plain_losses, plain_ms, _, _ = _train_window(step, params, batch, TP_STEPS,
+                                                            dev)
+        plain = flatten_params(step.logical_params(state))
+        del step, state
+        torch.cuda.empty_cache()
+        AutoDist.reset_default()
+        mesh = {"data": world, axis: 1}
+        autodist = AutoDist(
+            strategy_builder=from_name(builder), device="cuda",
+            resource_spec=ResourceSpec(resource_dict={
+                "nodes": [{"address": "localhost", "gpus": world}], "mesh": mesh}),
+            mesh_axes=("data", axis), init_method=f"file://{work}/pg", world_size=world,
+            rank=rank, timeout_s=DIST_GROUP_TIMEOUT_S)
+        step = autodist.build(spec.loss_fn, params, batch, optimizer=OptimizerSpec(*DIST_OPT),
+                              expert_names=experts)
+        state, losses, ms, launches, wire = _train_window(step, params, batch, TP_STEPS, dev)
+        logical = flatten_params(step.logical_params(state))
+        predicted = autodist.plan.collectives_per_step()
+        diff = max((logical[n].float() - t.float()).abs().max().item()
+                   for n, t in plain.items())
+        row = dict(model=key, config=overrides, strategy=builder, mesh=mesh, world=world,
+                   global_batch=batch_size, steps=1 + TP_STEPS, optimizer=DIST_OPT,
+                   losses=losses, ms_per_step=ms, plain_losses=plain_losses,
+                   plain_ms_per_step=plain_ms, collectives=wire, predicted_wire=predicted,
+                   kernel_launches=launches, max_param_diff=diff,
+                   bitwise=diff == 0.0 and losses == plain_losses,
+                   plan=autodist.plan.describe().splitlines()[:4])
+        check(_wire(wire) == predicted, f"tp {key}: wire {wire} != the plan's {predicted}")
+        check(row["bitwise"], f"tp {key}: {builder} on {mesh} not bitwise equal to the "
+              f"one-process AllReduce step (param diff {diff})")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"tp {key}: losses {losses}")
+        if spec.config.attention_impl == "flash":
+            for kind in ("fwd", "dkdv", "dq"):
+                check(launches[kind] == spec.config.num_layers * TP_STEPS,
+                      f"tp {key}: flash {kind} launches {launches[kind]}")
+        rows.append(row)
+        del step, state, logical, plain, params
+        torch.cuda.empty_cache()
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def tp_train(card: str) -> list:
+    """The tp_train phase: one NCCL rank on cuda:0, with deterministic
+    algorithms. Returns its rows."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rows = _spawn_ranks("--tp-rank", 1, work, env)[0]
+    for row in rows:
+        emit("tp_train", **row, process_seconds=time.perf_counter() - t0, card=card)
+    return rows
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2939,6 +3034,7 @@ def main() -> int:
     saved_row = saved_model_phase(card, dev)
     dist_rows = dist_train(card)
     sync_rows = sync_options(card)
+    tp_rows = tp_train(card)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -2969,7 +3065,8 @@ def main() -> int:
             "replaces": where,
             "launches": sum(t["kernel_launches"][kind]
                             for t in train_rows + dist_rows + sync_rows + ckpt_rows)
-            + saved_row["kernel_launches"][kind],
+            + saved_row["kernel_launches"][kind]
+            + sum(t["kernel_launches"][kind] for t in tp_rows),
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -2990,7 +3087,7 @@ def main() -> int:
         "replaces": "examples/benchmark/fused_conv_stats.py:54",
         "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
         + sum(r["kernel_launches"].get("fused_conv_stats", 0)
-              for r in zoo_rows + dist_rows + sync_rows + ckpt_rows),
+              for r in zoo_rows + dist_rows + sync_rows + ckpt_rows + tp_rows),
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -3008,7 +3105,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     RANK_MAINS = {"--dist-rank": dist_rank, "--dist-cpu-rank": dist_cpu_rank,
-                  "--sync-rank": sync_rank, "--ckpt-rank": ckpt_rank}
+                  "--sync-rank": sync_rank, "--ckpt-rank": ckpt_rank, "--tp-rank": tp_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

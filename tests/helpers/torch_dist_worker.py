@@ -6,7 +6,9 @@
 global batch)``) and ``cases`` (each a dict: ``id``, ``model``, ``builder``,
 ``builder_kwargs``, ``opt``, ``opt_kwargs``, ``clip_norm``, ``steps``,
 ``accum``, ``overrides`` for the zoo models, ``comp_state``: the JAX
-step's initial compressor state as numpy, carried to each rank). The rank
+step's initial compressor state as numpy, carried to each rank; ``mesh``
+and ``mesh_axes``: the resource spec's mesh block and the AutoDist's axes,
+for tensor and expert parallelism; ``expert_names``). The rank
 joins the group at
 ``file://INIT_FILE`` (with a timeout) through ``AutoDist(init_method=...)``,
 trains each case through ``AutoDist.build`` and the step on the global
@@ -90,11 +92,12 @@ def train(case, params, batch, **autodist_kwargs):
     opt = model_item.OptimizerSpec(case["opt"], dict(case["opt_kwargs"]),
                                    clip_norm=case.get("clip_norm"))
     step = ad.build(loss_for(case), params, batch, optimizer=opt,
-                    grad_accum_steps=case.get("accum", 1))
+                    grad_accum_steps=case.get("accum", 1),
+                    expert_names=case.get("expert_names", ()))
     state = step.init(params)
     if case.get("comp_state") is not None:
-        state.comp_state = comp_state_from_jax(case["comp_state"], rank=ad.plan.mesh.rank,
-                                               device="cpu")
+        state.comp_state = comp_state_from_jax(case["comp_state"],
+                                               rank=ad.plan.mesh.data_rank, device="cpu")
     if case.get("local_feed"):
         # A loader that holds only this rank's rows: the plan assembles
         # the global batch from every rank's.
@@ -111,7 +114,7 @@ def _local_blocks(step, state):
     """This rank's data of each checkpoint leaf: ``{name: (start, stop,
     array)}`` in logical coordinates (whole leaves from ``(0, ...)``)."""
     out = {}
-    for name, leaf, view in step.checkpoint_leaves(state):
+    for name, leaf, view in step.checkpoint_leaves(state, restore=True):
         if isinstance(leaf, int):
             out[name] = ((), (), np.asarray(leaf))
         elif isinstance(leaf, ShardedLeaf):
@@ -149,14 +152,16 @@ def checkpoint(case, ad, step, state, params):
 def main(job_path, rank, world, init_file, out_dir):
     torch.set_num_threads(1)
     job = torch.load(job_path, weights_only=False)
-    spec = ResourceSpec(resource_dict={"nodes": [
-        {"address": "localhost", "gpus": world, "chief": True}]})
     out = {}
     for case in job["cases"]:
         params, batch = job["inputs"][case["model"]]
+        mesh = {"mesh": case["mesh"]} if case.get("mesh") else {}
+        spec = ResourceSpec(resource_dict={"nodes": [
+            {"address": "localhost", "gpus": world, "chief": True}], **mesh})
+        axes = {"mesh_axes": case["mesh_axes"]} if case.get("mesh_axes") else {}
         ad, step, state, losses, wire, evaluated = train(
             case, params, batch, resource_spec=spec, init_method=f"file://{init_file}",
-            world_size=world, rank=rank, timeout_s=GROUP_TIMEOUT_S)
+            world_size=world, rank=rank, timeout_s=GROUP_TIMEOUT_S, **axes)
         logical = step.logical_params(state)
         out[case["id"]] = {
             "losses": losses,

@@ -1,0 +1,286 @@
+"""Port parity of tensor and expert parallelism's plan (no processes: a plan
+needs only the mesh's axis sizes, ``Mesh.logical``).
+
+For the zoo models (``transformer``, ``bert_base``, ``moe_transformer``,
+``mlp``, ``lstm_lm``, ``ncf``, ``resnet``, ``vgg``) at small widths, on the
+same parameters and example batch:
+
+- the ``VarItem`` list with the loss traced, ``tp_role`` included, equals
+  JAX's ``ModelItem._trace_analysis`` var for var, and ``ModelItem.to_json``
+  equals JAX's (and round-trips through ``from_json``);
+- the ``TensorParallel`` Strategy JSON equals the JAX builder's at meshes
+  ``{data 2, model 4}``, ``{data 4, model 2}`` and ``{model 1}``;
+- the ``ShardingPlan`` on ``Mesh.logical`` equals JAX's
+  ``GraphTransformer`` plan on ``jax.devices()[:8]`` var for var (kind, the
+  sharded dim and its mesh axis of ``pspec`` and ``update_pspec``,
+  ``storage_shape``, shard counts, degradations) and ``describe()`` line
+  for line: TensorParallel at both model meshes, PartitionedPS at
+  ``{data 2, model 4}``, and the MoE's expert plan under AllReduce at
+  ``{data 2, expert 4}`` (JAX's ``expert_wi`` ``P("expert", None, None)``,
+  as ``tests/test_moe_pipeline.py`` holds it).
+
+The port's renderings of those plans (``partitioned`` / ``expert`` over the
+model axis) and their data-axis wire are checked here too; the step itself
+runs in ``tests/test_torch_tp_e2e.py``.
+"""
+import functools
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from autodist_tpu import model_item as jmi
+from autodist_tpu import strategy as jstrat
+from autodist_tpu.kernel import GraphTransformer as JGraphTransformer
+from autodist_tpu.kernel import build_mesh as jbuild_mesh
+from autodist_tpu.models import get_model as jax_get_model
+from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
+from autodist_tpu.strategy.tensor_parallel_strategy import _role_axis as jrole_axis
+from autodist_tpu_torch import model_item as tmi
+from autodist_tpu_torch import strategy as tstrat
+from autodist_tpu_torch.kernel import GraphTransformer, Mesh, mesh as tmesh
+from autodist_tpu_torch.models import get_model_spec
+from autodist_tpu_torch.models.convert import params_from_jax
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.strategy.tensor_parallel_strategy import _role_axis
+
+ZOO = {
+    "transformer": dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, d_ff=64,
+                        max_seq_len=16),
+    "bert_base": dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, d_ff=64,
+                      max_seq_len=16),
+    "moe_transformer": dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, d_ff=64,
+                            max_seq_len=16, num_experts=4),
+    "mlp": {},
+    "lstm_lm": dict(vocab_size=50, embed_dim=16, hidden=32, num_layers=2, seq_len=8),
+    "ncf": dict(num_users=50, num_items=40, mf_dim=8, mlp_dims=(16, 16, 8)),
+    "resnet": dict(depth=18, num_classes=10, image_size=32),
+    "vgg": dict(depth=11, image_size=32, num_classes=10),
+}
+TP_MESHES = [{"data": 2, "model": 4}, {"data": 4, "model": 2}]
+EXPERT_MESH = {"data": 2, "expert": 4}
+
+
+@functools.lru_cache(maxsize=None)
+def items(model):
+    """(JAX ModelItem, port ModelItem) of a zoo model with its loss traced,
+    the MoE's expert names given."""
+    js, ts = jax_get_model(model, **ZOO[model]), get_model_spec(model, **ZOO[model])
+    rng = np.random.default_rng(0)
+    jparams = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(s.dtype),
+                           jax.eval_shape(js.init, jax.random.PRNGKey(0)))
+    jbatch = {k: np.asarray(v) for k, v in js.example_batch(4).items()}
+    experts = tuple(getattr(js, "expert_names", ()) or ())
+    jitem = jmi.ModelItem.from_params(jparams, loss_fn=js.loss_fn, example_batch=jbatch,
+                                      expert_names=experts)
+    titem = tmi.ModelItem.from_params(
+        params_from_jax(jparams, device="cpu"), loss_fn=ts.loss_fn,
+        example_batch={k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()},
+        expert_names=tuple(ts.expert_names or ()))
+    return jitem, titem
+
+
+def _var_rows(item):
+    return [(v.name, tuple(v.shape), v.dtype, v.sparse_update, v.expert, v.tp_role)
+            for v in item.variables]
+
+
+def _specs(mesh, chips):
+    d = {"nodes": [{"address": "localhost", "chips": chips, "chief": True}], "mesh": mesh}
+    return JResourceSpec(resource_dict=d), ResourceSpec(resource_dict=d)
+
+
+def _strategy_json(strategy, tpu_to_gpu=False):
+    d = strategy.to_json()
+    d["id"] = d["path"] = ""
+    text = json.dumps(d)
+    return json.loads(text.replace(":TPU:", ":GPU:") if tpu_to_gpu else text)
+
+
+def _dim_axis(pspec):
+    """(dim, mesh axis) of a one-axis ``PartitionSpec``, or (None, None)."""
+    dims = [(i, e) for i, e in enumerate(tuple(pspec)) if e is not None]
+    assert len(dims) <= 1
+    return dims[0] if dims else (None, None)
+
+
+@pytest.mark.parametrize("model", sorted(ZOO))
+def test_roles_and_json_match_jax(model):
+    jitem, titem = items(model)
+    assert _var_rows(titem) == _var_rows(jitem)
+    assert titem.to_json() == jitem.to_json()
+    again = tmi.ModelItem.from_json(json.loads(json.dumps(titem.to_json())))
+    assert _var_rows(again) == _var_rows(titem)
+    # The builder's role axis agrees too, provenance included.
+    for jv, tv in zip(jitem.variables, titem.variables):
+        assert _role_axis(tv) == jrole_axis(jv), tv.name
+
+
+def test_roles_alternate_in_the_transformer():
+    _, titem = items("transformer")
+    roles = {v.name: v.tp_role for v in titem.variables if v.tp_role}
+    for w in ("wq", "wk", "wv"):
+        assert roles[f"layers_1/attn/{w}/kernel"] == "column"
+    assert roles["layers_1/attn/wo/kernel"] == "row"
+    assert roles["layers_1/mlp/fc1/kernel"] == "column"
+    assert roles["layers_1/mlp/fc2/kernel"] == "row"
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES + [{"model": 1}], ids=json.dumps)
+@pytest.mark.parametrize("model", sorted(ZOO))
+def test_tensor_parallel_strategy_json_matches_jax(model, mesh):
+    jitem, titem = items(model)
+    jrs, trs = _specs(mesh, int(np.prod(list(mesh.values()))))
+    jstrategy = jstrat.TensorParallel().build(jitem, jrs)
+    tstrategy = tstrat.from_name("TensorParallel").build(titem, trs)
+    assert _strategy_json(tstrategy) == _strategy_json(jstrategy, tpu_to_gpu=True)
+    compiled = tstrat.StrategyCompiler(titem).compile(tstrategy)
+    jcompiled = jstrat.StrategyCompiler(jitem).compile(jstrategy)
+    assert _strategy_json(compiled) == _strategy_json(jcompiled, tpu_to_gpu=True)
+
+
+def test_num_shards_mismatch_raises():
+    _, titem = items("transformer")
+    _, trs = _specs({"data": 2, "model": 4}, 8)
+    with pytest.raises(ValueError, match="does not match the mesh shard axis size 4"):
+        tstrat.TensorParallel(num_shards=2).build(titem, trs)
+    tstrat.TensorParallel(num_shards=4).build(titem, trs)
+
+
+def _plans(model, builder, kwargs, mesh, axes):
+    jitem, titem = items(model)
+    jrs, trs = _specs(mesh, 8)
+    jstrategy = jstrat.StrategyCompiler(jitem).compile(
+        jstrat.from_name(builder, **kwargs).build(jitem, jrs))
+    tstrategy = tstrat.StrategyCompiler(titem).compile(
+        tstrat.from_name(builder, **kwargs).build(titem, trs))
+    assert _strategy_json(tstrategy) == _strategy_json(jstrategy, tpu_to_gpu=True)
+    jplan = JGraphTransformer(jstrategy, jitem, jbuild_mesh(
+        jrs, axes=axes, devices=jax.devices()[:8])).transform()
+    shape = trs.mesh_shape(axes)
+    tplan = GraphTransformer(tstrategy, titem,
+                             Mesh(axis_names=tuple(shape), shape=shape)).transform()
+    return jplan, tplan
+
+
+PLAN_CASES = ([(m, "TensorParallel", {}, mesh, ("data", "model"))
+               for m in sorted(ZOO) for mesh in TP_MESHES]
+              + [(m, "PartitionedPS", {}, TP_MESHES[0], ("data", "model"))
+                 for m in ("bert_base", "moe_transformer", "resnet")]
+              + [("moe_transformer", "AllReduce", {}, EXPERT_MESH, ("data", "expert")),
+                 ("moe_transformer", "AllReduce", {}, EXPERT_MESH, ("data", "model"))])
+
+
+@pytest.mark.parametrize("model,builder,kwargs,mesh,axes", PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{json.dumps(c[3])}-{'x'.join(c[4])}"
+                              for c in PLAN_CASES])
+def test_plan_matches_jax(model, builder, kwargs, mesh, axes):
+    jplan, tplan = _plans(model, builder, kwargs, mesh, axes)
+    assert list(tplan.var_plans) == list(jplan.var_plans)
+    for name, jp in jplan.var_plans.items():
+        tp = tplan.var_plans[name]
+        jdim, jax_axis = _dim_axis(jp.pspec)
+        udim, uaxis = _dim_axis(jp.update_pspec)
+        want = (jp.kind.value, jdim, jax_axis, udim, jp.storage_shape, jp.shard_update,
+                jp.degradations, jp.num_shards, jp.reduction_destination)
+        got = (tp.kind.value, tp.storage_dim,
+               tp.storage_axis if tp.storage_dim is not None else None, tp.update_dim,
+               tp.storage_shape, tp.shard_update, tp.degradations, tp.num_shards,
+               tp.reduction_destination)
+        assert got == want, name
+        # The step's rendering is JAX's promised wire for model/expert vars.
+        jwire = jplan.promised_wire()[name].rendering
+        if jwire in ("expert", "partitioned"):
+            assert tplan.rendering(name) == (jwire, tp.storage_dim), name
+    assert tplan.describe() == jplan.describe()
+
+
+def test_expert_plan_shards_experts_and_wire():
+    jplan, tplan = _plans("moe_transformer", "AllReduce", {}, EXPERT_MESH, ("data", "expert"))
+    assert str(jplan.var_plans["layers_0/moe/expert_wi"].pspec) == \
+        "PartitionSpec('expert', None, None)"
+    assert tplan.rendering("layers_0/moe/expert_wi") == ("expert", 0)
+    assert tplan.local_shape("layers_0/moe/expert_wi") == (1, 32, 64)
+    assert tplan.rendering("layers_0/attn/wq/kernel") == ("replicated", None)
+    # The two sparse tables are row-sharded over the data axis (a
+    # reduce-scatter and a gather each); every other variable, experts'
+    # blocks included, syncs with one data-axis all-reduce.
+    assert tplan.rendering("embed/embedding") == ("sharded", 0)
+    n_float = sum(1 for v in tplan.var_plans.values() if v.var.dtype.startswith("float"))
+    assert tplan.collectives_per_step() == {"all_reduce": n_float - 2, "reduce_scatter": 2,
+                                            "all_gather": 2}
+
+
+def test_tensor_parallel_renderings_and_wire():
+    _, tplan = _plans("transformer", "TensorParallel", {}, TP_MESHES[1], ("data", "model"))
+    assert tplan.rendering("layers_0/attn/wq/kernel") == ("partitioned", 1)
+    assert tplan.rendering("layers_0/attn/wo/kernel") == ("partitioned", 0)
+    assert tplan.rendering("embed/embedding") == ("partitioned", 0)
+    assert tplan.rendering("layers_0/ln1/scale") == ("replicated", None)
+    assert tplan.local_shape("layers_0/mlp/fc1/kernel") == (32, 32)
+    n_float = sum(1 for v in tplan.var_plans.values() if v.var.dtype.startswith("float"))
+    assert tplan.collectives_per_step()["all_reduce"] == n_float
+    assert tplan.compressors() == {}
+
+
+def test_logical_mesh_axes_and_coords():
+    m = Mesh.logical({"data": 2, "expert": 4})
+    assert m.axis_names == ("data", "expert", "model") and m.shard_axis == "expert"
+    assert m.data_size == 2 and m.coords == {"data": 0, "expert": 0, "model": 0}
+    m = Mesh(axis_names=("model", "data"), shape={"model": 2, "data": 2}, rank=3)
+    assert m.coords == {"model": 1, "data": 1} and m.data_rank == 1
+    m = Mesh(axis_names=("model", "data"), shape={"model": 2, "data": 2}, rank=1)
+    assert m.coords == {"model": 0, "data": 1} and m.data_rank == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tmesh._check_axes({"data": 2, "model": 2, "expert": 2}, "data")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tmesh._check_axes({"data": 2, "seq": 2}, "data")
+
+
+@pytest.mark.parametrize("model", sorted(ZOO))
+def test_only_the_transformer_family_trains_under_a_model_axis(model):
+    from autodist_tpu_torch import api
+
+    _, titem = items(model)
+    _, trs = _specs(TP_MESHES[1], 8)
+    strategy = tstrat.StrategyCompiler(titem).compile(
+        tstrat.from_name("TensorParallel").build(titem, trs))
+    shape = trs.mesh_shape(("data", "model"))
+    plan = GraphTransformer(strategy, titem, Mesh(axis_names=tuple(shape),
+                                                  shape=shape)).transform()
+    if model in ("transformer", "bert_base", "moe_transformer"):
+        api._check_shardable(plan, titem)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            api._check_shardable(plan, titem)
+    # Without a model or expert axis every model passes.
+    one = GraphTransformer(strategy, titem, Mesh.logical({"data": 8})).transform()
+    api._check_shardable(one, titem)
+
+
+def test_dtensor_counts_and_shared_counters(tmp_path):
+    """``count_dtensor`` counts ``DTensor``'s functional collectives only,
+    and ``Collectives.over`` adds to the same counters (one gloo rank)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from autodist_tpu_torch.runtime import process_group as pg
+
+    group = pg.join(torch.device("cpu"), init_method=f"file://{tmp_path}/pg", world_size=1,
+                    rank=0)
+    try:
+        coll = pg.Collectives(group)
+        mesh = DeviceMesh("cpu", [0], mesh_dim_names=("model",))
+        with coll.count_dtensor("model"):
+            # The functional collective DTensor issues (a one-rank mesh
+            # skips its own redistributions), and a c10d one of this class.
+            funcol.wait_tensor(funcol.all_reduce(torch.ones(4), "sum", (mesh, 0)))
+            coll.all_reduce(torch.ones(2), "grad")
+        assert coll.snapshot() == {"model": {"all_reduce": 1}, "grad": {"all_reduce": 1}}
+        other = coll.over(group)
+        other.all_reduce(torch.ones(2), "optimizer")
+        assert coll.snapshot()["optimizer"] == {"all_reduce": 1}
+    finally:
+        pg.leave()
