@@ -39,14 +39,23 @@ trains so, other models raise. ``remat`` rematerialises the forward in the backw
 routed to the host-driven asynchronous PS (``runtime/async_ps.py``).
 ``build_inference`` builds a paged serving engine on the same device,
 from a checkpoint if asked (its one-shot ``apply_fn`` is not ported yet).
-``tune``, ``build_pipeline``, ``elastic_rebuild``, fault tolerance and
-observability are not ported yet (ROADMAP.md).
+
+``strategy_builder="Auto"`` lets the cost model choose the builder from
+the model and the resource spec's GPU node model
+(``strategy/auto_strategy.py``); :meth:`AutoDist.tune` measures instead:
+it trains each candidate of the slate for a few windows on the device,
+keeps the fastest and fits the cost model's calibration to the times.
+``build_pipeline``, ``elastic_rebuild``, fault tolerance and observability
+are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import datetime
 import functools
+import math
 import os
 import re
+import time
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
@@ -70,6 +79,9 @@ from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.retry import wait_until
 
 _default_autodist: Optional["AutoDist"] = None
+
+#: Timed windows a ``tune()`` candidate runs after its warm-up window.
+_TUNE_TRIAL_WINDOWS = 4
 
 
 def _cast_compute(loss_fn: Callable, compute_dtype: str) -> Callable:
@@ -184,6 +196,8 @@ class AutoDist:
         self.device = resolve_device(device)
         self.mesh_axes = tuple(mesh_axes)
         self.group = pg.join(self.device, init_method, world_size, rank, timeout_s)
+        self._timeout_s = float(timeout_s)
+        self._handoffs = 0  # strategy handoffs over the group (tune's agreement)
         world = torch.distributed.get_world_size(self.group) if self.group is not None else 1
         if self.group is not None:
             self.device = pg.local_device(self.device, torch.distributed.get_rank())
@@ -202,6 +216,7 @@ class AutoDist:
         self._built: Optional[DistributedTrainStep] = None
         self._strategy: Optional[Strategy] = None
         self._model_item: Optional[ModelItem] = None
+        self.last_tune_results: Optional[dict] = None
         _default_autodist = self
 
     @classmethod
@@ -221,14 +236,23 @@ class AutoDist:
         """The chief builds and serializes the strategy (and exports its id
         to child processes); a worker loads the chief's by
         ``AUTODIST_STRATEGY_ID``. In a process group rank 0 builds it and
-        the other ranks receive its JSON over the group."""
+        the other ranks receive its JSON over the group (nothing when the
+        chief's builder raised: then every rank raises)."""
         if self.group is not None:
-            box = [None]
+            box, failure = [None], None
             if torch.distributed.get_rank() == 0:
-                strategy = self.strategy_builder.build(model_item, self.resource_spec)
-                strategy.serialize()
-                box = [strategy.to_json()]
+                try:
+                    strategy = self.strategy_builder.build(model_item, self.resource_spec)
+                    strategy.serialize()
+                    box = [strategy.to_json()]
+                except Exception as e:  # noqa: BLE001 - every rank raises, below
+                    failure = e
             torch.distributed.broadcast_object_list(box, src=0, group=self.group)
+            self._handoffs += 1
+            if failure is not None:
+                raise failure
+            if box[0] is None:
+                raise RuntimeError("the chief's strategy builder raised (see its log)")
             return Strategy.from_json(box[0])
         if const.is_chief_process():
             strategy = self.strategy_builder.build(model_item, self.resource_spec)
@@ -324,6 +348,162 @@ class AutoDist:
         logging.info("sync=False strategy: routed to host-driven AsyncPSTrainer "
                      "(%d workers, staleness=%d)", n_workers, staleness)
         return trainer
+
+    # ----------------------------------------------------------------- tune
+    def tune(self, loss_fn: Callable, params: Any, example_batch: Any,
+             candidates: Optional[Sequence] = None, window: int = 8,
+             calibration_path: Optional[str] = None, **build_kwargs
+             ) -> DistributedTrainStep:
+        """Measured strategy selection: build each candidate (default: the
+        slate of ``Auto`` plus Parallax, ``cost_model.candidate_slate``),
+        run one warm-up window and then ``_TUNE_TRIAL_WINDOWS`` (4) windows
+        of ``window`` training steps on the device with one synchronize at
+        the end, and keep the fastest. A candidate that fails to build or
+        run is skipped with a warning. The (predicted, measured) pairs fit a
+        :class:`~autodist_tpu_torch.strategy.cost_model.Calibration`, which
+        the chief writes (``calibration_path``, default the port's working
+        directory) for ``explain``.
+
+        In a process group every rank times every candidate in lockstep
+        (the steps' collectives keep the ranks together), and after each
+        one the ranks agree on how it went over a gloo group of the sweep's
+        own, which no step collective can pair with. A candidate that every
+        rank refused after the strategy handoff and before its step (the
+        chief's builder raised, or the strategy does not lower) is skipped
+        on every rank. A failure anywhere else (one rank out of memory in
+        its steps, say) may leave the ranks' collectives out of step, so
+        the sweep stops there on every rank with a ``RuntimeError``: peers
+        held in a collective of the failed candidate reach the agreement
+        when the group's timeout ends that collective (NCCL's watchdog may
+        end the process instead). The chief's times decide and it
+        broadcasts the winner's index, so every rank builds the same
+        winner. ``last_tune_results`` holds the table, the calibration and
+        each candidate's measured seconds (``inf``: failed) with the one
+        selected. The JAX package also records the sweep in its metrics
+        registry and span timeline (``_record_tune_obs``); that waits for
+        the port's ``obs/`` (ROADMAP.md Queue 1 item 11)."""
+        from autodist_tpu_torch.strategy.cost_model import CostModel, candidate_slate
+
+        candidates = list(candidates) if candidates is not None else candidate_slate()
+        side = None
+        if self.group is not None:
+            self.mesh  # noqa: B018 - its subgroups form here, before any candidate
+            side = torch.distributed.new_group(
+                backend="gloo", timeout=datetime.timedelta(seconds=2 * self._timeout_s))
+        results, predicted, best = [], {}, None
+        try:
+            for name, builder in candidates:
+                self.strategy_builder = builder
+                step = state = failure = None
+                handoffs = self._handoffs
+                try:
+                    step = self.build(loss_fn, params, example_batch, **build_kwargs)
+                    batch = step._to_device(example_batch)
+                    state = step.init(params)
+                    state, _ = step.run(state, batch, window)
+                    self._sync_device()
+                    t0 = time.perf_counter()
+                    for _ in range(_TUNE_TRIAL_WINDOWS):
+                        state, _ = step.run(state, batch, window)
+                    self._sync_device()
+                    dt = (time.perf_counter() - t0) / (_TUNE_TRIAL_WINDOWS * window)
+                except Exception as e:  # noqa: BLE001 - candidate-level isolation
+                    failure = e
+                finally:
+                    state = None  # noqa: F841 - free it before the next candidate
+                if side is not None:
+                    # 0: ran; 1: refused after the handoff, before any step
+                    # collective; 2: failed where peers may wait.
+                    code = (0 if failure is None else
+                            1 if step is None and self._handoffs > handoffs else 2)
+                    why = None if failure is None else f"{type(failure).__name__}: {failure}"[:300]
+                    every = [None] * torch.distributed.get_world_size(side)
+                    torch.distributed.all_gather_object(every, (code, why), group=side)
+                    codes = [c for c, _ in every]
+                    if 2 in codes or 0 < codes.count(0) < len(codes):
+                        bad = {r: w for r, (c, w) in enumerate(every) if c}
+                        raise RuntimeError(
+                            f"tune(): candidate {name} failed on rank(s) {bad}; the ranks' "
+                            f"collectives may be out of step, so the sweep stops") from failure
+                if failure is not None:
+                    logging.warning("tune: candidate %s failed (%s); skipped", name, failure)
+                    results.append((name, math.inf))
+                    continue
+                logging.info("tune: %-16s %.3f ms/step", name, dt * 1e3)
+                results.append((name, dt))
+                try:
+                    predicted[name] = CostModel(self._model_item,
+                                                self.resource_spec).strategy_cost(self._strategy)
+                except Exception:  # noqa: BLE001 - calibration is best-effort
+                    pass
+                if side is None and (best is None or dt < best[1]):
+                    best = (name, dt, builder, step, self._strategy, self._model_item)
+                step = None
+        finally:
+            if side is not None:
+                torch.distributed.destroy_process_group(side)
+        self._record_calibration(results, predicted, calibration_path)
+        if side is not None:
+            best_name = self._elect(results)
+            self.last_tune_results["selected"] = best_name
+            self.strategy_builder = dict(candidates)[best_name]
+            return self.build(loss_fn, params, example_batch, **build_kwargs)
+        if best is None:
+            raise RuntimeError("tune(): every candidate strategy failed to build/run")
+        best_name, best_dt, best_builder, best_step, best_strategy, best_item = best
+        logging.info("tune selected %s (%.3f ms/step)", best_name, best_dt * 1e3)
+        self.last_tune_results["selected"] = best_name
+        self.strategy_builder = best_builder
+        os.environ[ENV.AUTODIST_STRATEGY_ID.name] = best_strategy.id
+        self._built, self._strategy, self._model_item = best_step, best_strategy, best_item
+        return best_step
+
+    def _sync_device(self) -> None:
+        """Wait for the device's queued work (the CPU runs eagerly)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _elect(self, results) -> str:
+        """The winner of a sweep over the process group, whose candidates
+        ran on every rank or on none: the chief's fastest, its index
+        broadcast from the chief."""
+        box = [None]
+        if torch.distributed.get_rank() == 0:
+            valid = [i for i, (_, dt) in enumerate(results) if math.isfinite(dt)]
+            box = [min(valid, key=lambda i: results[i][1]) if valid else -1]
+        torch.distributed.broadcast_object_list(box, src=0, group=self.group)
+        if box[0] < 0:
+            raise RuntimeError("tune(): every candidate strategy failed to build/run")
+        name = results[box[0]][0]
+        logging.info("tune (group) selected %s: chief-measured", name)
+        return name
+
+    def _record_calibration(self, results, predicted, path: Optional[str] = None) -> None:
+        """Fit measured seconds a step against each timed strategy's
+        predicted cost (:class:`Calibration`), the chief writes it, and
+        ``last_tune_results`` takes the table."""
+        from autodist_tpu_torch.strategy.cost_model import Calibration
+
+        meas, pred, table = [], [], {}
+        for name, dt in results:
+            cost = predicted.get(name)
+            if cost is None or not math.isfinite(dt):
+                continue
+            meas.append(dt)
+            pred.append(cost.total_s)
+            table[name] = {"measured_s": dt, "predicted_s": cost.total_s}
+        device = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                  else "cpu")
+        calib = Calibration.fit(pred, meas, device=device) if meas else None
+        chief = self.group is None or torch.distributed.get_rank() == 0
+        saved = calib.save(path) if calib is not None and chief else None
+        self.last_tune_results = {"table": table, "calibration": calib,
+                                  "calibration_path": saved,
+                                  "measured": dict(results)}
+        if calib is not None:
+            logging.info("tune calibration: measured ≈ %.3fms + %.2f × predicted "
+                         "(%d candidates, %s)%s", calib.base_s * 1e3, calib.scale,
+                         calib.n_points, device, f" -> {saved}" if saved else "")
 
     # ------------------------------------------------------------ inference
     def build_inference(self, params: Any, apply_fn: Optional[Callable] = None,

@@ -7,7 +7,9 @@ first), fill buckets greedily up to ``bucket_bytes``; a bucket closes once
 it reaches the target. Eligible are the variables whose gradient sync is a
 plain mean all-reduce or a ZeRO-1 reduce-scatter; PS variables and those
 claimed by a sharded rendering (compressed, expert, partitioned, sparse)
-are not (:func:`plan_exclusion_reasons`).
+are not (:func:`plan_exclusion_reasons` on a lowered plan,
+:func:`bucket_exclusion_reasons` on shapes and mesh degrees, the cost
+model's entry point).
 
 **Emission** (:class:`BucketSync`): a hook on each bucketed gradient target
 (``Tensor.register_hook``, which fires under ``torch.autograd.grad``)
@@ -24,12 +26,35 @@ waited on before the update.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 #: Every reason a variable stays out of the buckets, in emission order.
 EXCLUSION_REASONS = ("nontrainable", "ps", "compressed", "expert", "partitioned", "sparse")
+
+
+def bucket_exclusion_reasons(
+    shape: Sequence[int], *, trainable: bool = True, is_ps: bool = False,
+    sparse_update: bool = False, expert: bool = False, part_axis: Optional[int] = None,
+    compressor: str = "NoneCompressor", n_data: int = 1, n_model: int = 1,
+    n_expert: int = 1,
+) -> Tuple[str, ...]:
+    """Why a variable would stay out of the buckets, from its shape and the
+    mesh degrees alone (no plan), in :data:`EXCLUSION_REASONS` order; empty
+    = eligible. The renderings that claim a variable away from the plain
+    all-reduce or ZeRO-1 reduce-scatter are the ZeRO-1 degradation
+    predicate's (``kernel/degrade.py``): its ``scalar`` and
+    ``non_divisible`` reasons do not exclude (such a variable syncs by a
+    plain all-reduce, which buckets)."""
+    from autodist_tpu_torch.kernel.degrade import zero1_degradation_reasons
+
+    shared = zero1_degradation_reasons(
+        shape, sparse_update=sparse_update, expert=expert, part_axis=part_axis,
+        compressor=compressor, n_data=n_data, n_model=n_model, n_expert=n_expert)
+    reasons = (["nontrainable"] if not trainable else []) + (["ps"] if is_ps else [])
+    reasons += [r for r in ("compressed", "expert", "partitioned", "sparse") if r in shared]
+    return tuple(r for r in EXCLUSION_REASONS if r in reasons)
 
 
 def plan_exclusion_reasons(var_plan) -> Tuple[str, ...]:

@@ -18,10 +18,19 @@ loss and gradients, and syncs each variable by its plan
   along ``update_dim``, this rank's slice updated with slice-shaped
   optimizer slots, and the new values all-gathered;
 - **sharded** (dense PS without a proxy, partitioned variables, row-sharded
-  sparse tables): the state holds this rank's block along ``storage_dim``
-  of the (zero-padded) storage; it is all-gathered to the logical view
-  before the forward, the gradient is reduce-scattered and the block
-  updated in place. Padded entries get zero gradients and stay zero.
+  sparse tables under the manual semantics below): the state holds this
+  rank's block along ``storage_dim`` of the (zero-padded) storage; it is
+  all-gathered to the logical view before the forward, the gradient is
+  reduce-scattered and the block updated in place. Padded entries get zero
+  gradients and stay zero;
+- **sparse** (a sparse-update table split by rows over a data axis larger
+  than 1, in the GSPMD semantics, on a mesh without a model or expert
+  axis): the state holds this rank's row block as for ``sharded``, but the
+  loss gets it as a ``kernel/sparse.py`` ``RowSplitTable``, whose row reads
+  move the step's touched rows (all-gathered ids, reduce-scattered rows,
+  all-gathered row gradients: the wire of the JAX package's GSPMD lookup)
+  and whose other uses gather the table whole; the block's gradient comes
+  out of the backward already averaged over ranks.
 
 The JAX step has two semantics, and the port keeps both. Without ZeRO-1
 or buckets it is one GSPMD program, where every reduction over the batch
@@ -30,14 +39,22 @@ is global: the port then reduces BatchNorm's statistics over the group
 manual ``shard_map`` sync, where the loss is taken per shard: BatchNorm's
 statistics stay local. A loss whose normaliser depends on the rows (a
 masked mean) is averaged over ranks in both, where the GSPMD program
-normalises over the whole batch (ROADMAP.md, Queue 3).
+normalises over the whole batch (ROADMAP.md, Queue 3). The manual
+``shard_map`` takes every parameter in replicated and all-reduces a sparse
+table's dense gradient: there the port keeps the ``sharded`` whole-table
+wire, the GSPMD semantics get the ``sparse`` one.
 
 Gradient buckets (``bucket_bytes > 0``) sync from hooks inside the
 backward (``kernel/bucketing.py``); they are off under gradient
 accumulation, as in the JAX package. Every collective of the step is
-counted by purpose and kind (``step.coll.counts``; the last step's in
-``step.last_collectives``), and the plan predicts the gradient and
-parameter wire (:meth:`ShardingPlan.collectives_per_step`).
+counted by purpose and kind (``step.coll.counts``, the bytes in
+``step.coll.nbytes``; the last step's in ``step.last_collectives`` and
+``step.last_bytes``), and the plan predicts the gradient and parameter wire
+(:meth:`ShardingPlan.collectives_per_step`), with its bytes and a sparse
+table's (:meth:`ShardingPlan.bytes_per_step`,
+:meth:`DistributedTrainStep.predicted_bytes`). It also exports the wire it
+promises, var for var, in the JAX package's terms
+(:meth:`ShardingPlan.promised_wire`).
 
 Gradient accumulation (``grad_accum_steps=k``) splits each step into ``k``
 micro-batches and averages loss, gradients and aux as ``a + x/k`` from
@@ -110,6 +127,7 @@ the state passed in is consumed, and the one returned holds the same
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field, replace
 from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -124,6 +142,8 @@ from autodist_tpu_torch.kernel import bucketing
 from autodist_tpu_torch.kernel.compressor import Compressor, get_compressor
 from autodist_tpu_torch.kernel.degrade import is_active_compressor, zero1_degradation_reasons
 from autodist_tpu_torch.kernel.mesh import SHARD_AXES, Mesh
+from autodist_tpu_torch.kernel.sparse import RowSplitTable
+from autodist_tpu_torch.kernel.sparse import predicted_bytes as table_bytes
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem, _factored_dims
 from autodist_tpu_torch.models.convert import (
     flatten_params, map_params, map_tree, tree_leaves)
@@ -425,6 +445,31 @@ class GraphTransformer:
 
 #: The renderings of variables split over the model or expert axis.
 _MODEL_KINDS = ("partitioned", "expert")
+#: The renderings whose state is this rank's block along the data axis.
+_DATA_BLOCKS = ("sharded", "sparse")
+
+
+@dataclass(frozen=True)
+class VarWire:
+    """One variable's part of the collective wire the plan promises
+    (:meth:`ShardingPlan.promised_wire`), in the JAX package's terms: the
+    rendering, the op kinds that must appear (``require``) and that may
+    carry up to its whole storage (``allow``), its storage, the ZeRO-1 and
+    sparse flags, compressor, degradations, and its gradient bucket with
+    the bucket's summed elements."""
+
+    var: str
+    rendering: str
+    require: Tuple[str, ...] = ()
+    allow: Tuple[str, ...] = ()
+    storage_elements: int = 0
+    storage_bytes: int = 0
+    shard_update: bool = False
+    sparse_row_sharded: bool = False
+    compressor: str = "NoneCompressor"
+    degradations: Tuple[str, ...] = ()
+    bucket: Optional[int] = None
+    bucket_elements: int = 0
 
 
 def _block(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
@@ -497,20 +542,35 @@ class ShardingPlan:
             out[name] = get_compressor(p.compressor)
         return out
 
-    def rendering(self, name: str) -> Tuple[str, Optional[int]]:
+    def manual_semantics(self, bucketed: bool = True) -> bool:
+        """True when the step runs the JAX step's manual ``shard_map``
+        semantics: gradient buckets (``bucketed``: the step's buckets are off
+        under gradient accumulation), an active compressor, or ZeRO-1."""
+        return ((bucketed and bool(self.bucket_assignment())) or bool(self.compressors())
+                or any(p.shard_update for p in self.var_plans.values()))
+
+    def rendering(self, name: str, manual: Optional[bool] = None
+                  ) -> Tuple[str, Optional[int]]:
         """How the step syncs a variable: ``("replicated", None)``,
-        ``("zero1", update_dim)`` or ``("sharded", storage_dim)`` over the
-        data axis, or ``("partitioned", storage_dim)`` / ``("expert", 0)``
-        over the model / expert axis (JAX's ``promised_wire`` names; the
-        step holds this rank's block and its gradient is all-reduced over
-        the data axis). A data axis of one renders the others replicated
-        (nothing to shard)."""
+        ``("zero1", update_dim)``, ``("sharded", storage_dim)`` or
+        ``("sparse", 0)`` over the data axis, or ``("partitioned",
+        storage_dim)`` / ``("expert", 0)`` over the model / expert axis
+        (JAX's ``promised_wire`` names; the step holds this rank's block and
+        its gradient is all-reduced over the data axis). A data axis of one
+        renders the others replicated (nothing to shard). ``sparse`` is a
+        sparse-update table split by rows over the data axis in the GSPMD
+        semantics (``manual`` false; default :meth:`manual_semantics`) on a
+        mesh without a model or expert axis; otherwise such a table is
+        ``sharded`` (the module docstring says why)."""
         p = self.var_plans.get(name)
         if p is not None and p.model_sharded:
             kind = "expert" if p.storage_axis == const.MESH_AXIS_EXPERT else "partitioned"
             return kind, p.storage_dim
         if p is None or self.mesh.data_size == 1:
             return "replicated", None
+        if p.storage_dim == 0 and p.var.sparse_update and self.mesh.shard_axis is None:
+            if not (self.manual_semantics() if manual is None else manual):
+                return "sparse", 0
         if p.storage_dim is not None:
             return "sharded", p.storage_dim
         if p.update_dim is not None:
@@ -595,15 +655,18 @@ class ShardingPlan:
         counts = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
         compressors = self.compressors()
         buckets = self.bucket_assignment() if bucketed else ()
+        manual = self.manual_semantics(bucketed)
         in_bucket = {name for b in buckets for name in b}
         for b in buckets:
-            kinds = {self.rendering(name)[0] for name in b}
+            kinds = {self.rendering(name, manual)[0] for name in b}
             counts["all_reduce"] += "replicated" in kinds
             counts["reduce_scatter"] += "zero1" in kinds
         for name, p in self.var_plans.items():
             if not _is_float(p.var.dtype):
                 continue
-            kind = self.rendering(name)[0]
+            kind = self.rendering(name, manual)[0]
+            if kind == "sparse":
+                continue        # its wire is the reads' ("sparse" / "table")
             data_wire = kind in ("zero1", "sharded")
             if data_wire:
                 counts["all_gather"] += 1
@@ -615,6 +678,110 @@ class ShardingPlan:
                 continue
             counts["reduce_scatter" if data_wire else "all_reduce"] += 1
         return counts
+
+    def bytes_per_step(self, table_uses: Optional[Dict[str, list]] = None,
+                       bucketed: bool = True) -> Dict[str, Dict[str, int]]:
+        """The bytes :meth:`collectives_per_step`'s wire moves, by purpose
+        (``"grad"``, ``"param"``) and kind, in the units
+        ``Collectives.nbytes`` records (an all-reduce: the tensor; a
+        reduce-scatter: its input; an all-gather: its output), with the
+        ``"sparse"`` and ``"table"`` bytes of each ``sparse`` variable's
+        recorded uses (``table_uses``, from
+        :meth:`DistributedTrainStep.table_uses`; ``kernel/sparse.py``'s
+        ``predicted_bytes``). A compressed variable's payload is its
+        compressor's and is left out (``wire_factor`` prices it)."""
+        out: Dict[str, Dict[str, int]] = {}
+
+        def add(purpose, kind, nbytes):
+            if nbytes:
+                out.setdefault(purpose, {}).setdefault(kind, 0)
+                out[purpose][kind] += int(nbytes)
+
+        compressors = self.compressors()
+        buckets = self.bucket_assignment() if bucketed else ()
+        manual = self.manual_semantics(bucketed)
+        in_bucket = {name for b in buckets for name in b}
+
+        def nbytes(name, shape):
+            return math.prod(shape) * _itemsize(self.var_plans[name].var.dtype)
+
+        for b in buckets:
+            for name in b:
+                kind = self.rendering(name, manual)[0]
+                add("grad", "reduce_scatter" if kind == "zero1" else "all_reduce",
+                    nbytes(name, self.local_shape(name)))
+        for name, p in self.var_plans.items():
+            if not _is_float(p.var.dtype):
+                continue
+            kind = self.rendering(name, manual)[0]
+            if kind in ("zero1", "sharded"):
+                add("param", "all_gather", nbytes(name, p.shape))
+            if name in in_bucket or name in compressors or kind == "sparse":
+                continue
+            if kind in ("zero1", "sharded"):
+                add("grad", "reduce_scatter", nbytes(name, p.shape))
+            else:
+                add("grad", "all_reduce", nbytes(name, self.local_shape(name)))
+        for name, uses in (table_uses or {}).items():
+            for purpose, kinds in table_bytes(uses, self.mesh.data_size).items():
+                for kind, k in kinds.items():
+                    add(purpose, kind, k)
+        return out
+
+    def promised_wire(self) -> Dict[str, VarWire]:
+        """The collective wire this plan promises, var for var, in the JAX
+        package's terms and precedence (``ShardingPlan.promised_wire``):
+        ``nontrainable``; ``zero1`` (ZeRO-1: reduce-scatter and all-gather
+        required); ``sparse`` (a sparse-update table split over an axis
+        larger than 1: nothing may carry the whole table); ``expert``;
+        ``zero3`` (split over the data axis: all-gather required when it is
+        larger than 1); ``partitioned``; ``ps1`` and ``replicated`` (dense
+        all-reduce wire at full payload). This is JAX's plan-level promise:
+        under the manual semantics the port's step moves a ``sparse``
+        table whole, as JAX's manual step does (:meth:`rendering`)."""
+        ax_d = self.mesh.data_axis
+        sizes = self.mesh.shape
+        bucket_of = {n: bi for bi, names in enumerate(self.bucket_assignment())
+                     for n in names}
+        wires: Dict[str, VarWire] = {}
+        for name, p in self.var_plans.items():
+            elems = math.prod(p.storage_shape or tuple(p.var.shape) or (1,))
+            axes = ({p.storage_axis} if p.storage_dim is not None
+                    and sizes.get(p.storage_axis, 1) > 1 else set())
+            if not p.var.trainable:
+                rendering, require, allow = "nontrainable", (), ()
+            elif p.shard_update:
+                rendering = "zero1"
+                require = allow = ("reduce-scatter", "all-gather")
+            elif p.var.sparse_update and axes:
+                rendering, require, allow = "sparse", (), ()
+            elif const.MESH_AXIS_EXPERT in axes:
+                rendering, require = "expert", ()
+                allow = ("all-reduce", "all-gather", "all-to-all")
+            elif ax_d in axes:
+                rendering = "zero3"
+                require = ("all-gather",) if sizes.get(ax_d, 1) > 1 else ()
+                allow = ("all-gather", "reduce-scatter", "all-reduce")
+            elif axes:
+                rendering, require = "partitioned", ()
+                allow = ("all-gather", "reduce-scatter", "all-reduce")
+            elif p.kind is SyncKind.PS:
+                rendering, require, allow = "ps1", (), ("all-reduce", "all-gather")
+            else:
+                rendering, require, allow = "replicated", (), ("all-reduce", "all-gather")
+            wires[name] = VarWire(
+                var=name, rendering=rendering, require=require, allow=allow,
+                storage_elements=elems, storage_bytes=elems * _itemsize(p.var.dtype),
+                shard_update=p.shard_update,
+                sparse_row_sharded=p.var.sparse_update and bool(axes),
+                compressor=p.compressor, degradations=p.degradations,
+                bucket=bucket_of.get(name))
+        sums: Dict[int, int] = {}
+        for name, bi in bucket_of.items():
+            sums[bi] = sums.get(bi, 0) + wires[name].storage_elements
+        for name, bi in bucket_of.items():
+            wires[name] = replace(wires[name], bucket_elements=sums[bi])
+        return wires
 
     def local_shape(self, name: str) -> Tuple[int, ...]:
         """The shape of this rank's part of a variable in the step: a
@@ -678,7 +845,6 @@ class DistributedTrainStep:
             raise ValueError(f"a data axis of {self.n} needs a process group")
         if mesh.group is not None and self.coll.size != self.n:
             raise ValueError(f"data axis {self.n} != group size {self.coll.size}")
-        self.render = {name: plan.rendering(name) for name in plan.var_plans}
         buckets = plan.bucket_assignment()
         if buckets and grad_accum_steps > 1:
             logging.warning("bucketed grad sync (bucket_bytes=%d) disabled under "
@@ -687,18 +853,20 @@ class DistributedTrainStep:
             buckets = ()
         self.buckets = buckets
         self.compressors = plan.compressors(warn=True)
-        # The JAX step's manual sync (shard_map): per-shard batch statistics.
-        self.manual = (bool(buckets) or bool(self.compressors)
-                       or any(p.shard_update for p in plan.var_plans.values()))
+        # The JAX step's manual sync (shard_map): per-shard batch statistics,
+        # sparse tables moved whole.
+        self.manual = plan.manual_semantics(bucketed=grad_accum_steps == 1)
+        self.render = {name: plan.rendering(name, self.manual) for name in plan.var_plans}
         self.zero1_dims = {name: d for name, (kind, d) in self.render.items()
                            if kind == "zero1"}
-        self._sharded = any(kind == "sharded" for kind, _ in self.render.values())
+        self._sharded = any(kind in _DATA_BLOCKS for kind, _ in self.render.values())
         self.stale = {name: p.staleness for name, p in plan.var_plans.items()
                       if p.staleness > 0}
         self.offloaded = {name for name, p in plan.var_plans.items() if p.offload}
         self.last_collectives: Dict[str, Dict[str, int]] = {}
+        self.last_bytes: Dict[str, Dict[str, int]] = {}
         self.model_cut = any(kind in _MODEL_KINDS for kind, _ in self.render.values())
-        data_cut = any(kind in ("zero1", "sharded") for kind, _ in self.render.values())
+        data_cut = any(kind in ("zero1",) + _DATA_BLOCKS for kind, _ in self.render.values())
         if self.model_cut and data_cut and (optimizer.clip_norm is not None
                                             or optimizer.kind in ("lamb", "adafactor")):
             raise NotImplementedError(
@@ -854,7 +1022,7 @@ class DistributedTrainStep:
             t = t.detach().to(dev).clone(memory_format=torch.contiguous_format)
             self.world.broadcast(t, "init")
             kind, d = self._render(name)
-            if kind == "sharded":
+            if kind in _DATA_BLOCKS:
                 t = _block(self.plan.pad(name, t), d, self.n, self.rank).contiguous()
             elif kind in _MODEL_KINDS:
                 t = _block(self.plan.pad(name, t), d, self.n_shard,
@@ -893,7 +1061,7 @@ class DistributedTrainStep:
         def view(name, t):
             kind, d = self._render(name)
             t = t.detach()
-            if kind == "sharded":
+            if kind in _DATA_BLOCKS:
                 t = t.to(self.plan.device)
                 t = self.plan.unpad(name, self.coll.all_gather(t, d, "view"))
             elif kind in _MODEL_KINDS:
@@ -1110,16 +1278,22 @@ class DistributedTrainStep:
     def _forward_params(self, params):
         """``(params for the loss, {name: gradient target})``: a sharded
         variable is all-gathered into a fresh leaf (its target) and sliced
-        to its logical shape; the others are their own targets."""
+        to its logical shape, a sparse one's block is wrapped as a
+        :class:`~autodist_tpu_torch.kernel.sparse.RowSplitTable`; the
+        others (and the sparse blocks) are their own targets."""
         if not self._sharded and self.shard_axis is None:
             return params, dict(self._floating(params))
-        targets = {}
+        targets, gathered = {}, {}
         wrap = self._dtensor if self.shard_axis is not None else (lambda t, pl=None: t)
 
         def view(name, t):
             if not t.is_floating_point():
                 return wrap(t)
             kind, d = self._render(name)
+            if kind == "sparse":
+                targets[name] = t
+                return RowSplitTable(t, self.coll, self.plan.var_plans[name].var.shape[0],
+                                     self.rank, gathered=gathered)
             if kind != "sharded":
                 targets[name] = t
                 return self.plan.unpad(name, wrap(t, self._placements(name)))
@@ -1209,7 +1383,9 @@ class DistributedTrainStep:
                 continue
             g = g.contiguous()
             kind, d = self._render(name)
-            if name in self.compressors:
+            if kind == "sparse":
+                out[name] = g       # averaged over ranks in the backward
+            elif name in self.compressors:
                 st = comp_state[name]
                 out[name], local, shared = self.compressors[name].step(
                     g, st["local"], st["shared"], self.coll)
@@ -1232,8 +1408,43 @@ class DistributedTrainStep:
             buf.copy_(torch.cat([buf[1:], grads[name].unsqueeze(0).to(buf.dtype)]))
             grads[name] = delayed
 
+    def table_uses(self, state: TrainState, batch) -> Dict[str, list]:
+        """Each ``sparse`` variable's uses in one step of this rank, from a
+        forward of the loss on meta tensors with this rank's (micro-)batch
+        shapes, its tables recording instead of communicating
+        (``kernel/sparse.py``): per row read the ids a rank reads, per
+        whole-table use the gathered storage; repeated per micro-batch."""
+        sparse = [n for n, (kind, _) in self.render.items() if kind == "sparse"]
+        if not sparse:
+            return {}
+        uses: Dict[str, list] = {n: [] for n in sparse}
+        gathered: dict = {}
+
+        def meta(name, t):
+            if name in uses:
+                return RowSplitTable(torch.empty(t.shape, dtype=t.dtype, device="meta"), None,
+                                     self.plan.var_plans[name].var.shape[0], self.rank,
+                                     uses=uses[name], world=self.n, gathered=gathered)
+            return torch.empty(self.plan.var_plans[name].var.shape, dtype=t.dtype,
+                               device="meta")
+
+        micro = self._micro_batches(batch)
+        params = _map_named(meta, state.params)
+        with torch.no_grad():
+            self.loss_fn(params, map_tree(
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), micro[0]))
+        return {n: u * len(micro) for n, u in uses.items()}
+
+    def predicted_bytes(self, state: TrainState, batch) -> Dict[str, Dict[str, int]]:
+        """The step's predicted wire bytes by purpose and kind
+        (:meth:`ShardingPlan.bytes_per_step` with :meth:`table_uses`), to
+        hold ``last_bytes`` against."""
+        return self.plan.bytes_per_step(self.table_uses(state, batch),
+                                        bucketed=self.accum == 1)
+
     def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         before = self.coll.snapshot()
+        bytes_before = self.coll.bytes_snapshot()
         host, opt_state = state, state.opt_state
         if self.offloaded:
             state = TrainState(state.step, self._stream_params(state.params), opt_state,
@@ -1275,6 +1486,12 @@ class DistributedTrainStep:
                 if v - before.get(p, {}).get(k, 0)}
             for p, kinds in after.items()}
         self.last_collectives = {p: k for p, k in self.last_collectives.items() if k}
+        moved = self.coll.bytes_snapshot()
+        self.last_bytes = {
+            p: {k: v - bytes_before.get(p, {}).get(k, 0) for k, v in kinds.items()
+                if v - bytes_before.get(p, {}).get(k, 0)}
+            for p, kinds in moved.items()}
+        self.last_bytes = {p: k for p, k in self.last_bytes.items() if k}
         return TrainState(host.step + 1, host.params, host.opt_state, host.comp_state,
                           host.stale_state), metrics
 

@@ -107,8 +107,14 @@ def embedding_lookup(p, ids):
     clamp positions first. A ``DTensor`` table split by rows (tensor
     parallelism shards the vocab axis, as JAX's plan does) is read
     vocab-parallel (:func:`_vocab_parallel_lookup`), where indexing would
-    gather the whole table."""
+    gather the whole table. A table whose rows the step split over the data
+    axis (``kernel/sparse.py``'s ``RowSplitTable``) reads the touched rows
+    only (its ``SparseRowLookup``)."""
+    from autodist_tpu_torch.kernel.sparse import RowSplitTable
+
     table = p["embedding"]
+    if isinstance(table, RowSplitTable):
+        return table.lookup(ids, wrap=True)
     if _split_by_rows(table):
         return _vocab_parallel_lookup(table, ids.long())
     return table[ids.long()]

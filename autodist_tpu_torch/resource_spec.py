@@ -13,25 +13,145 @@ it has TPU chips. The file shape is the same (and the original AutoDist's)::
 Devices read ``<address>:GPU:<i>`` (and ``<address>:CPU:0`` for a host), as
 in the original AutoDist, numbered chief first, then by address: rank ``r``
 of a ``torch.distributed`` group is the ``r``-th of :attr:`gpu_devices`.
-An optional ``mesh:`` block names the logical axis sizes (``{data: 4}``);
-it must cover every GPU, and an axis other than ``data`` larger than 1
-raises at mesh build (the TensorParallel slice, ROADMAP.md). The JAX
-package's TPU topology and HBM tables and its per-node ``cpus``/``ssh``
-entries are not ported; the cost model that reads them is in ROADMAP.md.
+An optional ``mesh:`` block names the logical axis sizes (``{data: 4,
+model: 2}``); it must cover every GPU.
+
+Where the JAX package describes a TPU slice (``TPUTopology``: ICI and DCN
+bandwidths, an HBM table by TPU generation), the port describes a GPU node
+(:class:`GPUNode`), which the strategy cost model reads: the intra-node
+group's bandwidth (NVLink, or PCIe on a node without it), the inter-node
+network per GPU, HBM capacity and bandwidth, and the host's latency a
+collective call over an intra- or an inter-node group. An optional
+``gpu:`` block overrides any field::
+
+    gpu:
+      device: NVIDIA H100 80GB HBM3   # torch.cuda.get_device_name
+      nvlink_gbps: 3600               # 0: no NVLink, the node's GPUs talk over PCIe
+      pcie_gbps: 512
+      network_gbps: 400               # also read from ``network_bandwidth``
+      hbm_gb: 85.9                    # GB of 1e9 bytes (80 GiB)
+      hbm_gb_per_s: 3350
+      intra_latency_us: 128
+      inter_latency_us: 128
+
+Bandwidths on the wire are Gbit/s in one direction, HBM GB (1e9 bytes)
+and GB/s. The
+JAX package's per-node ``cpus``/``ssh`` entries are not ported.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from enum import Enum
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from autodist_tpu_torch.utils.device import resolve_device
 
 _LOOPBACK_ADDRESSES = ("localhost", "127.0.0.1", "0.0.0.0", "::1")
 DEFAULT_GPUS_PER_HOST = 4
+
+# Spec-sheet figures of the H100 SXM node the port targets, in Gbit/s one
+# way. NVIDIA H100 Tensor Core GPU datasheet: NVLink 900 GB/s (18 NVLink 4
+# links, both directions together), so 450 GB/s each way; PCIe Gen5 x16
+# 128 GB/s both ways, 64 GB/s each way. DGX H100 datasheet: one 400 Gb/s
+# ConnectX-7 (NDR InfiniBand) port per GPU.
+DEFAULT_NVLINK_GBPS = 450.0 * 8
+DEFAULT_PCIE_GBPS = 64.0 * 8
+DEFAULT_NETWORK_GBPS = 400.0
+# The host's time a collective call (µs): about 128 µs a NCCL call on one
+# H100 (tools/torch_dist_profile.py, ResNet-50 under Zero1: 268 calls a step
+# added 34.45 ms). Across nodes it is not measured yet: the same figure.
+DEFAULT_INTRA_LATENCY_US = 128.0
+DEFAULT_INTER_LATENCY_US = 128.0
+
+# HBM capacity (GB of 1e9 bytes) and bandwidth (GB/s) by substring of
+# torch.cuda.get_device_name(), from NVIDIA's datasheets (H100: SXM 80 GB
+# HBM3 at 3.35 TB/s, PCIe 80 GB HBM2e at 2.0 TB/s, NVL 94 GB at 3.9 TB/s;
+# H200 141 GB at 4.8 TB/s; A100 SXM4 80 GB at 2,039 GB/s, 40 GB at 1,555
+# GB/s, PCIe 80 GB at 1,935 GB/s, 40 GB at 1,555 GB/s; L40S 48 GB at 864
+# GB/s; L4 24 GB at 300 GB/s). A datasheet's capacity is binary (an
+# "80 GB" H100 holds 80 GiB; torch.cuda.get_device_properties reads 85.0e9
+# bytes of it), so each is scaled by GIB into the decimal GB that hbm_gb
+# and the cost model use. Looked up longest key first, case-insensitively.
+GIB = 2 ** 30 / 1e9
+HBM_BY_DEVICE = {
+    "H100 80GB HBM3": (80.0 * GIB, 3350.0),
+    "H100 PCIe": (80.0 * GIB, 2000.0),
+    "H100 NVL": (94.0 * GIB, 3900.0),
+    "H200": (141.0 * GIB, 4800.0),
+    "A100-SXM4-80GB": (80.0 * GIB, 2039.0),
+    "A100-SXM4-40GB": (40.0 * GIB, 1555.0),
+    "A100 80GB PCIe": (80.0 * GIB, 1935.0),
+    "A100-PCIE-40GB": (40.0 * GIB, 1555.0),
+    "L40S": (48.0 * GIB, 864.0),
+    "L4": (24.0 * GIB, 300.0),
+}
+# An unknown or unnamed card is taken to be the smallest entry, so the cost
+# model's memory check stays conservative (as the JAX package's is).
+DEFAULT_HBM = min(HBM_BY_DEVICE.values())
+
+
+def hbm_spec_for_name(name: Optional[str]) -> Tuple[float, float]:
+    """(HBM GB, HBM GB/s) of a ``torch.cuda.get_device_name()`` string:
+    the longest :data:`HBM_BY_DEVICE` key it contains, else
+    :data:`DEFAULT_HBM`."""
+    name = (name or "").lower()
+    for key in sorted(HBM_BY_DEVICE, key=len, reverse=True):
+        if key.lower() in name:
+            return HBM_BY_DEVICE[key]
+    return DEFAULT_HBM
+
+
+@dataclass
+class GPUNode:
+    """One node's hardware, the figures the cost model plans with: the
+    intra-node group's bandwidth (NVLink, or PCIe when ``nvlink_gbps`` is
+    0), the inter-node network per GPU, HBM (``None``: from
+    :data:`HBM_BY_DEVICE` by ``device``) and the host's latency a
+    collective call."""
+
+    device: Optional[str] = None
+    nvlink_gbps: float = DEFAULT_NVLINK_GBPS
+    pcie_gbps: float = DEFAULT_PCIE_GBPS
+    network_gbps: float = DEFAULT_NETWORK_GBPS
+    hbm_gb: Optional[float] = None
+    hbm_gb_per_s: Optional[float] = None
+    intra_latency_us: float = DEFAULT_INTRA_LATENCY_US
+    inter_latency_us: float = DEFAULT_INTER_LATENCY_US
+
+    @classmethod
+    def from_dict(cls, d: dict, network_bandwidth=None) -> "GPUNode":
+        known = {f.name for f in fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise ValueError(f"unknown gpu: keys {unknown}; known: {sorted(known)}")
+        kw = {k: (str(v) if k == "device" else float(v))
+              for k, v in d.items() if v is not None}
+        if "network_gbps" not in kw and network_bandwidth is not None:
+            kw["network_gbps"] = float(network_bandwidth)
+        return cls(**kw)
+
+    def to_dict(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if getattr(self, f.name) is not None}
+
+    @property
+    def intra_node_gbps(self) -> float:
+        """The intra-node group's bandwidth: NVLink, else PCIe."""
+        return self.nvlink_gbps if self.nvlink_gbps > 0 else self.pcie_gbps
+
+    @property
+    def hbm_bytes(self) -> float:
+        gb = self.hbm_gb if self.hbm_gb is not None else hbm_spec_for_name(self.device)[0]
+        return gb * 1e9
+
+    @property
+    def hbm_bandwidth_bytes(self) -> float:
+        gbs = (self.hbm_gb_per_s if self.hbm_gb_per_s is not None
+               else hbm_spec_for_name(self.device)[1])
+        return gbs * 1e9
 
 
 class DeviceType(Enum):
@@ -89,6 +209,8 @@ class ResourceSpec:
         mesh = (resource_dict or {}).get("mesh")
         self._mesh_override: Optional[Dict[str, int]] = (
             {str(k): int(v) for k, v in mesh.items()} if mesh else None)
+        self._gpu = GPUNode.from_dict((resource_dict or {}).get("gpu") or {},
+                                      (resource_dict or {}).get("network_bandwidth"))
         # If no node is marked chief, the first is.
         if not any(n.chief for n in self._nodes):
             self._nodes[0].chief = True
@@ -118,6 +240,21 @@ class ResourceSpec:
     @property
     def num_gpus(self) -> int:
         return sum(n.gpus for n in self._nodes)
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self._nodes)
+
+    @property
+    def gpu(self) -> GPUNode:
+        """The node model (every node alike)."""
+        return self._gpu
+
+    @property
+    def network_bandwidth(self) -> float:
+        """Inter-node bandwidth a GPU, Gbit/s (the reference's per-node
+        ``network_bandwidth``; the JAX package's DCN figure)."""
+        return self._gpu.network_gbps
 
     def _ordered_nodes(self) -> List[NodeSpec]:
         # Chief first, then by address: every process agrees on numbering.
@@ -152,17 +289,25 @@ class ResourceSpec:
     def from_local_devices(cls, device=None, world_size: int = 1) -> "ResourceSpec":
         """This host as a one-node spec of ``world_size`` device slots, one
         per rank of the process group (``device`` default ``"cuda"``; raises
-        without CUDA). On the CPU a single process has no GPU at all, so the
-        host CPU is the one replica; ``world_size > 1`` CPU ranks each stand
-        for one slot."""
+        without CUDA). On CUDA the card's name and memory come from
+        ``torch.cuda.get_device_properties`` (``gpu: device, hbm_gb``). On
+        the CPU a single process has no GPU at all, so the host CPU is the
+        one replica; ``world_size > 1`` CPU ranks each stand for one
+        slot."""
         dev = resolve_device(device)
         gpus = world_size if dev.type == "cuda" or world_size > 1 else 0
-        return cls(resource_dict={"nodes": [{"address": "localhost", "gpus": gpus,
-                                             "chief": True}]})
+        d = {"nodes": [{"address": "localhost", "gpus": gpus, "chief": True}]}
+        if dev.type == "cuda":
+            import torch
+
+            props = torch.cuda.get_device_properties(dev)
+            d["gpu"] = {"device": props.name, "hbm_gb": props.total_memory / 1e9}
+        return cls(resource_dict=d)
 
     def to_dict(self) -> dict:
         d = {"nodes": [{"address": n.address, "gpus": n.gpus, "chief": n.chief}
-                       for n in self._nodes]}
+                       for n in self._nodes],
+             "gpu": self._gpu.to_dict()}
         if self._mesh_override:
             d["mesh"] = dict(self._mesh_override)
         return d
@@ -174,4 +319,5 @@ class ResourceSpec:
         return hashlib.md5(blob).hexdigest()[:8]
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
-        return f"ResourceSpec(nodes={len(self._nodes)}, gpus={self.num_gpus})"
+        return (f"ResourceSpec(nodes={len(self._nodes)}, gpus={self.num_gpus}, "
+                f"device={self._gpu.device})")

@@ -14,7 +14,8 @@ mean and sum all-reduces, reduce-scatter and all-gather along any dim
 (moved to the front and made contiguous, as NCCL splits dim 0), and the
 broadcast of ``init``. Each call adds one to ``counts[purpose][kind]`` and
 the bytes it hands the collective to ``nbytes[purpose][kind]`` (an
-all-gather: the bytes it gathers). Without a group every call is the
+all-gather: the bytes it gathers), the largest one call's in
+``largest[purpose][kind]``. Without a group every call is the
 identity and counts nothing. :meth:`Collectives.over` gives the same
 counters over another group (a mesh's model axis), and
 :meth:`Collectives.count_dtensor` counts, by kind under a purpose, the
@@ -92,11 +93,12 @@ class Collectives:
         self.size = dist.get_world_size(group) if group is not None else 1
         self.counts: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
         self.nbytes: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
+        self.largest: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
 
     def over(self, group) -> "Collectives":
         """Collectives over ``group`` that add to this object's counters."""
         other = Collectives(group)
-        other.counts, other.nbytes = self.counts, self.nbytes
+        other.counts, other.nbytes, other.largest = self.counts, self.nbytes, self.largest
         return other
 
     @contextlib.contextmanager
@@ -117,8 +119,10 @@ class Collectives:
             self.counts[purpose][_DTENSOR_KINDS.get(name, name)] += n
 
     def _count(self, purpose: str, kind: str, t: torch.Tensor) -> None:
+        nbytes = t.numel() * t.element_size()
         self.counts[purpose][kind] += 1
-        self.nbytes[purpose][kind] += t.numel() * t.element_size()
+        self.nbytes[purpose][kind] += nbytes
+        self.largest[purpose][kind] = max(self.largest[purpose][kind], nbytes)
 
     def snapshot(self) -> Dict[str, Dict[str, int]]:
         return {p: dict(k) for p, k in self.counts.items()}
@@ -141,12 +145,15 @@ class Collectives:
             t.div_(self.size)
         return t
 
-    def reduce_scatter(self, t: torch.Tensor, dim: int, purpose: str) -> torch.Tensor:
-        """This rank's block along ``dim`` of the group's mean of ``t``."""
+    def reduce_scatter(self, t: torch.Tensor, dim: int, purpose: str,
+                       mean: bool = True) -> torch.Tensor:
+        """This rank's block along ``dim`` of the group's mean of ``t`` (its
+        sum when not ``mean``)."""
         if self.group is None:
             return t
         self._count(purpose, "reduce_scatter", t)
-        front = (t.movedim(dim, 0) / self.size).contiguous()
+        front = t.movedim(dim, 0)
+        front = (front / self.size if mean else front).contiguous()
         out = front.new_empty((front.shape[0] // self.size,) + tuple(front.shape[1:]))
         _reduce_scatter(out, front, group=self.group)
         return out.movedim(0, dim)

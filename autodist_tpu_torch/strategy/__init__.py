@@ -1,8 +1,12 @@
-"""Strategy layer of the port: serializable plans + the builders ported so
-far (PS, PSLoadBalancing, PartitionedPS, UnevenPartitionedPS, AllReduce,
-PartitionedAR, RandomAxisPartitionAR, Parallax, Zero1, TensorParallel)."""
+"""Strategy layer of the port: serializable plans, the builders (PS,
+PSLoadBalancing, PartitionedPS, UnevenPartitionedPS, AllReduce,
+PartitionedAR, RandomAxisPartitionAR, Parallax, Zero1, TensorParallel) and
+``Auto``, which picks one by the cost model (``cost_model.py``) on the
+resource spec's GPU node model; ``explain.py`` prints its ranking."""
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
+from autodist_tpu_torch.strategy.auto_strategy import Auto
 from autodist_tpu_torch.strategy.base import StrategyBuilder, StrategyCompiler
+from autodist_tpu_torch.strategy.cost_model import CostModel, StrategyCost
 from autodist_tpu_torch.strategy.ir import (
     AllReduceSpec,
     AllReduceSynchronizer,
@@ -24,12 +28,15 @@ from autodist_tpu_torch.strategy.zero1_strategy import Zero1
 
 BUILTIN_BUILDERS = {cls.__name__: cls for cls in (
     PS, PSLoadBalancing, PartitionedPS, UnevenPartitionedPS, AllReduce, PartitionedAR,
-    RandomAxisPartitionAR, Parallax, Zero1, TensorParallel)}
+    RandomAxisPartitionAR, Parallax, Auto, Zero1, TensorParallel)}
 
 
 def from_name(name: str, **kwargs) -> StrategyBuilder:
-    """Builder by class name. The JAX package's Auto and Plan are in
-    ROADMAP.md."""
+    """Builder by class name. The JAX package's search-based ``Plan`` is
+    not ported yet (ROADMAP.md Queue 1 item 11)."""
+    if name in ("plan", "Plan"):
+        raise NotImplementedError("the Plan builder (plan/) is not ported yet; see "
+                                  "ROADMAP.md Queue 1 item 11")
     if name not in BUILTIN_BUILDERS:
         raise ValueError(f"unknown or unported strategy {name!r}; ported: "
                          f"{sorted(BUILTIN_BUILDERS)} (the others are in ROADMAP.md)")
@@ -37,7 +44,8 @@ def from_name(name: str, **kwargs) -> StrategyBuilder:
 
 
 __all__ = [
-    "AllReduce", "AllReduceSpec", "AllReduceSynchronizer", "BUILTIN_BUILDERS",
+    "AllReduce", "AllReduceSpec", "AllReduceSynchronizer", "Auto", "BUILTIN_BUILDERS",
+    "CostModel", "StrategyCost",
     "GraphConfig", "NodeConfig", "PS", "PSLoadBalancing", "PSSynchronizer", "Parallax",
     "PartitionedAR", "PartitionedPS", "RandomAxisPartitionAR", "Strategy",
     "StrategyBuilder", "StrategyCompiler", "TensorParallel", "UnevenPartitionedPS", "Zero1",

@@ -213,6 +213,34 @@ Phases, each printing one JSON line:
     5`` times each in bert_base's window. Degree 2 has no rendering on one
     card (``TP_MODELS``' comment).
 
+19. ``auto_plan``: the node model ``ResourceSpec.from_local_devices`` reads
+    from the card, and ``explain``'s table for bert_base, ResNet-50, LM1B
+    and NCF at the zoo's batches (``AUTO_MODELS``) on this card, an 8-GPU
+    node and 4 nodes of 8 with the same node model (resource dicts; nothing
+    runs there). Auto must send LM1B and NCF to Parallax, and each ranking
+    (names and predicted seconds) must equal the one of the same model made
+    on the CPU and a spec built from the same constants.
+20. ``auto_train``: ``AutoDist(strategy_builder="Auto")`` on bert_base
+    (flash, TRAIN_SEQ, TRAIN_BATCH) and NCF (batch 4096), one NCCL rank
+    (``--auto-rank``, deterministic algorithms), 1 + AUTO_STEPS Adam steps:
+    finite losses, bitwise equal to the builder Auto chose named
+    explicitly (the same Strategy JSON), the flash kernels ``num_layers x
+    AUTO_STEPS`` times each in bert_base's windows.
+21. ``tune``: ``AutoDist.tune`` on bert_base over the dense slate with
+    window TUNE_WINDOW on the card: each candidate's measured and predicted
+    seconds a step, the fastest selected, the calibration written to a
+    temporary directory; the flash launches of every timed step counted.
+    At world size 1 the candidates differ only by overhead: the phase
+    checks the mechanism, not a ranking.
+22. ``sparse_rehearsal``: not a card result: 4 gloo ranks on the CPU
+    (``--sparse-cpu-rank``, the card machine's torch) train the sparse
+    cases (``SPARSE_CASES``: a 4096 x 16 table at batch 64 under AllReduce,
+    PSLoadBalancing and Parallax; LM1B and NCF at small widths under
+    Parallax) 3 Adam steps: no row read's collective, and in the table
+    cases no collective of the step, moves a quarter of a table; each
+    step's bytes by purpose and kind equal the step's prediction; the
+    parameters equal the one-process step's within rtol 2e-5 / atol 2e-6.
+
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
 Then the kernel table line, the card line and, last, the result line.
@@ -222,6 +250,7 @@ repo, or when any phase fails.
 from __future__ import annotations
 
 import asyncio
+import io
 import json
 import os
 import statistics
@@ -518,6 +547,38 @@ TP_MODELS = (
      TRAIN_BATCH, "TensorParallel", "model", ()),
     ("moe", "moe_transformer", TP_MOE, 32, "AllReduce", "expert", ("expert_",)),
 )
+
+
+# auto_plan: (key, zoo name, overrides, batch) explain ranks, at the zoo's
+# batches (bert_base at TRAIN_SEQ and TRAIN_BATCH with flash); Auto must
+# send AUTO_SPARSE to Parallax; the clusters beyond this card: one node of
+# AUTO_NODE_GPUS GPUs and AUTO_NODES nodes of them, with the card's node model.
+AUTO_MODELS = (("bert_base", "bert_base", {"max_seq_len": TRAIN_SEQ, "attention_impl": "flash"},
+                TRAIN_BATCH),) + tuple((key, *PUBLISHED[key][:3])
+                                      for key in ("resnet50", "lm1b", "ncf"))
+AUTO_SPARSE = ("lm1b", "ncf")
+AUTO_NODE_GPUS, AUTO_NODES = 8, 4
+# auto_train: 1 + AUTO_STEPS Adam steps (DIST_OPT) of each under Auto and
+# under the builder Auto chose, named.
+AUTO_STEPS = 5
+AUTO_TRAIN = (AUTO_MODELS[0], ("ncf", *PUBLISHED["ncf"][:3]))
+# tune: bert_base (AUTO_MODELS[0]) over the dense slate, TUNE_WINDOW steps a
+# window (one warm-up window and api._TUNE_TRIAL_WINDOWS timed ones).
+TUNE_WINDOW = 2
+# sparse_rehearsal: (id, model, builder, overrides, batch) on 4 gloo CPU
+# ranks, REHEARSAL_STEPS Adam steps at DIST_OPT, against the one-process
+# step within REHEARSAL_RTOL / REHEARSAL_ATOL; "embed" is JAX's
+# tests/test_sparse_wire.py model (a 4096 x 16 table, batch 64).
+SPARSE_EMBED = (4096, 16, 64)
+SPARSE_LSTM = dict(vocab_size=4096, embed_dim=16, hidden=32, num_layers=2, seq_len=8)
+SPARSE_NCF = dict(num_users=4096, num_items=2048, mf_dim=8, mlp_dims=(16, 16, 8))
+SPARSE_CASES = (("embed/AllReduce", "embed", "AllReduce", {}, 64),
+                ("embed/PSLoadBalancing", "embed", "PSLoadBalancing", {}, 64),
+                ("embed/Parallax", "embed", "Parallax", {}, 64),
+                ("lm1b/Parallax", "lstm_lm", "Parallax", SPARSE_LSTM, 8),
+                ("ncf/Parallax", "ncf", "Parallax", SPARSE_NCF, 64))
+# The bytes a row-split table's collectives and a step's prediction count.
+SPARSE_WIRE = ("grad", "param", "sparse", "table")
 
 
 def emit(phase: str, **fields) -> None:
@@ -2964,6 +3025,309 @@ def tp_train(card: str) -> list:
         emit("tp_train", **row, process_seconds=time.perf_counter() - t0, card=card)
     return rows
 
+def _builder_name(strategy, item, spec) -> str:
+    """The slate name whose builder gives ``strategy``'s JSON (id and path
+    aside), first in slate order."""
+    from autodist_tpu_torch.strategy.cost_model import candidate_slate
+
+    def key(s):
+        d = s.to_json()
+        d["id"] = d["path"] = ""
+        return json.dumps(d, sort_keys=True)
+
+    want = key(strategy)
+    for name, builder in candidate_slate(full=True):
+        if key(StrategyCompiler(item).compile(builder.build(item, spec))) == want:
+            return name
+    raise RuntimeError("no slate builder gives this strategy")
+
+
+def auto_plan(card: str, dev) -> list:
+    """The auto_plan phase (see the module docstring)."""
+    from autodist_tpu_torch.strategy import Auto, Parallax, RandomAxisPartitionAR
+    from autodist_tpu_torch.strategy import explain as ex
+    from autodist_tpu_torch.strategy.cost_model import candidate_slate
+
+    local = ResourceSpec.from_local_devices(dev)
+    node = local.gpu.to_dict()
+    emit("auto_plan_node", node_model=node, hbm_bytes=local.gpu.hbm_bytes,
+         hbm_bandwidth_bytes=local.gpu.hbm_bandwidth_bytes,
+         intra_node_gbps=local.gpu.intra_node_gbps, card=card)
+    clusters = {
+        "this card": local,
+        f"{AUTO_NODE_GPUS}-GPU node": ResourceSpec(resource_dict={
+            "nodes": [{"address": "localhost", "gpus": AUTO_NODE_GPUS}], "gpu": node}),
+        f"{AUTO_NODES} nodes x {AUTO_NODE_GPUS}": ResourceSpec(resource_dict={
+            "nodes": [{"address": f"10.0.0.{i}", "gpus": AUTO_NODE_GPUS, "chief": i == 1}
+                      for i in range(1, AUTO_NODES + 1)], "gpu": node})}
+    # RandomAxisPartitionAR draws its axes: seeded, so the card's table and
+    # the CPU's compare.
+    slate = [(n, RandomAxisPartitionAR(seed=SEED) if n == "RandomAxisPartitionAR" else b)
+             for n, b in candidate_slate(full=True)]
+    rows = []
+    for key, model, overrides, batch in AUTO_MODELS:
+        item = ex.model_item_for(model, batch, dev, **overrides)
+        cpu_item = ex.model_item_for(model, batch, "cpu", **overrides)
+        for cname, rs in clusters.items():
+            out = io.StringIO()
+            ranked = ex.explain(item, rs, candidates=slate, out=out)
+            print(f"auto_plan {key} on {cname}:{out.getvalue()}", flush=True)
+            cpu_ranked = ex.explain(cpu_item, ResourceSpec(resource_dict=rs.to_dict()),
+                                    candidates=slate, out=io.StringIO())
+            check([(n, c.total_s) for n, c in ranked] == [(n, c.total_s)
+                                                          for n, c in cpu_ranked],
+                  f"auto_plan {key} on {cname}: the card's ranking differs from the CPU's")
+            auto = Auto().build(item, rs)
+            chosen = _builder_name(StrategyCompiler(item).compile(auto), item, rs)
+            if key in AUTO_SPARSE:
+                check(chosen == "Parallax" and json.dumps(auto.to_json()["node_config"]) ==
+                      json.dumps(Parallax().build(item, rs).to_json()["node_config"]),
+                      f"auto_plan {key} on {cname}: Auto chose {chosen}, not Parallax")
+            recommended = next(line for line in out.getvalue().splitlines()
+                               if line.startswith("recommended:"))
+            row = dict(model=key, cluster=cname, batch=batch, auto=chosen,
+                       recommended=recommended,
+                       ranking=[(n, c.total_s * 1e3, c.per_chip_bytes / 1e9, c.feasible)
+                                for n, c in ranked], card=card)
+            emit("auto_plan", **row)
+            rows.append(row)
+        del item, cpu_item
+        torch.cuda.empty_cache()
+    return rows
+
+
+def auto_rank(rank: int, world: int, work: str) -> int:
+    """auto_train's process (see the module docstring)."""
+    from autodist_tpu_torch.strategy.cost_model import candidate_slate
+
+    dev = _deterministic(rank)
+    rows = []
+    for key, model, overrides, batch_size in AUTO_TRAIN:
+        spec = get_model_spec(model, **overrides)
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(batch_size, device=dev)
+        runs, chosen = {}, None
+        for label in ("Auto", "named"):
+            AutoDist.reset_default()
+            builder = "Auto" if label == "Auto" else dict(candidate_slate(full=True))[chosen]
+            autodist = AutoDist(strategy_builder=builder,
+                                device="cuda", init_method=f"file://{work}/pg",
+                                world_size=world, rank=rank, timeout_s=DIST_GROUP_TIMEOUT_S)
+            step = autodist.build(spec.loss_fn, params, batch,
+                                  optimizer=OptimizerSpec(*DIST_OPT),
+                                  sparse_names=spec.sparse_names)
+            state, losses, ms, launches, wire = _train_window(step, params, batch,
+                                                              AUTO_STEPS, dev)
+            strategy = autodist.strategy.to_json()
+            strategy["id"] = strategy["path"] = ""
+            if label == "Auto":
+                chosen = _builder_name(autodist.strategy, autodist.model_item,
+                                       autodist.resource_spec)
+            runs[label] = dict(losses=losses, ms_per_step=ms, kernel_launches=launches,
+                               strategy=json.dumps(strategy, sort_keys=True),
+                               params=flatten_params(step.logical_params(state)))
+            del step, state
+            torch.cuda.empty_cache()
+        auto, named = runs["Auto"], runs["named"]
+        diff = max((auto["params"][n].float() - t.float()).abs().max().item()
+                   for n, t in named["params"].items())
+        row = dict(model=key, config=overrides, batch=batch_size, steps=1 + AUTO_STEPS,
+                   optimizer=DIST_OPT, world=world, chosen=chosen,
+                   losses=auto["losses"], named_losses=named["losses"],
+                   ms_per_step=auto["ms_per_step"], named_ms_per_step=named["ms_per_step"],
+                   kernel_launches=auto["kernel_launches"],
+                   named_kernel_launches=named["kernel_launches"], max_param_diff=diff,
+                   bitwise=diff == 0.0 and auto["losses"] == named["losses"])
+        check(auto["strategy"] == named["strategy"], f"auto {key}: Auto's strategy is not "
+              f"{chosen}'s")
+        check(all(np.isfinite(auto["losses"])), f"auto {key}: losses {auto['losses']}")
+        check(row["bitwise"], f"auto {key}: not bitwise equal to {chosen} (param diff {diff})")
+        if spec.config is not None and getattr(spec.config, "attention_impl", "") == "flash":
+            for run in (auto, named):
+                for kind in ("fwd", "dkdv", "dq"):
+                    check(run["kernel_launches"][kind] == spec.config.num_layers * AUTO_STEPS,
+                          f"auto {key}: flash {kind} launches {run['kernel_launches'][kind]}")
+        rows.append(row)
+        del params, runs, auto, named
+        torch.cuda.empty_cache()
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def auto_train(card: str) -> list:
+    """The auto_train phase: one NCCL rank on cuda:0. Returns its rows."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rows = _spawn_ranks("--auto-rank", 1, work, env)[0]
+    for row in rows:
+        emit("auto_train", **row, process_seconds=time.perf_counter() - t0, card=card)
+    return rows
+
+
+def tune_phase(card: str, dev) -> dict:
+    """The tune phase (see the module docstring)."""
+    from autodist_tpu_torch import api
+    from autodist_tpu_torch.strategy.cost_model import candidate_slate
+
+    key, model, overrides, batch_size = AUTO_MODELS[0]
+    spec = get_model_spec(model, **overrides)
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(batch_size, device=dev)
+    AutoDist.reset_default()
+    autodist = AutoDist(device=dev)
+    slate = candidate_slate(include_sparse=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calibration.json")
+        reset_launches()
+        t0 = time.perf_counter()
+        autodist.tune(spec.loss_fn, params, batch, candidates=slate, window=TUNE_WINDOW,
+                      optimizer=OptimizerSpec(*DIST_OPT), calibration_path=path)
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        written = os.path.exists(path)
+    rec = autodist.last_tune_results
+    calib = rec["calibration"]
+    table = {name: dict(measured_ms=row["measured_s"] * 1e3,
+                        predicted_ms=row["predicted_s"] * 1e3,
+                        calibrated_ms=(calib.base_s + calib.scale * row["predicted_s"]) * 1e3)
+             for name, row in rec["table"].items()}
+    ran = [n for n, dt in rec["measured"].items() if np.isfinite(dt)]
+    row = dict(model=key, batch=batch_size, window=TUNE_WINDOW, candidates=[n for n, _ in slate],
+               table=table, selected=rec["selected"],
+               calibration=dict(base_ms=calib.base_s * 1e3, scale=calib.scale,
+                                device=calib.device, n_points=calib.n_points),
+               calibration_written=written, seconds=seconds, kernel_launches=launches,
+               card=card)
+    emit("tune", **row)
+    check(written, "tune: the calibration was not written")
+    check(len(ran) == len(slate), f"tune: candidates failed: {rec['measured']}")
+    check(rec["selected"] == min(ran, key=rec["measured"].get), "tune: not the fastest")
+    steps = len(ran) * (1 + api._TUNE_TRIAL_WINDOWS) * TUNE_WINDOW
+    for kind in ("fwd", "dkdv", "dq"):
+        check(launches[kind] == spec.config.num_layers * steps,
+              f"tune: flash {kind} launches {launches[kind]} != "
+              f"{spec.config.num_layers} x {steps}")
+    del autodist, params, batch
+    AutoDist.reset_default()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sparse_inputs(model: str, overrides: dict, batch_size: int):
+    """(loss, params, batch) of a sparse_rehearsal case on the CPU."""
+    if model == "embed":
+        vocab, edim, _ = SPARSE_EMBED
+        gen = torch.Generator().manual_seed(SEED)
+        params = {"embedding": torch.randn(vocab, edim, generator=gen),
+                  "w": torch.randn(edim, 1, generator=gen)}
+        batch = (torch.randint(0, vocab, (batch_size,), generator=gen),
+                 torch.randn(batch_size, generator=gen))
+
+        def loss(p, b):
+            ids, y = b
+            return torch.mean(((p["embedding"][ids] @ p["w"]).squeeze(-1) - y) ** 2)
+        return loss, params, batch
+    spec = get_model_spec(model, **overrides)
+    params = spec.init(SEED, device="cpu")
+    batch = spec.example_batch(batch_size, device="cpu")
+    if model == "lstm_lm":
+        gen = torch.Generator().manual_seed(SEED)
+        batch = {"tokens": torch.randint(0, overrides["vocab_size"], batch["tokens"].shape,
+                                         generator=gen, dtype=torch.int32)}
+
+        def loss(p, b):          # in fp32, as the one-process comparison needs
+            t = b["tokens"]
+            return L.softmax_xent(lstm_lm.forward(p, t[:, :-1], overrides["num_layers"],
+                                                  overrides["hidden"], dtype=torch.float32),
+                                  t[:, 1:])
+        return loss, params, batch
+    return spec.loss_fn, params, batch
+
+
+def sparse_cpu_rank(rank: int, world: int, work: str) -> int:
+    """One gloo rank of the sparse rehearsal."""
+    torch.set_num_threads(1)
+    out = {}
+    for cid, model, builder, overrides, batch_size in SPARSE_CASES:
+        loss, params, batch = _sparse_inputs(model, overrides, batch_size)
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=from_name(builder), device="cpu",
+                            resource_spec=ResourceSpec(resource_dict={"nodes": [
+                                {"address": "localhost", "gpus": world}]}),
+                            init_method=f"file://{work}/pg", world_size=world, rank=rank,
+                            timeout_s=DIST_GROUP_TIMEOUT_S)
+        step = autodist.build(loss, params, batch, optimizer=OptimizerSpec(*DIST_OPT))
+        state, moved = step.init(params), []
+        for _ in range(REHEARSAL_STEPS):
+            state, _ = step(state, batch)
+            moved.append({p: step.last_bytes.get(p, {}) for p in SPARSE_WIRE
+                          if p in step.last_bytes})
+        out[cid] = {
+            "params": {n: t.tolist() for n, t in flatten_params(
+                step.logical_params(state)).items()},
+            "bytes": moved, "predicted": step.predicted_bytes(state, batch),
+            "largest": {p: dict(k) for p, k in step.coll.largest.items()
+                        if p not in ("init", "view")},
+            "renderings": {n: autodist.plan.rendering(n) for n in autodist.plan.var_plans},
+            "tables": {n: p.var.size * 4 for n, p in autodist.plan.var_plans.items()
+                       if p.var.sparse_update}}
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def sparse_rehearsal() -> dict:
+    """4 gloo ranks on the CPU: the touched-rows wire against its
+    prediction, the quarter-table bar and the one-process step."""
+    t0 = time.perf_counter()
+    cpu_env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as work:
+        ranks = _spawn_ranks("--sparse-cpu-rank", REHEARSAL_RANKS, work, cpu_env)
+    cases = {}
+    for cid, model, builder, overrides, batch_size in SPARSE_CASES:
+        loss, params, batch = _sparse_inputs(model, overrides, batch_size)
+        step = _one_process_step(from_name(builder), loss, params, batch, torch.device("cpu"))
+        state = step.init(params)
+        for _ in range(REHEARSAL_STEPS):
+            state, _ = step(state, batch)
+        want = flatten_params(step.logical_params(state))
+        got = ranks[0][cid]
+        for r, res in enumerate(ranks):
+            for n, t in want.items():
+                check(torch.allclose(torch.tensor(res[cid]["params"][n]), t,
+                                     rtol=REHEARSAL_RTOL, atol=REHEARSAL_ATOL),
+                      f"sparse rehearsal {cid} rank {r} {n} differs from one process")
+            for moved in res[cid]["bytes"]:
+                check(moved == res[cid]["predicted"],
+                      f"sparse rehearsal {cid}: bytes {moved} != {res[cid]['predicted']}")
+        tables = got["tables"]
+        check(all(got["renderings"][n][0] == "sparse" for n in tables),
+              f"sparse rehearsal {cid}: renderings {got['renderings']}")
+        quarter = min(tables.values()) // 4
+        largest = got["largest"]
+        check(max(largest["sparse"].values()) < quarter,
+              f"sparse rehearsal {cid}: a row read moved {largest['sparse']}")
+        if model == "embed":
+            worst = max(max(k.values()) for k in largest.values())
+            check(worst < quarter, f"sparse rehearsal {cid}: a collective moved {worst} "
+                  f">= a quarter of the table ({quarter})")
+        cases[cid] = dict(bytes_per_step=got["bytes"][-1], predicted=got["predicted"],
+                          largest=largest, table_bytes=tables,
+                          max_abs_diff_vs_one_process=max(
+                              (torch.tensor(got["params"][n]) - t).abs().max().item()
+                              for n, t in want.items()))
+    row = dict(note="gloo on the CPU: a rehearsal, not a card result", ranks=REHEARSAL_RANKS,
+               steps=REHEARSAL_STEPS, torch=torch.__version__, cases=cases,
+               rtol=REHEARSAL_RTOL, atol=REHEARSAL_ATOL, seconds=time.perf_counter() - t0)
+    emit("sparse_rehearsal", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3035,6 +3399,10 @@ def main() -> int:
     dist_rows = dist_train(card)
     sync_rows = sync_options(card)
     tp_rows = tp_train(card)
+    auto_plan(card, dev)
+    auto_rows = auto_train(card)
+    tune_row = tune_phase(card, dev)
+    sparse_rehearsal()
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -3066,7 +3434,10 @@ def main() -> int:
             "launches": sum(t["kernel_launches"][kind]
                             for t in train_rows + dist_rows + sync_rows + ckpt_rows)
             + saved_row["kernel_launches"][kind]
-            + sum(t["kernel_launches"][kind] for t in tp_rows),
+            + sum(t["kernel_launches"][kind] for t in tp_rows)
+            + sum(t["kernel_launches"][kind] + t["named_kernel_launches"][kind]
+                  for t in auto_rows)
+            + tune_row["kernel_launches"][kind],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -3105,7 +3476,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     RANK_MAINS = {"--dist-rank": dist_rank, "--dist-cpu-rank": dist_cpu_rank,
-                  "--sync-rank": sync_rank, "--ckpt-rank": ckpt_rank, "--tp-rank": tp_rank}
+                  "--sync-rank": sync_rank, "--ckpt-rank": ckpt_rank, "--tp-rank": tp_rank,
+                  "--auto-rank": auto_rank, "--sparse-cpu-rank": sparse_cpu_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

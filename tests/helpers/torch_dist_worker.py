@@ -8,13 +8,18 @@ global batch)``) and ``cases`` (each a dict: ``id``, ``model``, ``builder``,
 ``accum``, ``overrides`` for the zoo models, ``comp_state``: the JAX
 step's initial compressor state as numpy, carried to each rank; ``mesh``
 and ``mesh_axes``: the resource spec's mesh block and the AutoDist's axes,
-for tensor and expert parallelism; ``expert_names``). The rank
+for tensor and expert parallelism; ``expert_names``; ``tune``: candidate
+builder names to run ``AutoDist.tune`` over instead of training, with
+``fail_rank``: the rank whose loss fails in the candidates' steps;
+``bad_id``: an id outside the table put into the embed model's batch). The rank
 joins the group at
 ``file://INIT_FILE`` (with a timeout) through ``AutoDist(init_method=...)``,
 trains each case through ``AutoDist.build`` and the step on the global
 batch, and saves ``OUT_DIR/rank<RANK>.pt``: per case the losses, the
 logical params after the last step, the collectives of each step and the
-plan's prediction, the compressor and staleness state of the trained
+plan's prediction, the bytes of each step's collectives with the step's
+prediction of them (``predicted_bytes``) and the largest single payload
+by purpose and kind, the compressor and staleness state of the trained
 step, and a case's checkpoint work (``save``: a directory to write the
 trained state to; ``restore``: directories to restore a fresh state from,
 each reported as this rank's data of every leaf). Imports only torch, numpy and the port, so a child does
@@ -32,7 +37,7 @@ from autodist_tpu_torch.models import get_model_spec
 from autodist_tpu_torch.models.convert import comp_state_from_jax, flatten_params
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
-from autodist_tpu_torch.strategy import from_name
+from autodist_tpu_torch.strategy import StrategyBuilder, from_name
 
 GROUP_TIMEOUT_S = 60.0
 
@@ -58,7 +63,7 @@ def masked_loss(params, batch):
 
 
 LOSSES = {"dense": dense_loss, "dense8": dense_loss, "embed": embed_loss,
-          "masked": masked_loss, "masked_equal": masked_loss}
+          "embed_wide": embed_loss, "masked": masked_loss, "masked_equal": masked_loss}
 
 
 def resnet_loss(depth):
@@ -72,13 +77,28 @@ def resnet_loss(depth):
     return loss
 
 
+def lstm_loss(num_layers, hidden):
+    """LM1B's loss with its LSTM in fp32 (the zoo spec computes in bf16)."""
+    from autodist_tpu_torch.models import layers as L
+    from autodist_tpu_torch.models import lstm_lm as M
+
+    def loss(params, batch):
+        tokens = batch["tokens"]
+        return L.softmax_xent(M.forward(params, tokens[:, :-1], num_layers, hidden,
+                                        dtype=torch.float32), tokens[:, 1:])
+    return loss
+
+
 def loss_for(case):
-    """The port's loss of a case: a toy model above, ResNet in fp32, else a
-    zoo spec's."""
+    """The port's loss of a case: a toy model above, ResNet or LM1B in fp32,
+    else a zoo spec's."""
     if case["model"] in LOSSES:
         return LOSSES[case["model"]]
     if case["zoo"] == "resnet":
         return resnet_loss(case["depth"])
+    if case["zoo"] == "lstm_lm" and case.get("fp32"):
+        o = case["overrides"]
+        return lstm_loss(o["num_layers"], o["hidden"])
     return get_model_spec(case["zoo"], **case.get("overrides", {})).loss_fn
 
 
@@ -106,8 +126,62 @@ def train(case, params, batch, **autodist_kwargs):
     for _ in range(case["steps"]):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
-        wire.append(step.last_collectives)
+        wire.append((step.last_collectives, step.last_bytes))
     return ad, step, state, losses, wire, float(step.evaluate(state, batch)["loss"])
+
+
+class _Refuses(StrategyBuilder):
+    """A tune candidate whose builder raises (on the chief, where it runs)."""
+
+    def build(self, model_item, resource_spec):
+        raise ValueError("this builder refuses every model")
+
+
+def _fails_on_device(loss_fn):
+    """The loss, raising wherever it computes (a rank out of memory in
+    its steps); the meta trace of the build still passes."""
+
+    def loss(params, batch):
+        first = batch[0] if isinstance(batch, (tuple, list)) else next(iter(batch.values()))
+        if not first.is_meta:
+            raise MemoryError("out of memory (injected by the test)")
+        return loss_fn(params, batch)
+
+    return loss
+
+
+def tune(case, params, batch, **autodist_kwargs):
+    """``AutoDist.tune`` over the case's candidate names (``"Refuses"``: a
+    builder that raises): what was selected, each candidate's measured
+    seconds and the builder the AutoDist kept; or the error it raised
+    (``fail_rank``: the rank whose loss fails in its steps)."""
+    api.AutoDist.reset_default()
+    ad = api.AutoDist(device="cpu", **autodist_kwargs)
+    opt = model_item.OptimizerSpec(case["opt"], dict(case["opt_kwargs"]))
+    loss = loss_for(case)
+    if case.get("fail_rank") == autodist_kwargs["rank"]:
+        loss = _fails_on_device(loss)
+    candidates = [(n, _Refuses() if n == "Refuses" else from_name(n)) for n in case["tune"]]
+    try:
+        ad.tune(loss, params, batch, candidates=candidates, window=1, optimizer=opt)
+    except RuntimeError as e:
+        return {"error": str(e)}
+    return {"selected": ad.last_tune_results["selected"],
+            "measured": ad.last_tune_results["measured"],
+            "builder": type(ad.strategy_builder).__name__}
+
+
+def bad_id(case, params, batch, **autodist_kwargs):
+    """The error each rank raises when the global batch of the embed model
+    holds ``bad_id`` (``None``: it trained)."""
+    ids, y = batch
+    ids = ids.clone()
+    ids[5] = case["bad_id"]
+    try:
+        train(case, params, (ids, y), **autodist_kwargs)
+    except IndexError as e:
+        return {"error": str(e)}
+    return {"error": None}
 
 
 def _local_blocks(step, state):
@@ -159,6 +233,12 @@ def main(job_path, rank, world, init_file, out_dir):
         spec = ResourceSpec(resource_dict={"nodes": [
             {"address": "localhost", "gpus": world, "chief": True}], **mesh})
         axes = {"mesh_axes": case["mesh_axes"]} if case.get("mesh_axes") else {}
+        if case.get("tune") or "bad_id" in case:
+            run = tune if case.get("tune") else bad_id
+            out[case["id"]] = run(case, params, batch, resource_spec=spec,
+                                  init_method=f"file://{init_file}", world_size=world,
+                                  rank=rank, timeout_s=GROUP_TIMEOUT_S)
+            continue
         ad, step, state, losses, wire, evaluated = train(
             case, params, batch, resource_spec=spec, init_method=f"file://{init_file}",
             world_size=world, rank=rank, timeout_s=GROUP_TIMEOUT_S, **axes)
@@ -167,8 +247,11 @@ def main(job_path, rank, world, init_file, out_dir):
             "losses": losses,
             "eval": evaluated,
             "params": {k: v.numpy().copy() for k, v in flatten_params(logical).items()},
-            "collectives": wire,
+            "collectives": [counts for counts, _ in wire],
+            "bytes": [moved for _, moved in wire],
             "predicted": ad.plan.collectives_per_step(bucketed=step.accum == 1),
+            "predicted_bytes": step.predicted_bytes(state, batch),
+            "largest": {p: dict(k) for p, k in step.coll.largest.items()},
             "manual": step.manual,
             "renderings": {n: ad.plan.rendering(n) for n in ad.plan.var_plans},
             "padded": [n for n, p in ad.plan.var_plans.items() if p.storage_shape],

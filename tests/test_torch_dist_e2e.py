@@ -48,11 +48,16 @@ def test_four_ranks_match_jax_and_one_process(c, runs):
 def test_zero1_wire_is_reduce_scatter_and_all_gather(bid, runs):
     """Per step: one all-reduce per replicated variable (or bucket of
     them), never one for a ZeRO-1 or sharded variable, which reduce-scatter
-    their gradient and all-gather their values."""
+    their gradient and all-gather their values. A table split by rows in
+    the GSPMD semantics (``sparse``) issues none of these: its touched rows
+    move under the ``sparse`` purpose."""
     results = runs[0][0]
     for model in ("dense", "embed"):
         got = results[f"{bid}/{model}/adam"]
-        kinds = [kind for kind, _ in got["renderings"].values()]
+        kinds = [kind for kind, _ in got["renderings"].values() if kind != "sparse"]
+        if len(kinds) < len(got["renderings"]):
+            assert all(counts["sparse"] == {"all_gather": 2, "reduce_scatter": 1}
+                       for counts in got["collectives"]), got["collectives"]
         replicated = kinds.count("replicated")
         want = {"all_gather": len(kinds) - replicated}
         if "buckets" not in bid:

@@ -43,6 +43,7 @@ def test_scan_sees_the_whole_port():
     assert "tools/torch_dist_profile.py" in names
     assert "tools/torch_serve_profile.py" in names
     assert "tools/torch_crossover_sweep.py" in names
+    assert "tools/torch_sparse_wire_profile.py" in names
     assert "autodist_tpu_torch/ops/paged_attention.py" in names
     assert "autodist_tpu_torch/serve/engine.py" in names
     for new in ("ops/flash_attention.py", "models/spec.py", "const.py",
@@ -57,7 +58,9 @@ def test_scan_sees_the_whole_port():
                 "serve/sampling.py", "serve/spec.py", "serve/prefix.py",
                 "ops/crossover.py", "ops/library.py", "utils/prng.py",
                 "checkpoint/__init__.py", "checkpoint/saver.py", "checkpoint/names.py",
-                "checkpoint/saved_model.py", "checkpoint/dcp_compat.py"):
+                "checkpoint/saved_model.py", "checkpoint/dcp_compat.py",
+                "strategy/cost_model.py", "strategy/auto_strategy.py",
+                "strategy/explain.py", "kernel/sparse.py", "kernel/bucketing.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()
