@@ -45,8 +45,13 @@ the model and the resource spec's GPU node model
 (``strategy/auto_strategy.py``); :meth:`AutoDist.tune` measures instead:
 it trains each candidate of the slate for a few windows on the device,
 keeps the fastest and fits the cost model's calibration to the times.
-``build_pipeline``, ``elastic_rebuild``, fault tolerance and observability
-are not ported yet (ROADMAP.md).
+``fault_tolerance=FTConfig(...)`` gives ``autodist.ft`` (``ft/``: a
+started heartbeat monitor, the snapshot ring and its preemption hook);
+:meth:`AutoDist.elastic_rebuild` rebuilds over the surviving ranks' group
+and restores the newest verified snapshot into it. A process started by
+the port's launcher (``runtime/launcher.py``) joins the group from the
+environment it sets. ``build_pipeline`` and the JAX package's
+observability runtime are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import math
 import os
 import re
 import time
-from typing import Any, Callable, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Any, Callable, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -77,6 +82,9 @@ from autodist_tpu_torch.strategy.ir import PSSynchronizer, iter_synchronizers
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
 from autodist_tpu_torch.utils.retry import wait_until
+
+if TYPE_CHECKING:
+    from autodist_tpu_torch.ft import FTConfig, FTRuntime
 
 _default_autodist: Optional["AutoDist"] = None
 
@@ -187,12 +195,18 @@ class AutoDist:
                  init_method: Optional[str] = None, world_size: Optional[int] = None,
                  rank: Optional[int] = None,
                  timeout_s: float = pg.DEFAULT_TIMEOUT_S,
-                 mesh_axes: Sequence[str] = ("data", "model")):
+                 mesh_axes: Sequence[str] = ("data", "model"),
+                 fault_tolerance: "Optional[FTConfig]" = None):
         global _default_autodist
         if _default_autodist is not None:
             raise RuntimeError("Only one AutoDist instance is supported per process; "
                                "call AutoDist.reset_default() first if you really "
                                "need another.")
+        # A launcher's AUTODIST_* contract completes the torchrun variables
+        # pg.join reads (no-op for a single process or under torchrun).
+        from autodist_tpu_torch.runtime.launcher import initialize_from_env
+
+        initialize_from_env()
         self.device = resolve_device(device)
         self.mesh_axes = tuple(mesh_axes)
         self.group = pg.join(self.device, init_method, world_size, rank, timeout_s)
@@ -217,6 +231,13 @@ class AutoDist:
         self._strategy: Optional[Strategy] = None
         self._model_item: Optional[ModelItem] = None
         self.last_tune_results: Optional[dict] = None
+        # Fault tolerance: a started HealthMonitor + SnapshotManager bundle
+        # over this process's group, or None when the knob is off.
+        self.ft: "Optional[FTRuntime]" = None
+        if fault_tolerance is not None:
+            from autodist_tpu_torch.ft import FTRuntime
+
+            self.ft = FTRuntime(fault_tolerance, group=self.group)
         _default_autodist = self
 
     @classmethod
@@ -348,6 +369,40 @@ class AutoDist:
         logging.info("sync=False strategy: routed to host-driven AsyncPSTrainer "
                      "(%d workers, staleness=%d)", n_workers, staleness)
         return trainer
+
+    # -------------------------------------------------------------- elastic
+    def elastic_rebuild(self, loss_fn: Callable, params: Any, example_batch: Any = None,
+                        ranks: Optional[Sequence[int]] = None,
+                        optimizer: Union[OptimizerSpec, Optimizer, None] = None,
+                        **recompile_kwargs):
+        """Elastic restart onto the SURVIVING ranks (called by each of
+        them): re-derive the resource spec from the ranks still alive
+        (default: those the heartbeat monitor does not hold dead), form
+        their group, rebuild Strategy → plan → step over it, and restore
+        the newest integrity-verified snapshot into it (``ft/elastic.py``;
+        requires ``fault_tolerance=FTConfig(...)``).
+
+        Returns ``(step, state)``. This AutoDist's ``resource_spec``,
+        ``group`` and ``mesh`` are re-pointed at the survivors, so later
+        ``build`` calls plan for the cluster the restored state lives on."""
+        if self.ft is None:
+            raise RuntimeError("elastic_rebuild needs fault tolerance enabled: construct "
+                               "AutoDist(fault_tolerance=FTConfig(...))")
+        from autodist_tpu_torch.ft.elastic import surviving_resource_spec, survivors_group
+
+        ranks = list(ranks) if ranks is not None else self.ft.elastic.survivors()
+        group = survivors_group(ranks)
+        recompile_kwargs.setdefault("mesh_axes", self.mesh_axes)
+        step, state = self.ft.elastic.resume(
+            loss_fn, params, example_batch, ranks=ranks,
+            strategy_builder=self.strategy_builder, optimizer=optimizer,
+            spec_template=self.resource_spec, device=self.device, group=group,
+            **recompile_kwargs)
+        self.resource_spec = surviving_resource_spec(ranks, template=self.resource_spec)
+        self.group = group
+        self._mesh = step.plan.mesh
+        self._built = step
+        return step, state
 
     # ----------------------------------------------------------------- tune
     def tune(self, loss_fn: Callable, params: Any, example_batch: Any,

@@ -257,7 +257,7 @@ class Saver:
         return entries, files
 
     def save(self, tree: Any, path: Optional[str] = None, step: Optional[int] = None,
-             block: bool = True) -> str:
+             block: bool = True, sync_key: Optional[str] = None) -> str:
         """Write ``tree`` to ``path`` (default ``<directory>/ckpt-<step>``;
         a step-less save lands in ``ckpt-0``). Every rank of the group calls
         it, in the same order; each writes its own blocks, rank 0 the whole
@@ -268,25 +268,28 @@ class Saver:
         the calling thread (so the next step may change the tensors) and
         writes the files on a background thread; :meth:`wait` (or any
         restore or ``latest_checkpoint``) joins it and re-raises its
-        failure."""
+        failure. ``sync_key`` names the save's store barriers instead of
+        the path and this Saver's save count (the snapshot ring's
+        per-snapshot sequence, agreed across ranks)."""
         self.wait()
         if path is None:
             path = os.path.join(self.directory, f"ckpt-{step or 0}")
         entries, files = self._collect(tree)
         self._save_seq += 1
+        seq = self._save_seq if sync_key is None else sync_key
         if not block:
             # A copy: a CPU tensor's numpy view would follow the training.
             files = [(f, np.array(_to_numpy(v, d)), d) for f, v, d in files]
             # Non-daemon: a normal interpreter exit waits for the write.
             self._pending = threading.Thread(
-                target=self._write_guarded, args=(path, step, entries, files, self._save_seq))
+                target=self._write_guarded, args=(path, step, entries, files, seq))
             self._pending.start()
             return path
-        self._write(path, step, entries, files, self._save_seq)
+        self._write(path, step, entries, files, seq)
         return path
 
     def _write(self, path: str, step: Optional[int], entries: Dict[str, dict],
-               files: Sequence[Tuple[str, Any, str]], seq: int) -> None:
+               files: Sequence[Tuple[str, Any, str]], seq) -> None:
         """Stage into a tmp dir and swap it in, so a killed writer never
         leaves a metadata-less ``ckpt`` dir; across ranks all stage into one
         dir, with a store barrier between the steps."""
@@ -299,7 +302,8 @@ class Saver:
 
         def sync(tag: str) -> None:
             if barrier is not None:
-                barrier(f"autodist_torch/save/{digest}/{seq}/{tag}")
+                key = (f"{digest}/{seq}" if isinstance(seq, int) else str(seq))
+                barrier(f"autodist_torch/save/{key}/{tag}")
 
         if rank == 0:
             # Leftovers of killed writers: checkpoint-sized garbage that

@@ -122,12 +122,17 @@ logical shapes (optimizer slots under optax's paths,
 plans and between the packages. Where JAX donates the train state to the compiled step,
 the port updates the state's tensors in place under ``torch.no_grad()``:
 the state passed in is consumed, and the one returned holds the same
-(updated) tensors.
+(updated) tensors; :func:`steps_in_flight` tells the preemption hook
+(``ft/snapshot.py``) when a step is running. As the JAX step does, the
+first call of a program records a ``compile`` flight event (``obs/
+recorder.py``), a failure an ``error`` event, and ``GraphTransformer``
+a ``lowering.transform`` span (``obs/spans.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from dataclasses import dataclass, field, replace
 from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -155,7 +160,19 @@ from autodist_tpu_torch.strategy.ir import (
     PSSynchronizer,
     Strategy,
 )
+from autodist_tpu_torch.obs import recorder as flight
+from autodist_tpu_torch.obs import spans as obs_spans
 from autodist_tpu_torch.utils import logging
+
+#: Train steps running now in this process (their state is being updated in
+#: place): the preemption hook (``ft/snapshot.py``) takes no snapshot while
+#: one is, and defers to the next step boundary.
+_steps_in_flight = 0
+
+
+def steps_in_flight() -> int:
+    """How many train steps of this process are running now."""
+    return _steps_in_flight
 
 
 class SyncKind(Enum):
@@ -262,12 +279,19 @@ class GraphTransformer:
         self.host_offload = host_offload
 
     def transform(self) -> "ShardingPlan":
+        t_wall, t0 = time.time(), time.perf_counter()
         plans: Dict[str, VarPlan] = {}
         for node in self.strategy.node_config:
             var = self.model_item.var(node.var_name)
             plans[var.name] = self._lower_node(node, var)
         for var in self.model_item.variables:
             plans.setdefault(var.name, VarPlan(var=var, kind=SyncKind.ALL_REDUCE))
+        # Retroactive span (the JAX package's): how long lowering took and
+        # how many variables carry the zero1 reduce-scatter/all-gather.
+        obs_spans.add_span(
+            "lowering.transform", t_wall, time.perf_counter() - t0,
+            n_nodes=len(self.strategy.node_config),
+            shard_update_vars=sum(1 for p in plans.values() if p.shard_update))
         return ShardingPlan(mesh=self.mesh, var_plans=plans,
                             bucket_bytes=int(self.strategy.graph_config.bucket_bytes or 0))
 
@@ -865,6 +889,11 @@ class DistributedTrainStep:
         self.offloaded = {name for name, p in plan.var_plans.items() if p.offload}
         self.last_collectives: Dict[str, Dict[str, int]] = {}
         self.last_bytes: Dict[str, Dict[str, int]] = {}
+        # First calls, as the JAX step's compile log (program, first_call_s),
+        # and the count of steps completed (the preemption hook's staleness
+        # check on a registered state).
+        self.compile_log: List[Dict[str, Any]] = []
+        self.steps_taken = 0
         self.model_cut = any(kind in _MODEL_KINDS for kind, _ in self.render.values())
         data_cut = any(kind in ("zero1",) + _DATA_BLOCKS for kind, _ in self.render.values())
         if self.model_cut and data_cut and (optimizer.clip_norm is not None
@@ -1443,6 +1472,16 @@ class DistributedTrainStep:
                                         bucketed=self.accum == 1)
 
     def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        global _steps_in_flight
+        _steps_in_flight += 1
+        try:
+            out = self._update(state, batch)
+        finally:
+            _steps_in_flight -= 1
+        self.steps_taken += 1
+        return out
+
+    def _update(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         before = self.coll.snapshot()
         bytes_before = self.coll.bytes_snapshot()
         host, opt_state = state, state.opt_state
@@ -1503,8 +1542,28 @@ class DistributedTrainStep:
         self.coll.all_reduce(t.contiguous(), "metric", mean=True)
         return t
 
+    def _recorded(self, program: str, fn: Callable):
+        """``fn()``, flight-recorded as the JAX step's programs are: the
+        first call of a program (its warm-up: allocation, kernel builds
+        and autotuning where the JAX step compiles) appends to
+        ``compile_log`` and records a ``compile`` event; a failure records
+        an ``error`` event before it propagates."""
+        fresh = all(e["program"] != program for e in self.compile_log)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except Exception as e:
+            flight.record_event("error", program=program,
+                                error=f"{type(e).__name__}: {e}"[:500])
+            raise
+        if fresh:
+            entry = {"program": program, "first_call_s": time.perf_counter() - t0}
+            self.compile_log.append(entry)
+            flight.record_event("compile", critical=False, **entry)
+        return out
+
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        return self._step(state, self._to_device(batch))
+        return self._recorded("step", lambda: self._step(state, self._to_device(batch)))
 
     def run(self, state: TrainState, batch, num_steps: int, stacked: bool = False):
         """``num_steps`` train steps. ``stacked=False``: ``batch`` (the
@@ -1517,12 +1576,16 @@ class DistributedTrainStep:
                            for t in tree_leaves(batch)):
             raise ValueError(f"stacked=True requires every batch leaf to have leading "
                              f"dim num_steps={num_steps}")
-        history = []
-        for i in range(num_steps):
-            b = map_tree(lambda t: t[i], batch) if stacked else batch
-            state, m = self._step(state, b)
-            history.append(m)
-        return state, map_params(lambda *steps: torch.stack(steps), *history)
+
+        def window():
+            st, history = state, []
+            for i in range(num_steps):
+                b = map_tree(lambda t: t[i], batch) if stacked else batch
+                st, m = self._step(st, b)
+                history.append(m)
+            return st, map_params(lambda *steps: torch.stack(steps), *history)
+
+        return self._recorded(f"run[{num_steps}{'/stacked' if stacked else ''}]", window)
 
     def evaluate(self, state: TrainState, batch):
         """Loss (+aux) on a global batch without gradients or state

@@ -35,8 +35,10 @@ collective call over an intra- or an inter-node group. An optional
       inter_latency_us: 128
 
 Bandwidths on the wire are Gbit/s in one direction, HBM GB (1e9 bytes)
-and GB/s. The
-JAX package's per-node ``cpus``/``ssh`` entries are not ported.
+and GB/s. A node may name an entry of an ``ssh:`` block (``ssh_config``),
+or one flat ``ssh:`` config serves every node (user, port, key_file,
+python_venv), for the coordinator's remote launch, as in the JAX package.
+The JAX package's per-node ``cpus`` is not ported.
 """
 from __future__ import annotations
 
@@ -180,6 +182,30 @@ class NodeSpec:
     address: str
     gpus: int = DEFAULT_GPUS_PER_HOST
     chief: bool = False
+    ssh_config: str = ""  # name of an ``ssh:`` entry
+
+
+@dataclass
+class SSHConfig:
+    """Per-host SSH parameters of the coordinator's remote launch (the JAX
+    package's ``SSHConfig``): user, port, key file, and a Python venv
+    sourced before the remote command."""
+
+    user: str = ""
+    port: int = 22
+    key_file: str = ""
+    python_venv: str = ""
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SSHConfig":
+        return cls(user=str(d.get("user", d.get("username", ""))),
+                   port=int(d.get("port", 22)), key_file=str(d.get("key_file", "")),
+                   python_venv=str(d.get("python_venv", "")))
+
+    def to_dict(self) -> dict:
+        out = {"user": self.user, "port": self.port, "key_file": self.key_file,
+               "python_venv": self.python_venv}
+        return {k: v for k, v in out.items() if v not in ("", 22)}
 
 
 class ResourceSpec:
@@ -203,7 +229,15 @@ class ResourceSpec:
         for entry in (resource_dict or {}).get("nodes", []) or []:
             gpus = entry.get("gpus", entry.get("chips", DEFAULT_GPUS_PER_HOST))
             self._nodes.append(NodeSpec(address=str(entry["address"]), gpus=int(gpus),
-                                        chief=bool(entry.get("chief", False))))
+                                        chief=bool(entry.get("chief", False)),
+                                        ssh_config=str(entry.get("ssh_config", ""))))
+        # The ssh block: a map of named configs (nodes name theirs in
+        # ``ssh_config``) or one flat config for every node (stored as "").
+        ssh = (resource_dict or {}).get("ssh", {}) or {}
+        self._ssh_configs: Dict[str, SSHConfig] = (
+            {str(k): SSHConfig.from_dict(v) for k, v in ssh.items()}
+            if ssh and all(isinstance(v, dict) for v in ssh.values())
+            else {"": SSHConfig.from_dict(ssh)} if ssh else {})
         if not self._nodes:
             self._nodes.append(NodeSpec(address="localhost", chief=True))
         mesh = (resource_dict or {}).get("mesh")
@@ -227,6 +261,10 @@ class ResourceSpec:
             raise ValueError("multi-node resource specs cannot contain loopback addresses")
         if any(n.gpus < 0 for n in self._nodes):
             raise ValueError("gpus must be >= 0")
+        for n in self._nodes:
+            if n.ssh_config and n.ssh_config not in self._ssh_configs:
+                raise ValueError(f"node {n.address!r} names ssh_config {n.ssh_config!r} "
+                                 f"but the spec's ssh block has {sorted(self._ssh_configs)}")
         if self._mesh_override and \
                 math.prod(self._mesh_override.values()) != max(self.num_gpus, 1):
             raise ValueError(f"mesh override {self._mesh_override} does not cover "
@@ -244,6 +282,18 @@ class ResourceSpec:
     @property
     def num_nodes(self) -> int:
         return len(self._nodes)
+
+    @property
+    def chief_address(self) -> str:
+        return next(n.address for n in self._nodes if n.chief)
+
+    def ssh_config_for(self, address: str) -> Optional[SSHConfig]:
+        """SSH parameters of one host: its node's named ``ssh_config``, else
+        the spec-wide flat config, else None."""
+        node = next((n for n in self._nodes if n.address == address), None)
+        if node is not None and node.ssh_config:
+            return self._ssh_configs[node.ssh_config]
+        return self._ssh_configs.get("")
 
     @property
     def gpu(self) -> GPUNode:
@@ -305,9 +355,13 @@ class ResourceSpec:
         return cls(resource_dict=d)
 
     def to_dict(self) -> dict:
-        d = {"nodes": [{"address": n.address, "gpus": n.gpus, "chief": n.chief}
+        d = {"nodes": [{"address": n.address, "gpus": n.gpus, "chief": n.chief,
+                        **({"ssh_config": n.ssh_config} if n.ssh_config else {})}
                        for n in self._nodes],
              "gpu": self._gpu.to_dict()}
+        if self._ssh_configs:
+            d["ssh"] = ({k: v.to_dict() for k, v in self._ssh_configs.items()}
+                        if "" not in self._ssh_configs else self._ssh_configs[""].to_dict())
         if self._mesh_override:
             d["mesh"] = dict(self._mesh_override)
         return d

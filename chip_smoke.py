@@ -240,6 +240,24 @@ Phases, each printing one JSON line:
     cases no collective of the step, moves a quarter of a table; each
     step's bytes by purpose and kind equal the step's prediction; the
     parameters equal the one-process step's within rtol 2e-5 / atol 2e-6.
+23. ``supervised_train``: the port's launcher as a user runs it,
+    ``python -m autodist_tpu_torch.runtime.launcher --max-restarts 1
+    --ft-dir D --trace-out T -- python chip_smoke.py --supervised-script
+    ...``, one rank on cuda:0 (world size 1, so no process group;
+    deterministic algorithms):
+    bert_base (seq 512, batch 32, flash, AllReduce, SGD) under
+    ``AutoDist(fault_tolerance=FTConfig(snapshot_every_steps=2))``, each
+    step's batch drawn from the seed and the step index. Attempt 0 sends
+    itself SIGTERM from a thread while step 3 runs: the preemption hook
+    defers to the step boundary, snapshots step 3 and the process dies.
+    The launcher restarts it; attempt 1 resumes from that snapshot
+    (``resume_from_snapshot``) and runs to step 6. Its parameters must be
+    bitwise those of an uninterrupted 6-step run (a process of its own),
+    each attempt's flash forward, dK/dV and dQ launches ``12 x`` its
+    steps, and the stitched trace must hold the launcher's span and both
+    attempts' ``ft.snapshot.*`` spans. Prints the restart delay, each
+    attempt's wall time, the snapshots' device-to-host and write seconds
+    and bytes.
 
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
@@ -579,6 +597,11 @@ SPARSE_CASES = (("embed/AllReduce", "embed", "AllReduce", {}, 64),
                 ("ncf/Parallax", "ncf", "Parallax", SPARSE_NCF, 64))
 # The bytes a row-split table's collectives and a step's prediction count.
 SPARSE_WIRE = ("grad", "param", "sparse", "table")
+# supervised_train: SUP_STEPS steps of bert_base, a snapshot every
+# SUP_SNAPSHOT_EVERY steps, SIGTERM while step SUP_PREEMPT_AT runs on the
+# first attempt; the launcher's restart backoff base (seconds).
+SUP_STEPS, SUP_SNAPSHOT_EVERY, SUP_PREEMPT_AT, SUP_BACKOFF_S = 6, 2, 3, 1.0
+SUP_TIMEOUT_S = 300.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -3328,6 +3351,172 @@ def sparse_rehearsal() -> dict:
     return row
 
 
+def _sup_batch(spec, step_index: int, dev):
+    """bert_base's batch of one step: tokens drawn from the seed and the
+    step index (the example batch's structure), so a resumed run sees the
+    batches the uninterrupted one does."""
+    batch = spec.example_batch(TRAIN_BATCH, device=dev)
+    gen = torch.Generator().manual_seed(SEED * 1000 + step_index)
+    tokens = torch.randint(0, spec.config.vocab_size, tuple(batch["tokens"].shape),
+                           generator=gen, dtype=torch.int32).to(dev)
+    return {**batch, "tokens": tokens, "labels": tokens.clone()}
+
+
+def supervised_script(work: str, mode: str) -> int:
+    """supervised_train's training script (``mode`` "preempt": under the
+    launcher, fault tolerance on; "plain": the uninterrupted run). Writes
+    ``<mode>-attempt<k>.json`` (and the final parameters to
+    ``<mode>-params.pt``) into ``work``."""
+    import signal
+    import threading
+
+    from autodist_tpu_torch.ft import FTConfig, resume_from_snapshot
+    from autodist_tpu_torch.kernel.lowering import steps_in_flight
+
+    dev = _deterministic(0)
+    attempt = int(os.environ.get("AUTODIST_RESTART", "0"))
+    t_start = time.perf_counter()
+    record = {"mode": mode, "attempt": attempt, "pid": os.getpid()}
+    out = os.path.join(work, f"{mode}-attempt{attempt}.json")
+
+    def write_record():
+        record["wall_s"] = time.perf_counter() - t_start
+        record["kernel_launches"] = _launch_counts()
+        with open(out, "w", encoding="utf-8") as f:
+            json.dump(record, f)
+
+    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    params = spec.init(SEED, device=dev)
+    ft = FTConfig(snapshot_every_steps=SUP_SNAPSHOT_EVERY) if mode == "preempt" else None
+    if ft is not None:
+        def on_term(sig, frame):
+            # Chained by the preemption hook once its snapshot is on disk:
+            # the record, then death by the signal.
+            record["died_at_step"] = int(state.step)
+            record["snapshot"] = dict(autodist.ft.snapshots.last_timing)
+            write_record()
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        signal.signal(signal.SIGTERM, on_term)
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=AllReduce(), device=dev, fault_tolerance=ft)
+    step = autodist.build(spec.loss_fn, params, spec.example_batch(TRAIN_BATCH, device=dev))
+    state = (resume_from_snapshot(step, params, autodist.ft.snapshots) if ft is not None
+             else step.init(params))
+    record["start_step"] = int(state.step)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    record["snapshots"] = []
+    while state.step < SUP_STEPS:
+        batch = _sup_batch(spec, state.step, dev)
+        if ft is not None and attempt == 0 and state.step == SUP_PREEMPT_AT - 1:
+            def preempt():
+                while steps_in_flight() == 0:
+                    time.sleep(0.0005)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+            threading.Thread(target=preempt, daemon=True).start()
+        state, _ = step(state, batch)
+        if ft is not None:
+            deferred = autodist.ft.snapshots._pending_signal is not None
+            record.setdefault("deferred", []).append(deferred)
+            if autodist.ft.maybe_snapshot(state, step_obj=step) is not None:
+                autodist.ft.snapshots.wait()
+                record["snapshots"].append({"step": int(state.step),
+                                            **autodist.ft.snapshots.last_timing})
+    torch.cuda.synchronize(dev)
+    record["end_step"] = int(state.step)
+    torch.save({k: v.detach().cpu() for k, v in
+                flatten_params(step.logical_params(state)).items()},
+               os.path.join(work, f"{mode}-params.pt"))
+    write_record()
+    if ft is not None:
+        autodist.ft.shutdown()
+    return 0
+
+
+def supervised_train(card: str) -> dict:
+    """The supervised_train phase (see the module docstring)."""
+    torch.cuda.empty_cache()
+    # One card: the launcher starts a rank per visible card.
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", CUDA_VISIBLE_DEVICES=first)
+    env.pop("AUTODIST_TRACE_OUT", None)
+    env.pop("AUTODIST_TRACE_ID", None)
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as work:
+        ft_dir, trace_dir = os.path.join(work, "ft"), os.path.join(work, "traces")
+        t0 = time.perf_counter()
+        sup = subprocess.run(
+            [sys.executable, "-m", "autodist_tpu_torch.runtime.launcher",
+             "--max-restarts", "1", "--restart-backoff", str(SUP_BACKOFF_S),
+             "--ft-dir", ft_dir, "--trace-out", trace_dir, "--",
+             sys.executable, me, "--supervised-script", work, "preempt"],
+            env=env, cwd=os.path.dirname(me), stderr=subprocess.PIPE, text=True,
+            timeout=SUP_TIMEOUT_S)
+        launcher_s = time.perf_counter() - t0
+        sys.stderr.write(sup.stderr[-20000:])
+        check(sup.returncode == 0, f"supervised_train: launcher exited {sup.returncode}")
+        delays = [float(line.rsplit(" in ", 1)[1].rstrip("s"))
+                  for line in sup.stderr.splitlines() if "restarting (1/1) in " in line]
+        check(len(delays) == 1, f"supervised_train: restarts logged {delays}")
+        t0 = time.perf_counter()
+        ref = subprocess.run([sys.executable, me, "--supervised-script", work, "plain"],
+                             env=env, timeout=SUP_TIMEOUT_S)
+        plain_s = time.perf_counter() - t0
+        check(ref.returncode == 0, f"supervised_train: the uninterrupted run exited "
+                                   f"{ref.returncode}")
+        attempts = []
+        for k in (0, 1):
+            with open(os.path.join(work, f"preempt-attempt{k}.json"), encoding="utf-8") as f:
+                attempts.append(json.load(f))
+        with open(os.path.join(work, "plain-attempt0.json"), encoding="utf-8") as f:
+            plain = json.load(f)
+        a0, a1 = attempts
+        check(a0["start_step"] == 0 and a0.get("died_at_step") == SUP_PREEMPT_AT,
+              f"supervised_train: attempt 0 {a0}")
+        check(a0["deferred"][SUP_PREEMPT_AT - 1] and not any(a0["deferred"][:SUP_PREEMPT_AT - 1]),
+              f"supervised_train: the SIGTERM was not deferred to step "
+              f"{SUP_PREEMPT_AT}'s boundary: {a0['deferred']}")
+        check(a1["start_step"] == SUP_PREEMPT_AT and a1["end_step"] == SUP_STEPS,
+              f"supervised_train: attempt 1 {a1}")
+        layers = get_model("bert_base").num_layers
+        for rec, steps in ((a0, SUP_PREEMPT_AT), (a1, SUP_STEPS - SUP_PREEMPT_AT),
+                           (plain, SUP_STEPS)):
+            for kind, n in rec["kernel_launches"].items():
+                check(n == layers * steps, f"supervised_train: {rec['mode']} attempt "
+                      f"{rec['attempt']} flash {kind} launches {n} != {layers} x {steps}")
+        resumed = torch.load(os.path.join(work, "preempt-params.pt"))
+        unbroken = torch.load(os.path.join(work, "plain-params.pt"))
+        check(sorted(resumed) == sorted(unbroken), "supervised_train: parameter names differ")
+        differ = [n for n in unbroken if not torch.equal(resumed[n], unbroken[n])]
+        check(not differ, f"supervised_train: resumed parameters not bitwise the "
+                          f"uninterrupted run's: {differ[:5]}")
+        traces = [n for n in os.listdir(trace_dir) if n.startswith("trace-")]
+        check(len(traces) == 1, f"supervised_train: stitched traces {traces}")
+        with open(os.path.join(trace_dir, traces[0]), encoding="utf-8") as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        check(any(e["name"] == "launcher.fleet" for e in events),
+              "supervised_train: no launcher.fleet span in the stitched trace")
+        for rec in attempts:
+            names = {e["name"] for e in events if e["pid"] == rec["pid"]}
+            check({"ft.snapshot.device_to_host", "ft.snapshot.write"} <= names,
+                  f"supervised_train: attempt {rec['attempt']}'s snapshot spans missing "
+                  f"({sorted(names)})")
+    snaps = a0["snapshots"] + [{"step": SUP_PREEMPT_AT, **a0["snapshot"]}] + a1["snapshots"]
+    row = dict(model="bert_base", seq=TRAIN_SEQ, batch=TRAIN_BATCH, steps=SUP_STEPS,
+               preempt_at=SUP_PREEMPT_AT, snapshot_every=SUP_SNAPSHOT_EVERY,
+               bitwise=True, restart_delay_s=delays[0],
+               attempt_wall_s=[a0["wall_s"], a1["wall_s"]], plain_wall_s=plain["wall_s"],
+               launcher_s=launcher_s, plain_process_s=plain_s, snapshots=snaps,
+               kernel_launches={k: a0["kernel_launches"][k] + a1["kernel_launches"][k]
+                                for k in a0["kernel_launches"]},
+               trace_spans=len(events), card=card)
+    emit("supervised_train", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3403,6 +3592,7 @@ def main() -> int:
     auto_rows = auto_train(card)
     tune_row = tune_phase(card, dev)
     sparse_rehearsal()
+    sup_row = supervised_train(card)
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -3437,7 +3627,8 @@ def main() -> int:
             + sum(t["kernel_launches"][kind] for t in tp_rows)
             + sum(t["kernel_launches"][kind] + t["named_kernel_launches"][kind]
                   for t in auto_rows)
-            + tune_row["kernel_launches"][kind],
+            + tune_row["kernel_launches"][kind]
+            + sup_row["kernel_launches"][kind],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -3480,4 +3671,6 @@ if __name__ == "__main__":
                   "--auto-rank": auto_rank, "--sparse-cpu-rank": sparse_cpu_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--supervised-script":
+        sys.exit(supervised_script(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -1,7 +1,9 @@
 """The port stands alone: no file of ``autodist_tpu_torch/``, neither
 ``chip_smoke.py`` nor the port's ``tools/torch_*.py`` scripts import ``jax``
 or the JAX package ``autodist_tpu`` (an AST scan of every import statement,
-lazy ones inside functions included).
+lazy ones inside functions included). Where the JAX behaviour is not ported
+yet (the chaos harness), the port raises ``NotImplementedError`` naming
+ROADMAP.md; the seam registry it did port keeps JAX's seam names.
 """
 import ast
 import pathlib
@@ -60,7 +62,11 @@ def test_scan_sees_the_whole_port():
                 "checkpoint/__init__.py", "checkpoint/saver.py", "checkpoint/names.py",
                 "checkpoint/saved_model.py", "checkpoint/dcp_compat.py",
                 "strategy/cost_model.py", "strategy/auto_strategy.py",
-                "strategy/explain.py", "kernel/sparse.py", "kernel/bucketing.py"):
+                "strategy/explain.py", "kernel/sparse.py", "kernel/bucketing.py",
+                "chaos/__init__.py", "chaos/hooks.py", "obs/spans.py", "obs/recorder.py",
+                "ft/__init__.py", "ft/config.py", "ft/heartbeat.py", "ft/snapshot.py",
+                "ft/elastic.py", "ft/procdrain.py", "runtime/cluster.py",
+                "runtime/coordinator.py", "runtime/launcher.py", "runtime/__init__.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()
@@ -68,3 +74,33 @@ def test_scan_sees_the_whole_port():
     # registration of its kernels' operators).
     probe = ROOT / "autodist_tpu_torch" / "__init__.py"
     assert list(_imported_modules(probe)) == ["autodist_tpu_torch.ops"]
+
+
+@pytest.mark.parametrize("name", ["ChaosPlant", "ChaosSchedule", "ChaosEvent", "CATALOG",
+                                  "FaultSpec", "harness"])
+def test_unported_chaos_entry_points_name_the_roadmap(name):
+    import autodist_tpu_torch.chaos as chaos
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        getattr(chaos, name)
+
+
+def test_chaos_seams_equal_the_jax_packages():
+    from autodist_tpu.chaos import hooks as jhooks
+    from autodist_tpu_torch.chaos import hooks
+
+    assert hooks.__all__ == jhooks.__all__
+    for name in hooks.__all__:
+        if name.startswith("SEAM_"):
+            assert getattr(hooks, name) == getattr(jhooks, name)
+    seen = []
+    hooks.install(hooks.SEAM_HB_PUBLISH, lambda payload, **ctx: seen.append(ctx) or None)
+    try:
+        from autodist_tpu_torch.ft import MemoryTransport
+
+        t = MemoryTransport()
+        t.publish(3, {"time": 1.0})
+        assert t.sweep() == {} and seen == [{"process_id": 3, "transport": "memory"}]
+    finally:
+        hooks.clear()
+    assert not hooks.active()
