@@ -14,8 +14,11 @@ package's ``ft/``).
 - :mod:`~autodist_tpu_torch.ft.procdrain` — signal-then-grace subprocess
   termination.
 
-The JAX package's serve drain (``ft/drain.py``) is not ported yet
-(ROADMAP.md). Entry point: ``AutoDist(fault_tolerance=FTConfig(...))`` —
+- :mod:`~autodist_tpu_torch.ft.drain` — serve-side graceful degradation:
+  quiesce → finish in-flight → persist the undrained queue → replay on
+  restart, exactly once.
+
+Entry point: ``AutoDist(fault_tolerance=FTConfig(...))`` —
 the :class:`FTRuntime` rides on ``autodist.ft``.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.ft.config import FTConfig
+from autodist_tpu_torch.ft.drain import DrainController, persist_requests, replay_requests
 from autodist_tpu_torch.ft.elastic import (
     ElasticController,
     recompile_on,
@@ -42,6 +46,7 @@ from autodist_tpu_torch.ft.snapshot import SnapshotManager, StateInFlux, latest_
 
 __all__ = [
     "CoordinatorTransport",
+    "DrainController",
     "ElasticController",
     "FTConfig",
     "FTRuntime",
@@ -52,7 +57,9 @@ __all__ = [
     "PeerState",
     "SnapshotManager",
     "latest_snapshot_step",
+    "persist_requests",
     "recompile_on",
+    "replay_requests",
     "resume_from_snapshot",
     "surviving_resource_spec",
 ]

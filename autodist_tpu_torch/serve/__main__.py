@@ -17,11 +17,32 @@ prompt prefixes copy-on-write (``serve/prefix.py``); a POST body's
 stochastic stream (``serve/sampling.py``). The CPU proofs, each printing
 one JSON line and exiting non-zero on a failed bar: ``--selftest-spec``,
 ``--selftest-prefix``, ``--selftest-sampling``.
+
+Every server measures its own SLO position (``GET /slo``, an
+``obs.slo.SLOTracker`` with the default spec). With ``--ft-dir DIR`` the
+process runs as a supervised :class:`~autodist_tpu_torch.serve.replica.
+Replica`: the HTTP listener binds at once and the engine builds on a
+thread, so ``/healthz`` answers 503 (``starting``) until the replica is
+``READY``; readiness and load beat through the ``FileTransport`` under
+``DIR/heartbeats``; ``POST /drain`` persists the undone work to
+``DIR/serve_queue-<replica-id>.json`` (the ft journal, format v2), and a
+server started again on the same ``DIR`` replays that journal once,
+consumes it and appends each replayed request's outcome to
+``DIR/serve_replayed-<replica-id>.jsonl``::
+
+    python -m autodist_tpu_torch.serve --device cuda --slots 32 \
+        --ft-dir DIR --replica-id 0 [--trace-out T]
+
+``--trace-out T`` flushes this process's span part-file into ``T`` at exit
+(``obs/spans.py``). SIGTERM unwinds the server through ``KeyboardInterrupt``
+and exits 0, as the JAX package's server does: it does not drain (``POST
+/drain`` does). ``AUTODIST_FLIGHT_DIR`` turns on the flight recorder.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import signal
 import sys
 
@@ -40,13 +61,14 @@ def _parse_overrides(pairs):
     return out
 
 
-def build_frontend(args):
-    """Engine + batcher + front end from parsed CLI args."""
+def build_engine(args):
+    """The engine of parsed CLI args: seeded params (or a checkpoint's)
+    through ``AutoDist.build_inference``, warmed up by one short request."""
+    import numpy as np
+
     from autodist_tpu_torch.api import AutoDist
     from autodist_tpu_torch.models import get_model
     from autodist_tpu_torch.models.transformer import decode_model, init_params
-    from autodist_tpu_torch.serve.batcher import ContinuousBatcher
-    from autodist_tpu_torch.serve.server import ServeFrontend
 
     overrides = _parse_overrides(args.model_arg)
     if args.kv_quant:
@@ -68,7 +90,37 @@ def build_frontend(args):
     AutoDist.reset_default()
     engine = AutoDist(device=args.device).build_inference(
         params, decode_model=decode_model(cfg), **kwargs)
-    return ServeFrontend(ContinuousBatcher(engine), host=args.host, port=args.port)
+    # The first forward of a fresh process loads the CUDA modules its
+    # kernels use (5.4-8.8 s for the full-width transformer on an H100,
+    # tools/torch_serve_coldstart.py): pay that here, before the server
+    # answers READY, and not in the first requests' TTFT.
+    engine.generate(np.arange(1, 4, dtype=np.int32), 2, request_id="warm-up")
+    return engine
+
+
+def build_frontend(args):
+    """Engine + batcher (under a replica with ``--ft-dir``) + front end
+    from parsed CLI args, with an SLO tracker."""
+    from autodist_tpu_torch.obs.slo import SLOTracker
+    from autodist_tpu_torch.serve.batcher import ContinuousBatcher
+    from autodist_tpu_torch.serve.server import ServeFrontend
+    from autodist_tpu_torch.utils.device import resolve_device
+
+    slo = SLOTracker()
+    if not getattr(args, "ft_dir", None):
+        return ServeFrontend(ContinuousBatcher(build_engine(args), slo=slo),
+                             host=args.host, port=args.port)
+    from autodist_tpu_torch.ft.heartbeat import FileTransport
+    from autodist_tpu_torch.serve.replica import Replica
+
+    resolve_device(args.device)     # no card: raise here, not on the build thread
+    rid = args.replica_id
+    replica = Replica(
+        rid, lambda: build_engine(args),
+        FileTransport(os.path.join(args.ft_dir, "heartbeats")),
+        persist_path=os.path.join(args.ft_dir, f"serve_queue-{rid}.json"),
+        slo=slo, replayed_path=os.path.join(args.ft_dir, f"serve_replayed-{rid}.jsonl"))
+    return ServeFrontend(None, host=args.host, port=args.port, replica=replica)
 
 
 def main(argv=None) -> int:
@@ -106,6 +158,15 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8476)
+    ap.add_argument("--ft-dir", default=None,
+                    help="run as a supervised replica: readiness through the ft "
+                         "FileTransport under DIR/heartbeats, POST /drain "
+                         "persists to DIR/serve_queue-<id>.json, replayed at "
+                         "the next start")
+    ap.add_argument("--replica-id", type=int, default=0,
+                    help="this replica's id on the ft transport (with --ft-dir)")
+    ap.add_argument("--trace-out", default=None,
+                    help="flush this process's span part-file into DIR at exit")
     for name in ("spec", "prefix", "sampling"):
         ap.add_argument(f"--selftest-{name}", action="store_true",
                         help=f"run the CPU proof of serve/{name}.py and exit")
@@ -124,16 +185,27 @@ def main(argv=None) -> int:
 
         return selftest_sampling()
 
+    if args.ft_dir and "AUTODIST_PROCESS_ID" not in os.environ:
+        # Part-files and flight records identify as this replica unless a
+        # launcher already pinned a process id.
+        os.environ["AUTODIST_PROCESS_ID"] = str(args.replica_id)
+    if args.trace_out:
+        from autodist_tpu_torch.obs import spans as obs_spans
+
+        obs_spans.enable_trace_out(args.trace_out)
     frontend = build_frontend(args)
     # A supervisor stops the server with SIGTERM; route it through the
-    # KeyboardInterrupt path so shutdown unwinds.
+    # KeyboardInterrupt path so shutdown unwinds (and the --trace-out
+    # part-file is flushed at exit).
     signal.signal(signal.SIGTERM, signal.default_int_handler)
     try:
         asyncio.run(frontend.serve_forever())
     except KeyboardInterrupt:
         pass
     finally:
-        frontend.batcher.stop(drain=False)
+        batcher = frontend.batcher
+        if batcher is not None:
+            batcher.stop(drain=False)
     return 0
 
 

@@ -31,6 +31,17 @@ decode round then emits 1..k+1 tokens a slot, truncated at EOS /
 Engines with a prefix cache publish ``serve_prefix_hit_rate`` /
 ``serve_prefix_shared_pages`` / ``serve_page_pool_sharing_ratio`` and split
 TTFT into ``serve_ttft_cached_s`` / ``serve_ttft_uncached_s``.
+
+The flight hooks are the JAX batcher's: an optional
+:class:`~autodist_tpu_torch.obs.slo.SLOTracker` (``slo=``) fed TTFT, ITL,
+queue wait and outcome at retire, sheds at the admission edge and the
+spec acceptance window; an ``on_tick`` observer of each progressing tick's
+seconds; ``shed`` and ``pool_pressure`` flight events, one per fixed
+window (``_SHED_WINDOW_S``); a ``request`` step record at retire and a
+``tick`` record every 32nd progressing tick; the ``serve.queue_wait`` span
+at admission; and :meth:`ContinuousBatcher.die`, which sheds all work typed
+on an engine death (the scheduler's own ``EngineDeadError`` path records an
+``error`` event and sheds the same way).
 """
 from __future__ import annotations
 
@@ -46,6 +57,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from autodist_tpu_torch import metrics as M
+from autodist_tpu_torch.obs import recorder as obs_recorder
+from autodist_tpu_torch.obs import spans as obs_spans
 from autodist_tpu_torch.serve import sampling as serve_sampling
 from autodist_tpu_torch.serve.engine import (
     AdmissionDenied,
@@ -184,12 +197,18 @@ class ContinuousBatcher:
     ``max_queue`` bounds admission (backpressure); the active batch is
     bounded by the engine itself (decode rows and page-pool capacity).
     ``start()`` spawns the scheduler thread; ``submit`` is thread-safe.
+    ``on_tick(seconds)`` observes each progressing scheduler tick; ``slo``
+    is an optional :class:`~autodist_tpu_torch.obs.slo.SLOTracker`.
     """
 
     def __init__(self, engine: InferenceEngine, max_queue: int = 256,
-                 registry: Optional[M.MetricsRegistry] = None):
+                 registry: Optional[M.MetricsRegistry] = None,
+                 on_tick: Optional[Callable[[float], None]] = None,
+                 slo=None):
         self.engine = engine
         self.max_queue = max_queue
+        self.slo = slo
+        self.on_tick = on_tick
         self._queue: deque[GenRequest] = deque()
         self._active: Dict[Slot, GenRequest] = {}
         self._lock = threading.Lock()
@@ -200,6 +219,20 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
         self._tick_tokens: deque = deque(maxlen=64)   # (t, n) for tokens/sec
         self._decode_tokens: deque = deque(maxlen=64)  # decode-only window
+        # Shed and pool-pressure flight events: one per fixed window.
+        self._shed_lock = threading.Lock()
+        self._shed_last = -1e9   # monotonic stamp of the last window opened
+        self._shed_count = 0
+        self._pressure_last = -1e9
+        self._SHED_WINDOW_S = 1.0
+        # Per-instance shed-record source: the SLO replay keys its
+        # cumulative-delta arithmetic by it.
+        self._shed_src = f"batcher-{next(_ids)}"
+        self._tick_seq = 0          # progressing ticks (flight sampling)
+        # Cumulative spec counters last fed to the SLO tracker (blended and
+        # per temperature bucket): it takes per-tick deltas.
+        self._spec_last: Dict[str, int] = {}
+        self._spec_last_bucket: Dict[str, Dict[str, int]] = {}
         # Gauges registered on first use, so engines without spec decode,
         # a prefix cache or int8 pages add no metric families.
         self._m_quant_capacity = None
@@ -247,6 +280,7 @@ class ContinuousBatcher:
         denied = self.engine.check_admissible(len(prompt), max_new_tokens)
         if denied is not None:
             self._m_rejected.inc()
+            self._shed("unservable request")
             req.unservable = True
             req._finish(RequestState.REJECTED,
                         f"admission rejected: {denied.reason}")
@@ -266,6 +300,7 @@ class ContinuousBatcher:
                 self._wake.notify()
         if shed_reason is not None:
             self._m_rejected.inc()
+            self._shed(shed_reason)
             raise Backpressure(shed_reason)
         return req
 
@@ -298,6 +333,42 @@ class ContinuousBatcher:
                 describe="serve admission")
         except retry.RetryError as e:
             raise Backpressure(str(e)) from e.__cause__
+
+    def _shed(self, reason: str) -> None:
+        """Flight-record a load-shedding decision. One event opens each
+        fixed window (rejections less than ``_SHED_WINDOW_S`` apart share
+        it) and carries the cumulative count, so a sustained storm keeps
+        emitting one record a window and the SLO replay recovers every
+        shed. Feeds the SLO tracker one shed per call."""
+        now = time.monotonic()
+        with self._shed_lock:
+            opens = now - self._shed_last > self._SHED_WINDOW_S
+            if opens:
+                self._shed_last = now
+            self._shed_count += 1
+            n = self._shed_count
+        if opens:
+            obs_recorder.record_event("shed", critical=False, src=self._shed_src,
+                                      reason=reason, total_shed=n,
+                                      pool_free_pages=self.engine.pool.free_pages)
+        if self.slo is not None:
+            self.slo.observe(ok=False, shed=True)
+
+    def _pool_pressure(self, reason: str) -> None:
+        """Flight-record page-pool pressure (fixed windows, like
+        :meth:`_shed`): admission defers because pages, not the queue
+        bound, are the limiter. A signal, not a failure."""
+        now = time.monotonic()
+        with self._shed_lock:
+            opens = now - self._pressure_last > self._SHED_WINDOW_S
+            if opens:
+                self._pressure_last = now
+        if opens:
+            obs_recorder.record_event(
+                "pool_pressure", critical=False, reason=reason,
+                free_pages=self.engine.pool.free_pages,
+                used_pages=self.engine.pool.used_pages,
+                queue_depth=len(self._queue))
 
     # -------------------------------------------------------------- accounting
     @property
@@ -367,6 +438,30 @@ class ContinuousBatcher:
             return True
         return False
 
+    def die(self, reason: str) -> None:
+        """Abrupt death (replica kill, chaos): shed ALL queued and in-flight
+        work with typed ``REJECTED`` results carrying an engine-death
+        reason, flight-record the error and stop — the contract of the
+        scheduler's own ``EngineDeadError`` path, callable from outside the
+        scheduler thread. Idempotent; never blocks a client."""
+        with self._wake:
+            already = self._stopped
+            self._running = False
+            self._stopped = True
+            self._wake.notify()
+        if already:
+            return
+        self._record_death(reason)
+        stuck = self._join_scheduler(2.0)
+        self._fail_all(f"engine died mid-decode: {reason}",
+                       release=not stuck)
+
+    def _record_death(self, reason) -> None:
+        """An engine death in the flight record, and one shed."""
+        obs_recorder.record_event(
+            "error", error=f"EngineDeadError: {reason}"[:500])
+        self._shed(f"engine dead: {reason}")
+
     def quiesce(self) -> None:
         """Stop admitting while active decodes keep stepping."""
         with self._wake:
@@ -376,7 +471,9 @@ class ContinuousBatcher:
     def drain(self, deadline_s: float = 30.0):
         """Graceful shutdown: quiesce, let in-flight decodes finish within
         ``deadline_s``, then stop. Returns ``(n_finished, leftovers)``; the
-        leftovers are finished ``PREEMPTED``."""
+        leftovers are finished ``PREEMPTED`` (the
+        :class:`~autodist_tpu_torch.ft.drain.DrainController` persists them
+        for replay)."""
         before = self._m_completed.value
         self.quiesce()
         if self._thread is not None:
@@ -402,7 +499,8 @@ class ContinuousBatcher:
                 self.engine.release(slot)
         leftovers = [req for _, req in active] + leftovers
         for req in leftovers:
-            req._finish(RequestState.PREEMPTED, "server draining")
+            req._finish(RequestState.PREEMPTED,
+                        "server draining; request persisted for replay")
         return int(self._m_completed.value - before), leftovers
 
     def __enter__(self) -> "ContinuousBatcher":
@@ -421,7 +519,29 @@ class ContinuousBatcher:
                     self._wake.wait(timeout=0.5)
                     continue
             try:
-                if not self._tick():
+                t_tick = time.monotonic()
+                progressed = self._tick()
+                if progressed:
+                    self._tick_seq += 1
+                    if self._tick_seq % 32 == 1:
+                        # Sampled tick record: occupancy, prefill/decode
+                        # mix, pool utilization, tick wall.
+                        obs_recorder.record_step(
+                            surface="serve", event="tick",
+                            tick_wall_s=round(time.monotonic() - t_tick, 6),
+                            active=self.engine.active_slots,
+                            prefilling=self.engine.prefilling_slots,
+                            decoding=self.engine.decoding_slots,
+                            pool_utilization=round(
+                                float(self.engine.page_utilization), 4),
+                            queue_depth=len(self._queue))
+                    if self.on_tick is not None:
+                        try:
+                            self.on_tick(time.monotonic() - t_tick)
+                        except Exception:  # noqa: BLE001 - observer only
+                            logging.warning("on_tick observer raised",
+                                            exc_info=True)
+                else:
                     # Nothing progressed (a page-pressure window): pace the
                     # poll instead of spinning; submit/retire notify.
                     with self._wake:
@@ -429,6 +549,7 @@ class ContinuousBatcher:
                             self._wake.wait(timeout=0.02)
             except EngineDeadError as e:
                 logging.error("engine died mid-decode; shedding all work: %s", e)
+                self._record_death(e)
                 with self._wake:
                     self._running = False
                     self._stopped = True
@@ -488,13 +609,15 @@ class ContinuousBatcher:
                 progress = True
                 dead._finish(RequestState.TIMEOUT, "deadline expired in queue")
                 continue
-            t_admit = time.monotonic()
+            t_admit, t_admit_wall = time.monotonic(), time.time()
             admitted = self.engine.admit(head.prompt, head.max_new_tokens,
                                          request_id=head.request_id,
                                          sampling=head.sampling)
             if isinstance(admitted, AdmissionDenied):
                 if admitted.retryable:
-                    break  # pages/rows free on retirement: keep it queued
+                    # Pages/rows free on retirement: keep it queued.
+                    self._pool_pressure(admitted.reason)
+                    break
                 with self._lock:
                     self._queue.popleft()
                     self._m_depth.set(len(self._queue))
@@ -504,8 +627,13 @@ class ContinuousBatcher:
                 head._finish(RequestState.REJECTED,
                              f"admission rejected: {admitted.reason}")
                 continue
-            head.queue_wait_s = max(t_admit - head.t_submit, 0.0)
+            # The queue-wait span, recorded now the wait is known (submit to
+            # admission; the prefill-chunk spans follow on the same timeline).
+            wait_s = max(t_admit - head.t_submit, 0.0)
+            head.queue_wait_s = wait_s
             head.t_admit = t_admit
+            obs_spans.add_span("serve.queue_wait", t_admit_wall - wait_s,
+                               wait_s, request_id=head.request_id)
             with self._lock:
                 self._queue.popleft()
                 self._m_depth.set(len(self._queue))
@@ -580,7 +708,9 @@ class ContinuousBatcher:
 
     def _update_spec_metrics(self) -> None:
         """Acceptance rate and tokens a round from the engine's cumulative
-        ``spec_stats()`` (speculative engines only)."""
+        ``spec_stats()`` (speculative engines only), and the SLO tracker's
+        acceptance windows fed per-tick deltas: blended, then per
+        temperature bucket (a bucketed sample feeds only its bucket)."""
         stats_fn = getattr(self.engine, "spec_stats", None)
         if stats_fn is None:
             return
@@ -590,6 +720,21 @@ class ContinuousBatcher:
             self._m_spec_tps = self._registry.gauge("serve_spec_tokens_per_step")
         self._m_spec_accept.set(float(stats["acceptance_rate"]))
         self._m_spec_tps.set(float(stats["tokens_per_round"]))
+        if self.slo is not None:
+            d_prop = int(stats["proposed"]) - self._spec_last.get("proposed", 0)
+            d_acc = int(stats["accepted"]) - self._spec_last.get("accepted", 0)
+            if d_prop > 0:
+                self.slo.observe(spec_proposed=d_prop, spec_accepted=d_acc)
+            for b, bs in stats["by_temperature"].items():
+                last = self._spec_last_bucket.get(b, {"proposed": 0, "accepted": 0})
+                bp, ba = int(bs["proposed"]), int(bs["accepted"])
+                if bp - last["proposed"] > 0:
+                    self.slo.observe(spec_proposed=bp - last["proposed"],
+                                     spec_accepted=ba - last["accepted"],
+                                     spec_bucket=b)
+                self._spec_last_bucket[b] = {"proposed": bp, "accepted": ba}
+        self._spec_last = {"proposed": int(stats["proposed"]),
+                           "accepted": int(stats["accepted"])}
 
     def _update_prefix_metrics(self) -> None:
         """Hit rate, shared pages and the logical/physical sharing ratio
@@ -648,6 +793,24 @@ class ContinuousBatcher:
         itl = req.itl_s
         if itl is not None:
             self._m_itl.observe(itl)
+        # One request-level flight record: the SLO inputs survive the
+        # process (obs/slo.py's replay_flight_records recomputes the SLO
+        # position postmortem).
+        temp = (float(req.sampling.temperature)
+                if req.sampling is not None else 0.0)
+        obs_recorder.record_step(
+            surface="serve", event="request", request_id=req.request_id,
+            state=state.value, n_tokens=len(req.tokens),
+            ttft_s=req.ttft_s, itl_s=itl, queue_wait_s=req.queue_wait_s,
+            cached=req.cached, temperature=temp)
+        if self.slo is not None:
+            # itl_tokens weights the sample by the inter-token gaps it
+            # summarizes: ITL percentiles are per token, not per request.
+            self.slo.observe(ttft_s=req.ttft_s, itl_s=itl,
+                             itl_tokens=max(len(req.tokens) - 1, 1),
+                             queue_wait_s=req.queue_wait_s,
+                             ok=state is RequestState.DONE,
+                             cached=req.cached, temperature=temp)
         with self._wake:
             self._wake.notify()  # pages freed: admission may proceed
 

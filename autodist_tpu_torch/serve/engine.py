@@ -15,6 +15,15 @@ position)``. With ``prefix_cache=True`` admissions map cached prompt blocks
 onto shared pages (``serve/prefix.py``), copy the partially matched frontier
 page (copy-on-write) and resume prefill mid-page.
 
+Observability and fault injection follow the JAX engine: the spans
+``serve.cow_copy``, ``serve.prefill_chunk`` and ``serve.decode_step`` (host
+wall of each call, tagged with request ids), the ``serve`` step records
+``admit``, ``prefilled`` and (one in 64 decode steps) ``decode``, and the
+chaos seams ``SEAM_SERVE_ADMIT`` (``"defer"`` becomes a retryable
+:class:`AdmissionDenied`) and ``SEAM_SERVE_STEP`` (may raise
+:class:`EngineDeadError`), carrying ``chaos_host``. No span or record reads
+a tensor back.
+
 What differs from the JAX engine: there is no sharding plan or mesh — on one
 card the params are a dict of tensors on ``device``, which is what
 ``AllReduce`` gives on one chip. PyTorch runs eagerly, so nothing compiles
@@ -27,12 +36,16 @@ programs to the same effect).
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from autodist_tpu_torch.chaos import hooks as chaos_hooks
+from autodist_tpu_torch.obs import recorder as obs_recorder
+from autodist_tpu_torch.obs import spans as obs_spans
 from autodist_tpu_torch.serve import pages as serve_pages
 from autodist_tpu_torch.serve import prefix as serve_prefix
 from autodist_tpu_torch.serve import sampling as serve_sampling
@@ -217,10 +230,18 @@ class InferenceEngine:
         self._cached = np.zeros(n_slots, bool)
         # Per-slot sampling params; greedy defaults (temperature 0).
         self._samp = serve_sampling.slot_arrays(n_slots)
+        # Admission time of each slot (the ``prefilled`` record's prefill_s).
+        self._prefill_t0 = np.zeros(n_slots, np.float64)
         # Program invocations by kind: decode steps and prefill chunks run
         # so far (the eager port's counterpart of the JAX program pins).
         self.decode_invocations = 0
         self.prefill_invocations = 0
+        # Decode rounds (plain steps or spec rounds): every 64th is
+        # flight-recorded.
+        self._decode_step_count = 0
+        # Replica identity carried into the chaos seams, so a schedule can
+        # target one replica of a fleet (serve/replica.py sets it).
+        self.chaos_host = 0
 
     # -------------------------------------------------------------- accounting
     # ------------------------------------------------------------ construction
@@ -400,6 +421,12 @@ class InferenceEngine:
         unservable = self.check_admissible(len(prompt), max_new_tokens)
         if unservable is not None:
             return unservable
+        # Chaos seam: "defer" behaves as no free capacity (the batcher keeps
+        # the request queued); the hook may also raise EngineDeadError.
+        if chaos_hooks.fire(chaos_hooks.SEAM_SERVE_ADMIT,
+                            prompt_len=len(prompt),
+                            max_new_tokens=max_new_tokens) == "defer":
+            return AdmissionDenied("admission deferred (chaos)", retryable=True)
         free = np.flatnonzero(self._phase == _FREE)
         if not len(free):
             return AdmissionDenied(
@@ -452,6 +479,13 @@ class InferenceEngine:
         for key, value in zip(serve_sampling.SAMP_KEYS,
                               (sp.temperature, sp.top_k, sp.top_p, hi, lo)):
             self._samp[key][idx] = value
+        self._prefill_t0[idx] = time.perf_counter()
+        # Non-critical (batched fsync): bounded by admissions, not tokens.
+        obs_recorder.record_step(
+            surface="serve", event="admit", prompt_len=len(prompt),
+            request_id=self._request_ids[idx], pages=len(table.pages),
+            cached_tokens=start_pos,
+            pool_used=self.pool.used_pages, pool_free=self.pool.free_pages)
         return Slot(idx)
 
     def _alloc_with_evict(self, n_tokens: int) -> Optional[serve_pages.PageTable]:
@@ -477,7 +511,8 @@ class InferenceEngine:
     def _cow_page(self, src_page: int, dst_page: int) -> None:
         """The copy-on-write at the divergence frontier: a device copy of
         one KV page (never a shared write)."""
-        self._copy_page(self._cache, src_page, dst_page)
+        with obs_spans.span("serve.cow_copy", src=int(src_page), dst=int(dst_page)):
+            self._copy_page(self._cache, src_page, dst_page)
         if self._prefix_cache is not None:
             self._prefix_cache.cow_copies += 1
 
@@ -521,7 +556,9 @@ class InferenceEngine:
         row = slice(idx, idx + 1)
         samp = self._samp_dev(row) if last and self._stochastic(row) else None
         self.prefill_invocations += 1
-        with torch.no_grad():
+        with obs_spans.span("serve.prefill_chunk", start=start,
+                            prompt_len=len(prompt),
+                            request_id=self._request_ids[idx]), torch.no_grad():
             first, self._cache = self.decode_model.prefill_chunk(
                 self.params, self._dev(chunk), start, len(prompt), self._cache,
                 self._dev(self._table_np[idx]), samp=samp)
@@ -537,6 +574,11 @@ class InferenceEngine:
         if self._leases[idx] is not None:
             # Adopt the prompt's novel full blocks into the prefix tree.
             self._insert_prefix(idx, prompt)
+        prefilled = len(prompt) - int(self._prefill_start[idx])
+        obs_recorder.record_step(
+            surface="serve", event="prefilled", prompt_len=len(prompt),
+            chunks=-(-prefilled // c), cached=bool(self._cached[idx]),
+            prefill_s=round(time.perf_counter() - self._prefill_t0[idx], 6))
         return first
 
     def _insert_prefix(self, idx: int, prompt: np.ndarray) -> None:
@@ -551,22 +593,43 @@ class InferenceEngine:
         ``{slot: next_token}`` for decoding rows only (idle and prefilling
         rows ride along against the scratch page — finite garbage, ignored)."""
         out: Dict[Slot, int] = {}
+        # Chaos seam: may raise EngineDeadError (an engine death mid-decode);
+        # host names this engine's replica.
+        chaos_hooks.fire(chaos_hooks.SEAM_SERVE_STEP,
+                         active=self.active_slots, host=self.chaos_host)
         decoding = np.flatnonzero(self._phase == _DECODE)
         if not len(decoding):
             return out
         samp = self._samp_dev(slice(None)) if self._stochastic(decoding) else None
         self.decode_invocations += 1
-        with torch.no_grad():
-            tokens, self._cache = self.decode_model.decode_paged(
-                self.params, self._dev(self._last_token), self._dev(self._lengths),
-                self._cache, self._dev(self._decode_table_np), samp=samp)
-        tokens = tokens.cpu().numpy()
+        with obs_spans.span("serve.decode_step", active=int(len(decoding)),
+                            request_ids=self._span_request_ids(decoding)):
+            with torch.no_grad():
+                tokens, self._cache = self.decode_model.decode_paged(
+                    self.params, self._dev(self._last_token), self._dev(self._lengths),
+                    self._cache, self._dev(self._decode_table_np), samp=samp)
+            tokens = tokens.cpu().numpy()
         for idx in decoding:
             idx = int(idx)
             self._lengths[idx] += 1
             self._last_token[idx] = tokens[idx]
             out[Slot(idx)] = int(tokens[idx])
+        self._record_decode(len(out))
         return out
+
+    def _span_request_ids(self, rows) -> List[str]:
+        """The request ids riding a batched step, for its span (bounded: a
+        trace viewer needs identity, not an unbounded argument)."""
+        return [self._request_ids[int(i)] for i in rows[:16] if self._request_ids[int(i)]]
+
+    def _record_decode(self, active: int, **fields) -> None:
+        """The sampled (one in 64) ``decode`` flight record of a round."""
+        self._decode_step_count += 1
+        if self._decode_step_count % 64 == 1:
+            obs_recorder.record_step(
+                surface="serve", event="decode",
+                decode_steps=self._decode_step_count, active_slots=active,
+                **fields, pool_utilization=round(self.page_utilization, 4))
 
     def step_many(self) -> Dict[Slot, List[int]]:
         """One decode round, multi-token surface: ``{slot: [token]}`` (the

@@ -1,7 +1,7 @@
 """Paged KV-cache bookkeeping: the ONE page-table/pool allocator home.
 
-A port of the JAX package's ``serve/pages.py`` (pure host arithmetic; the
-chaos hooks are left out). The serving engine's decode state is a single
+A port of the JAX package's ``serve/pages.py`` (pure host arithmetic, with
+its chaos seam ``SEAM_SERVE_PAGES`` on ``alloc`` and ``extend``). The serving engine's decode state is a single
 fixed-size pool of KV pages (device tensors ``[layers, n_pages, page_len,
 heads, head_dim]``, owned by
 :class:`~autodist_tpu_torch.serve.engine.InferenceEngine`); WHICH pages
@@ -18,6 +18,8 @@ import threading
 from typing import List, Optional
 
 import numpy as np
+
+from autodist_tpu_torch.chaos import hooks as chaos_hooks
 
 __all__ = [
     "DEFAULT_PAGE_LEN",
@@ -173,8 +175,12 @@ class PagePool:
     # ------------------------------------------------------------- allocation
     def alloc(self, n_tokens: int) -> Optional[PageTable]:
         """Reserve pages for an ``n_tokens`` timeline, or None when the
-        pool cannot cover it (all-or-nothing)."""
+        pool cannot cover it (all-or-nothing; the chaos seam may force the
+        None path to exercise the exhaustion contract)."""
         need = pages_for_tokens(n_tokens, self.page_len)
+        if chaos_hooks.fire(chaos_hooks.SEAM_SERVE_PAGES,
+                            need=need, tokens=int(n_tokens)) == "exhaust":
+            return None
         with self._lock:
             if need > len(self._free):
                 return None
@@ -185,7 +191,7 @@ class PagePool:
     def extend(self, table: PageTable, n_tokens: int) -> bool:
         """Grow ``table`` so it covers an ``n_tokens`` timeline.
 
-        All-or-nothing like :meth:`alloc`. Returns
+        All-or-nothing like :meth:`alloc`, and on the same chaos seam. Returns
         True when the table already covers ``n_tokens`` or the extension
         landed; False when the pool cannot supply the extra pages — the
         caller degrades (speculative drafting shortens or stops) rather
@@ -194,6 +200,9 @@ class PagePool:
         need = pages_for_tokens(n_tokens, self.page_len) - len(table.pages)
         if need <= 0:
             return True
+        if chaos_hooks.fire(chaos_hooks.SEAM_SERVE_PAGES,
+                            need=need, tokens=int(n_tokens)) == "exhaust":
+            return False
         with self._lock:
             if need > len(self._free):
                 return False

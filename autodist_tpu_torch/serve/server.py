@@ -14,14 +14,27 @@ the device). Routes:
   counter-based stochastic stream of ``(request_id, seed)``
   (``serve/sampling.py``).
 - ``GET /metrics`` → the metrics registry as OpenMetrics text.
-- ``GET /healthz`` → readiness + queue/slot gauges + page-pool utilization
-  as JSON; 503 while draining.
-- ``POST /drain`` → graceful drain, reports ``{"drained": n, "preempted": n}``.
+- ``GET /slo`` → the ``slo_report`` of the batcher's
+  :class:`~autodist_tpu_torch.obs.slo.SLOTracker` (NaN-safe JSON); 404 when
+  none was wired.
+- ``GET /healthz`` → typed readiness (``ReplicaState``) + queue/slot gauges
+  + page-pool utilization as JSON: 200 only when ``READY``, 503 while
+  ``STARTING``/``DRAINING`` (or ``DEAD``).
+- ``POST /drain`` → graceful drain. Through a
+  :class:`~autodist_tpu_torch.serve.replica.Replica` (quiesce → finish
+  in-flight → persist leftovers) it reports ``{"drained": n, "persisted":
+  n}``; over a bare batcher ``{"drained": n, "persisted": 0, "preempted":
+  n}``.
+
+With a replica the listener binds before the (possibly long) engine build,
+which runs on a thread: a probe during the build gets a typed 503, not a
+refused connection.
 """
 from __future__ import annotations
 
 import asyncio
 import json
+import threading
 from typing import Any, Dict, Optional
 
 from autodist_tpu_torch import metrics as M
@@ -81,17 +94,34 @@ def mock_load_prompt(rng, i: Optional[int] = None, long_every: int = 8,
 
 
 class ServeFrontend:
-    """Minimal HTTP server over one batcher."""
+    """Minimal HTTP server over one batcher (or one
+    :class:`~autodist_tpu_torch.serve.replica.Replica`, which adds typed
+    readiness to ``/healthz`` and a persisting drain to ``POST /drain``)."""
 
-    def __init__(self, batcher: ContinuousBatcher, host: str = "127.0.0.1",
-                 port: int = 8476, registry: Optional[M.MetricsRegistry] = None):
-        self.batcher = batcher
+    def __init__(self, batcher: Optional[ContinuousBatcher], host: str = "127.0.0.1",
+                 port: int = 8476, registry: Optional[M.MetricsRegistry] = None,
+                 replica=None):
+        self._batcher = batcher
         self.host, self.port = host, port
-        self.registry = registry or batcher._registry
+        self.replica = replica
+        self.registry = registry or (replica.registry if replica is not None
+                                     else batcher._registry)
         self._server: Optional[asyncio.AbstractServer] = None
 
+    @property
+    def batcher(self) -> Optional[ContinuousBatcher]:
+        """The live batcher: a replica swaps its batcher across drain and
+        restart, so the front end always asks it."""
+        if self.replica is not None and self.replica.batcher is not None:
+            return self.replica.batcher
+        return self._batcher
+
     async def start(self) -> "ServeFrontend":
-        self.batcher.start()
+        if self.replica is not None:
+            threading.Thread(target=self.replica.start, name="replica-start",
+                             daemon=True).start()
+        else:
+            self.batcher.start()
         self._server = await asyncio.start_server(
             self._handle, self.host, self.port)
         addr = self._server.sockets[0].getsockname()
@@ -109,7 +139,10 @@ class ServeFrontend:
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
-        self.batcher.stop()
+        if self.replica is not None:
+            self.replica.stop()
+        elif self.batcher is not None:
+            self.batcher.stop()
 
     # ----------------------------------------------------------------- http
     @staticmethod
@@ -156,12 +189,12 @@ class ServeFrontend:
             if method == "GET" and path == "/metrics":
                 self._respond(writer, 200, self.registry.render_text(),
                               content_type="text/plain")
+            elif method == "GET" and path == "/slo":
+                self._slo(writer)
             elif method == "GET" and path == "/healthz":
                 self._healthz(writer)
             elif method == "POST" and path == "/drain":
-                finished, leftovers = await asyncio.to_thread(self.batcher.drain)
-                self._respond(writer, 200, {"drained": finished,
-                                            "preempted": len(leftovers)})
+                await self._drain(writer)
             elif method == "POST" and path == "/generate":
                 await self._generate(writer, body)
             else:
@@ -176,19 +209,52 @@ class ServeFrontend:
         finally:
             writer.close()
 
+    def _slo(self, writer) -> None:
+        """The batcher's ``slo_report`` (404 when no tracker was wired)."""
+        from autodist_tpu_torch.obs.slo import json_safe
+
+        batcher = self.batcher
+        tracker = getattr(batcher, "slo", None) if batcher else None
+        if tracker is None:
+            self._respond(writer, 404, {
+                "error": "no SLO tracker wired; construct the batcher/"
+                         "replica with slo=obs.slo.SLOTracker(spec)"})
+            return
+        self._respond(writer, 200, json_safe(tracker.report()))
+
     def _healthz(self, writer) -> None:
-        """Readiness probe: 200 when serving, 503 while draining/stopped."""
-        b = self.batcher
-        ready = not (b.draining or b.stopped)
-        doc = {
-            "state": "ready" if ready else "draining",
-            "ok": ready,
-            "outstanding": b.outstanding,
-            "queue_depth": b.queue_depth,
-            "active_slots": b.engine.active_slots,
-            "page_pool_utilization": round(float(b.engine.page_utilization), 4),
-        }
-        self._respond(writer, 200 if ready else 503, doc)
+        """Typed readiness probe: 200 only when READY, else 503."""
+        from autodist_tpu_torch.serve.replica import ReplicaState
+
+        if self.replica is not None:
+            doc = self.replica.healthz()
+            state = self.replica.state
+        else:
+            # A bare batcher has no STARTING phase to observe; a stopped one
+            # (engine death) can serve nothing.
+            b = self.batcher
+            state = (ReplicaState.DRAINING if b.draining
+                     else ReplicaState.DEAD if b.stopped else ReplicaState.READY)
+            doc = {
+                "state": state.value,
+                "outstanding": b.outstanding,
+                "page_pool_utilization": round(float(b.engine.page_utilization), 4),
+            }
+        batcher = self.batcher
+        doc["ok"] = state is ReplicaState.READY
+        doc["queue_depth"] = batcher.queue_depth if batcher else 0
+        doc["active_slots"] = batcher.engine.active_slots if batcher else 0
+        self._respond(writer, 200 if doc["ok"] else 503, doc)
+
+    async def _drain(self, writer) -> None:
+        """Admin drain, off the event loop (it blocks up to its deadline)."""
+        if self.replica is not None:
+            out = await asyncio.to_thread(self.replica.drain)
+        else:
+            finished, leftovers = await asyncio.to_thread(self.batcher.drain)
+            out = {"drained": finished, "persisted": 0,
+                   "preempted": len(leftovers)}
+        self._respond(writer, 200, out)
 
     async def _generate(self, writer, body: bytes) -> None:
         try:
@@ -196,8 +262,13 @@ class ServeFrontend:
             tokens = payload["tokens"]
             max_new = int(payload.get("max_new_tokens", 32))
             sampling = parse_sampling(payload)
+            batcher = self.batcher
+            if batcher is None:
+                self._respond(writer, 503, {"error": "replica is not ready "
+                                                     "(starting or draining)"})
+                return
             req = await async_generate(
-                self.batcher, tokens, max_new,
+                batcher, tokens, max_new,
                 timeout_s=payload.get("timeout_s"),
                 request_id=payload.get("request_id") or None,
                 sampling=sampling)

@@ -42,6 +42,12 @@ compiled-program pin (5) is replaced by invocation counts per program kind:
 ``prefill_invocations``, ``decode_invocations``, ``verify_invocations``,
 ``draft_invocations``.
 
+A round fires the chaos seams ``SEAM_SERVE_STEP`` (as plain decode does)
+and ``SEAM_SERVE_DRAFT`` (``"garbage"`` garbles the proposals the verifier
+sees; the output stays the target's), opens the span ``serve.spec_verify``
+(the draft-side frontier copy opens ``serve.cow_copy_draft``) and writes
+the sampled ``decode`` flight record with the round's spec fields.
+
 ``python -m autodist_tpu_torch.serve --selftest-spec`` is the CPU proof.
 """
 from __future__ import annotations
@@ -53,6 +59,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from autodist_tpu_torch.chaos import hooks as chaos_hooks
+from autodist_tpu_torch.obs import spans as obs_spans
 from autodist_tpu_torch.serve import pages as serve_pages
 from autodist_tpu_torch.serve import prefix as serve_prefix
 from autodist_tpu_torch.serve import sampling as serve_sampling
@@ -198,7 +206,9 @@ class SpecDecodeEngine(InferenceEngine):
         if table is None:
             return None
         if tail_len:
-            self._copy_page(self._draft_cache, tail.draft_page, table.pages[0])
+            with obs_spans.span("serve.cow_copy_draft", src=int(tail.draft_page),
+                                dst=int(table.pages[0])):
+                self._copy_page(self._draft_cache, tail.draft_page, table.pages[0])
         table.pages[:0] = draft_shared
         return table
 
@@ -278,6 +288,10 @@ class SpecDecodeEngine(InferenceEngine):
         steps, one target verify, the accepted tokens and the draft rewind.
         Idle and prefilling rows ride both forwards against scratch."""
         out: Dict[Slot, List[int]] = {}
+        # The plain decode step's seam: engine-death schedules target spec
+        # replicas alike.
+        chaos_hooks.fire(chaos_hooks.SEAM_SERVE_STEP,
+                         active=self.active_slots, host=self.chaos_host)
         decoding = np.flatnonzero(self._phase == _DECODE)
         if not len(decoding):
             return out
@@ -311,12 +325,20 @@ class SpecDecodeEngine(InferenceEngine):
                     draft_tables, samp=samp)
                 if j < k:
                     proposals.append(cur)
+            # Chaos seam: a draft-divergence window garbles the proposals the
+            # verifier sees (a deterministic offset); the emitted tokens stay
+            # the target's, only acceptance drops.
+            if chaos_hooks.fire(chaos_hooks.SEAM_SERVE_DRAFT,
+                                host=self.chaos_host) == "garbage":
+                proposals = [p + (j + 1) for j, p in enumerate(proposals)]
             self.verify_invocations += 1
-            acc, out_tok, self._cache = self.decode_model.verify_paged(
-                self.params, torch.stack([pending] + proposals, dim=1), pos_dev,
-                self._cache, self._dev(self._decode_table_np), samp=samp)
-            # One host read a round: accept counts beside the tokens.
-            got = torch.cat([acc[:, None], out_tok], dim=1).cpu().numpy()
+            with obs_spans.span("serve.spec_verify", active=int(len(decoding)), k=k,
+                                request_ids=self._span_request_ids(decoding)):
+                acc, out_tok, self._cache = self.decode_model.verify_paged(
+                    self.params, torch.stack([pending] + proposals, dim=1), pos_dev,
+                    self._cache, self._dev(self._decode_table_np), samp=samp)
+                # One host read a round: accept counts beside the tokens.
+                got = torch.cat([acc[:, None], out_tok], dim=1).cpu().numpy()
         self.spec_rounds += 1
         for i in decoding:
             idx = int(i)
@@ -338,6 +360,8 @@ class SpecDecodeEngine(InferenceEngine):
             if table is not None and self.draft_pool.rewind(
                     table, int(self._lengths[idx]) + 1):
                 self._sync_draft_row(idx)
+        self._record_decode(len(out), spec_rounds=self.spec_rounds,
+                            acceptance_rate=round(self.acceptance_rate, 4))
         return out
 
     # -------------------------------------------------------------- accounting

@@ -73,6 +73,34 @@ Phases, each printing one JSON line:
    rate, copy-on-write pages, prefill chunks saved, TTFT p50 cached and
    cold, no page left after a purge. Then the fp32 2-layer full-width
    model: spec streams bitwise equal plain decode's, greedy and sampled.
+5e. ``serve_replica``: one supervised serving replica of the same model
+   (bf16 pages, 32 slots, the 64 seeded prompts) as a user runs it: the
+   CLI ``python -m autodist_tpu_torch.serve --device cuda --slots 32
+   --ft-dir D --replica-id 0 --trace-out T`` (its ``main``, in a process of
+   this script, ``--serve-cli``, which writes the process's paged launches
+   and span counts when the server returns), with ``AUTODIST_FLIGHT_DIR``
+   set. ``/healthz`` must answer 503 ``starting`` first and 200 once
+   ``READY`` (seconds to READY printed); 64 requests over HTTP, then
+   ``POST /drain`` while some are queued: every request ends ``done`` or
+   ``preempted``, what the drain found unfinished is what it finished plus
+   what it persisted, the journal (format v2) holds exactly the preempted
+   request ids and the pool is empty. A restart on ``D`` replays the journal
+   once (``D/serve_replayed-0.jsonl``), consumes it, and each replayed (and
+   each completed) stream equals the in-process uninterrupted run of the
+   same prompt under ``_streams_agree``; ``GET /slo`` equals
+   ``replay_flight_records`` over that process's flight records within
+   ``SLO_REPLAY_RTOL`` (``slo_compliant`` printed, not gated); SIGTERM
+   under load exits 0 (JAX's path: no drain); the part-files hold the
+   ``serve.queue_wait``, ``serve.prefill_chunk`` and ``serve.decode_step``
+   spans; each process's paged launches equal ``12 x`` its prefill chunks
+   and decode steps. Then in process, on the card: ``SEAM_SERVE_STEP``
+   raising ``EngineDeadError`` ends all 64 requests typed with no page
+   left; ``SEAM_SERVE_PAGES`` ``"exhaust"`` for ``EXHAUST_S`` gives at most
+   one ``pool_pressure`` event a second and typed sheds past a 16-request
+   queue; a ``SEAM_SERVE_STEP`` stall of ``STALL_S`` trips SNT008 once an
+   episode in a ``Sentry`` fed each request's ITL (two episodes, two
+   findings); the host ms of a 32-row decode step with the flight hooks off
+   and on, in turns.
 6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
    plain versions on the same inputs (B=32, H=12, D=64; bf16 at S=512
    causal and not, S=128 and S=256 causal; fp32 at S=512, the FMA
@@ -268,15 +296,22 @@ repo, or when any phase fails.
 from __future__ import annotations
 
 import asyncio
+import collections
+import contextlib
+import gc
 import io
 import json
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -302,13 +337,16 @@ from autodist_tpu_torch.ops import crossover as xo
 from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.ops import paged_attention as pa
+from autodist_tpu_torch.chaos import hooks as chaos_hooks
+from autodist_tpu_torch.obs import Sentry, recorder as obs_recorder, replay_flight_records
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
 from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing, StrategyCompiler, from_name
 from autodist_tpu_torch.serve import sampling as samp_ops
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
-from autodist_tpu_torch.serve.engine import InferenceEngine
+from autodist_tpu_torch.serve import engine as serve_engine
+from autodist_tpu_torch.serve.engine import EngineDeadError, InferenceEngine
 from autodist_tpu_torch.serve.server import ServeFrontend, mock_load_prompt
 from autodist_tpu_torch.serve.spec import SpecDecodeEngine, pools_balanced
 
@@ -602,6 +640,22 @@ SPARSE_WIRE = ("grad", "param", "sparse", "table")
 # first attempt; the launcher's restart backoff base (seconds).
 SUP_STEPS, SUP_SNAPSHOT_EVERY, SUP_PREEMPT_AT, SUP_BACKOFF_S = 6, 2, 3, 1.0
 SUP_TIMEOUT_S = 300.0
+# serve_replica: the CLI's replica at 32 slots (REPLICA_ARGS), 64 requests
+# over HTTP then POST /drain, a restart that replays the journal, and
+# REPLICA_SIGTERM_LOAD requests cut by SIGTERM; each process's own wait
+# bound. The live GET /slo percentiles and those replayed from the flight
+# records are the same float64 values put through the same arithmetic:
+# SLO_REPLAY_RTOL only absorbs a JSON round trip. The in-process chaos: the
+# stall each SEAM_SERVE_STEP call sleeps (past the sentry's itl_min_s and
+# 2x the ITL median) and the exhaustion window of SEAM_SERVE_PAGES; the
+# decode steps timed with the flight hooks off and on (turns of
+# HOOK_COST_STEPS, HOOK_COST_TURNS each).
+REPLICA_SLOTS = 32
+REPLICA_ARGS = ("--device", "cuda", "--slots", str(REPLICA_SLOTS), "--page-len", str(PAGE_LEN))
+REPLICA_SIGTERM_LOAD, REPLICA_TIMEOUT_S = 32, 300.0
+SLO_REPLAY_RTOL = 1e-9
+STALL_S, EXHAUST_S = 0.15, 1.5
+HOOK_COST_STEPS, HOOK_COST_TURNS = 32, 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -3517,6 +3571,467 @@ def supervised_train(card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------- serve replica
+def serve_cli(counts_path: str, argv: list) -> int:
+    """``python chip_smoke.py --serve-cli COUNTS ARGS...``: the port's serve
+    CLI (``python -m autodist_tpu_torch.serve ARGS``) in this process, which
+    writes the paged kernel's launches and the span counts by name to COUNTS
+    when the server returns (SIGTERM unwinds it there)."""
+    from autodist_tpu_torch.obs import spans as obs_spans
+    from autodist_tpu_torch.serve.__main__ import main as serve_main
+
+    reset_launches()
+    rc = 1
+    try:
+        rc = serve_main(argv)
+    finally:
+        tracer = obs_spans.get_tracer()
+        with open(counts_path, "w", encoding="utf-8") as f:
+            json.dump({"main_rc": rc, "launches": pa.paged_attention.launches,
+                       "spans": collections.Counter(sp.name for sp in tracer.spans()),
+                       "spans_dropped": tracer.dropped}, f)
+    return rc
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _call(port: int, method: str, path: str, body=None, timeout: float = 120.0):
+    """One blocking HTTP/1.1 exchange: (status, JSON body)."""
+    data = json.dumps(body).encode() if body is not None else b""
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as sock:
+        sock.sendall(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n"
+                     f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+        raw = b""
+        while True:
+            chunk = sock.recv(1 << 16)
+            if not chunk:
+                break
+            raw += chunk
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), json.loads(payload)
+
+
+class _Replica:
+    """One process of the CLI's supervised replica on cuda:0."""
+
+    def __init__(self, work: str, tag: str):
+        self.port = _free_port()
+        self.counts = os.path.join(work, f"counts-{tag}.json")
+        self.flight = os.path.join(work, f"flight-{tag}")
+        env = dict(os.environ, AUTODIST_FLIGHT_DIR=self.flight)
+        for name in ("AUTODIST_TRACE_OUT", "AUTODIST_TRACE_ID", "AUTODIST_PROCESS_ID",
+                     "AUTODIST_FT_DIR"):
+            env.pop(name, None)
+        me = os.path.abspath(__file__)
+        self.log = open(os.path.join(work, f"replica-{tag}.log"), "w", encoding="utf-8")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, me, "--serve-cli", self.counts, *REPLICA_ARGS,
+             "--port", str(self.port), "--ft-dir", os.path.join(work, "ft"),
+             "--replica-id", "0", "--trace-out", os.path.join(work, "trace")],
+            cwd=os.path.dirname(me), env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def wait_ready(self) -> dict:
+        """Poll /healthz until 200: the codes seen and the seconds to READY."""
+        seen = []
+        while time.perf_counter() - self.t0 < REPLICA_TIMEOUT_S:
+            check(self.proc.poll() is None, f"serve_replica: the server exited "
+                  f"{self.proc.returncode} before READY ({self.tail()})")
+            try:
+                code, body = _call(self.port, "GET", "/healthz", timeout=5.0)
+            except OSError:
+                time.sleep(0.05)
+                continue
+            if not seen or seen[-1] != [code, body["state"]]:
+                seen.append([code, body["state"]])
+            if code == 200:
+                return dict(codes=seen, ready_s=time.perf_counter() - self.t0)
+            time.sleep(0.02)
+        raise RuntimeError(f"chip_smoke check failed: serve_replica: not READY in "
+                           f"{REPLICA_TIMEOUT_S} s ({seen[-3:]})")
+
+    def sigterm(self) -> dict:
+        """SIGTERM; the exit code, seconds to exit and the process's counts."""
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise RuntimeError("chip_smoke check failed: serve_replica: no exit 120 s "
+                               f"after SIGTERM ({self.tail()})")
+        finally:
+            self.log.close()
+        with open(self.counts, encoding="utf-8") as f:
+            counts = json.load(f)
+        return dict(rc=rc, exit_s=time.perf_counter() - t0, **counts)
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name, encoding="utf-8", errors="replace") as f:
+            return f.read()[-3000:]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+
+
+def _post_all(port: int, prompts: dict, results: dict) -> list:
+    """One thread a request: POST /generate, the answer (or the error) into
+    ``results[request_id]``."""
+    def post(rid):
+        try:
+            results[rid] = _call(port, "POST", "/generate",
+                                 {"tokens": prompts[rid], "max_new_tokens": MAX_NEW,
+                                  "request_id": rid})[1]
+        except (OSError, ValueError, IndexError) as e:
+            results[rid] = {"state": "lost", "error": repr(e)}
+
+    threads = [threading.Thread(target=post, args=(rid,), daemon=True) for rid in prompts]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _spans_in(trace_dir: str) -> dict:
+    names = collections.Counter()
+    for name in os.listdir(trace_dir):
+        if name.startswith("obs-part-"):
+            with open(os.path.join(trace_dir, name), encoding="utf-8") as f:
+                names.update(e["name"] for e in json.load(f)["traceEvents"]
+                             if e.get("ph") == "X")
+    return names
+
+
+def _window_launches(counts: dict, layers: int, label: str) -> int:
+    programs = counts["spans"].get("serve.prefill_chunk", 0) + \
+        counts["spans"].get("serve.decode_step", 0)
+    check(counts["spans_dropped"] == 0, f"serve_replica: {label}: spans dropped")
+    check(counts["launches"] == layers * programs > 0,
+          f"serve_replica: {label}: paged launches {counts['launches']} != "
+          f"{layers} x {programs} programs")
+    return counts["launches"]
+
+
+def _replica_processes(params, cfg, prompts: list, want: list, work: str) -> dict:
+    """The CLI's replica: readiness, 64 requests, POST /drain, SIGTERM; the
+    restart replaying the journal, GET /slo against the flight records, and
+    SIGTERM under load."""
+    layers = cfg.num_layers
+    rids = [f"replica-{i}" for i in range(len(prompts))]
+    by_rid = {rid: [int(t) for t in p] for rid, p in zip(rids, prompts)}
+    ft, journal = os.path.join(work, "ft"), os.path.join(work, "ft", "serve_queue-0.json")
+    replayed_log = os.path.join(ft, "serve_replayed-0.jsonl")
+    row = {}
+
+    first = _Replica(work, "first")
+    try:
+        ready = first.wait_ready()
+        check(ready["codes"][0] == [503, "starting"] and ready["codes"][-1] == [200, "ready"],
+              f"serve_replica: /healthz codes {ready['codes']}")
+        results = {}
+        threads = _post_all(first.port, by_rid, results)
+        # Drain once every request is in and the 32 slots are full: the
+        # drain then finishes a full batch in flight and persists the queue.
+        deadline = time.perf_counter() + 60
+        while True:
+            health = _call(first.port, "GET", "/healthz")[1]
+            if (health["outstanding"] + len(results) >= len(rids)
+                    and health["active_slots"] == REPLICA_SLOTS):
+                break
+            check(time.perf_counter() < deadline, f"serve_replica: requests not "
+                  f"admitted ({health})")
+            time.sleep(0.005)
+        code, drained = _call(first.port, "POST", "/drain")
+        for t in threads:
+            t.join(timeout=120)
+        code_after, health_after = _call(first.port, "GET", "/healthz")
+        term = first.sigterm()
+    finally:
+        first.close()
+    check(code == 200 and sorted(drained) == ["drained", "persisted"],
+          f"serve_replica: POST /drain answered {code} {drained}")
+    check(term["rc"] == 0, f"serve_replica: the drained server exited {term['rc']}")
+    states = collections.Counter(r["state"] for r in results.values())
+    check(len(results) == len(rids) and set(states) <= {"done", "preempted"},
+          f"serve_replica: request states {dict(states)}")
+    done = {rid for rid, r in results.items() if r["state"] == "done"}
+    preempted = sorted(set(rids) - done)
+    # Every request DONE or PREEMPTED, none lost: what the drain found not
+    # yet completed (64 - (done - drained)) is what it finished or persisted.
+    check(drained["persisted"] == len(preempted) > 0,
+          f"serve_replica: persisted {drained['persisted']} != preempted {len(preempted)}")
+    check(drained["drained"] + drained["persisted"] == len(rids) - (len(done) - drained["drained"]),
+          f"serve_replica: drained {drained} against {len(done)} done")
+    check(code_after == 503 and health_after["state"] == "draining"
+          and health_after["page_pool_utilization"] == 0.0,
+          f"serve_replica: /healthz after the drain {code_after} {health_after}")
+    with open(journal, encoding="utf-8") as f:
+        doc = json.load(f)
+    check(doc["format_version"] == 2
+          and sorted(e["request_id"] for e in doc["entries"]) == preempted,
+          "serve_replica: the journal's request ids are not the preempted requests'")
+    first_launches = _window_launches(term, layers, "first process")
+    idx = {rid: i for i, rid in enumerate(rids)}
+    done_agree = _streams_agree(params, cfg, [prompts[idx[r]] for r in sorted(done)],
+                                [results[r]["tokens"] for r in sorted(done)],
+                                [want[idx[r]] for r in sorted(done)],
+                                "serve_replica done", bitwise=False)
+    row.update(ready_s=ready["ready_s"], healthz_codes=ready["codes"], requests=len(rids),
+               done=len(done), drained=drained["drained"], persisted=drained["persisted"],
+               journal_entries=len(doc["entries"]), done_streams=done_agree,
+               drain_exit_s=term["exit_s"])
+
+    second = _Replica(work, "second")
+    try:
+        ready2 = second.wait_ready()
+        deadline = time.perf_counter() + 120
+        while not (os.path.exists(replayed_log) and
+                   len(open(replayed_log, encoding="utf-8").readlines()) >= len(preempted)):
+            check(time.perf_counter() < deadline, "serve_replica: the replay did not finish")
+            time.sleep(0.05)
+        # The request record lands before the SLO feed: wait for the feed.
+        while True:
+            slo_code, live = _call(second.port, "GET", "/slo")
+            if slo_code != 200 or live["counts"]["requests"] >= len(preempted):
+                break
+            check(time.perf_counter() < deadline, "serve_replica: GET /slo incomplete")
+            time.sleep(0.05)
+        replayed_flight = replay_flight_records(obs_recorder.read_records(second.flight))
+        load = {f"term-{i}": by_rid[rids[i]] for i in range(REPLICA_SIGTERM_LOAD)}
+        cut = {}
+        threads = _post_all(second.port, load, cut)
+        deadline = time.perf_counter() + 60
+        while _call(second.port, "GET", "/healthz")[1]["outstanding"] == 0:
+            check(time.perf_counter() < deadline, "serve_replica: no load before SIGTERM")
+            time.sleep(0.005)
+        term2 = second.sigterm()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        second.close()
+    check(term2["rc"] == 0, f"serve_replica: SIGTERM under load: exit {term2['rc']}")
+    check(not os.path.exists(journal), "serve_replica: the journal was not consumed")
+    with open(replayed_log, encoding="utf-8") as f:
+        replayed = [json.loads(line) for line in f]
+    check(sorted(r["request_id"] for r in replayed) == preempted,
+          "serve_replica: the replay did not serve each journaled request exactly once")
+    check(all(r["state"] == "done" and len(r["tokens"]) == MAX_NEW for r in replayed),
+          "serve_replica: a replayed request did not complete")
+    replay_agree = _streams_agree(params, cfg, [prompts[idx[r["request_id"]]] for r in replayed],
+                                  [r["tokens"] for r in replayed],
+                                  [want[idx[r["request_id"]]] for r in replayed],
+                                  "serve_replica replay", bitwise=False)
+    second_launches = _window_launches(term2, layers, "restarted process")
+    check(slo_code == 200 and live["counts"]["requests"] == len(preempted),
+          f"serve_replica: GET /slo {slo_code} {live.get('counts')}")
+    off = replayed_flight.report()
+    slo_keys = ("ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s", "queue_wait_p99_s")
+    for key in slo_keys:
+        a, b = live["measured"][key], off["measured"][key]
+        check(abs(a - b) <= SLO_REPLAY_RTOL * abs(b),
+              f"serve_replica: {key} live {a} vs flight-record replay {b}")
+    spans = _spans_in(os.path.join(work, "trace"))
+    check(all(spans[n] > 0 for n in ("serve.queue_wait", "serve.prefill_chunk",
+                                     "serve.decode_step")),
+          f"serve_replica: --trace-out spans {dict(spans)}")
+    row.update(restart_ready_s=ready2["ready_s"], replayed=len(replayed),
+               replay_streams=replay_agree, journal_consumed=True,
+               slo_live={k: live["measured"][k] for k in slo_keys},
+               slo_replayed={k: off["measured"][k] for k in slo_keys},
+               slo_compliant=live["compliant"]["overall"], slo_spec=live["slo"],
+               sigterm_rc=term2["rc"], sigterm_exit_s=term2["exit_s"],
+               sigterm_states=dict(collections.Counter(r["state"] for r in cut.values())),
+               sigterm_left_journal=os.path.exists(journal),
+               trace_spans=dict(spans),
+               process_launches=[first_launches, second_launches])
+    return row
+
+
+def _no_spans():
+    return SimpleNamespace(span=lambda *a, **k: contextlib.nullcontext())
+
+
+def _decode_hook_cost(engine, prompts, work: str) -> dict:
+    """Host ms of a 32-row decode step with the flight hooks off (no
+    recorder, spans stubbed) and on (recorder and spans), in turns, and the
+    full (generation 2) garbage collections each mode's windows ran."""
+    slots = [engine.admit(p, 2 * HOOK_COST_STEPS * HOOK_COST_TURNS + 8)
+             for p in prompts[:engine.n_slots]]
+    for slot in slots:
+        while engine.prefill_step(slot) is None:
+            pass
+    real = serve_engine.obs_spans
+    ms = {"off": [], "on": []}
+    full_gcs = {"off": 0, "on": 0}
+    try:
+        for turn in range(HOOK_COST_TURNS):
+            for mode in (("off", "on") if turn % 2 == 0 else ("on", "off")):
+                if mode == "on":
+                    obs_recorder.enable(os.path.join(work, "hook-cost"))
+                    serve_engine.obs_spans = real
+                else:
+                    obs_recorder.disable()
+                    serve_engine.obs_spans = _no_spans()
+                torch.cuda.synchronize()
+                gcs = gc.get_stats()[2]["collections"]
+                t0 = time.perf_counter()
+                for _ in range(HOOK_COST_STEPS):
+                    engine.step()
+                torch.cuda.synchronize()
+                ms[mode].append((time.perf_counter() - t0) * 1e3 / HOOK_COST_STEPS)
+                full_gcs[mode] += gc.get_stats()[2]["collections"] - gcs
+    finally:
+        serve_engine.obs_spans = real
+        obs_recorder.disable()
+        for slot in slots:
+            engine.release(slot)
+    return {k: statistics.median(v) for k, v in ms.items()} | {"turns": ms,
+                                                                "full_gcs": full_gcs}
+
+
+def _replica_chaos(engine, prompts, work: str) -> dict:
+    """The seams on the card: an engine death at SEAM_SERVE_STEP, a page
+    exhaustion window at SEAM_SERVE_PAGES, and a stall that trips SNT008
+    once an episode in a Sentry fed each request's ITL."""
+    out = {}
+    flight = os.path.join(work, "chaos-flight")
+    obs_recorder.enable(flight)
+    try:
+        # Engine death mid-decode: every request ends typed, no hang, no leak.
+        calls = []
+
+        def die(**ctx):
+            calls.append(ctx)
+            if len(calls) == 5:
+                raise EngineDeadError(f"chaos: engine died on host {ctx['host']}")
+
+        chaos_hooks.install(chaos_hooks.SEAM_SERVE_STEP, die)
+        batcher = ContinuousBatcher(engine, registry=M.MetricsRegistry())
+        reqs = [batcher.submit(p, MAX_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        batcher.start()
+        check(all(r.wait(timeout=60).done for r in reqs), "chaos death: a request hangs")
+        out["death_s"] = time.perf_counter() - t0
+        chaos_hooks.clear()
+        batcher.stop(drain=False)
+        states = collections.Counter((r.state.value, r.error.split(":")[0]) for r in reqs)
+        check(set(states) == {("rejected", "engine died mid-decode")},
+              f"chaos death: states {dict(states)}")
+        check(pools_balanced(engine), "chaos death: page leak")
+        check(batcher.try_submit([1, 2, 3], 4).state is RequestState.REJECTED,
+              "chaos death: try_submit on a dead engine not typed")
+        out["death_states"] = {f"{k[0]}: {k[1]}": v for k, v in states.items()}
+
+        # Page exhaustion: pool_pressure once a window, typed sheds past the
+        # queue bound, then every admitted request completes.
+        chaos_hooks.install(chaos_hooks.SEAM_SERVE_PAGES, lambda **ctx: "exhaust")
+        batcher = ContinuousBatcher(engine, max_queue=16, registry=M.MetricsRegistry())
+        before = len(obs_recorder.read_records(flight))
+        batcher.start()
+        reqs = [batcher.try_submit(p, MAX_NEW) for p in prompts]
+        time.sleep(EXHAUST_S)
+        stalled = engine.active_slots
+        chaos_hooks.clear()
+        admitted = [r for r in reqs if r.state is not RequestState.REJECTED]
+        check(all(r.wait(timeout=120).state is RequestState.DONE for r in admitted),
+              "chaos exhaustion: an admitted request did not complete")
+        batcher.stop()
+        recs = obs_recorder.read_records(flight)[before:]
+        pressure = [r for r in recs if r["kind"] == "pool_pressure"]
+        sheds = [r for r in recs if r["kind"] == "shed"]
+        n_shed = len(reqs) - len(admitted)
+        check(stalled == 0 and len(admitted) == 16, f"chaos exhaustion: {stalled} active, "
+              f"{len(admitted)} admitted")
+        check(1 <= len(pressure) <= int(EXHAUST_S) + 1 and 1 <= len(sheds) <= 2
+              and batcher._shed_count == n_shed,
+              f"chaos exhaustion: {len(pressure)} pool_pressure, sheds {sheds}, "
+              f"{batcher._shed_count} shed of {n_shed}")
+        check(all(r.error.startswith("admission rejected: admission queue full")
+                  for r in reqs if r.state is RequestState.REJECTED),
+              "chaos exhaustion: sheds not typed")
+        check(pools_balanced(engine), "chaos exhaustion: page leak")
+        out.update(pool_pressure_events=len(pressure), shed_events=len(sheds),
+                   shed_requests=n_shed)
+
+        # A stall at the step seam past itl_min_s: SNT008 once an episode.
+        sentry = Sentry(registry=M.MetricsRegistry(), process_id=0)
+        itls = []
+
+        def run(batch, stall):
+            if stall:
+                chaos_hooks.install(chaos_hooks.SEAM_SERVE_STEP,
+                                    lambda **ctx: time.sleep(STALL_S))
+            b = ContinuousBatcher(engine, registry=M.MetricsRegistry()).start()
+            done = [b.submit(p, 8) for p in batch]
+            for r in done:
+                r.wait(timeout=120)
+            b.stop()
+            chaos_hooks.clear()
+            for r in sorted(done, key=lambda r: r.t_done):
+                check(r.state is RequestState.DONE, "chaos stall: a request failed")
+                itls.append(r.itl_s)
+                sentry.observe_serve(itl_s=r.itl_s, replica_id=0)
+
+        run(prompts[:16], False)
+        run(prompts[16:24], True)
+        first = [f.code for f in sentry.findings]
+        run(prompts[24:40], False)
+        run(prompts[40:48], True)
+        codes = [f.code for f in sentry.findings]
+        check(first == ["SNT008"] and codes.count("SNT008") == 2,
+              f"chaos stall: findings {codes} (after one stall {first})")
+        out.update(snt008_findings=codes.count("SNT008"), findings=codes,
+                   itl_normal_p50_s=statistics.median(itls[:16]),
+                   itl_stalled_p50_s=statistics.median(itls[16:24]))
+    finally:
+        chaos_hooks.clear()
+        obs_recorder.disable()
+    return out
+
+
+def serve_replica(params, card: str, dev) -> dict:
+    """The serve_replica phase (see the module docstring)."""
+    t_phase = time.perf_counter()
+    cfg = get_model("transformer")
+    rng = np.random.default_rng(SEED)
+    prompts = [mock_load_prompt(rng, i, vocab=cfg.vocab_size) for i in range(N_REQUESTS)]
+    engine = InferenceEngine(params, tt.decode_model(cfg), n_slots=REPLICA_SLOTS,
+                             page_len=PAGE_LEN, prefill_chunk=PAGE_LEN, device=dev)
+    engine.generate([1, 2, 3], 2)                        # warm-up, not counted
+    want, _, _, ref_launches, _ = _served(engine, prompts, "serve_replica reference",
+                                          cfg.num_layers)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        row = _replica_processes(params, cfg, prompts, want, work)
+        reset_launches()
+        programs = engine.prefill_invocations + engine.decode_invocations
+        chaos = _replica_chaos(engine, prompts, work)
+        cost = _decode_hook_cost(engine, prompts, work)
+        chaos_launches = pa.paged_attention.launches
+        ran = engine.prefill_invocations + engine.decode_invocations - programs
+        check(chaos_launches == cfg.num_layers * ran,
+              f"serve_replica: in-process launches {chaos_launches} != "
+              f"{cfg.num_layers} x {ran}")
+    del engine
+    torch.cuda.empty_cache()
+    row.update(chaos=chaos, decode_step_host_ms_hooks_off=cost["off"],
+               decode_step_host_ms_hooks_on=cost["on"], hook_cost_turns=cost["turns"],
+               hook_cost_full_gcs=cost["full_gcs"],
+               kernel_launches=ref_launches + sum(row.pop("process_launches")) + chaos_launches,
+               wall_s=time.perf_counter() - t_phase, card=card)
+    emit("serve_replica", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3554,6 +4069,7 @@ def main() -> int:
     serve_rows = [serve_run(params, kv_quant, dev) for kv_quant in (False, True)]
     stream_check(params, dev)
     feature_rows = serve_features(params, card, dev)
+    replica_row = serve_replica(params, card, dev)
     del params
     ckpt_serve_rows = checkpoint_serve(card, dev)
 
@@ -3601,7 +4117,7 @@ def main() -> int:
         "source": "autodist_tpu_torch/csrc/paged_attention.cu",
         "replaces": "autodist_tpu/ops/paged_attention.py:137",
         "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows
-                        + ckpt_serve_rows),
+                        + ckpt_serve_rows + [replica_row]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3671,6 +4187,8 @@ if __name__ == "__main__":
                   "--auto-rank": auto_rank, "--sparse-cpu-rank": sparse_cpu_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--serve-cli":
+        sys.exit(serve_cli(sys.argv[2], sys.argv[3:]))
     if len(sys.argv) == 4 and sys.argv[1] == "--supervised-script":
         sys.exit(supervised_script(sys.argv[2], sys.argv[3]))
     sys.exit(main())
