@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -294,12 +295,14 @@ def _launch(q4, k_pages, v_pages, page_tables, q_positions, k_scale=None,
                 _DTYPE_CODE[q4.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {rc}")
-    paged_attention.launches += 1
+    with _launch_lock:                  # replicas' batcher threads launch at once
+        paged_attention.launches += 1
     return out
 
 
 #: Launches of the CUDA kernel (CPU calls and plain runs are not counted).
 paged_attention.launches = 0
+_launch_lock = threading.Lock()
 
 
 # ------------------------------------------------------------- entry points

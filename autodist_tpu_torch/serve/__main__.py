@@ -16,7 +16,13 @@ prompt prefixes copy-on-write (``serve/prefix.py``); a POST body's
 ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` draw the counter-based
 stochastic stream (``serve/sampling.py``). The CPU proofs, each printing
 one JSON line and exiting non-zero on a failed bar: ``--selftest-spec``,
-``--selftest-prefix``, ``--selftest-sampling``.
+``--selftest-prefix``, ``--selftest-sampling``, and ``--selftest-router``
+(3 in-process replicas behind the ``serve/router.py`` router, one killed
+mid-decode under ``--requests`` concurrent requests of ``--max-new``
+tokens on ``--slots`` rows each, every stream bit-identical to an
+uninterrupted control run, exactly once; on ``--device``)::
+
+    python -m autodist_tpu_torch.serve --selftest-router --device cpu
 
 Every server measures its own SLO position (``GET /slo``, an
 ``obs.slo.SLOTracker`` with the default spec). With ``--ft-dir DIR`` the
@@ -34,16 +40,15 @@ consumes it and appends each replayed request's outcome to
         --ft-dir DIR --replica-id 0 [--trace-out T]
 
 ``--trace-out T`` flushes this process's span part-file into ``T`` at exit
-(``obs/spans.py``). SIGTERM unwinds the server through ``KeyboardInterrupt``
-and exits 0, as the JAX package's server does: it does not drain (``POST
-/drain`` does). ``AUTODIST_FLIGHT_DIR`` turns on the flight recorder.
+(``obs/spans.py``). SIGTERM closes the listener (cancelling the connections
+still open) and exits 0, as the JAX package's server does: it does not
+drain (``POST /drain`` does). ``AUTODIST_FLIGHT_DIR`` turns on the flight
+recorder.
 """
 from __future__ import annotations
 
 import argparse
-import asyncio
 import os
-import signal
 import sys
 
 
@@ -129,7 +134,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="transformer", help="zoo model name")
     ap.add_argument("--model-arg", action="append", metavar="K=V",
                     help="model config override (repeatable)")
-    ap.add_argument("--slots", type=int, default=8, help="decode slot rows")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="decode slot rows (a replica's, with --selftest-router)")
     ap.add_argument("--page-len", type=int, default=16,
                     help="KV-cache page length in tokens")
     ap.add_argument("--pages", type=int, default=None,
@@ -167,9 +173,14 @@ def main(argv=None) -> int:
                     help="this replica's id on the ft transport (with --ft-dir)")
     ap.add_argument("--trace-out", default=None,
                     help="flush this process's span part-file into DIR at exit")
-    for name in ("spec", "prefix", "sampling"):
+    for name in ("spec", "prefix", "sampling", "router"):
         ap.add_argument(f"--selftest-{name}", action="store_true",
                         help=f"run the CPU proof of serve/{name}.py and exit")
+    ap.add_argument("--requests", type=int, default=64,
+                    help="--selftest-router: concurrent mock requests (>=64 "
+                         "proves the acceptance bar)")
+    ap.add_argument("--max-new", type=int, default=12,
+                    help="--selftest-router: tokens generated per request")
     args = ap.parse_args(argv)
 
     if args.selftest_spec:
@@ -184,6 +195,11 @@ def main(argv=None) -> int:
         from autodist_tpu_torch.serve.sampling import selftest_sampling
 
         return selftest_sampling()
+    if args.selftest_router:
+        from autodist_tpu_torch.serve.router import selftest_router
+
+        return selftest_router(n_requests=args.requests, max_new=args.max_new,
+                               n_slots=args.slots, device=args.device)
 
     if args.ft_dir and "AUTODIST_PROCESS_ID" not in os.environ:
         # Part-files and flight records identify as this replica unless a
@@ -193,13 +209,14 @@ def main(argv=None) -> int:
         from autodist_tpu_torch.obs import spans as obs_spans
 
         obs_spans.enable_trace_out(args.trace_out)
+    from autodist_tpu_torch.serve.server import serve_until_signal
+
     frontend = build_frontend(args)
-    # A supervisor stops the server with SIGTERM; route it through the
-    # KeyboardInterrupt path so shutdown unwinds (and the --trace-out
+    # A supervisor stops the server with SIGTERM: the event loop takes it
+    # and closes the listener, and the process exits 0 (the --trace-out
     # part-file is flushed at exit).
-    signal.signal(signal.SIGTERM, signal.default_int_handler)
     try:
-        asyncio.run(frontend.serve_forever())
+        serve_until_signal(frontend)
     except KeyboardInterrupt:
         pass
     finally:

@@ -8,11 +8,12 @@ the device). Routes:
 
 - ``POST /generate`` ``{"tokens": [...], "max_new_tokens": N,
   "timeout_s": T?, "temperature": t?, "top_k": k?, "top_p": p?, "seed": s?,
-  "request_id": id?}`` → ``{"tokens": [...], "state": "done"}``; 429 on
-  backpressure, 400 on an unservable request or malformed sampling params
-  (typed ``invalid_sampling_params``). ``temperature > 0`` draws the
-  counter-based stochastic stream of ``(request_id, seed)``
-  (``serve/sampling.py``).
+  "tenant": name?, "request_id": id?}`` → ``{"tokens": [...], "state":
+  "done"}``; 429 on backpressure, 400 on an unservable request or malformed
+  sampling params (typed ``invalid_sampling_params``). Explicit sampling
+  fields override the tenant's defaults (``tenant_defaults``); absent both,
+  decode is greedy. ``temperature > 0`` draws the counter-based stochastic
+  stream of ``(request_id, seed)`` (``serve/sampling.py``).
 - ``GET /metrics`` → the metrics registry as OpenMetrics text.
 - ``GET /slo`` → the ``slo_report`` of the batcher's
   :class:`~autodist_tpu_torch.obs.slo.SLOTracker` (NaN-safe JSON); 404 when
@@ -29,13 +30,23 @@ the device). Routes:
 With a replica the listener binds before the (possibly long) engine build,
 which runs on a thread: a probe during the build gets a typed 503, not a
 refused connection.
+
+:class:`RouterFrontend` is the fleet's address in front of a
+:class:`~autodist_tpu_torch.serve.router.Router` (``POST /generate``, the
+fleet's ``GET /metrics``, ``/healthz`` and ``/slo``). Both front ends share
+one shutdown path: closing the listener cancels every connection still
+open, so ``serve_forever`` returns even when a client holds a socket, and
+:func:`serve_until_signal` turns SIGTERM into that return through the
+event loop (never an exception raised between two of asyncio's own
+bytecodes, which can leave a closed connection counted open forever).
 """
 from __future__ import annotations
 
 import asyncio
 import json
+import signal
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Set
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.serve.batcher import (
@@ -47,12 +58,17 @@ from autodist_tpu_torch.serve.sampling import InvalidSamplingParams, SamplingPar
 from autodist_tpu_torch.utils import logging
 
 
+#: Seconds a closing listener waits for its cancelled connections to end.
+CLOSE_TIMEOUT_S = 5.0
+
+
 async def async_generate(batcher: ContinuousBatcher, tokens,
                          max_new_tokens: int = 32,
                          timeout_s: Optional[float] = None,
                          request_id: Optional[str] = None,
                          sampling: Optional[SamplingParams] = None):
-    """Submit + await one request from the event loop."""
+    """Submit + await one request from the event loop. ``batcher`` is
+    anything with the ``submit`` contract (a batcher or a router)."""
     loop = asyncio.get_running_loop()
     fut: asyncio.Future = loop.create_future()
     req = batcher.submit(tokens, max_new_tokens, timeout_s=timeout_s,
@@ -63,16 +79,21 @@ async def async_generate(batcher: ContinuousBatcher, tokens,
     return await fut
 
 
-def parse_sampling(payload: Dict[str, Any]) -> Optional[SamplingParams]:
-    """One request's sampling params from the body fields
-    (``temperature`` / ``top_k`` / ``top_p`` / ``seed``); None (greedy) when
-    the body names none. Raises :class:`InvalidSamplingParams` on
-    out-of-range or non-numeric values."""
+def parse_sampling(payload: Dict[str, Any],
+                   tenant_defaults: Optional[Dict[str, SamplingParams]] = None,
+                   ) -> Optional[SamplingParams]:
+    """One request's sampling params: the body fields (``temperature`` /
+    ``top_k`` / ``top_p`` / ``seed``) override the ``tenant``'s defaults,
+    which override greedy. None (greedy) when neither the body nor the
+    tenant names any. Raises :class:`InvalidSamplingParams` on out-of-range
+    or non-numeric values."""
+    tenant = payload.get("tenant")
+    base = (tenant_defaults or {}).get(tenant) if tenant else None
     fields = {k: payload[k] for k in ("temperature", "top_k", "top_p", "seed")
               if k in payload}
-    if not fields:
+    if base is None and not fields:
         return None
-    doc = SamplingParams().to_dict()
+    doc = (base or SamplingParams()).to_dict()
     doc.update(fields)
     try:
         params = SamplingParams(
@@ -93,20 +114,100 @@ def mock_load_prompt(rng, i: Optional[int] = None, long_every: int = 8,
     return rng.integers(1, vocab, size=int(rng.integers(3, 12)))
 
 
-class ServeFrontend:
+class _Listener:
+    """The HTTP listener both front ends share: it binds, tracks each
+    connection's handler task, and on close cancels the ones still open
+    before it waits for the server, so closing never waits on a client."""
+
+    host: str
+    port: int
+    _server: Optional[asyncio.AbstractServer] = None
+
+    async def _listen(self, name: str) -> None:
+        self._conns: Set[asyncio.Task] = set()
+        self._server = await asyncio.start_server(self._connection, self.host,
+                                                  self.port)
+        addr = self._server.sockets[0].getsockname()
+        self.port = addr[1]
+        logging.info("%s listening on %s:%d", name, *addr[:2])
+
+    async def _connection(self, reader, writer) -> None:
+        task = asyncio.current_task()
+        self._conns.add(task)
+        try:
+            await self._handle(reader, writer)
+        finally:
+            self._conns.discard(task)
+
+    async def _handle(self, reader, writer) -> None:
+        raise NotImplementedError
+
+    async def serve_forever(self) -> None:
+        """Serve until cancelled; the listener is closed on the way out.
+        (Not ``Server.serve_forever``: cancelled, it waits for every open
+        connection to close before it returns, a client's idle socket
+        included.)"""
+        if self._server is None:
+            await self.start()
+        try:
+            await asyncio.get_running_loop().create_future()
+        finally:
+            await self._close_listener()
+
+    async def _close_listener(self) -> None:
+        server, self._server = self._server, None
+        if server is None:
+            return
+        server.close()
+        conns = set(self._conns)
+        for task in conns:
+            task.cancel()
+        try:
+            if conns:
+                await asyncio.wait(conns, timeout=CLOSE_TIMEOUT_S)
+            await asyncio.wait_for(server.wait_closed(), CLOSE_TIMEOUT_S)
+        except asyncio.TimeoutError:
+            logging.warning("listener on port %d: connections still open after "
+                            "%.0f s; closing anyway", self.port, CLOSE_TIMEOUT_S)
+
+
+def serve_until_signal(frontend) -> None:
+    """Run ``frontend.serve_forever()`` on a new event loop until SIGTERM
+    (or SIGINT) and return once the listener is closed. The signal is taken
+    by the event loop, so the shutdown starts between two callbacks and
+    never inside one."""
+
+    async def main() -> None:
+        loop = asyncio.get_running_loop()
+        task = asyncio.current_task()
+        loop.add_signal_handler(signal.SIGTERM, task.cancel)
+        try:
+            await frontend.serve_forever()
+        except asyncio.CancelledError:
+            pass
+        finally:
+            loop.remove_signal_handler(signal.SIGTERM)
+
+    asyncio.run(main())
+
+
+class ServeFrontend(_Listener):
     """Minimal HTTP server over one batcher (or one
     :class:`~autodist_tpu_torch.serve.replica.Replica`, which adds typed
     readiness to ``/healthz`` and a persisting drain to ``POST /drain``)."""
 
     def __init__(self, batcher: Optional[ContinuousBatcher], host: str = "127.0.0.1",
                  port: int = 8476, registry: Optional[M.MetricsRegistry] = None,
-                 replica=None):
+                 replica=None,
+                 tenant_defaults: Optional[Dict[str, SamplingParams]] = None):
         self._batcher = batcher
         self.host, self.port = host, port
         self.replica = replica
         self.registry = registry or (replica.registry if replica is not None
                                      else batcher._registry)
-        self._server: Optional[asyncio.AbstractServer] = None
+        # tenant name -> default SamplingParams; a request's explicit body
+        # fields override them (parse_sampling).
+        self.tenant_defaults = dict(tenant_defaults or {})
 
     @property
     def batcher(self) -> Optional[ContinuousBatcher]:
@@ -122,23 +223,11 @@ class ServeFrontend:
                              daemon=True).start()
         else:
             self.batcher.start()
-        self._server = await asyncio.start_server(
-            self._handle, self.host, self.port)
-        addr = self._server.sockets[0].getsockname()
-        self.port = addr[1]
-        logging.info("serve frontend listening on %s:%d", *addr[:2])
+        await self._listen("serve frontend")
         return self
 
-    async def serve_forever(self) -> None:
-        if self._server is None:
-            await self.start()
-        async with self._server:
-            await self._server.serve_forever()
-
     async def close(self) -> None:
-        if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
+        await self._close_listener()
         if self.replica is not None:
             self.replica.stop()
         elif self.batcher is not None:
@@ -261,7 +350,7 @@ class ServeFrontend:
             payload = json.loads(body.decode() or "{}")
             tokens = payload["tokens"]
             max_new = int(payload.get("max_new_tokens", 32))
-            sampling = parse_sampling(payload)
+            sampling = parse_sampling(payload, self.tenant_defaults)
             batcher = self.batcher
             if batcher is None:
                 self._respond(writer, 503, {"error": "replica is not ready "
@@ -287,6 +376,124 @@ class ServeFrontend:
             return
         self._respond(writer, 200, {
             "id": req.id,
+            "state": req.state.value,
+            "tokens": req.tokens,
+            "latency_s": req.latency_s,
+        })
+
+
+class RouterFrontend(_Listener):
+    """HTTP front end of the multi-replica control plane
+    (:class:`~autodist_tpu_torch.serve.router.Router`): the fleet's single
+    client-visible address. Routes:
+
+    - ``POST /generate`` — admitted through the router (journaled,
+      exactly-once, failover-transparent), with the tenant's sampling
+      defaults; 429 on router backpressure, 400 on an unservable request.
+    - ``GET /metrics`` — the FLEET exposition: the shared registry plus
+      per-replica samples labeled ``{replica="<id>"}``
+      (``Router.metrics_snapshot``), rendered by ``render_openmetrics``
+      (byte-identical to it on the same snapshot).
+    - ``GET /healthz`` — fleet readiness JSON (per-replica states from
+      the router's observer-combined view); 200 while at least one
+      replica is READY, 503 otherwise.
+    - ``GET /slo`` — the router's ``slo_report`` (NaN-safe JSON).
+    """
+
+    def __init__(self, router, host: str = "127.0.0.1", port: int = 8475,
+                 tenant_defaults: Optional[Dict[str, SamplingParams]] = None):
+        self.router = router
+        self.host, self.port = host, port
+        self.tenant_defaults = dict(tenant_defaults or {})
+
+    async def start(self) -> "RouterFrontend":
+        self.router.start()
+        await self._listen("router frontend")
+        return self
+
+    async def close(self) -> None:
+        await self._close_listener()
+        self.router.stop()
+
+    async def _handle(self, reader, writer) -> None:
+        respond = ServeFrontend._respond
+        try:
+            parsed = await ServeFrontend._read_request(reader)
+            if parsed is None:
+                return
+            method, path, _, body = parsed
+            if method == "GET" and path == "/metrics":
+                from autodist_tpu_torch.obs.exporter import render_openmetrics
+
+                respond(writer, 200,
+                        render_openmetrics(
+                            snapshot=self.router.metrics_snapshot()),
+                        content_type="text/plain")
+            elif method == "GET" and path == "/healthz":
+                self._healthz(writer)
+            elif method == "GET" and path == "/slo":
+                from autodist_tpu_torch.obs.slo import json_safe
+
+                # json_safe: an empty-window report carries NaN
+                # percentiles, and bare NaN is not RFC-8259 JSON.
+                respond(writer, 200, json_safe(self.router.slo_report()))
+            elif method == "POST" and path == "/generate":
+                await self._generate(writer, body)
+            else:
+                respond(writer, 404, {"error": f"no route {path}"})
+            await writer.drain()
+        except Exception as e:  # noqa: BLE001 - per-connection isolation
+            try:
+                respond(writer, 500, {"error": str(e)})
+                await writer.drain()
+            except Exception:  # noqa: BLE001
+                pass
+        finally:
+            writer.close()
+
+    def _healthz(self, writer) -> None:
+        states = {rid: self.router.replica_state(rid).value
+                  for rid in sorted(self.router.replicas)}
+        ready = sum(1 for s in states.values() if s == "ready")
+        doc = {
+            "ok": ready >= 1,
+            "replicas": {str(k): v for k, v in states.items()},
+            "replicas_ready": ready,
+            "outstanding": self.router.outstanding,
+        }
+        ServeFrontend._respond(writer, 200 if doc["ok"] else 503, doc)
+
+    async def _generate(self, writer, body: bytes) -> None:
+        respond = ServeFrontend._respond
+        try:
+            payload = json.loads(body.decode() or "{}")
+            tokens = payload["tokens"]
+            max_new = int(payload.get("max_new_tokens", 32))
+            sampling = parse_sampling(payload, self.tenant_defaults)
+        except InvalidSamplingParams as e:
+            respond(writer, 400, {
+                "error": str(e), "type": "invalid_sampling_params"})
+            return
+        except (ValueError, KeyError) as e:
+            respond(writer, 400, {"error": f"bad request body: {e}"})
+            return
+        try:
+            req = await async_generate(
+                self.router, tokens, max_new,
+                timeout_s=payload.get("timeout_s"),
+                request_id=payload.get("request_id") or None,
+                sampling=sampling)
+        except Backpressure as e:
+            respond(writer, 429, {"error": str(e)})
+            return
+        except ValueError as e:
+            respond(writer, 400, {"error": str(e)})
+            return
+        if req.state is RequestState.REJECTED and req.unservable:
+            respond(writer, 400, {"error": req.error})
+            return
+        respond(writer, 200, {
+            "id": req.request_id,
             "state": req.state.value,
             "tokens": req.tokens,
             "latency_s": req.latency_s,

@@ -101,6 +101,37 @@ Phases, each printing one JSON line:
    episode in a ``Sentry`` fed each request's ITL (two episodes, two
    findings); the host ms of a 32-row decode step with the flight hooks off
    and on, in turns.
+5f. ``serve_fleet``: the serving fleet's router (``serve/router.py``)
+   through ``build_test_fleet`` and ``fleet_trial``, the path of
+   ``--selftest-router`` at full width: 3 in-process replicas x 16 slots
+   (``FLEET_*``) and a control engine over one shared parameter dict, 64
+   seeded requests (max_new 16) from 64 concurrent clients, replica 1
+   killed once it holds a request with a delivered token. Fleet B is the
+   served configuration (the full-width transformer above, bf16 pages),
+   fleet A the bit-identity contract (the fp32 2-layer full-width model of
+   ``stream_check``). Each fleet runs once without the kill first: its
+   maximum straggler score and the TTFT/ITL ratios to the rolling median
+   the sentry judges them against are printed, and a ``RouterConfig`` /
+   ``SentryConfig`` field is set above its JAX default only when that run
+   crossed it, ``CALIBRATION_MARGIN`` (2x) above the measured maximum;
+   every other field is JAX's default (``calibrated_configs``, as
+   ``selftest_router`` does). Then the killed run holds
+   every bar of ``selftest_router``: every request done and delivered
+   exactly once (the ledger), a failover and a reroute, the journal empty,
+   2 replicas READY after the kill, a finite ``slo_report`` compliant with
+   the selftest's spec (``TEST_SLO_SPEC``; the verdict of JAX's default
+   interactive ``SLOSpec`` on the same percentiles is printed beside it,
+   not gated), the stitched failover trace, and a
+   seeded 1000 s TTFT and ITL tripping SNT007 and SNT008 once and demoting
+   the survivor. Fleet A's streams equal the control run's bitwise with 0
+   overlap mismatches; fleet B's agree under ``_streams_agree``, and a bf16
+   overlap mismatch is allowed only at a near-tie (the request ends typed,
+   counted, and its margin printed). A ``RouterFrontend`` in front of fleet
+   B answers 4 ``POST /generate``, ``GET /metrics`` (read back by
+   ``parse_openmetrics`` with its ``{replica=...}`` samples), ``/healthz``
+   and ``/slo``. In every window the paged kernel's launches equal the
+   layers times the prefill chunks and decode steps of every engine that
+   ran (the killed replica's up to its death, the control engine's).
 6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
    plain versions on the same inputs (B=32, H=12, D=64; bf16 at S=512
    causal and not, S=128 and S=256 causal; fp32 at S=512, the FMA
@@ -310,7 +341,7 @@ import sys
 import tempfile
 import threading
 import time
-from dataclasses import replace
+from dataclasses import asdict, replace
 from types import SimpleNamespace
 
 import numpy as np
@@ -338,7 +369,8 @@ from autodist_tpu_torch.ops import flash_attention as fa
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.ops import paged_attention as pa
 from autodist_tpu_torch.chaos import hooks as chaos_hooks
-from autodist_tpu_torch.obs import Sentry, recorder as obs_recorder, replay_flight_records
+from autodist_tpu_torch.obs import (SLOSpec, Sentry, SentryConfig, parse_openmetrics,
+                                   recorder as obs_recorder, replay_flight_records)
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
@@ -347,7 +379,9 @@ from autodist_tpu_torch.serve import sampling as samp_ops
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
 from autodist_tpu_torch.serve import engine as serve_engine
 from autodist_tpu_torch.serve.engine import EngineDeadError, InferenceEngine
-from autodist_tpu_torch.serve.server import ServeFrontend, mock_load_prompt
+from autodist_tpu_torch.serve.router import (TEST_SLO_SPEC, RouterConfig, build_test_fleet,
+                                            calibrated_configs, fleet_trial)
+from autodist_tpu_torch.serve.server import RouterFrontend, ServeFrontend, mock_load_prompt
 from autodist_tpu_torch.serve.spec import SpecDecodeEngine, pools_balanced
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and per-type rates.
@@ -657,6 +691,13 @@ SLO_REPLAY_RTOL = 1e-9
 STALL_S, EXHAUST_S = 0.15, 1.5
 HOOK_COST_STEPS, HOOK_COST_TURNS = 32, 6
 
+# serve_fleet: 3 replicas x 16 slots behind the router, 64 requests of 16
+# new tokens, replica 1 killed mid-decode, FLEET_HTTP requests over HTTP;
+# FLEET_PAGES holds every row's longest request (44 + 16 tokens: 4 pages)
+# twice over.
+FLEET_REPLICAS, FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_KILL = 3, 16, 64, 16, 1
+FLEET_PAGES = 1 + FLEET_SLOTS * 8
+FLEET_HTTP = 4
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -961,7 +1002,8 @@ def stream_check(params, dev):
 
 
 # ---------------------------------------------------------- serve features
-def _served(engine, prompts, label, layers, draft_layers=0, sampling=None, rids=None):
+def _served(engine, prompts, label, layers, draft_layers=0, sampling=None, rids=None,
+            max_new=MAX_NEW):
     """The prompts through a ContinuousBatcher on ``engine``, the paged
     kernel's count set to 0 just before and held just after to ``layers``
     times the target's programs run plus ``draft_layers`` times the draft's;
@@ -972,7 +1014,7 @@ def _served(engine, prompts, label, layers, draft_layers=0, sampling=None, rids=
                   draft=getattr(engine, "draft_invocations", 0))
     reset_launches()
     batcher = ContinuousBatcher(engine, max_queue=256, registry=registry)
-    reqs = [batcher.submit(p, MAX_NEW, request_id=rids[i] if rids else None,
+    reqs = [batcher.submit(p, max_new, request_id=rids[i] if rids else None,
                            sampling=sampling[i] if sampling else None)
             for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
@@ -987,7 +1029,7 @@ def _served(engine, prompts, label, layers, draft_layers=0, sampling=None, rids=
                decode=engine.decode_invocations - counts["decode"],
                verify=getattr(engine, "verify_invocations", 0) - counts["verify"],
                draft=getattr(engine, "draft_invocations", 0) - counts["draft"])
-    check(all(r.state is RequestState.DONE and len(r.tokens) == MAX_NEW for r in reqs),
+    check(all(r.state is RequestState.DONE and len(r.tokens) == max_new for r in reqs),
           f"{label}: states {[r.state.value for r in reqs]}")
     want = (layers * (ran["prefill"] + ran["decode"] + ran["verify"])
             + draft_layers * ran["draft"])
@@ -4032,6 +4074,216 @@ def serve_replica(params, card: str, dev) -> dict:
     return row
 
 
+# -------------------------------------------------------------- serve fleet
+def _fleet(params, cfg, dev, work: str, tag: str, router_cfg, sentry_cfg):
+    """The card's fleet: ``build_test_fleet`` at FLEET_* over ``params``
+    with the given configs, under the selftest's SLO spec
+    (``TEST_SLO_SPEC``): the bar is ``selftest_router``'s (64 requests at
+    once onto 48 rows queue a second wave behind the first by design;
+    JAX's default interactive spec is judged beside it, ``_slo_verdict``)."""
+    return build_test_fleet(
+        n_replicas=FLEET_REPLICAS, n_slots=FLEET_SLOTS, page_len=PAGE_LEN,
+        n_pages=FLEET_PAGES, journal_dir=os.path.join(work, tag),
+        registry=M.MetricsRegistry(), config=router_cfg, device=dev, model_cfg=cfg,
+        params=params, sentry_config=sentry_cfg)
+
+
+def _slo_verdict(router, spec: SLOSpec) -> dict:
+    """The router's SLO tracker judged against ``spec`` by its own rule."""
+    saved, router.slo.spec = router.slo.spec, spec
+    try:
+        return router.slo.report()["compliant"]
+    finally:
+        router.slo.spec = saved
+
+
+def _engine_programs(engines) -> int:
+    return sum(e.prefill_invocations + e.decode_invocations for e in engines)
+
+
+def _fleet_window(router, prompts, want, cfg, label: str, kill) -> tuple:
+    """One fleet_trial with the paged kernel's count set to 0 just before and
+    held just after to layers x the programs of every replica engine."""
+    reset_launches()
+    out = fleet_trial(router, prompts, FLEET_NEW, expected=want, kill_replica=kill)
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches
+    programs = {rid: _engine_programs([rep.engine]) for rid, rep in router.replicas.items()}
+    check(launches == cfg.num_layers * sum(programs.values()) > 0,
+          f"serve_fleet {label}: paged launches {launches} != {cfg.num_layers} x "
+          f"{programs} programs")
+    return out, launches, programs
+
+
+def _mismatch_margins(params, cfg, results) -> list:
+    """Each request ended on a failover prefix mismatch: the |Δlogit| of the
+    regenerated and the delivered token under the uncached forward of
+    the prompt and the delivered prefix before it."""
+    margins = []
+    for r in results:
+        if r.state is not RequestState.REJECTED or "prefix mismatch" not in r.error:
+            continue
+        regen = int(r.error.split("regenerated ")[1].split(",")[0])
+        tokens = torch.tensor([list(r.prompt) + list(r.tokens[:-1])], dtype=torch.int32,
+                              device=params["embed"]["embedding"].device)
+        with torch.no_grad():
+            logits = tt.forward(params, tokens, cfg)[0, -1]
+        margins.append(abs(float(logits[regen] - logits[r.tokens[-1]])))
+    return margins
+
+
+def _fleet_http(router, cfg, prompts) -> dict:
+    """A RouterFrontend in front of the fleet: FLEET_HTTP POST /generate,
+    GET /metrics, /healthz and /slo; the paged launches of the window."""
+    async def run():
+        fe = await RouterFrontend(router, port=0).start()
+        gens = await asyncio.gather(*(asyncio.to_thread(
+            _call, fe.port, "POST", "/generate",
+            {"tokens": [int(t) for t in p], "max_new_tokens": 8}) for p in prompts))
+        metrics = await asyncio.to_thread(_call_text, fe.port, "/metrics")
+        health = await asyncio.to_thread(_call, fe.port, "GET", "/healthz")
+        slo = await asyncio.to_thread(_call, fe.port, "GET", "/slo")
+        await fe.close()
+        return gens, metrics, health, slo
+
+    before = _engine_programs([rep.engine for rep in router.replicas.values()])
+    reset_launches()
+    gens, (mcode, text), health, slo = asyncio.run(run())
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches
+    ran = _engine_programs([rep.engine for rep in router.replicas.values()]) - before
+    check(all(code == 200 and body["state"] == "done" and len(body["tokens"]) == 8
+              for code, body in gens), f"serve_fleet HTTP: {gens}")
+    samples = parse_openmetrics(text)
+    labelled = sorted({name for name, labels in samples if labels.startswith("replica=")})
+    check(mcode == 200 and ("serve_replica_up", 'replica="1"') in samples
+          and samples[("serve_replica_up", 'replica="1"')] == 0.0,
+          f"serve_fleet /metrics: {mcode}, replica samples {labelled}")
+    check(health[0] == 200 and health[1]["replicas"]["1"] == "dead",
+          f"serve_fleet /healthz: {health}")
+    check(slo[0] == 200 and {"measured", "compliant", "router"} <= set(slo[1]),
+          f"serve_fleet /slo: {slo[0]}")
+    check(launches == cfg.num_layers * ran,
+          f"serve_fleet HTTP: paged launches {launches} != {cfg.num_layers} x {ran}")
+    return dict(http_generate=[c for c, _ in gens], http_metrics=mcode,
+                http_replica_metrics=labelled, http_healthz=health[0],
+                http_replicas=health[1]["replicas"], http_slo=slo[0], http_launches=launches)
+
+
+def _call_text(port: int, path: str) -> tuple:
+    with socket.create_connection(("127.0.0.1", port), timeout=120.0) as sock:
+        sock.sendall(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+        raw = b""
+        while chunk := sock.recv(65536):
+            raw += chunk
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body.decode()
+
+
+def _fleet_case(params, cfg, dev, work: str, tag: str, bitwise: bool, http: bool) -> dict:
+    """One fleet (see the module docstring): control streams, the kill-free
+    run, the configs it implies, the killed run and its bars."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    prompts = [np.asarray(mock_load_prompt(rng, i, vocab=cfg.vocab_size), np.int32)
+               for i in range(FLEET_REQUESTS)]
+    calib_router, control = _fleet(params, cfg, dev, work, f"{tag}-calib", RouterConfig(),
+                                   SentryConfig())
+    want, _, _, control_launches, _ = _served(control, prompts, f"serve_fleet {tag} control",
+                                              cfg.num_layers, max_new=FLEET_NEW)
+    try:
+        calib, calib_launches, calib_programs = _fleet_window(
+            calib_router, prompts, None, cfg, f"{tag} kill-free", None)
+    finally:
+        calib_router.stop(drain=False)
+    line = calib["line"]
+    check(line["completed"] == FLEET_REQUESTS and line["exactly_once"] and line["journal_empty"],
+          f"serve_fleet {tag} kill-free run: {line}")
+    streams = _streams_agree(params, cfg, prompts, [r.tokens for r in calib["results"]], want,
+                             f"serve_fleet {tag} kill-free", bitwise)
+    kill_free = dict(calib["observed"], replicas_ready=line["replicas_ready_after_kill"],
+                     failovers=line["failovers"], streams=streams, wall_s=line["wall_s"],
+                     ttft_p50_s=line["ttft_p50_s"], ttft_p99_s=line["ttft_p99_s"],
+                     itl_p50_s=line["itl_p50_s"], itl_p99_s=line["itl_p99_s"])
+    del calib_router
+    router_cfg, sentry_cfg, raised = calibrated_configs(calib["observed"], RouterConfig(),
+                                                        SentryConfig())
+    emit("serve_fleet_kill_free", fleet=tag, configs_raised=raised, **kill_free)
+
+    router, _ = _fleet(params, cfg, dev, work, tag, router_cfg, sentry_cfg)
+    try:
+        out, launches, programs = _fleet_window(
+            router, prompts, want if bitwise else None, cfg, tag, FLEET_KILL)
+        line, results = out["line"], out["results"]
+        ledger = router.ledger()
+        done = [i for i, r in enumerate(results) if r.state is RequestState.DONE]
+        margins = _mismatch_margins(params, cfg, results)
+        check(out["killed"] and line["failovers"] >= 1 and line["requests_rerouted"] >= 1,
+              f"serve_fleet {tag}: no failover: {line}")
+        check(len(ledger) == FLEET_REQUESTS and all(ledger[results[i].request_id] == 1
+                                                      for i in done)
+              and all(v <= 1 for v in ledger.values()),
+              f"serve_fleet {tag}: not exactly once: {ledger}")
+        check(len(done) + len(margins) == FLEET_REQUESTS
+              and line["prefix_mismatches"] == len(margins),
+              f"serve_fleet {tag}: {line['completed']} done, {len(margins)} mismatches of "
+              f"{FLEET_REQUESTS}")
+        check(not (bitwise and margins) and all(m <= STREAM_LOGIT_BOUND for m in margins),
+              f"serve_fleet {tag}: overlap mismatches at margins {margins}")
+        for bar in ("journal_empty", "slo_compliant", "failover_trace_stitched",
+                    "snt007_snt008_once_per_episode", "sentry_demoted_replica"):
+            check(bool(line[bar]), f"serve_fleet {tag}: {bar} false: {line}")
+        check(line["replicas_ready_after_kill"] == FLEET_REPLICAS - 1,
+              f"serve_fleet {tag}: {line['replicas_ready_after_kill']} replicas READY after "
+              f"the kill: {router.slo_report()['router']}")
+        streams = _streams_agree(params, cfg, [prompts[i] for i in done],
+                                 [results[i].tokens for i in done], [want[i] for i in done],
+                                 f"serve_fleet {tag}", bitwise)
+        check(not bitwise or line["ok"], f"serve_fleet {tag}: selftest bars {line}")
+        decode_tokens = sum(len(results[i].tokens) - 1 for i in done)
+        measured = router.slo_report()["measured"]
+        row = dict(line, kill_free=kill_free, configs_raised=raised,
+                   queue_wait_p99_s=measured["queue_wait_p99_s"],
+                   default_slo_spec_verdict=_slo_verdict(router, SLOSpec()),
+                   router_config=asdict(router_cfg), sentry_config=asdict(sentry_cfg),
+                   slo_spec=asdict(TEST_SLO_SPEC), killed_run=out["observed"],
+                   streams=streams, mismatch_margins=margins,
+                   decode_tokens_per_s=decode_tokens / line["wall_s"],
+                   programs=programs, control_launches=control_launches,
+                   kill_free_launches=calib_launches, kill_free_programs=calib_programs,
+                   kernel_launches=control_launches + calib_launches + launches)
+        if http:
+            row.update(_fleet_http(router, cfg, prompts[:FLEET_HTTP]))
+            row["kernel_launches"] += row["http_launches"]
+    finally:
+        router.stop(drain=False)
+    row["wall_s_fleet"] = time.perf_counter() - t0
+    return row
+
+
+def serve_fleet(params, card: str, dev) -> dict:
+    """The serve_fleet phase (see the module docstring)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as work:
+        fleet_b = _fleet_case(params, get_model("transformer"), dev, work, "B", bitwise=False,
+                              http=True)
+        emit("serve_fleet", fleet="B", model="transformer, full width, bf16 pages", card=card,
+             **fleet_b)
+        f32 = get_model("transformer", num_layers=2, dtype="float32")
+        p32 = tt.init_params(f32, seed=SEED + 2, device=dev)
+        fleet_a = _fleet_case(p32, f32, dev, work, "A", bitwise=True, http=False)
+        emit("serve_fleet", fleet="A", model="transformer, full width, 2 layers, fp32",
+             card=card, **fleet_a)
+        del p32
+    torch.cuda.empty_cache()
+    row = dict(kernel_launches=fleet_b["kernel_launches"] + fleet_a["kernel_launches"],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               wall_s=time.perf_counter() - t_phase, card=card)
+    emit("serve_fleet", fleet="both", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -4070,6 +4322,7 @@ def main() -> int:
     stream_check(params, dev)
     feature_rows = serve_features(params, card, dev)
     replica_row = serve_replica(params, card, dev)
+    fleet_row = serve_fleet(params, card, dev)
     del params
     ckpt_serve_rows = checkpoint_serve(card, dev)
 
@@ -4117,7 +4370,7 @@ def main() -> int:
         "source": "autodist_tpu_torch/csrc/paged_attention.cu",
         "replaces": "autodist_tpu/ops/paged_attention.py:137",
         "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows
-                        + ckpt_serve_rows + [replica_row]),
+                        + ckpt_serve_rows + [replica_row, fleet_row]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -66,7 +66,8 @@ def test_scan_sees_the_whole_port():
                 "chaos/__init__.py", "chaos/hooks.py", "obs/spans.py", "obs/recorder.py",
                 "ft/__init__.py", "ft/config.py", "ft/heartbeat.py", "ft/snapshot.py",
                 "ft/elastic.py", "ft/procdrain.py", "runtime/cluster.py",
-                "runtime/coordinator.py", "runtime/launcher.py", "runtime/__init__.py"):
+                "runtime/coordinator.py", "runtime/launcher.py", "runtime/__init__.py",
+                "obs/aggregate.py", "serve/router.py", "serve/replica.py", "serve/server.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()

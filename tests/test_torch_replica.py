@@ -363,6 +363,60 @@ def test_cli_replica_drains_persists_and_replays_once(tmp_path):
         assert live["measured"][key] == pytest.approx(replay["measured"][key], rel=1e-9)
 
 
+@pytest.mark.parametrize("mode", ["replica", "bare", "replica-open-socket"])
+def test_cli_sigterm_after_drain_exits_0_within_10s(tmp_path, mode):
+    """SIGTERM right after ``POST /drain`` (and, in one case, with a client
+    holding an idle connection) ends the server with exit 0 within 10 s,
+    with a replica (``--ft-dir``) and with a bare batcher."""
+    port = _free_port()
+    env = dict(os.environ, AUTODIST_FLIGHT_DIR=str(tmp_path / "flight"), PYTHONPATH=ROOT,
+               OMP_NUM_THREADS="1")
+    env.pop("AUTODIST_PROCESS_ID", None)
+    extra = (["--ft-dir", str(tmp_path / "ft"), "--trace-out", str(tmp_path / "trace")]
+             if mode != "bare" else [])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "autodist_tpu_torch.serve", "--device", "cpu", *TINY_ARGS,
+         "--slots", "2", "--port", str(port), *extra], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    idle = None
+    try:
+        _wait_ready(port, proc)
+        results = []
+        threads = [threading.Thread(target=lambda i=i: results.append(_call(
+            port, "POST", "/generate", {"tokens": [1 + i, 2, 3, 4], "max_new_tokens": 40,
+                                        "request_id": f"t-{i}"}, timeout=60.0)))
+            for i in range(6)]
+        for t in threads:
+            t.start()
+        assert retry.wait_until(
+            lambda: _call(port, "GET", "/healthz")[1]["outstanding"] + len(results) >= 6,
+            30.0, interval_s=0.005)
+        code, drained = _call(port, "POST", "/drain", timeout=60.0)
+        for t in threads:
+            t.join(timeout=60.0)
+        if mode == "replica-open-socket":
+            idle = socket.create_connection(("127.0.0.1", port), timeout=10.0)
+        # SIGTERM as soon as the last response's connection closes.
+        last = _call(port, "GET", "/healthz")
+        t0 = time.monotonic()
+        rc = _sigterm(proc, timeout=10.0)
+        took = time.monotonic() - t0
+    finally:
+        if idle is not None:
+            idle.close()
+        if proc.poll() is None:
+            proc.kill()
+    assert rc == 0, proc.stderr.read()[-3000:]
+    assert took < 10.0
+    assert code == 200 and len(results) == 6
+    assert {body["state"] for _, body in results} <= {"done", "preempted"}
+    assert last[0] == 503                          # drained: no longer ready
+    if mode == "bare":
+        assert drained["persisted"] == 0 and drained["drained"] + drained["preempted"] >= 1
+    else:
+        assert drained["drained"] + drained["persisted"] >= 1
+
+
 CHILD = r"""
 import os, signal, sys
 sys.path.insert(0, {root!r})
