@@ -37,8 +37,9 @@ trains so, other models raise. ``remat`` rematerialises the forward in the backw
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
 (``kernel/lowering.py``). A strategy that is ``sync=False`` throughout is
 routed to the host-driven asynchronous PS (``runtime/async_ps.py``).
-``build_inference`` builds a paged serving engine on the same device,
-from a checkpoint if asked (its one-shot ``apply_fn`` is not ported yet).
+``build_inference`` builds a serving engine on the same device (paged
+decode, the one-shot ``apply_fn`` forward, or both), from a checkpoint if
+asked.
 
 ``strategy_builder="Auto"`` lets the cost model choose the builder from
 the model and the resource spec's GPU node model
@@ -569,12 +570,17 @@ class AutoDist:
                         draft_decode_model=None, draft_checkpoint: Optional[str] = None,
                         spec_k: int = 4, draft_n_pages: Optional[int] = None,
                         prefix_cache: bool = False):
-        """A paged inference engine on this AutoDist's device: the serving
+        """An inference engine on this AutoDist's device: the serving
         counterpart of :meth:`build`. The port's engine serves on one
         device with every parameter whole, so no strategy or sharding plan
-        is built for it (the JAX package's shards the params over its mesh).
+        is built for it (the JAX package's shards the params over its mesh;
+        ``engine.plan`` is the one-device ``AllReduce`` plan, built when
+        read).
 
-        ``decode_model`` (``models.transformer.decode_model(cfg)``) serves
+        ``apply_fn(params, batch)`` enables the one-shot forward
+        (``InferenceEngine.infer``); with ``apply_fn`` alone the engine is
+        one-shot only. ``decode_model``
+        (``models.transformer.decode_model(cfg)``) serves
         autoregressive paged decode behind the continuous batcher: ``n_slots``
         rows over a pool of ``page_len``-token KV pages (``n_pages``, or
         sized from the card's memory), prompts prefilled in
@@ -586,18 +592,14 @@ class AutoDist:
         :class:`~autodist_tpu_torch.serve.spec.SpecDecodeEngine`
         (``draft_checkpoint`` restored the same way, ``spec_k`` proposals a
         round, ``draft_n_pages`` pages); ``prefix_cache=True`` shares prompt
-        prefixes copy-on-write. The one-shot forward (``apply_fn``,
-        ``InferenceEngine.infer``) is not ported yet: passing ``apply_fn``
-        raises."""
+        prefixes copy-on-write."""
         from autodist_tpu_torch.serve.engine import InferenceEngine
         from autodist_tpu_torch.serve.spec import SpecDecodeEngine
 
-        if apply_fn is not None:
-            raise NotImplementedError("one-shot inference (apply_fn, InferenceEngine.infer) "
-                                      "is not ported yet; see ROADMAP.md")
-        if decode_model is None:
-            raise ValueError("build_inference needs decode_model (the paged decode "
-                             "adapter, e.g. models.transformer.decode_model(cfg))")
+        if apply_fn is None and decode_model is None:
+            raise ValueError("build_inference needs apply_fn (one-shot), decode_model "
+                             "(the paged decode adapter, e.g. "
+                             "models.transformer.decode_model(cfg)), or both")
         engine_kwargs = dict(n_slots=n_slots, page_len=page_len, n_pages=n_pages,
                              prefill_chunk=prefill_chunk, max_len=max_len,
                              device=self.device, prefix_cache=prefix_cache)
@@ -606,8 +608,8 @@ class AutoDist:
                                           draft_decode_model, checkpoint=checkpoint,
                                           draft_checkpoint=draft_checkpoint, spec_k=spec_k,
                                           draft_n_pages=draft_n_pages, **engine_kwargs)
-        return InferenceEngine.build(params, decode_model, checkpoint=checkpoint,
-                                     **engine_kwargs)
+        return InferenceEngine.build(params, decode_model, apply_fn=apply_fn,
+                                     checkpoint=checkpoint, **engine_kwargs)
 
     @property
     def strategy(self) -> Optional[Strategy]:

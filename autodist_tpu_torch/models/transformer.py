@@ -6,19 +6,22 @@ with tied input/output embeddings, fp32 params and bf16 compute, causal
 params, the uncached :func:`forward` with ``dot`` or ``flash`` attention
 (``ops/flash_attention.py``, the CUDA flash kernels), :func:`loss_fn` for
 both objectives, the ``transformer`` / ``bert_base`` / ``bert_large`` model
-specs, and the paged KV-cache serving forwards
+specs, the paged KV-cache serving forwards
 (:func:`forward_paged_prefill_chunk`, :func:`forward_paged_decode_step`,
-the speculative :func:`forward_paged_verify`; each greedy or sampled) with
-their cache helpers. Params are a plain nested dict of tensors with the JAX
-tree's keys, so ``models/convert.py`` carries JAX parameters over
-unchanged. ``TransformerConfig.remat`` checkpoints each block.
+the speculative :func:`forward_paged_verify`; each greedy or sampled) and
+the bucketed engine's stacked-cache decode (:func:`forward_prefill`,
+:func:`forward_decode_step`, greedy) with their cache helpers. Params are
+a plain nested dict of tensors with the JAX tree's keys, so
+``models/convert.py`` carries JAX parameters over unchanged.
+``TransformerConfig.remat`` checkpoints each block.
 
-Unlike the JAX forwards, which return a new cache, the paged forwards
+Unlike the JAX forwards, which return a new cache, the cached forwards
 update the cache's tensors in place (the JAX engine donates the cache to
 the same effect) and return the same dict.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -212,6 +215,76 @@ def loss_fn(params, batch, cfg: TransformerConfig):
     mask = mask.to(torch.float32)
     per_tok = L.per_token_xent(logits, batch["labels"]) * mask
     return per_tok.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ------------------------------------------------------------ KV-cache decode
+def init_kv_cache(cfg: TransformerConfig, n_slots: int, max_len: int,
+                  dtype: Any = None, device=None) -> Dict[str, Any]:
+    """The stacked decode cache of ``n_slots`` concurrent sequences: one
+    ``[num_layers, slots, max_len, heads, head_dim]`` tensor per projection,
+    ``max_len`` being a slot's whole timeline (one length bucket of the
+    bucketed engine); dtype defaults to the compute dtype. ``device="meta"``
+    prices it without allocating."""
+    dev = device if str(device) == "meta" else resolve_device(device)
+    shape = (cfg.num_layers, n_slots, max_len, cfg.num_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def forward_prefill(params, tokens, length: int, cache, slot: int,
+                    cfg: TransformerConfig):
+    """Prompt pass into the stacked cache: the uncached causal forward (dot
+    attention) of ``tokens [1, S]`` (padded to the bucket's length), each
+    layer's k/v written into cache row ``slot`` at ``[0, S)``. Positions
+    ``>= length`` hold pad garbage that the decode mask never admits before
+    decode overwrites them. Returns ``(next_token [1] int32, cache)``: the
+    argmax at ``length - 1``, the first generated token."""
+    b, s = tokens.shape
+    x = L.embedding_lookup(params["embed"], tokens).to(cfg.dtype)
+    pos = torch.arange(s, device=tokens.device)
+    x = x + L.embedding_lookup(params["pos_embed"], pos).to(cfg.dtype)
+    for i in range(cfg.num_layers):
+        bp = params[f"layers_{i}"]
+        h = L.layernorm(bp["ln1"], x)
+        q, k, v = _qkv(bp["attn"], h, cfg, (b, s, cfg.num_heads, cfg.head_dim))
+        cache["k"][i, slot, :s] = k[0].to(cache["k"].dtype)
+        cache["v"][i, slot, :s] = v[0].to(cache["v"].dtype)
+        o = _dot_attention(q, k, v, causal=True).reshape(b, s, cfg.d_model)
+        x = x + L.dense(bp["attn"]["wo"], o, compute_dtype=cfg.dtype)
+        x = _mlp(bp, x, cfg)
+    return _argmax(_logits(params, x[:, int(length) - 1], cfg)), cache
+
+
+def forward_decode_step(params, tokens, positions, cache, cfg: TransformerConfig):
+    """One incremental decode step over every cache slot: ``tokens [B]`` at
+    absolute ``positions [B]`` (B == slots). Each layer writes the token's
+    k/v at ``cache[:, b, positions[b]]`` and attends over the slot's
+    timeline under ``j <= positions[b]``; idle slots compute garbage the
+    engine ignores. Returns ``(next_token [B] int32, cache)``."""
+    b = tokens.shape[0]
+    max_len = cache["k"].shape[2]
+    positions = positions.long()
+    rows = torch.arange(b, device=tokens.device)
+    x = L.embedding_lookup(params["embed"], tokens).to(cfg.dtype)
+    x = x + L.embedding_lookup(params["pos_embed"], positions).to(cfg.dtype)
+    mask = pa_ops.position_mask(max_len, positions)                 # [B, L]
+    scale = math.sqrt(cfg.head_dim)     # a scalar: a CUDA graph captures the step
+    for i in range(cfg.num_layers):
+        bp = params[f"layers_{i}"]
+        h = L.layernorm(bp["ln1"], x)
+        q, k, v = _qkv(bp["attn"], h, cfg, (b, cfg.num_heads, cfg.head_dim))
+        cache["k"][i, rows, positions] = k.to(cache["k"].dtype)
+        cache["v"][i, rows, positions] = v.to(cache["v"].dtype)
+        ck = cache["k"][i].to(cfg.dtype)                            # [B, L, H, D]
+        cv = cache["v"][i].to(cfg.dtype)
+        logits = torch.einsum("bhd,blhd->bhl", q, ck).to(torch.float32) / scale
+        logits = pa_ops.apply_mask(logits, mask[:, None, :])
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        o = torch.einsum("bhl,blhd->bhd", probs, cv).reshape(b, cfg.d_model)
+        x = x + L.dense(bp["attn"]["wo"], o, compute_dtype=cfg.dtype)
+        x = _mlp(bp, x, cfg)
+    return _argmax(_logits(params, x, cfg)), cache
 
 
 # --------------------------------------------------------- paged KV decode
@@ -430,12 +503,20 @@ def forward_paged_verify(params, tokens, positions, cache, page_tables,
 
 
 def decode_model(cfg: TransformerConfig, eos_id: Optional[int] = None):
-    """The transformer's serving adapter: the paged cache functions bound to
-    one config, in the shape :class:`~autodist_tpu_torch.serve.engine.
-    InferenceEngine` consumes."""
+    """The transformer's serving adapter: the cache functions bound to one
+    config, in the shape the engines of ``serve/engine.py`` consume. It
+    carries both cache renderings: the paged functions of
+    :class:`~autodist_tpu_torch.serve.engine.InferenceEngine` and the
+    stacked ones of the bucketed baseline engine."""
     from autodist_tpu_torch.serve.engine import DecodeModel
 
     return DecodeModel(
+        init_cache=lambda n_slots, max_len, device=None: init_kv_cache(
+            cfg, n_slots, max_len, device=device),
+        prefill=lambda params, tokens, length, cache, slot: forward_prefill(
+            params, tokens, length, cache, slot, cfg),
+        decode_step=lambda params, tokens, positions, cache: forward_decode_step(
+            params, tokens, positions, cache, cfg),
         init_paged_cache=lambda n_pages, page_len, device=None: init_paged_kv_cache(
             cfg, n_pages, page_len, device=device),
         prefill_chunk=lambda params, tokens, start, length, cache, table, samp=None:

@@ -71,10 +71,10 @@ def position_mask(timeline: int, positions):
 
 
 def apply_mask(logits, mask):
-    """Fill ``~mask`` with the dtype-safe mask value (mask pre-broadcast)."""
-    return torch.where(mask, logits,
-                       torch.tensor(mask_value(logits.dtype), dtype=logits.dtype,
-                                    device=logits.device))
+    """Fill ``~mask`` with the dtype-safe mask value (mask pre-broadcast).
+    The value rides as a scalar, so no host-to-device copy is made (a CUDA
+    graph can capture the call)."""
+    return torch.where(mask, logits, mask_value(logits.dtype))
 
 
 # ------------------------------------------------------------ quantization

@@ -14,14 +14,22 @@ speculative engine (``serve/spec.py``; ``--draft-checkpoint`` restores the
 draft); ``--prefix-cache`` shares
 prompt prefixes copy-on-write (``serve/prefix.py``); a POST body's
 ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` draw the counter-based
-stochastic stream (``serve/sampling.py``). The CPU proofs, each printing
-one JSON line and exiting non-zero on a failed bar: ``--selftest-spec``,
+stochastic stream (``serve/sampling.py``). The proofs, each printing one
+JSON line and exiting non-zero on a failed bar: ``--selftest`` (the
+single-engine serving proof of ``serve/server.py::selftest`` on
+``--device``: >=2x the concurrency of the bucketed baseline at equal KV
+memory, bit-identical paged/bucketed and kernel/gather greedy streams,
+zero dropped among ``--requests`` concurrent requests of ``--max-new``
+tokens on ``--slots`` rows (default 32), batched above sequential, two
+serving programs; with ``--kv-quant`` the int8-pages proof instead),
+``--selftest-spec``,
 ``--selftest-prefix``, ``--selftest-sampling``, and ``--selftest-router``
 (3 in-process replicas behind the ``serve/router.py`` router, one killed
 mid-decode under ``--requests`` concurrent requests of ``--max-new``
 tokens on ``--slots`` rows each, every stream bit-identical to an
 uninterrupted control run, exactly once; on ``--device``)::
 
+    python -m autodist_tpu_torch.serve --selftest [--kv-quant] --device cpu
     python -m autodist_tpu_torch.serve --selftest-router --device cpu
 
 Every server measures its own SLO position (``GET /slo``, an
@@ -134,8 +142,9 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="transformer", help="zoo model name")
     ap.add_argument("--model-arg", action="append", metavar="K=V",
                     help="model config override (repeatable)")
-    ap.add_argument("--slots", type=int, default=8,
-                    help="decode slot rows (a replica's, with --selftest-router)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="decode slot rows (default: 32 for --selftest, 8 otherwise; "
+                         "a replica's with --selftest-router)")
     ap.add_argument("--page-len", type=int, default=16,
                     help="KV-cache page length in tokens")
     ap.add_argument("--pages", type=int, default=None,
@@ -143,7 +152,11 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prefill chunk tokens (default: one page)")
     ap.add_argument("--kv-quant", action="store_true",
-                    help="serve from int8 KV pages with fp32 scales")
+                    help="serve from int8 KV pages with fp32 scales; with "
+                         "--selftest, prove the int8 bars instead (>=2x admitted "
+                         "concurrency at equal pool bytes vs fp pages, zero "
+                         "dropped, logit drift within the bound, kernel-vs-gather "
+                         "bit-identity, the memory pass pricing int8 bytes)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share prompt prefixes across requests (copy-on-write "
                          "pages)")
@@ -173,15 +186,25 @@ def main(argv=None) -> int:
                     help="this replica's id on the ft transport (with --ft-dir)")
     ap.add_argument("--trace-out", default=None,
                     help="flush this process's span part-file into DIR at exit")
+    ap.add_argument("--selftest", action="store_true",
+                    help="run the single-engine serving proof on --device and exit")
     for name in ("spec", "prefix", "sampling", "router"):
         ap.add_argument(f"--selftest-{name}", action="store_true",
                         help=f"run the CPU proof of serve/{name}.py and exit")
     ap.add_argument("--requests", type=int, default=64,
-                    help="--selftest-router: concurrent mock requests (>=64 "
-                         "proves the acceptance bar)")
+                    help="--selftest, --selftest-router: concurrent mock requests "
+                         "(>=64 proves the acceptance bar)")
     ap.add_argument("--max-new", type=int, default=12,
-                    help="--selftest-router: tokens generated per request")
+                    help="--selftest, --selftest-router: tokens generated per request")
     args = ap.parse_args(argv)
+
+    if args.selftest:
+        from autodist_tpu_torch.serve.server import selftest
+
+        return selftest(n_requests=args.requests, n_slots=args.slots or 32,
+                        max_new=args.max_new, kv_quant=args.kv_quant, device=args.device)
+    if args.slots is None:
+        args.slots = 8
 
     if args.selftest_spec:
         from autodist_tpu_torch.serve.spec import selftest_spec

@@ -1,7 +1,7 @@
-"""Paged KV-cache inference engine (PyTorch port, one card).
+"""Inference engines of the PyTorch port (one card): paged KV-cache decode,
+the one-shot forward and the bucketed baseline.
 
-Ports the paged :class:`InferenceEngine` of the JAX package's
-``serve/engine.py``. Decode state is ONE fixed pool of ``[layers, n_pages,
+Ports the JAX package's ``serve/engine.py``. Decode state is ONE fixed pool of ``[layers, n_pages,
 page_len, heads, head_dim]`` device pages, sized from the card's memory,
 with per-request page tables (host int32 rows, ``serve/pages.py``) padded to
 a static width. Two programs serve every request-length mix: one decode step
@@ -24,21 +24,31 @@ chaos seams ``SEAM_SERVE_ADMIT`` (``"defer"`` becomes a retryable
 :class:`EngineDeadError`), carrying ``chaos_host``. No span or record reads
 a tensor back.
 
-What differs from the JAX engine: there is no sharding plan or mesh — on one
+What differs from the JAX engine: there is no mesh to shard over — on one
 card the params are a dict of tensors on ``device``, which is what
-``AllReduce`` gives on one chip. PyTorch runs eagerly, so nothing compiles
-and the JAX engine's compiled-program pins (2 plain, 5 speculative) have no
-meaning here; the engine counts invocations per program kind instead
-(``prefill_invocations``, ``decode_invocations``). The cache is updated in
-place by the forwards (the JAX engine donates it through its compiled
-programs to the same effect).
+``AllReduce`` gives on one chip; :attr:`plan` builds that one-device
+``AllReduce`` plan on first read, for the memory pass
+(``analysis/passes.py::hbm_budget``) to price. PyTorch runs eagerly, so
+nothing compiles: :attr:`compiled_programs` counts the distinct (program
+kind, argument shapes) the serving forwards have run — shapes, not
+compiles, the eager counterpart of the JAX engine's pin (2 plain, 5
+speculative, for any request-length mix). The cache is updated in place by
+the forwards (the JAX engine donates it through its compiled programs to
+the same effect).
+
+``infer(batch)`` is the one-shot forward (``apply_fn(params, batch)`` under
+``torch.inference_mode()``). :class:`BucketedInferenceEngine` keeps the
+length-bucketed stacked slot pools that came before paging: the baseline
+the serve selftest measures the paged engine against (>=2x concurrency at
+equal KV bytes, bit-identical greedy streams) and a second, independent
+decode oracle.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +60,9 @@ from autodist_tpu_torch.serve import pages as serve_pages
 from autodist_tpu_torch.serve import prefix as serve_prefix
 from autodist_tpu_torch.serve import sampling as serve_sampling
 from autodist_tpu_torch.utils.device import resolve_device
+
+#: The bucketed engine's default timeline buckets (the JAX engine's).
+DEFAULT_BUCKET_LENS = (32, 64, 128, 256, 512, 1024)
 
 #: Slot phases (host bookkeeping; single scheduler-thread writer).
 _FREE, _PREFILL, _DECODE = 0, 1, 2
@@ -63,8 +76,10 @@ class EngineDeadError(RuntimeError):
 
 @dataclass
 class DecodeModel:
-    """Model adapter for autoregressive paged decode — functions bound to one
-    config:
+    """Model adapter for autoregressive decode — functions bound to one
+    config.
+
+    Paged surface (:class:`InferenceEngine`; all three required there):
 
     - ``init_paged_cache(n_pages, page_len, device) -> cache`` dict of
       tensors carrying the page dim at dim 1;
@@ -80,14 +95,23 @@ class DecodeModel:
     ``samp`` is None (greedy) or the per-slot sampling tensors
     ``(temperature, top_k, top_p, key_hi, key_lo)``.
 
+    Bucketed surface (:class:`BucketedInferenceEngine`; greedy):
+    ``init_cache(n_slots, max_len, device) -> cache`` with the slot dim at
+    dim 1, ``prefill(params, tokens [1,S], length, cache, slot) ->
+    (next_token [1], cache)`` and ``decode_step(params, tokens [B],
+    positions [B], cache) -> (next_token [B], cache)``.
+
     ``eos_id``: generation stops when emitted (None = length-only);
     ``max_len``: the model's positional ceiling; ``fp_cache_dtype``: the fp
     page dtype that int8 pages are priced against.
     """
 
-    init_paged_cache: Callable[..., Any]
-    prefill_chunk: Callable[..., Tuple[Any, Any]]
-    decode_paged: Callable[..., Tuple[Any, Any]]
+    init_cache: Optional[Callable[..., Any]] = None
+    prefill: Optional[Callable[..., Tuple[Any, Any]]] = None
+    decode_step: Optional[Callable[..., Tuple[Any, Any]]] = None
+    init_paged_cache: Optional[Callable[..., Any]] = None
+    prefill_chunk: Optional[Callable[..., Tuple[Any, Any]]] = None
+    decode_paged: Optional[Callable[..., Tuple[Any, Any]]] = None
     verify_paged: Optional[Callable[..., Tuple[Any, Any, Any]]] = None
     eos_id: Optional[int] = None
     max_len: Optional[int] = None
@@ -118,9 +142,84 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-class InferenceEngine:
-    """Serve a model with paged continuous-batching decode:
-    ``admit``/``prefill_step``/``step``/``release``.
+class _EngineBase:
+    """Params on the engine's device, the one-shot forward and the plan."""
+
+    def __init__(self, params: Any, apply_fn: Optional[Callable] = None, device=None):
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self._apply_fn = apply_fn
+        self._plan = None
+
+    def _dev(self, arr) -> torch.Tensor:
+        return torch.as_tensor(arr).to(self.device)
+
+    @property
+    def plan(self):
+        """The one-device ``AllReduce`` :class:`~autodist_tpu_torch.kernel.
+        lowering.ShardingPlan` of the params, built on first read as the JAX
+        engine's ``build`` builds its plan (``ModelItem`` → ``AllReduce().
+        build`` → ``StrategyCompiler`` → ``GraphTransformer``). It shards
+        nothing on one card; the memory pass prices from it."""
+        if self._plan is None:
+            from autodist_tpu_torch.kernel import GraphTransformer, build_mesh
+            from autodist_tpu_torch.model_item import ModelItem
+            from autodist_tpu_torch.resource_spec import ResourceSpec
+            from autodist_tpu_torch.strategy import AllReduce, StrategyCompiler
+
+            item = ModelItem.from_params(self.params)
+            spec = ResourceSpec.from_local_devices(self.device)
+            compiled = StrategyCompiler(item).compile(AllReduce().build(item, spec))
+            self._plan = GraphTransformer(
+                compiled, item, build_mesh(spec, device=self.device)).transform()
+        return self._plan
+
+    @staticmethod
+    def restore_params(checkpoint: str, params_template: Any, device=None) -> Any:
+        """A ``Saver`` checkpoint's params as the engine serves them: every
+        leaf whole on ``device`` (default: the card; the port's engine
+        serves on one device, so there is no plan to place by), in the
+        template's dtypes. ``checkpoint`` is a ``ckpt-N`` directory or a
+        Saver directory (its newest ``ckpt-*``); the template (tensors, meta
+        ones included) gives the names and logical shapes. A training
+        checkpoint (``step.save``: the whole logical state) keeps its
+        parameters under ``params/``: then only that subtree is read, never
+        the optimizer's slots."""
+        import os
+
+        from autodist_tpu_torch.checkpoint.saver import Saver, flatten_with_names
+
+        device = resolve_device(device)
+        if os.path.exists(os.path.join(checkpoint, "metadata.json")):
+            saver, path = Saver(os.path.dirname(checkpoint)), checkpoint
+        else:
+            saver = Saver(checkpoint)
+            path = saver.latest_checkpoint()
+            if path is None:
+                raise FileNotFoundError(f"no ckpt-* under {checkpoint!r}")
+        leaves = flatten_with_names(params_template)
+        probe = leaves[0][0] if leaves else ""
+        entries = Saver.read_metadata(path)["entries"]
+        if probe and probe not in entries and f"params/{probe}" in entries:
+            return saver.restore_subtree(path, "params", params_template, device=device)
+        return saver.restore(path, target=params_template, device=device)
+
+    # --------------------------------------------------------------- one-shot
+    def infer(self, batch: Any) -> Any:
+        """One-shot forward (classification, scoring): ``apply_fn(params,
+        batch)`` on the engine's device under ``torch.inference_mode()``;
+        the output stays on the device."""
+        if self._apply_fn is None:
+            raise ValueError("engine built without apply_fn; one-shot "
+                             "inference unavailable")
+        with torch.inference_mode():
+            return self._apply_fn(self.params, _to_device(batch, self.device))
+
+
+class InferenceEngine(_EngineBase):
+    """Serve a model: ``infer`` for one-shot batches (``apply_fn``), and
+    ``admit``/``prefill_step``/``step``/``release`` for paged
+    continuous-batching decode (``decode_model``); at least one of the two.
 
     Scheduler-free by design: the
     :class:`~autodist_tpu_torch.serve.batcher.ContinuousBatcher` owns
@@ -133,7 +232,7 @@ class InferenceEngine:
     def __init__(
         self,
         params: Any,
-        decode_model: DecodeModel,
+        decode_model: Optional[DecodeModel] = None,
         n_slots: int = 8,
         page_len: int = serve_pages.DEFAULT_PAGE_LEN,
         n_pages: Optional[int] = None,
@@ -142,10 +241,23 @@ class InferenceEngine:
         serve_hbm_frac: float = 0.5,
         device=None,
         prefix_cache: Union[bool, "serve_prefix.PrefixCache", None] = None,
+        apply_fn: Optional[Callable] = None,
     ):
-        self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        if apply_fn is None and decode_model is None:
+            raise ValueError(
+                "InferenceEngine needs apply_fn (one-shot), decode_model "
+                "(autoregressive), or both")
+        super().__init__(params, apply_fn=apply_fn, device=device)
         self.decode_model = decode_model
+        self._programs: set = set()
+        if decode_model is None:
+            return
+        for fn in ("init_paged_cache", "prefill_chunk", "decode_paged"):
+            if getattr(decode_model, fn) is None:
+                raise ValueError(
+                    f"decode_model lacks the paged surface ({fn}); the paged "
+                    f"engine needs init_paged_cache + prefill_chunk + "
+                    f"decode_paged (see DecodeModel)")
         self.n_slots = int(n_slots)
         self.page_len = int(page_len)
         self.prefill_chunk = int(prefill_chunk or page_len)
@@ -233,7 +345,7 @@ class InferenceEngine:
         # Admission time of each slot (the ``prefilled`` record's prefill_s).
         self._prefill_t0 = np.zeros(n_slots, np.float64)
         # Program invocations by kind: decode steps and prefill chunks run
-        # so far (the eager port's counterpart of the JAX program pins).
+        # so far (compiled_programs counts their distinct argument shapes).
         self.decode_invocations = 0
         self.prefill_invocations = 0
         # Decode rounds (plain steps or spec rounds): every 64th is
@@ -243,49 +355,34 @@ class InferenceEngine:
         # target one replica of a fleet (serve/replica.py sets it).
         self.chaos_host = 0
 
-    # -------------------------------------------------------------- accounting
     # ------------------------------------------------------------ construction
-    @staticmethod
-    def restore_params(checkpoint: str, params_template: Any, device=None) -> Any:
-        """A ``Saver`` checkpoint's params as the engine serves them: every
-        leaf whole on ``device`` (default: the card; the port's engine
-        serves on one device, so there is no plan to place by), in the
-        template's dtypes. ``checkpoint`` is a ``ckpt-N`` directory or a
-        Saver directory (its newest ``ckpt-*``); the template (tensors, meta
-        ones included) gives the names and logical shapes. A training
-        checkpoint (``step.save``: the whole logical state) keeps its
-        parameters under ``params/``: then only that subtree is read, never
-        the optimizer's slots."""
-        import os
-
-        from autodist_tpu_torch.checkpoint.saver import Saver, flatten_with_names
-
-        device = resolve_device(device)
-        if os.path.exists(os.path.join(checkpoint, "metadata.json")):
-            saver, path = Saver(os.path.dirname(checkpoint)), checkpoint
-        else:
-            saver = Saver(checkpoint)
-            path = saver.latest_checkpoint()
-            if path is None:
-                raise FileNotFoundError(f"no ckpt-* under {checkpoint!r}")
-        leaves = flatten_with_names(params_template)
-        probe = leaves[0][0] if leaves else ""
-        entries = Saver.read_metadata(path)["entries"]
-        if probe and probe not in entries and f"params/{probe}" in entries:
-            return saver.restore_subtree(path, "params", params_template, device=device)
-        return saver.restore(path, target=params_template, device=device)
-
     @classmethod
-    def build(cls, params: Any, decode_model: DecodeModel, *,
-              checkpoint: Optional[str] = None, **engine_kwargs) -> "InferenceEngine":
+    def build(cls, params: Any, decode_model: Optional[DecodeModel] = None, *,
+              apply_fn: Optional[Callable] = None, checkpoint: Optional[str] = None,
+              **engine_kwargs) -> "InferenceEngine":
         """Standalone construction for a script without an
         :class:`~autodist_tpu_torch.api.AutoDist` (whose ``build_inference``
-        does the same): ``checkpoint`` restores the params from a ``Saver``
-        checkpoint (:meth:`restore_params`) onto the engine's device;
-        ``params`` may then be a template of meta tensors."""
+        does the same): ``apply_fn`` alone gives a one-shot engine;
+        ``checkpoint`` restores the params from a ``Saver`` checkpoint
+        (:meth:`restore_params`) onto the engine's device; ``params`` may
+        then be a template of meta tensors."""
         if checkpoint is not None:
             params = cls.restore_params(checkpoint, params, engine_kwargs.get("device"))
-        return cls(params, decode_model, **engine_kwargs)
+        return cls(params, decode_model, apply_fn=apply_fn, **engine_kwargs)
+
+    @property
+    def compiled_programs(self) -> int:
+        """The distinct (program kind, argument shapes) the serving forwards
+        have run — the eager counterpart of the JAX engine's count of
+        compiled programs, pinned to exactly 2 (one decode step over every
+        row, one fixed-size prefill chunk) for any request-length mix. It
+        counts shapes, not compiles: nothing compiles here. The sampling
+        tensors ride as values, as the JAX programs' traced per-slot arrays
+        do."""
+        return len(self._programs)
+
+    def _note_program(self, kind: str, *args) -> None:
+        self._programs.add((kind, *(tuple(a.shape) for a in args)))
 
     @property
     def free_slots(self) -> int:
@@ -520,9 +617,6 @@ class InferenceEngine:
         """Slots mid-prefill, in row order."""
         return [Slot(int(i)) for i in np.flatnonzero(self._phase == _PREFILL)]
 
-    def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(arr).to(self.device, non_blocking=False)
-
     def _samp_dev(self, rows) -> Optional[tuple]:
         """The sampling tensors of slot rows ``rows`` (an index array or a
         slice) on the device, keys as int64. Callers pass None instead when
@@ -559,9 +653,10 @@ class InferenceEngine:
         with obs_spans.span("serve.prefill_chunk", start=start,
                             prompt_len=len(prompt),
                             request_id=self._request_ids[idx]), torch.no_grad():
+            tokens, table = self._dev(chunk), self._dev(self._table_np[idx])
+            self._note_program("prefill_chunk", tokens, table)
             first, self._cache = self.decode_model.prefill_chunk(
-                self.params, self._dev(chunk), start, len(prompt), self._cache,
-                self._dev(self._table_np[idx]), samp=samp)
+                self.params, tokens, start, len(prompt), self._cache, table, samp=samp)
         start += c
         self._prefill_pos[idx] = start
         if not last:
@@ -604,10 +699,12 @@ class InferenceEngine:
         self.decode_invocations += 1
         with obs_spans.span("serve.decode_step", active=int(len(decoding)),
                             request_ids=self._span_request_ids(decoding)):
+            args = (self._dev(self._last_token), self._dev(self._lengths))
+            tables = self._dev(self._decode_table_np)
+            self._note_program("decode_paged", *args, tables)
             with torch.no_grad():
                 tokens, self._cache = self.decode_model.decode_paged(
-                    self.params, self._dev(self._last_token), self._dev(self._lengths),
-                    self._cache, self._dev(self._decode_table_np), samp=samp)
+                    self.params, *args, self._cache, tables, samp=samp)
             tokens = tokens.cpu().numpy()
         for idx in decoding:
             idx = int(idx)
@@ -699,7 +796,181 @@ class InferenceEngine:
         return tokens
 
 
+@dataclass(frozen=True)
+class BucketSlot:
+    """One occupied bucketed-engine slot: (bucket timeline length, row)."""
+
+    bucket: int
+    index: int
+
+
+@dataclass
+class _Bucket:
+    """Host-side bookkeeping for one bucket's stacked device cache."""
+
+    length: int                 # timeline capacity per slot
+    n_slots: int
+    cache: Any                  # dict of device tensors, updated in place
+    lengths: np.ndarray         # [slots] int32 — next write position
+    active: np.ndarray          # [slots] bool
+    last_token: np.ndarray      # [slots] int32 — token to feed next step
+
+
+class BucketedInferenceEngine(_EngineBase):
+    """The pre-paging design, kept as the measured baseline: preallocated
+    length-bucketed stacked slot pools (one cache and one decode step per
+    bucket; a request goes to the smallest bucket fitting ``prompt +
+    max_new``, spilling to larger ones when it is full). The serve selftest
+    proves the paged engine holds >=2x the concurrent requests of this one
+    at equal KV bytes with bit-identical greedy streams; it stays for that
+    proof and as a second, independent decode oracle — production serving
+    is :class:`InferenceEngine`. The JAX engine rounds ``n_slots`` up to
+    its mesh's data degree; on one card that degree is 1."""
+
+    def __init__(
+        self,
+        params: Any,
+        decode_model: DecodeModel,
+        n_slots: int = 8,
+        bucket_lens: Optional[Sequence[int]] = None,
+        max_len: Optional[int] = None,
+        device=None,
+    ):
+        super().__init__(params, device=device)
+        for fn in ("init_cache", "prefill", "decode_step"):
+            if getattr(decode_model, fn) is None:
+                raise ValueError(f"decode_model lacks the bucketed surface ({fn})")
+        self.decode_model = decode_model
+        self.n_slots = int(n_slots)
+        ceiling = min(
+            x for x in (max_len, decode_model.max_len) if x is not None
+        ) if (max_len or decode_model.max_len) else None
+        lens = list(bucket_lens or DEFAULT_BUCKET_LENS)
+        if ceiling is not None:
+            lens = [n for n in lens if n < ceiling] + [ceiling]
+        self._bucket_lens = tuple(sorted(set(lens)))
+        self.max_len = self._bucket_lens[-1]
+        self._buckets: Dict[int, _Bucket] = {
+            length: _Bucket(
+                length=length, n_slots=self.n_slots,
+                cache=decode_model.init_cache(self.n_slots, length, device=self.device),
+                lengths=np.zeros(self.n_slots, np.int32),
+                active=np.zeros(self.n_slots, bool),
+                last_token=np.zeros(self.n_slots, np.int32))
+            for length in self._bucket_lens}
+
+    def bucket_for(self, total_len: int) -> Optional[int]:
+        """Smallest bucket whose timeline fits ``total_len``; None = too
+        long."""
+        for length in self._bucket_lens:
+            if total_len <= length:
+                return length
+        return None
+
+    @property
+    def free_slots(self) -> int:
+        return sum(int((~b.active).sum()) for b in self._buckets.values())
+
+    @property
+    def active_slots(self) -> int:
+        return sum(int(b.active.sum()) for b in self._buckets.values())
+
+    @property
+    def active_tokens(self) -> int:
+        """Allocated timeline tokens across active slots (capacity reserved,
+        not yet-decoded length)."""
+        return sum(int(b.active.sum()) * b.length for b in self._buckets.values())
+
+    @property
+    def kv_pool_tokens(self) -> int:
+        """Total timeline tokens the stacked pools hold on the device — the
+        equal-memory axis the selftest sizes the paged pool against."""
+        return sum(b.n_slots * b.length for b in self._buckets.values())
+
+    def admit(self, prompt: np.ndarray, max_new_tokens: int,
+              token_budget: Optional[int] = None,
+              ) -> Optional[Tuple[BucketSlot, int]]:
+        """Prefill ``prompt`` into a free slot of the smallest fitting bucket
+        (spilling to larger ones when full; none longer than
+        ``token_budget``). Returns ``(slot, first_token)`` or None when every
+        fitting bucket is full; raises ValueError past the largest bucket."""
+        prompt = np.asarray(prompt, np.int32).ravel()
+        total = len(prompt) + int(max_new_tokens)
+        fit = self.bucket_for(total)
+        if fit is None:
+            raise ValueError(
+                f"request needs a {total}-token timeline; largest bucket is "
+                f"{self._bucket_lens[-1]} (prompt {len(prompt)} + "
+                f"max_new_tokens {max_new_tokens})")
+        for length in self._bucket_lens:
+            if length < fit:
+                continue
+            if token_budget is not None and length > token_budget:
+                break  # every later bucket is bigger still
+            bucket = self._buckets[length]
+            free = np.flatnonzero(~bucket.active)
+            if not len(free):
+                continue
+            idx = int(free[0])
+            padded = np.zeros((1, length), np.int32)
+            padded[0, : len(prompt)] = prompt
+            with torch.no_grad():
+                first, bucket.cache = self.decode_model.prefill(
+                    self.params, self._dev(padded), len(prompt), bucket.cache, idx)
+            first = int(first.cpu()[0])
+            bucket.active[idx] = True
+            bucket.lengths[idx] = len(prompt)
+            bucket.last_token[idx] = first
+            return BucketSlot(length, idx), first
+        return None
+
+    def step(self) -> Dict[BucketSlot, int]:
+        """One decode step over every bucket with active slots (one decode
+        program per bucket — the per-length-mix cost the paged engine
+        exists to delete)."""
+        out: Dict[BucketSlot, int] = {}
+        for length, bucket in self._buckets.items():
+            if not bucket.active.any():
+                continue
+            with torch.no_grad():
+                tokens, bucket.cache = self.decode_model.decode_step(
+                    self.params, self._dev(bucket.last_token),
+                    self._dev(bucket.lengths), bucket.cache)
+            tokens = tokens.cpu().numpy()
+            for idx in np.flatnonzero(bucket.active):
+                idx = int(idx)
+                bucket.lengths[idx] += 1
+                bucket.last_token[idx] = tokens[idx]
+                out[BucketSlot(length, idx)] = int(tokens[idx])
+        return out
+
+    def release(self, slot: BucketSlot) -> None:
+        bucket = self._buckets[slot.bucket]
+        bucket.active[slot.index] = False
+        bucket.lengths[slot.index] = 0
+        bucket.last_token[slot.index] = 0
+
+    def generate(self, prompt: np.ndarray, max_new_tokens: int) -> List[int]:
+        """Single-request greedy decode."""
+        admitted = self.admit(prompt, max_new_tokens)
+        if admitted is None:
+            raise RuntimeError("no free slot for a single-request generate()")
+        slot, first = admitted
+        tokens = [first]
+        eos = self.decode_model.eos_id
+        try:
+            while len(tokens) < max_new_tokens and (
+                    eos is None or tokens[-1] != eos):
+                tokens.append(self.step()[slot])
+        finally:
+            self.release(slot)
+        return tokens
+
+
 def _to_device(tree, device):
+    """A nested dict (or list/tuple) of tensors or arrays on ``device``."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return torch.as_tensor(tree).to(device)

@@ -46,7 +46,11 @@ import asyncio
 import json
 import signal
 import threading
+import time
 from typing import Any, Dict, Optional, Set
+
+import numpy as np
+import torch
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.serve.batcher import (
@@ -498,3 +502,375 @@ class RouterFrontend(_Listener):
             "tokens": req.tokens,
             "latency_s": req.latency_s,
         })
+
+
+# ---------------------------------------------------------------- selftest
+#: The bucketed baseline's geometry: 4 slots in each of three buckets = 448
+#: KV timeline tokens resident on the device. The paged engine is sized to
+#: the SAME 448 tokens (56 pages x 8, the scratch page included) — the
+#: equal-memory axis of the >=2x concurrency proof.
+_BASELINE_SLOTS = 4
+_BASELINE_BUCKETS = (16, 32, 64)
+_PAGE_LEN = 8
+_N_PAGES = _BASELINE_SLOTS * sum(_BASELINE_BUCKETS) // _PAGE_LEN
+
+
+def _tiny_cfg(**overrides):
+    """The selftest's tiny fp32 causal transformer (vocab 128, 2 layers,
+    d 32, 2 heads, 64 positions)."""
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+
+    kw = dict(vocab_size=128, num_layers=2, d_model=32, num_heads=2, d_ff=64,
+              max_seq_len=64, causal=True, dtype="float32")
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def _tiny_engine(n_slots: int = 32, page_len: int = _PAGE_LEN,
+                 n_pages: Optional[int] = _N_PAGES, prefix_cache: bool = False,
+                 kv_quant: bool = False, paged_impl: Optional[str] = None,
+                 device="cuda"):
+    """A paged engine of the tiny transformer through the full
+    ``AutoDist.build_inference`` path on ``device``. Returns ``(engine,
+    params, cfg)`` so callers can stand a bucketed baseline on the same
+    params. ``kv_quant`` serves from int8 KV pages; ``paged_impl`` forces
+    ``"gather"`` or ``"kernel"`` (default: the config's ``"auto"``)."""
+    from autodist_tpu_torch.api import AutoDist
+    from autodist_tpu_torch.models.transformer import decode_model, init_params
+
+    overrides = {}
+    if kv_quant:
+        overrides["kv_quant"] = True
+    if paged_impl is not None:
+        overrides["paged_attention_impl"] = paged_impl
+    cfg = _tiny_cfg(**overrides)
+    params = init_params(cfg, seed=0, device=device)
+    AutoDist.reset_default()
+    try:
+        engine = AutoDist(device=device).build_inference(
+            params, decode_model=decode_model(cfg), n_slots=n_slots, page_len=page_len,
+            n_pages=n_pages, prefill_chunk=page_len, prefix_cache=prefix_cache)
+    finally:
+        AutoDist.reset_default()
+    return engine, params, cfg
+
+
+def _admission_capacity(engine, prompt_len: int, max_new: int, limit: int = 1024) -> int:
+    """How many concurrent requests the engine holds admitted at once (an
+    idle probe: reserve until denied, then release everything). For the
+    paged engine admission is page bookkeeping; for the bucketed baseline
+    each admit runs its prefill — both count capacity, the memory figure the
+    >=2x bar compares."""
+    from autodist_tpu_torch.serve.engine import AdmissionDenied
+
+    held = []
+    prompt = np.arange(1, prompt_len + 1, dtype=np.int32)
+    for _ in range(limit):
+        got = engine.admit(prompt, max_new)
+        if got is None or isinstance(got, AdmissionDenied):
+            break
+        held.append(got[0] if isinstance(got, tuple) else got)
+    for slot in held:
+        engine.release(slot)
+    return len(held)
+
+
+#: The logit-drift bound of int8 KV pages against the fp oracle
+#: (teacher-forced max |Δlogit| on the tiny selftest model), the JAX
+#: package's.
+QUANT_LOGIT_DRIFT_BOUND = 0.05
+
+
+def _quant_logit_drift(params, cfg, page_len: int = _PAGE_LEN, steps: int = 6) -> float:
+    """Teacher-forced max |logit| drift of int8 KV pages against the fp
+    oracle: both caches replay the SAME token history (the fp oracle's
+    stream), so the number is quantization error, not divergence
+    compounding. It runs the model's forwards directly, never an engine's,
+    so no engine's program count moves."""
+    from autodist_tpu_torch.models.transformer import (
+        forward_paged_decode_step, forward_paged_prefill_chunk, init_paged_kv_cache)
+
+    dev = params["embed"]["embedding"].device
+    prompt = torch.arange(1, page_len + 1, dtype=torch.int32, device=dev)  # one page
+    table_row = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=dev)
+    caches = [init_paged_kv_cache(cfg, 6, page_len, quantized=q, device=dev)
+              for q in (False, True)]
+    token = None
+    with torch.no_grad():
+        for i in range(2):
+            nt, caches[i] = forward_paged_prefill_chunk(
+                params, prompt[None], 0, page_len, caches[i], table_row, cfg)
+            if i == 0:
+                token = nt                       # the fp oracle drives both
+        tables = table_row[None]
+        pos = page_len
+        drift = 0.0
+        for _ in range(steps):
+            step_logits = []
+            for i in range(2):
+                nt, lg, caches[i] = forward_paged_decode_step(
+                    params, token, torch.tensor([pos], dtype=torch.int32, device=dev),
+                    caches[i], tables, cfg, return_logits=True)
+                step_logits.append(lg)
+                if i == 0:
+                    next_token = nt
+            drift = max(drift, float((step_logits[0] - step_logits[1]).abs().max()))
+            token, pos = next_token, pos + 1
+    return drift
+
+
+def _decode_impl(engine, cfg) -> str:
+    """The paged attention a decode step of ``engine`` takes under the
+    config's ``"auto"``: the measured crossover on CUDA, gather on the
+    CPU."""
+    from autodist_tpu_torch.ops import paged_attention as pa_ops
+
+    return pa_ops.resolve_impl(cfg.paged_attention_impl, engine.device,
+                               batch=engine.n_slots, table_pages=engine.max_pages,
+                               page_len=engine.page_len, heads=cfg.num_heads)
+
+
+def _run_clients(batcher, prompts, max_new: int):
+    """``prompts`` as concurrent mock clients through the asyncio bridge,
+    arrivals staggered a millisecond apart in groups of 8."""
+    async def client(i, prompt):
+        await asyncio.sleep(0.001 * (i % 8))
+        return await async_generate(batcher, prompt, max_new)
+
+    async def run():
+        return await asyncio.gather(*(client(i, p) for i, p in enumerate(prompts)))
+
+    batcher.start()
+    try:
+        return asyncio.run(asyncio.wait_for(run(), timeout=300))
+    finally:
+        batcher.stop(drain=False)
+
+
+def selftest(n_requests: int = 64, n_slots: int = 32, max_new: int = 12,
+             seed: int = 0, kv_quant: bool = False, device="cuda") -> int:
+    """The single-engine acceptance proof on ``device``; returns a process
+    exit code and prints one JSON line with the JAX selftest's keys.
+
+    Paged against bucketed: a :class:`~autodist_tpu_torch.serve.engine.
+    BucketedInferenceEngine` over the SAME params holds 448 KV timeline
+    tokens; the paged engine (gather attention), sized to the same 448
+    tokens, must hold >=2x the concurrently admitted requests on a short
+    mix (6 prompt + 6 new) and give bit-identical greedy streams on shared
+    prompts (short, page-crossing, multi-chunk). A second paged engine on
+    the paged kernel must stream bit-identically to the gather engine.
+    Then single requests back to back (the sequential baseline) and
+    ``n_requests`` concurrent mock clients (mixed short and long prompts)
+    through the asyncio bridge and the continuous batcher: zero dropped,
+    batched tokens/s above sequential, and exactly two serving programs
+    (:attr:`~autodist_tpu_torch.serve.engine.InferenceEngine.
+    compiled_programs`) after the whole mixed-length run.
+
+    ``kv_quant=True`` runs :func:`_selftest_quant` instead.
+    """
+    if kv_quant:
+        return _selftest_quant(n_requests=n_requests, max_new=max_new, seed=seed,
+                               device=device)
+    from autodist_tpu_torch.models.transformer import decode_model
+    from autodist_tpu_torch.serve.engine import BucketedInferenceEngine
+
+    registry = M.MetricsRegistry()
+    rng = np.random.default_rng(seed)
+    engine, params, cfg = _tiny_engine(n_slots=n_slots, paged_impl="gather", device=device)
+    bucketed = BucketedInferenceEngine(
+        params, decode_model(cfg), n_slots=_BASELINE_SLOTS,
+        bucket_lens=_BASELINE_BUCKETS, device=device)
+    paged_pool_tokens = engine.pool.n_pages * engine.page_len
+    if paged_pool_tokens > bucketed.kv_pool_tokens:
+        raise AssertionError(
+            f"equal-memory premise broken: paged pool holds {paged_pool_tokens} "
+            f"timeline tokens vs bucketed {bucketed.kv_pool_tokens}")
+
+    # ---- concurrency at equal KV memory (short-request mix: 6 + 6).
+    paged_cap = _admission_capacity(engine, 6, 6)
+    bucketed_cap = _admission_capacity(bucketed, 6, 6)
+    concurrency_x = paged_cap / max(bucketed_cap, 1)
+
+    # ---- greedy bit-equality on the same params.
+    parity_prompts = [
+        np.array([5, 17, 3, 88, 2], np.int32),
+        rng.integers(1, 127, size=20).astype(np.int32),   # crosses pages
+        rng.integers(1, 127, size=41).astype(np.int32),   # many chunks
+    ]
+    parity_ok = all(engine.generate(p, 10) == bucketed.generate(p, 10)
+                    for p in parity_prompts)
+
+    # ---- the paged kernel against the gather path: bit-identical streams.
+    kernel_engine, _, _ = _tiny_engine(n_slots=4, paged_impl="kernel", device=device)
+    kernel_parity_ok = all(engine.generate(p, 10) == kernel_engine.generate(p, 10)
+                           for p in parity_prompts)
+
+    def mock_prompt(i=None):
+        return mock_load_prompt(rng, i)
+
+    engine.generate(mock_prompt(), max_new)   # warm-up outside both timed phases
+    t0 = time.monotonic()
+    seq_tokens = sum(len(engine.generate(mock_prompt(), max_new)) for _ in range(8))
+    seq_tps = seq_tokens / (time.monotonic() - t0)
+
+    batcher = ContinuousBatcher(engine, max_queue=max(n_requests, 64), registry=registry)
+    t1 = time.monotonic()
+    results = _run_clients(batcher, [mock_prompt(i) for i in range(n_requests)], max_new)
+    dt_batched = time.monotonic() - t1
+
+    batched_tps = sum(len(r.tokens) for r in results) / dt_batched
+    states = {s: sum(1 for r in results if r.state is s) for s in RequestState}
+    snap = registry.snapshot()
+    lat = snap.get("serve_request_latency_s", {})
+    programs = engine.compiled_programs
+    done = states.get(RequestState.DONE, 0)
+    ok = (done == n_requests and batched_tps > seq_tps and concurrency_x >= 2.0
+          and parity_ok and kernel_parity_ok and programs == 2)
+    line = {
+        "selftest": "autodist_tpu_torch.serve",
+        "ok": bool(ok),
+        "n_requests": n_requests,
+        "completed": done,
+        "dropped": n_requests - done,
+        "p50_latency_s": round(lat.get("p50", float("nan")), 4),
+        "p99_latency_s": round(lat.get("p99", float("nan")), 4),
+        "batched_tokens_per_sec": round(batched_tps, 1),
+        "sequential_tokens_per_sec": round(seq_tps, 1),
+        "speedup": round(batched_tps / seq_tps, 2) if seq_tps else None,
+        "tokens_generated": int(snap.get("serve_tokens_generated_total", 0)),
+        "queue_depth_final": int(snap.get("serve_queue_depth", 0)),
+        "paged_capacity": paged_cap,
+        "bucketed_capacity": bucketed_cap,
+        "concurrency_x_vs_bucketed": round(concurrency_x, 2),
+        "kv_pool_tokens": paged_pool_tokens,
+        "paged_vs_bucketed_bit_equal": bool(parity_ok),
+        "kernel_vs_gather_bit_equal": bool(kernel_parity_ok),
+        "kv_quant": "off",
+        "programs_compiled": programs,
+        "page_len": engine.page_len,
+        "n_pages": engine.pool.n_pages,
+        "n_slots": engine.n_slots,
+        "paged_impl": "gather",
+        "kernel_engine_impl": "kernel",
+        "device": engine.device.type,
+    }
+    print(json.dumps(line), flush=True)
+    if not ok:
+        logging.warning(
+            "selftest failed: states=%s seq=%.1f batched=%.1f concurrency_x=%.2f "
+            "parity=%s kernel_parity=%s programs=%d",
+            {s.value: n for s, n in states.items() if n}, seq_tps, batched_tps,
+            concurrency_x, parity_ok, kernel_parity_ok, programs)
+    return 0 if ok else 1
+
+
+def _selftest_quant(n_requests: int = 64, max_new: int = 12, seed: int = 0,
+                    device="cuda") -> int:
+    """The int8-KV-pages acceptance proof (``--selftest --kv-quant``) on
+    ``device``: an fp paged engine (the oracle) and an int8 one sized to the
+    SAME pool bytes, both with copy-on-write prefix sharing on. The int8
+    pool funds 3.2x the pages (int8 + fp32 scales against fp32 KV at
+    head_dim 16), which must buy >=2x admitted concurrency; the batched
+    phase drops nothing; the teacher-forced logit drift against the fp
+    oracle stays within :data:`QUANT_LOGIT_DRIFT_BOUND`; the paged kernel
+    over the same int8 pages streams bit-identically to the gather path;
+    the memory pass (``analysis/passes.py::hbm_budget``) prices the
+    PHYSICAL quantized bytes with the capacity multiplier beside them; and
+    the int8 engine runs exactly two serving programs."""
+    from autodist_tpu_torch.analysis.passes import hbm_budget
+    from autodist_tpu_torch.models.transformer import init_paged_kv_cache
+
+    registry = M.MetricsRegistry()
+    rng = np.random.default_rng(seed)
+    n_slots = 96   # past both pools' page capacity: pages bind, as compared
+    fp_engine, params, cfg = _tiny_engine(n_slots=n_slots, prefix_cache=True,
+                                          device=device)
+    fp_pool_bytes = fp_engine.page_pool_bytes
+
+    # Size the int8 pool to the fp pool's byte budget.
+    quant_page_bytes = sum(
+        t.numel() * t.element_size() for t in init_paged_kv_cache(
+            cfg, 1, _PAGE_LEN, quantized=True, device="meta").values())
+    n_pages_q = int(fp_pool_bytes // quant_page_bytes)
+    engine, _, _ = _tiny_engine(n_slots=n_slots, n_pages=n_pages_q, kv_quant=True,
+                                prefix_cache=True, device=device)
+    equal_bytes_ok = engine.page_pool_bytes <= fp_pool_bytes
+
+    # ---- admitted concurrency at equal pool bytes (6 prompt + 6 new).
+    quant_cap = _admission_capacity(engine, 6, 6)
+    fp_cap = _admission_capacity(fp_engine, 6, 6)
+    concurrency_x = quant_cap / max(fp_cap, 1)
+
+    # ---- teacher-forced logit drift against the fp oracle.
+    drift = _quant_logit_drift(params, cfg)
+    drift_ok = drift < QUANT_LOGIT_DRIFT_BOUND
+
+    # ---- kernel against gather over the same int8 pages.
+    parity_prompts = [
+        np.array([5, 17, 3, 88, 2], np.int32),
+        rng.integers(1, 127, size=20).astype(np.int32),
+        rng.integers(1, 127, size=41).astype(np.int32),
+    ]
+    kernel_engine, _, _ = _tiny_engine(n_slots=4, kv_quant=True, paged_impl="kernel",
+                                       device=device)
+    gather_small, _, _ = _tiny_engine(n_slots=4, kv_quant=True, paged_impl="gather",
+                                      device=device)
+    kernel_parity_ok = all(gather_small.generate(p, 10) == kernel_engine.generate(p, 10)
+                           for p in parity_prompts)
+
+    # ---- the memory pass: the pool tenant carries the PHYSICAL quantized
+    # bytes; the capacity multiplier rides the summary.
+    _, mem = hbm_budget(engine.plan, serve_pool_bytes=engine.page_pool_bytes,
+                        serve_quant_capacity_x=engine.quant_capacity_x)
+    analyzer_ok = (abs(mem["serve_pool_gb_per_chip"] * 1e9 - engine.page_pool_bytes) < 1.0
+                   and mem["serve_quant_capacity_x"] >= 2.0)
+
+    # ---- batched phase through the int8 engine: zero dropped.
+    def mock_prompt(i=None):
+        return mock_load_prompt(rng, i)
+
+    engine.generate(mock_prompt(), max_new)   # warm-up
+    batcher = ContinuousBatcher(engine, max_queue=max(n_requests, 64), registry=registry)
+    results = _run_clients(batcher, [mock_prompt(i) for i in range(n_requests)], max_new)
+    states = {s: sum(1 for r in results if r.state is s) for s in RequestState}
+    programs = engine.compiled_programs
+    snap = registry.snapshot()
+    done = states.get(RequestState.DONE, 0)
+    ok = (done == n_requests and equal_bytes_ok and concurrency_x >= 2.0 and drift_ok
+          and kernel_parity_ok and analyzer_ok and programs == 2)
+    line = {
+        "selftest": "autodist_tpu_torch.serve.kv_quant",
+        "ok": bool(ok),
+        "kv_quant": "on",
+        "n_requests": n_requests,
+        "completed": done,
+        "dropped": n_requests - done,
+        "pool_bytes": int(engine.page_pool_bytes),
+        "fp_pool_bytes": int(fp_pool_bytes),
+        "n_pages_quant": engine.pool.n_pages,
+        "n_pages_fp": fp_engine.pool.n_pages,
+        "quant_capacity_x": round(engine.quant_capacity_x, 2),
+        "quant_capacity": quant_cap,
+        "fp_capacity": fp_cap,
+        "concurrency_x_vs_fp": round(concurrency_x, 2),
+        "logit_drift": round(drift, 5),
+        "logit_drift_bound": QUANT_LOGIT_DRIFT_BOUND,
+        "kernel_vs_gather_bit_equal": bool(kernel_parity_ok),
+        "analyzer_prices_quant": bool(analyzer_ok),
+        "programs_compiled": programs,
+        "quant_pool_gauge_bytes": float(snap.get("serve_page_pool_physical_bytes", 0.0)),
+        "page_len": engine.page_len,
+        "paged_impl": _decode_impl(engine, cfg),
+        "fp_paged_impl": _decode_impl(fp_engine, cfg),
+        "kernel_engine_impl": "kernel",
+        "gather_engine_impl": "gather",
+        "device": engine.device.type,
+    }
+    print(json.dumps(line), flush=True)
+    if not ok:
+        logging.warning(
+            "kv-quant selftest failed: states=%s equal_bytes=%s concurrency_x=%.2f "
+            "drift=%.5f kernel_parity=%s analyzer=%s programs=%d",
+            {s.value: n for s, n in states.items() if n}, equal_bytes_ok, concurrency_x,
+            drift, kernel_parity_ok, analyzer_ok, programs)
+    return 0 if ok else 1

@@ -38,7 +38,12 @@ copy-on-write mirroring the target's.
 The JAX package's ``build_draft_plan`` (the draft's sharding plan) has no
 counterpart: the port's engines take no plan (one card, params as tensors
 on the device), and the draft's params sit beside the target's. Its
-compiled-program pin (5) is replaced by invocation counts per program kind:
+compiled-program pin (5) has ``compiled_programs`` as its counterpart: the
+distinct (program kind, argument shapes) run, 4 for any length mix (target
+prefill, draft prefill, draft decode, verify; a spec round never runs the
+target's plain decode). JAX's 5 holds the same four programs, its draft
+decode compiled twice (its first feed a host array, the others device
+outputs). Beside it, invocation counts per program kind:
 ``prefill_invocations``, ``decode_invocations``, ``verify_invocations``,
 ``draft_invocations``.
 
@@ -273,10 +278,12 @@ class SpecDecodeEngine(InferenceEngine):
             valid = prompt[start:start + c]
             chunk[0, : len(valid)] = valid
             self.draft_invocations += 1
+            tokens, table = self._dev(chunk), self._dev(self._draft_table_np[idx])
+            self._note_program("draft_prefill_chunk", tokens, table)
             with torch.no_grad():
                 _, self._draft_cache = self.draft_decode_model.prefill_chunk(
-                    self.draft_params, self._dev(chunk), start, len(prompt),
-                    self._draft_cache, self._dev(self._draft_table_np[idx]))
+                    self.draft_params, tokens, start, len(prompt),
+                    self._draft_cache, table)
         first = super().prefill_step(slot)
         if first is not None:
             self._draft_decode_np[idx] = self._draft_table_np[idx]
@@ -318,6 +325,7 @@ class SpecDecodeEngine(InferenceEngine):
         samp = self._samp_dev(slice(None)) if self._stochastic(decoding) else None
         cur, proposals = pending, []
         with torch.no_grad():
+            self._note_program("draft_decode_paged", pending, pos_dev, draft_tables)
             for j in range(k + 1):
                 self.draft_invocations += 1
                 cur, self._draft_cache = self.draft_decode_model.decode_paged(
@@ -334,9 +342,11 @@ class SpecDecodeEngine(InferenceEngine):
             self.verify_invocations += 1
             with obs_spans.span("serve.spec_verify", active=int(len(decoding)), k=k,
                                 request_ids=self._span_request_ids(decoding)):
+                window = torch.stack([pending] + proposals, dim=1)
+                tables = self._dev(self._decode_table_np)
+                self._note_program("verify_paged", window, pos_dev, tables)
                 acc, out_tok, self._cache = self.decode_model.verify_paged(
-                    self.params, torch.stack([pending] + proposals, dim=1), pos_dev,
-                    self._cache, self._dev(self._decode_table_np), samp=samp)
+                    self.params, window, pos_dev, self._cache, tables, samp=samp)
                 # One host read a round: accept counts beside the tokens.
                 got = torch.cat([acc[:, None], out_tok], dim=1).cpu().numpy()
         self.spec_rounds += 1

@@ -132,6 +132,30 @@ Phases, each printing one JSON line:
    and ``/slo``. In every window the paged kernel's launches equal the
    layers times the prefill chunks and decode steps of every engine that
    ran (the killed replica's up to its death, the control engine's).
+5g. ``serve_bucketed``: the bucketed baseline engine
+   (``BucketedInferenceEngine``, 32 rows in each bucket of 32–512 tokens)
+   against paged engines on the kernel over the same full-width params at
+   equal KV bytes (the pool holds the buckets' timeline tokens): admitted
+   concurrency at the selftest's 6 + 6 mix (>= 2x; the paged engine with a
+   row for every page, and with 32 rows), 32 seeded prompts through both
+   (streams under ``_streams_agree``; the paged kernel's launches equal 12 x
+   the paged engine's programs, the bucketed engine launches none),
+   tokens/s of each, and a 32-row decode step's host ms and device ms
+   (``device_ms``) of each.
+5h. ``serve_selftest``: ``serve.server.selftest`` and ``_selftest_quant``
+   on the card in process (each returns 0: >= 2x concurrency at equal KV,
+   0 dropped, fp32 paged/bucketed and kernel/gather streams bitwise, int8
+   drift under 0.05, the memory pass pricing int8 bytes, 2 programs; the
+   JSON lines emitted, the paged kernel's launches counted), then
+   ``python -m autodist_tpu_torch.serve --selftest`` as a child process
+   (exit 0).
+5i. ``serve_infer``: one-shot ``InferenceEngine.infer`` through
+   ``AutoDist.build_inference(apply_fn=)`` of bert_base (seq 512, batch 32,
+   bf16, "auto" attention: 12 flash forwards a call) and ResNet-50 (224 px,
+   batch 128, bf16: 36 conv-stats launches a call): each output finite and
+   as close to the plain bf16 forward (dot attention; the plain conv-stats
+   op) as ``INFER_DRIFT_FACTOR`` times that forward's distance from the
+   plain fp32 forward (relative L2); host and device ms of a call.
 6. ``flash_parity``: the flash forward, dK/dV and dQ kernels against their
    plain versions on the same inputs (B=32, H=12, D=64; bf16 at S=512
    causal and not, S=128 and S=256 causal; fp32 at S=512, the FMA
@@ -378,10 +402,12 @@ from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing, StrategyComp
 from autodist_tpu_torch.serve import sampling as samp_ops
 from autodist_tpu_torch.serve.batcher import ContinuousBatcher, RequestState
 from autodist_tpu_torch.serve import engine as serve_engine
-from autodist_tpu_torch.serve.engine import EngineDeadError, InferenceEngine
+from autodist_tpu_torch.serve.engine import (BucketedInferenceEngine, EngineDeadError,
+                                             InferenceEngine)
 from autodist_tpu_torch.serve.router import (TEST_SLO_SPEC, RouterConfig, build_test_fleet,
                                             calibrated_configs, fleet_trial)
-from autodist_tpu_torch.serve.server import RouterFrontend, ServeFrontend, mock_load_prompt
+from autodist_tpu_torch.serve.server import (RouterFrontend, ServeFrontend,
+                                             _admission_capacity, mock_load_prompt)
 from autodist_tpu_torch.serve.spec import SpecDecodeEngine, pools_balanced
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and per-type rates.
@@ -698,6 +724,28 @@ HOOK_COST_STEPS, HOOK_COST_TURNS = 32, 6
 FLEET_REPLICAS, FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_KILL = 3, 16, 64, 16, 1
 FLEET_PAGES = 1 + FLEET_SLOTS * 8
 FLEET_HTTP = 4
+
+# serve_bucketed: the bucketed baseline at full width, BUCKETED_ROWS rows in
+# each default bucket up to the model's 512 positions (32, 64, ..., 512),
+# against paged engines (the kernel) over the same params at equal KV bytes:
+# the pool holds the buckets' timeline tokens in PAGE_LEN-token pages. The
+# capacity probe (the selftest's 6 + 6 mix) also runs a paged engine with a
+# row for every page, so the pool binds, as it does in the selftest. Streams:
+# BUCKETED_ROWS seeded prompts, BUCKETED_NEW tokens each. Timing: every row
+# at BUCKETED_TIMING_LEN + BUCKETED_TIMING_NEW (one bucket), host ms a step
+# over BUCKETED_TIMING_STEPS steps after two warm-up steps.
+BUCKETED_ROWS, BUCKETED_NEW = 32, 32
+BUCKETED_TIMING_LEN, BUCKETED_TIMING_NEW, BUCKETED_TIMING_STEPS = 16, 48, 10
+# serve_infer: one-shot InferenceEngine.infer of bert_base (seq TRAIN_SEQ,
+# batch TRAIN_BATCH, bf16, "auto" attention: flash) and ResNet-50 (224 px,
+# batch INFER_RESNET_BATCH, bf16). Each output is held to the plain forward
+# (dot attention; the plain conv-stats op) in bf16 on the same inputs: its
+# relative L2 distance within INFER_DRIFT_FACTOR times the plain bf16
+# forward's own distance from the plain fp32 forward, the bound
+# tests/test_torch_resnet.py holds the port's bf16 ResNet to (two bf16
+# renderings of one model differ by rounding of the same size as either's
+# distance from fp32).
+INFER_RESNET_BATCH, INFER_DRIFT_FACTOR = 128, 2.0
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -4284,6 +4332,266 @@ def serve_fleet(params, card: str, dev) -> dict:
     return row
 
 
+# ---------------------------------------------------------- serve_selftest
+def serve_selftest(card: str) -> dict:
+    """The single-engine serving proofs on the card: ``selftest`` and
+    ``_selftest_quant`` in process (each must return 0; their JSON lines are
+    emitted), then ``python -m autodist_tpu_torch.serve --selftest`` as a
+    child process for the CLI's exit code. The paged kernel's launches of
+    the two in-process runs are counted (the kernel engines, and the int8
+    engines where "auto" takes the kernel)."""
+    from autodist_tpu_torch.serve.server import _selftest_quant, selftest
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for run, fn in (("plain", selftest), ("kv_quant", _selftest_quant)):
+        reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fn(device="cuda")
+        torch.cuda.synchronize()
+        launches[run] = pa.paged_attention.launches
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        emit("serve_selftest", run=run, rc=rc, seconds=time.perf_counter() - t0,
+             paged_launches=launches[run], card=card, **line)
+        check(rc == 0 and line["ok"], f"serve selftest ({run}) failed: {line}")
+        check(launches[run] > 0, f"serve selftest ({run}): the paged kernel never launched")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "autodist_tpu_torch.serve", "--selftest"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    cli = json.loads(lines[-1]) if lines else {}
+    emit("serve_selftest", run="cli", rc=proc.returncode, seconds=time.perf_counter() - t0,
+         **cli)
+    check(proc.returncode == 0 and cli.get("ok"),
+          f"python -m autodist_tpu_torch.serve --selftest exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return dict(kernel_launches=sum(launches.values()), wall_s=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------- serve_bucketed
+def _drive(engine, prompts, max_new: int):
+    """Every prompt admitted at once (the bucketed engine prefills as it
+    admits, the paged one prefills each slot to its first token), then one
+    decode step after another until every stream holds ``max_new`` tokens.
+    Returns (streams, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if isinstance(engine, BucketedInferenceEngine):
+        admitted = [engine.admit(p, max_new) for p in prompts]
+        check(all(a is not None for a in admitted), "bucketed: a prompt found no slot")
+        slots = [a[0] for a in admitted]
+        streams = [[a[1]] for a in admitted]
+    else:
+        slots = [engine.admit(p, max_new) for p in prompts]
+        check(all(isinstance(s, serve_engine.Slot) for s in slots), f"paged: {slots}")
+        streams = []
+        for slot in slots:
+            first = None
+            while first is None:
+                first = engine.prefill_step(slot)
+            streams.append([first])
+    while any(len(st) < max_new for st in streams):
+        out = engine.step()
+        for slot, st in zip(slots, streams):
+            if len(st) < max_new:
+                st.append(out[slot])
+    wall = time.perf_counter() - t0
+    for slot in slots:
+        engine.release(slot)
+    return streams, wall
+
+
+def _step_host_ms(engine, steps: int) -> float:
+    """Median host wall of one ``engine.step()`` (its tokens read back)."""
+    samples = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        engine.step()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def serve_bucketed(params, card: str, dev) -> dict:
+    """The bucketed engine as the measured baseline at full width (see the
+    module docstring): concurrency at equal KV bytes, streams against the
+    paged kernel engine, decode-step host and device ms and tokens/s."""
+    t_phase = time.perf_counter()
+    cfg = get_model("transformer")
+    kcfg = replace(cfg, paged_attention_impl="kernel")
+    bucketed = BucketedInferenceEngine(params, tt.decode_model(cfg), n_slots=BUCKETED_ROWS,
+                                       device=dev)
+    kv_tokens = bucketed.kv_pool_tokens
+    bucket_bytes = sum(t.numel() * t.element_size() for b in bucketed._buckets.values()
+                       for t in b.cache.values())
+    n_pages = kv_tokens // PAGE_LEN
+    kw = dict(page_len=PAGE_LEN, n_pages=n_pages, prefill_chunk=PAGE_LEN, device=dev)
+    paged = InferenceEngine(params, tt.decode_model(kcfg), n_slots=BUCKETED_ROWS, **kw)
+    check(paged.page_pool_bytes == bucket_bytes,
+          f"unequal KV bytes: paged {paged.page_pool_bytes}, bucketed {bucket_bytes}")
+
+    # Concurrency at equal KV bytes, the selftest's 6 + 6 mix.
+    wide = InferenceEngine(params, tt.decode_model(kcfg), n_slots=n_pages, **kw)
+    cap = {"bucketed": _admission_capacity(bucketed, 6, 6, limit=4 * n_pages),
+           "paged_pool_bound": _admission_capacity(wide, 6, 6, limit=4 * n_pages),
+           "paged_rows": _admission_capacity(paged, 6, 6, limit=4 * n_pages)}
+    del wide
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [mock_load_prompt(rng, i, vocab=cfg.vocab_size) for i in range(BUCKETED_ROWS)]
+    _drive(paged, prompts[:2], 2)                          # warm-up, not counted
+    _drive(bucketed, prompts[:2], 2)
+    # The main path's window: counts to 0 just before, read just after.
+    reset_launches()
+    programs = paged.prefill_invocations + paged.decode_invocations
+    got, paged_wall = _drive(paged, prompts, BUCKETED_NEW)
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches
+    programs = paged.prefill_invocations + paged.decode_invocations - programs
+    want, bucketed_wall = _drive(bucketed, prompts, BUCKETED_NEW)
+    torch.cuda.synchronize()
+    check(pa.paged_attention.launches == launches, "the bucketed engine launched the paged kernel")
+    check(launches == cfg.num_layers * programs,
+          f"serve_bucketed: paged launches {launches} != {cfg.num_layers} x {programs}")
+    agree = _streams_agree(params, cfg, prompts, got, want, "paged vs bucketed", bitwise=False)
+
+    # Decode steps at BUCKETED_ROWS rows, one bucket.
+    timing = [np.arange(1, BUCKETED_TIMING_LEN + 1, dtype=np.int32) + i
+              for i in range(BUCKETED_ROWS)]
+    steps = {}
+    for name, engine in (("paged", paged), ("bucketed", bucketed)):
+        if name == "paged":
+            slots = [engine.admit(p, BUCKETED_TIMING_NEW) for p in timing]
+            for slot in slots:
+                while engine.prefill_step(slot) is None:
+                    pass
+        else:
+            slots = [engine.admit(p, BUCKETED_TIMING_NEW)[0] for p in timing]
+            check(len({s.bucket for s in slots}) == 1, "timing rows span buckets")
+        _step_host_ms(engine, 2)
+        host = _step_host_ms(engine, BUCKETED_TIMING_STEPS)
+        if name == "paged":
+            args = (paged._dev(paged._last_token), paged._dev(paged._lengths), paged._cache,
+                    paged._dev(paged._decode_table_np))
+            dev_ms = device_ms(lambda: tt.forward_paged_decode_step(params, *args, kcfg))
+        else:
+            b = bucketed._buckets[slots[0].bucket]
+            args = (bucketed._dev(b.last_token), bucketed._dev(b.lengths), b.cache)
+            dev_ms = device_ms(lambda: tt.forward_decode_step(params, *args, cfg))
+        steps[name] = {"host_ms": host, "device_ms": dev_ms,
+                       "timeline": (paged.max_len if name == "paged" else slots[0].bucket)}
+        for slot in slots:
+            engine.release(slot)
+    gen = BUCKETED_ROWS * BUCKETED_NEW
+    row = dict(model="transformer, full width, bf16", card=card, rows=BUCKETED_ROWS,
+               buckets=list(bucketed._bucket_lens), kv_pool_tokens=kv_tokens,
+               kv_bytes=bucket_bytes, n_pages=paged.pool.n_pages, capacity_6_6=cap,
+               concurrency_x=cap["paged_pool_bound"] / max(cap["bucketed"], 1),
+               kernel_launches=launches, paged_programs=programs,
+               paged_tokens_per_s=gen / paged_wall, bucketed_tokens_per_s=gen / bucketed_wall,
+               decode_step=steps, **agree, wall_s=time.perf_counter() - t_phase)
+    emit("serve_bucketed", **row)
+    check(row["concurrency_x"] >= 2.0, f"paged concurrency {cap} not 2x the bucketed")
+    del bucketed, paged
+    torch.cuda.empty_cache()
+    return row
+
+
+# ------------------------------------------------------------- serve_infer
+@contextlib.contextmanager
+def _plain_conv_stats():
+    """The fused conv-stats op's plain version in place of the kernel."""
+    kernel = fcs.fused_matmul_stats
+    fcs.fused_matmul_stats = fcs.fused_matmul_stats_plain
+    try:
+        yield
+    finally:
+        fcs.fused_matmul_stats = kernel
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _infer_case(name, apply_fn, params, batch, plain, plain_ctx, launches, want, card, dev):
+    """``InferenceEngine.infer`` of ``apply_fn`` through
+    ``AutoDist.build_inference(apply_fn=)``: its kernel's launches in one
+    call (``launches()`` against ``want``), finite output held to the plain
+    bf16 forward (``plain["bf16"]``, run under ``plain_ctx``) within
+    INFER_DRIFT_FACTOR times that forward's distance from ``plain["fp32"]``,
+    host and device ms of a call."""
+    AutoDist.reset_default()
+    engine = AutoDist(device=dev).build_inference(params, apply_fn=apply_fn)
+    AutoDist.reset_default()
+    engine.infer(batch)                                 # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launches()
+    out = engine.infer(batch)
+    torch.cuda.synchronize()
+    n = launches()
+    with torch.inference_mode(), plain_ctx():
+        ref16, ref32 = plain["bf16"](), plain["fp32"]()
+    rel, drift = _rel_l2(out, ref16), _rel_l2(ref16, ref32)
+    err = (out.float() - ref16.float()).abs().max().item()
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.infer(batch)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    with plain_ctx():
+        plain_ms = time_ms(plain["bf16"], groups=3, per_group=1)
+    row = dict(model=name, card=card, shape=list(out.shape), kernel_launches=n,
+               expected_launches=want, rel_l2_vs_plain=rel, plain_bf16_vs_fp32=drift,
+               bound=INFER_DRIFT_FACTOR * drift, max_abs_err=err,
+               host_ms=statistics.median(samples),
+               device_ms=device_ms(lambda: engine.infer(batch), calls=3, replays=5),
+               plain_ms=plain_ms)
+    emit("serve_infer", **row)
+    check(n == want, f"{name} infer: {n} kernel launches, want {want}")
+    check(bool(torch.isfinite(out).all()), f"{name} infer: non-finite output")
+    check(rel <= INFER_DRIFT_FACTOR * drift,
+          f"{name} infer: {rel} from the plain forward > {INFER_DRIFT_FACTOR} x {drift}")
+    return row
+
+
+def serve_infer(card: str, dev) -> list:
+    """One-shot inference on the card (see the module docstring)."""
+    rows = []
+    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ)
+    cfg = spec.config
+    check(tt.resolve_attention_impl(cfg.attention_impl, TRAIN_SEQ, dev, cfg.dtype) == "flash",
+          "bert_base at seq 512 does not resolve to flash")
+    params = spec.init(SEED + 19, device=dev)
+    tokens = spec.example_batch(TRAIN_BATCH, device=dev)["tokens"]
+    dot16 = replace(cfg, attention_impl="dot")
+    dot32 = replace(dot16, dtype=torch.float32)
+    rows.append(_infer_case(
+        "bert_base", spec.apply, params, tokens,
+        {"bf16": lambda: tt.forward(params, tokens, dot16),
+         "fp32": lambda: tt.forward(params, tokens, dot32)},
+        contextlib.nullcontext, lambda: fa.flash_fwd.launches, cfg.num_layers, card, dev))
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    spec = get_model_spec("resnet")
+    params = spec.init(SEED + 19, device=dev)
+    images = spec.example_batch(INFER_RESNET_BATCH, device=dev)["images"]
+    rows.append(_infer_case(
+        "resnet50", spec.apply, params, images,
+        {"bf16": lambda: rn.forward(params, images, 50),
+         "fp32": lambda: rn.forward(params, images, 50, dtype=torch.float32)},
+        _plain_conv_stats, lambda: fcs.fused_matmul_stats.launches,
+        rn.fused_launches_per_forward(50), card, dev))
+    del params, images
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -4323,7 +4631,10 @@ def main() -> int:
     feature_rows = serve_features(params, card, dev)
     replica_row = serve_replica(params, card, dev)
     fleet_row = serve_fleet(params, card, dev)
+    bucketed_row = serve_bucketed(params, card, dev)
     del params
+    selftest_row = serve_selftest(card)
+    infer_rows = serve_infer(card, dev)
     ckpt_serve_rows = checkpoint_serve(card, dev)
 
     flash_rows = [r for seq, causal, dtype in ((TRAIN_SEQ, False, torch.bfloat16),
@@ -4370,7 +4681,8 @@ def main() -> int:
         "source": "autodist_tpu_torch/csrc/paged_attention.cu",
         "replaces": "autodist_tpu/ops/paged_attention.py:137",
         "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows
-                        + ckpt_serve_rows + [replica_row, fleet_row]),
+                        + ckpt_serve_rows + [replica_row, fleet_row, bucketed_row,
+                                             selftest_row]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4397,7 +4709,8 @@ def main() -> int:
             + sum(t["kernel_launches"][kind] + t["named_kernel_launches"][kind]
                   for t in auto_rows)
             + tune_row["kernel_launches"][kind]
-            + sup_row["kernel_launches"][kind],
+            + sup_row["kernel_launches"][kind]
+            + (infer_rows[0]["kernel_launches"] if kind == "fwd" else 0),
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -4418,7 +4731,8 @@ def main() -> int:
         "replaces": "examples/benchmark/fused_conv_stats.py:54",
         "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
         + sum(r["kernel_launches"].get("fused_conv_stats", 0)
-              for r in zoo_rows + dist_rows + sync_rows + ckpt_rows + tp_rows),
+              for r in zoo_rows + dist_rows + sync_rows + ckpt_rows + tp_rows)
+        + infer_rows[1]["kernel_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],

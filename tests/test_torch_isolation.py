@@ -67,7 +67,9 @@ def test_scan_sees_the_whole_port():
                 "ft/__init__.py", "ft/config.py", "ft/heartbeat.py", "ft/snapshot.py",
                 "ft/elastic.py", "ft/procdrain.py", "runtime/cluster.py",
                 "runtime/coordinator.py", "runtime/launcher.py", "runtime/__init__.py",
-                "obs/aggregate.py", "serve/router.py", "serve/replica.py", "serve/server.py"):
+                "obs/aggregate.py", "serve/router.py", "serve/replica.py", "serve/server.py",
+                "analysis/__init__.py", "analysis/report.py", "analysis/passes.py",
+                "serve/__main__.py", "serve/__init__.py", "models/transformer.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()

@@ -10,7 +10,8 @@ serves through the ``params/`` probe in both packages, equal to serving the
 trained params from memory. ``InferenceEngine.build`` and
 ``SpecDecodeEngine.build(checkpoint=, draft_checkpoint=)`` give the same
 streams, the CLI's ``--checkpoint`` / ``--draft-checkpoint`` reach the
-engine, and ``apply_fn`` (one-shot inference, not ported) raises.
+engine, and ``apply_fn`` beside ``decode_model`` gives one engine that
+serves both the one-shot forward and paged decode.
 """
 import argparse
 
@@ -169,8 +170,19 @@ def test_cli_flags_reach_the_engine(jax_ckpt, monkeypatch):
 
 
 def test_apply_fn_is_not_ported():
+    """Once raising (one-shot inference was not ported), ``apply_fn`` now
+    rides beside ``decode_model``: one engine serves the uncached forward
+    (``infer``, exactly ``spec.apply``) and paged decode."""
     cfg = _cfg()
-    params = get_model_spec("transformer", dtype="float32", **TINY).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.AutoDist(device="cpu").build_inference(params, apply_fn=lambda p, b: b,
-                                                    decode_model=decode_model(cfg))
+    spec = get_model_spec("transformer", dtype="float32", **TINY)
+    params = spec.init(0, device="cpu")
+    tapi.AutoDist.reset_default()
+    try:
+        engine = tapi.AutoDist(device="cpu").build_inference(
+            params, apply_fn=spec.apply, decode_model=decode_model(cfg),
+            page_len=_PAGE_LEN, n_pages=_N_PAGES)
+    finally:
+        tapi.AutoDist.reset_default()
+    tokens = torch.arange(1, 17, dtype=torch.int32).reshape(2, 8)
+    assert torch.equal(engine.infer(tokens), spec.apply(params, tokens))
+    assert len(engine.generate(np.array([5, 17, 3], np.int32), 4)) == 4
