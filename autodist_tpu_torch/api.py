@@ -51,8 +51,11 @@ started heartbeat monitor, the snapshot ring and its preemption hook);
 :meth:`AutoDist.elastic_rebuild` rebuilds over the surviving ranks' group
 and restores the newest verified snapshot into it. A process started by
 the port's launcher (``runtime/launcher.py``) joins the group from the
-environment it sets. ``build_pipeline`` and the JAX package's
-observability runtime are not ported yet (ROADMAP.md).
+environment it sets. :meth:`AutoDist.build_pipeline` trains a stacked stage
+stack over the mesh's ``pipe`` axis (``parallel/pipeline.py``); a ``seq``
+axis carries the transformer's ring or Ulysses attention
+(``parallel/ring_attention.py``). The JAX package's observability runtime
+is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -88,6 +91,22 @@ if TYPE_CHECKING:
     from autodist_tpu_torch.ft import FTConfig, FTRuntime
 
 _default_autodist: Optional["AutoDist"] = None
+
+
+def get_default_autodist() -> Optional["AutoDist"]:
+    """The AutoDist of this process, if one was made."""
+    return _default_autodist
+
+
+def resolve_mesh(mesh=None, need: Optional[str] = None):
+    """``mesh``, else the default AutoDist's mesh; None without either, or a
+    ValueError naming ``need`` when it is given."""
+    if mesh is None and _default_autodist is not None:
+        mesh = _default_autodist.mesh
+    if mesh is None and need is not None:
+        raise ValueError(f"{need} needs a mesh: pass mesh= or construct an AutoDist first")
+    return mesh
+
 
 #: Timed windows a ``tune()`` candidate runs after its warm-up window.
 _TUNE_TRIAL_WINDOWS = 4
@@ -370,6 +389,23 @@ class AutoDist:
         logging.info("sync=False strategy: routed to host-driven AsyncPSTrainer "
                      "(%d workers, staleness=%d)", n_workers, staleness)
         return trainer
+
+    # ------------------------------------------------------------- pipeline
+    def build_pipeline(self, stage_fn: Callable, loss_head: Callable, n_microbatches: int,
+                       optimizer: Union[OptimizerSpec, Optimizer, None] = None,
+                       donate_state: bool = True):
+        """Pipeline-parallel train step over this AutoDist's mesh, the
+        counterpart of :meth:`build` for stage-stack models
+        (``stage_fn(stage_params, h) -> h`` shape-preserving, params given
+        stacked ``[S, ...]`` to ``init``): a
+        :class:`~autodist_tpu_torch.parallel.PipelineTrainStep` running the
+        interleaved 1F1B loop over the mesh's ``pipe`` axis while the batch
+        splits over ``data``."""
+        from autodist_tpu_torch.parallel import PipelineTrainStep
+
+        _, tx = _resolve_optimizer(optimizer)
+        return PipelineTrainStep(stage_fn, loss_head, tx, n_microbatches, mesh=self.mesh,
+                                 donate_state=donate_state)
 
     # -------------------------------------------------------------- elastic
     def elastic_rebuild(self, loss_fn: Callable, params: Any, example_batch: Any = None,

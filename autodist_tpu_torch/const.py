@@ -27,10 +27,13 @@ DEFAULT_COORDINATOR_PORT = 15000
 ASYNC_SAVE_BARRIER_TIMEOUT_MS = 10 * 60 * 1000
 
 # Logical mesh axis names: "data" carries the batch, "model" variable
-# partitioning, "expert" MoE experts (the last two not ported yet).
+# partitioning, "seq" sequence parallelism (ring / Ulysses attention),
+# "expert" MoE experts, "pipe" pipeline stages.
 MESH_AXIS_DATA = "data"
 MESH_AXIS_MODEL = "model"
+MESH_AXIS_SEQ = "seq"
 MESH_AXIS_EXPERT = "expert"
+MESH_AXIS_PIPE = "pipe"
 
 
 class _EnvVar:

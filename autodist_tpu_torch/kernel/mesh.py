@@ -15,8 +15,17 @@ and that axis (``device_mesh``), whose data-dim subgroup is ``group``: the
 ranks that share this rank's model (or expert) coordinate, over which the
 gradients are synced. The batch is sharded over the data axis only, as the
 JAX package's ``data_sharding`` does: the ranks of one model group see the
-same rows. ``seq`` and ``pipe`` axes, and a mesh with both ``model`` and
-``expert`` larger than 1, raise ``NotImplementedError`` (ROADMAP.md).
+same rows.
+
+Instead, one of ``seq`` (ring / Ulysses attention, ``parallel/``) or
+``pipe`` (pipeline stages) may be larger than 1 beside the data axis.
+:func:`build_mesh` then forms two subgroups of the world group: that axis's
+group (:meth:`Mesh.axis_group`: the ranks sharing this rank's data
+coordinate) and the data group (``group``: the ranks sharing this rank's
+seq or pipe coordinate), so the gradient sync and ``data_rank`` keep their
+meaning. A seq or pipe axis beside a wide model or expert axis, ``seq``
+with ``pipe``, and a mesh with both ``model`` and ``expert`` larger than 1
+raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,16 +43,21 @@ from autodist_tpu_torch.utils.device import resolve_device
 AXES = (const.MESH_AXIS_DATA, const.MESH_AXIS_MODEL)
 #: Axes with a role other than carrying the batch (the JAX package's
 #: ``const.ALL_MESH_AXES`` minus ``data``).
-NON_DATA_AXES = (const.MESH_AXIS_MODEL, "seq", const.MESH_AXIS_EXPERT, "pipe")
+NON_DATA_AXES = (const.MESH_AXIS_MODEL, const.MESH_AXIS_SEQ, const.MESH_AXIS_EXPERT,
+                 const.MESH_AXIS_PIPE)
 #: The non-data axes a parameter can be sharded over in the port.
 SHARD_AXES = (const.MESH_AXIS_MODEL, const.MESH_AXIS_EXPERT)
+#: The non-data axes that split one data block's work over ranks through
+#: a group of their own (``parallel/``).
+GROUP_AXES = (const.MESH_AXIS_SEQ, const.MESH_AXIS_PIPE)
 
 
 @dataclass(frozen=True)
 class Mesh:
     """Named logical axes (row-major over ``axis_names``), this process's
     rank and device, the group of the data axis and, with a model or
-    expert axis, the ``DeviceMesh`` over (data axis, that axis)."""
+    expert axis, the ``DeviceMesh`` over (data axis, that axis); with a
+    seq or pipe axis, that axis's group (``axis_groups``)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -52,6 +66,7 @@ class Mesh:
     group: Any = field(default=None, compare=False)
     device_mesh: Any = field(default=None, compare=False)
     world_group: Any = field(default=None, compare=False)
+    axis_groups: Dict[str, Any] = field(default_factory=dict, compare=False)
 
     @classmethod
     def logical(cls, shape: Dict[str, int], device="cpu") -> "Mesh":
@@ -98,6 +113,23 @@ class Mesh:
         wide = [ax for ax in SHARD_AXES if self.shape.get(ax, 1) > 1]
         return wide[0] if wide else None
 
+    @property
+    def group_axis(self) -> Optional[str]:
+        """The seq or pipe axis when it is larger than 1, else None."""
+        wide = [ax for ax in GROUP_AXES if self.shape.get(ax, 1) > 1]
+        return wide[0] if wide else None
+
+    def axis_group(self, name: str, required: bool = False):
+        """The process group of the ranks that share this rank's coordinate
+        on every axis but ``name`` (a seq or pipe axis larger than 1),
+        ordered by their coordinate on it; None without one, or a
+        ValueError when ``required``."""
+        group = self.axis_groups.get(name)
+        if group is None and required:
+            raise ValueError(f"mesh axis {name!r}={self.shape.get(name, 1)} has no process "
+                             "group (a logical mesh plans only)")
+        return group
+
     def shard_mesh(self):
         """The one-dim ``DeviceMesh`` of :attr:`shard_axis` this rank lies
         on (None without one)."""
@@ -132,16 +164,21 @@ def data_axis(mesh: Mesh) -> str:
 
 def _check_axes(shape: Dict[str, int], batch_axis: str) -> None:
     """Raise for the axes the port does not render: a wide axis other than
-    the batch one, ``model`` and ``expert``, or both of those wide."""
+    the batch one and the known roles, ``model`` and ``expert`` both wide,
+    or a wide ``seq`` or ``pipe`` axis beside another wide non-data axis."""
     other = {ax: d for ax, d in shape.items()
-             if d > 1 and ax != batch_axis and ax not in SHARD_AXES}
+             if d > 1 and ax != batch_axis and ax not in SHARD_AXES + GROUP_AXES}
     if other:
-        raise NotImplementedError(f"mesh axes {other} (sequence/pipeline parallelism) "
-                                  "are not ported yet; see ROADMAP.md")
+        raise NotImplementedError(f"mesh axes {other} beside the batch axis "
+                                  f"{batch_axis!r} are not ported; see ROADMAP.md")
     wide = [ax for ax in SHARD_AXES if shape.get(ax, 1) > 1]
     if len(wide) > 1:
         raise NotImplementedError(f"a mesh with both {wide} larger than 1 is not "
                                   "ported yet; see ROADMAP.md")
+    grouped = [ax for ax in GROUP_AXES if shape.get(ax, 1) > 1]
+    if grouped and len(wide + grouped) > 1:
+        raise NotImplementedError(f"a mesh with {wide + grouped} larger than 1 together "
+                                  "is not ported yet; see ROADMAP.md (Queue 1 item 5)")
 
 
 def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
@@ -152,7 +189,9 @@ def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
     ``mesh:`` block in any row-major order, the other ``axes`` of size 1)
     must multiply to the world size. With a model or expert axis larger
     than 1 the ``DeviceMesh`` of the data axis and that axis is built over
-    ``group`` (every rank calls this) and the data group is its subgroup."""
+    ``group`` (every rank calls this) and the data group is its subgroup;
+    with a seq or pipe axis larger than 1, that axis's group and the data
+    group are subgroups of ``group``."""
     dev = resolve_device(device)
     world = torch.distributed.get_world_size(group) if group is not None else 1
     rank = torch.distributed.get_rank(group) if group is not None else 0
@@ -171,6 +210,8 @@ def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
     device = pg.local_device(dev, rank)
     mesh = Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
                 group=group, world_group=group)
+    if mesh.group_axis is not None:
+        return _with_axis_groups(mesh, batch_axis)
     wide = mesh.shard_axis
     if wide is None:
         return mesh
@@ -185,3 +226,29 @@ def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
     dmesh = DeviceMesh(device.type, grid, mesh_dim_names=(batch_axis, wide))
     return Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
                 group=dmesh.get_group(batch_axis), device_mesh=dmesh, world_group=group)
+
+
+def _with_axis_groups(mesh: Mesh, batch_axis: str) -> Mesh:
+    """``mesh`` with its seq or pipe axis's group and, as ``group``, the
+    data group: two enumerations of subgroups of the world group (every
+    rank forms every subgroup, in the same order)."""
+    axis = mesh.group_axis
+    if mesh.world_group is None:
+        raise ValueError(f"mesh axis {axis}={mesh.shape[axis]} needs a process group")
+    names = mesh.axis_names
+    grid = torch.arange(mesh.size).reshape([mesh.shape[ax] for ax in names])
+
+    def along(ax: str):
+        # One list per coordinate of the other axes: the ranks along ``ax``.
+        lines = grid.movedim(names.index(ax), -1).reshape(-1, mesh.shape[ax])
+        return [line.tolist() for line in lines]
+
+    own, _ = torch.distributed.new_subgroups_by_enumeration(along(axis))
+    data, _ = torch.distributed.new_subgroups_by_enumeration(along(batch_axis))
+    for g in (own, data):
+        # A first collective with every rank of the group: NCCL's
+        # point-to-point batches need one before their first use.
+        torch.distributed.all_reduce(torch.zeros(1, device=mesh.device), group=g)
+    return Mesh(axis_names=names, shape=dict(mesh.shape), rank=mesh.rank,
+                device=mesh.device, group=data, world_group=mesh.world_group,
+                axis_groups={axis: own})

@@ -4,9 +4,10 @@ Mirrors the JAX package's ``models/transformer.py``: a pre-norm transformer
 with tied input/output embeddings, fp32 params and bf16 compute, causal
 (next-token) or bidirectional (BERT-style MLM) loss. Ported: the config, the
 params, the uncached :func:`forward` with ``dot`` or ``flash`` attention
-(``ops/flash_attention.py``, the CUDA flash kernels), :func:`loss_fn` for
-both objectives, the ``transformer`` / ``bert_base`` / ``bert_large`` model
-specs, the paged KV-cache serving forwards
+(``ops/flash_attention.py``, the CUDA flash kernels) or, over a mesh
+``seq`` axis, ``ring`` and ``ulysses`` (``parallel/ring_attention.py``),
+:func:`loss_fn` for both objectives, the ``transformer`` / ``bert_base`` /
+``bert_large`` model specs, the paged KV-cache serving forwards
 (:func:`forward_paged_prefill_chunk`, :func:`forward_paged_decode_step`,
 the speculative :func:`forward_paged_verify`; each greedy or sampled) and
 the bucketed engine's stacked-cache decode (:func:`forward_prefill`,
@@ -47,7 +48,9 @@ class TransformerConfig:
     max_seq_len: int = 512
     causal: bool = True                 # False => BERT-style MLM
     dtype: Any = torch.bfloat16         # compute dtype (params stay fp32)
-    # dot | flash (ops/flash_attention.py) | auto (ops/crossover.py: flash
+    # dot | flash (ops/flash_attention.py) | ring | ulysses (sequence
+    # parallelism over the mesh's seq axis, parallel/ring_attention.py;
+    # flash on a trivial one) | auto (ops/crossover.py: flash
     # from the measured H100 crossover on CUDA in the table's dtype, 1024
     # tokens otherwise, when block-aligned; dot below it) for the uncached
     # forward.
@@ -139,10 +142,14 @@ def _attention(q, k, v, cfg: TransformerConfig):
         return _dot_attention(q, k, v, cfg.causal)
     if impl == "flash":
         return fa_ops.flash_attention(q, k, v, causal=cfg.causal)
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl {impl!r} (sequence parallelism) is not ported yet; "
-            "see ROADMAP.md")
+    if impl == "ring":
+        from autodist_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, causal=cfg.causal)
+    if impl == "ulysses":
+        from autodist_tpu_torch.parallel.ring_attention import ulysses_attention
+
+        return ulysses_attention(q, k, v, causal=cfg.causal)
     raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 

@@ -39,6 +39,21 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+def peer(group, index: int) -> int:
+    """The global rank of ``group``'s rank ``index``."""
+    return dist.get_global_rank(group, index)
+
+
+def exchange(group, sends, recvs) -> None:
+    """One batch of point-to-point ops on ``group``: ``sends`` and
+    ``recvs`` are ``(tensor, group rank)`` pairs; waits for all of them."""
+    ops = [dist.P2POp(dist.isend, t, peer(group, r), group) for t, r in sends]
+    ops += [dist.P2POp(dist.irecv, t, peer(group, r), group) for t, r in recvs]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
 def join(device: torch.device, init_method: Optional[str] = None,
          world_size: Optional[int] = None, rank: Optional[int] = None,
          timeout_s: float = DEFAULT_TIMEOUT_S):

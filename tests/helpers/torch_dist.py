@@ -150,14 +150,15 @@ def assert_params_close(got, want, rtol=PARAM_RTOL, atol=PARAM_ATOL, what=""):
 
 # ------------------------------------------------------------------ ranks
 def run_ranks(tmp_path: Path, inputs_by_model, cases, world: int = 4,
-              timeout_s: float = JOIN_TIMEOUT_S):
-    """Run ``cases`` on ``world`` gloo ranks; each rank's results."""
+              timeout_s: float = JOIN_TIMEOUT_S, worker: Path = WORKER):
+    """Run ``cases`` on ``world`` gloo ranks of ``worker`` (same command
+    line as ``torch_dist_worker.py``); each rank's results."""
     job = tmp_path / "job.pt"
     torch.save({"inputs": inputs_by_model, "cases": cases}, job)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
     logs = [open(tmp_path / f"rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(job), str(r), str(world),
+    procs = [subprocess.Popen([sys.executable, str(worker), str(job), str(r), str(world),
                                str(tmp_path / "pg"), str(tmp_path)],
                               env=env, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(world)]

@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``autodist_tpu_torch/``, neither
 ``chip_smoke.py`` nor the port's ``tools/torch_*.py`` scripts import ``jax``
 or the JAX package ``autodist_tpu`` (an AST scan of every import statement,
-lazy ones inside functions included). Where the JAX behaviour is not ported
-yet (the chaos harness), the port raises ``NotImplementedError`` naming
+lazy ones inside functions included), ``parallel/`` among them. Where the
+JAX behaviour is not ported yet (the chaos harness), the port raises ``NotImplementedError`` naming
 ROADMAP.md; the seam registry it did port keeps JAX's seam names.
 """
 import ast
@@ -69,7 +69,8 @@ def test_scan_sees_the_whole_port():
                 "runtime/coordinator.py", "runtime/launcher.py", "runtime/__init__.py",
                 "obs/aggregate.py", "serve/router.py", "serve/replica.py", "serve/server.py",
                 "analysis/__init__.py", "analysis/report.py", "analysis/passes.py",
-                "serve/__main__.py", "serve/__init__.py", "models/transformer.py"):
+                "serve/__main__.py", "serve/__init__.py", "models/transformer.py",
+                "parallel/__init__.py", "parallel/ring_attention.py", "parallel/pipeline.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()

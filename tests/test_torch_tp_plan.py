@@ -235,8 +235,10 @@ def test_logical_mesh_axes_and_coords():
     assert m.coords == {"model": 0, "data": 1} and m.data_rank == 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmesh._check_axes({"data": 2, "model": 2, "expert": 2}, "data")
+    # A seq axis beside the data axis is ported; beside a model axis not yet.
+    tmesh._check_axes({"data": 2, "seq": 2}, "data")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmesh._check_axes({"data": 2, "seq": 2}, "data")
+        tmesh._check_axes({"data": 2, "seq": 2, "model": 2}, "data")
 
 
 @pytest.mark.parametrize("model", sorted(ZOO))

@@ -335,13 +335,15 @@ def test_unported_options_raise_not_implemented():
     assert lower(PSSynchronizer(staleness=2)).plan_for("w").staleness == 2
     with pytest.raises(NotImplementedError, match="AsyncPSTrainer"):
         lower(PSSynchronizer(sync=False))
-    # A model axis lowers now (tensor parallelism); sequence and pipeline
-    # axes still raise, at the mesh.
+    # A model axis lowers now (tensor parallelism), and a sequence or
+    # pipeline axis beside the data axis; beside a model axis they still
+    # raise, at the mesh.
     assert lower(AllReduceSynchronizer(), on=Mesh.logical({"data": 2, "model": 2})).rendering(
         "w") == ("replicated", None)
     from autodist_tpu_torch.kernel.mesh import _check_axes
+    _check_axes({"data": 2, "seq": 2}, "data")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _check_axes({"data": 2, "seq": 2}, "data")
+        _check_axes({"data": 2, "pipe": 2, "model": 2}, "data")
     tstrat.PSLoadBalancing(sync=False)
     tstrat.PSLoadBalancing(staleness=1)
     with pytest.raises(ValueError, match="disagree"):
