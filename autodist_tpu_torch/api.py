@@ -59,6 +59,7 @@ is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import functools
 import math
@@ -76,7 +77,7 @@ from autodist_tpu_torch.const import ENV
 from autodist_tpu_torch.kernel import DistributedTrainStep, GraphTransformer, build_mesh
 from autodist_tpu_torch.kernel.lowering import ShardingPlan
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, OptimizerSpec
-from autodist_tpu_torch.models.convert import map_params
+from autodist_tpu_torch.models.convert import map_params, map_tree, to_tensor
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
@@ -272,6 +273,11 @@ class AutoDist:
             self._mesh = build_mesh(self.resource_spec, device=self.device,
                                     group=self.group, axes=self.mesh_axes)
         return self._mesh
+
+    @property
+    def is_chief(self) -> bool:
+        """True in the chief (strategy-building) process."""
+        return const.is_chief_process()
 
     def _build_or_load_strategy(self, model_item: ModelItem) -> Strategy:
         """The chief builds and serializes the strategy (and exports its id
@@ -658,3 +664,26 @@ class AutoDist:
     @property
     def model_item(self) -> Optional[ModelItem]:
         return self._model_item
+
+    def function(self, fn: Callable) -> Callable:
+        """Wrap a step function of tensors (the JAX package's
+        ``AutoDist.function``). A call before :meth:`build` raises; after
+        it, the arguments' tensors (numpy arrays become tensors), nested in
+        dicts, lists and tuples, are moved to the plan's device and ``fn``
+        runs on them whole. Where JAX shards the arguments over the data
+        axis and GSPMD gives every device the replicated result, each rank
+        here computes the whole result itself."""
+        def wrapper(*args):
+            plan = self.plan
+            if plan is None:
+                raise RuntimeError("call AutoDist.build(...) before .function(...)")
+            dev = plan.device
+            return fn(*map_tree(lambda t: to_tensor(t).to(dev), args))
+
+        return wrapper
+
+    @contextlib.contextmanager
+    def scope(self):
+        """The model-definition scope of the JAX package's API: PyTorch
+        captures nothing here, so it yields this AutoDist."""
+        yield self

@@ -113,7 +113,9 @@ model group. ``DTensor``'s collectives are counted under the axis's name.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
-loop here, returning per-step stacked losses), ``evaluate``,
+loop here, returning per-step stacked losses), ``evaluate``, ``fit`` (per
+step, or ``window=k`` host batches stacked into one ``run(stacked=True)``),
+``compile_metrics``,
 ``logical_params``, and the checkpoint trio ``logical_state`` / ``save`` /
 ``init_or_restore``: the state under the JAX ``TrainState``'s names and
 logical shapes (optimizer slots under optax's paths,
@@ -131,12 +133,14 @@ a ``lowering.transform`` span (``obs/spans.py``).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import time
 from dataclasses import dataclass, field, replace
 from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from autodist_tpu_torch import const
@@ -151,7 +155,7 @@ from autodist_tpu_torch.kernel.sparse import RowSplitTable
 from autodist_tpu_torch.kernel.sparse import predicted_bytes as table_bytes
 from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem, _factored_dims
 from autodist_tpu_torch.models.convert import (
-    flatten_params, map_params, map_tree, tree_leaves)
+    flatten_params, map_params, map_tree, to_tensor, tree_leaves)
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.strategy.base import check_sync_supported
 from autodist_tpu_torch.strategy.ir import (
@@ -666,6 +670,55 @@ class ShardingPlan:
 
         return map_tree(leaf, local_batch)
 
+    def global_batch_from_rows(self, batch):
+        """The global batch from this rank's loader rows (numpy or tensors):
+        every leaf copied to the plan's device and all-gathered along dim 0
+        in rank order. A loader's leaves are batched by construction, so a
+        rank's batch of one row is concatenated across ranks, not taken for
+        a broadcast leaf."""
+        dev = self.device
+        local = map_tree(lambda t: to_tensor(t).to(dev), batch)
+        return self.global_batch_from_local(local, broadcast=map_tree(lambda _: False, local))
+
+    def window_shardings(self, stacked_batch):
+        """The JAX ``PartitionSpec`` string of each leaf of a stacked data
+        window ``[num_steps, batch, ...]`` (a tree of the window's nesting):
+        the step axis unsplit and each step's slice split over the data axis
+        on its dim 0, as :meth:`local_batch` splits a batch; a broadcast
+        slice is replicated. A window is training data, so a slice dim that
+        the data axis does not divide raises."""
+        n = self.mesh.data_size
+        split, whole = (f"PartitionSpec{(None, const.MESH_AXIS_DATA)!r}",
+                        f"PartitionSpec{(None,)!r}")
+
+        def leaf(t):
+            shape = tuple(t.shape)[1:]
+            if len(shape) == 0 or shape[0] <= 1:
+                return whole
+            if shape[0] % n:
+                raise ValueError(f"global batch dim {shape[0]} not divisible by "
+                                 f"data-parallel degree {n}")
+            return split
+
+        return map_tree(leaf, stacked_batch)
+
+    def window_from_local(self, stacked_local):
+        """This rank's stacked host window -> the global window on the
+        plan's device. ``stacked_local`` leaves are ``[num_steps,
+        local_batch, ...]`` (numpy or tensors: this rank's rows of
+        ``num_steps`` consecutive batches); each is copied to the device once
+        and all-gathered along dim 1 over the data group in rank order (at
+        one rank, just copied): the bridge between the DataLoader and
+        ``run(stacked=True)``. Window leaves are batched by construction, so
+        dim 1 always concatenates across ranks."""
+        coll, dev = pg.Collectives(self.mesh.group), self.device
+
+        def leaf(x):
+            t = to_tensor(x).to(dev)
+            return coll.all_gather(t, 1, "batch") if t.dim() >= 2 else t
+
+        return map_tree(leaf, stacked_local)
+
     def collectives_per_step(self, bucketed: bool = True) -> Dict[str, int]:
         """The gradient and parameter wire one step issues over the data
         axis, by kind: a mean all-reduce per replicated, partitioned or
@@ -904,8 +957,9 @@ class DistributedTrainStep:
 
     # ------------------------------------------------------------- helpers
     def _to_device(self, tree):
+        """A batch on the step's device; numpy leaves become tensors."""
         dev = self.plan.device
-        return map_tree(lambda t: t.to(dev, non_blocking=True), tree)
+        return map_tree(lambda t: to_tensor(t).to(dev, non_blocking=True), tree)
 
     def _render(self, name: str) -> Tuple[str, Optional[int]]:
         return self.render.get(name, ("replicated", None))
@@ -1087,6 +1141,10 @@ class DistributedTrainStep:
     def logical_params(self, state: TrainState):
         """The user-shaped parameter view of a train state (detached).
         Sharded variables are all-gathered, so every rank calls it."""
+        return self._logical(state.params)
+
+    def _logical(self, params):
+        """:meth:`logical_params` of a state's params tree."""
         def view(name, t):
             kind, d = self._render(name)
             t = t.detach()
@@ -1098,7 +1156,7 @@ class DistributedTrainStep:
                     t.to(self.plan.device), d, "view"))
             return t
 
-        return _map_named(view, state.params)
+        return _map_named(view, params)
 
     # ---------------------------------------------------------- checkpoints
     def _split(self, t: torch.Tensor, logical, dim: int, per_rank: int, n: int, r: int):
@@ -1605,3 +1663,181 @@ class DistributedTrainStep:
             loss = self._mean_metric(loss)
             aux = map_params(self._mean_metric, aux) if aux is not None else None
         return {"loss": loss, "aux": aux} if self.has_aux else {"loss": loss}
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, state: TrainState, batches, steps: Optional[int] = None, eval_batch=None,
+            eval_every: int = 0, log_every: int = 0, window: int = 0,
+            eval_metrics_fn=None):
+        """A Keras-``fit``-shaped training loop over an iterable of batches
+        (a :class:`~autodist_tpu_torch.data.DataLoader` or any iterator of
+        batches, numpy or tensors), after the JAX step's ``fit``.
+
+        Returns ``(state, history)``: ``history["loss"]`` holds each step's
+        loss and ``history["eval_loss"]`` the periodic eval losses
+        (``eval_every`` > 0 with ``eval_batch``). ``eval_metrics_fn``, a
+        ``(params, batch) -> {name: value}`` function (the factories of
+        ``autodist_tpu_torch.metrics``), adds ``history["eval_<name>"]``
+        series computed at the same points on the logical parameters.
+        ``steps`` cuts the iterator with ``islice``, so a shared iterator
+        loses no batch beyond those run.
+
+        ``window=k`` (k > 1) stacks ``k`` consecutive host batches and runs
+        them as one ``run(stacked=True)``; windows are cut so that eval and
+        ``steps`` boundaries land between them, and the per-step history is
+        that of ``window=0``.
+        """
+        if window and window > 1:
+            return self._fit_windowed(state, batches, steps, eval_batch, eval_every,
+                                      log_every, window, eval_metrics_fn)
+        history = {"loss": []}
+        eval_metrics = self._make_eval_metrics(eval_metrics_fn)
+        if eval_every and eval_batch is not None:
+            history["eval_loss"] = []
+        if steps is not None:
+            batches = itertools.islice(batches, steps)
+        for i, batch in enumerate(batches):
+            state, metrics = self(state, batch)
+            loss = float(metrics["loss"])
+            history["loss"].append(loss)
+            if log_every and (i + 1) % log_every == 0:
+                logging.info("fit step %d: loss=%.6f", i + 1, loss)
+            if eval_every and eval_batch is not None and (i + 1) % eval_every == 0:
+                self._eval_point(state, eval_batch, history, eval_metrics, i + 1, log_every)
+        return state, history
+
+    def _eval_point(self, state, eval_batch, history, eval_metrics, step_i, log_every):
+        ev_loss = float(self.evaluate(state, eval_batch)["loss"])
+        history["eval_loss"].append(ev_loss)
+        eval_metrics(state, eval_batch, history)
+        if log_every:
+            logging.info("fit step %d: eval_loss=%.6f", step_i, ev_loss)
+
+    def compile_metrics(self, metrics_fn: Callable, state: TrainState) -> Callable:
+        """A ``(params, batch) -> {name: value}`` callable that runs a task
+        metric function on this step's stored parameters: under
+        ``torch.no_grad()`` it copies offloaded leaves to the device (the
+        path :meth:`evaluate` uses), gathers split variables and slices
+        padded storage back to the logical shapes, and calls ``metrics_fn``
+        on the logical parameters and the batch on the device. The JAX
+        step jits the same function; nothing is compiled here, so ``state``
+        is not read. ``metrics.evaluate_dataset`` and ``fit``'s eval hook
+        both come through here."""
+        del state
+
+        def fn(params, batch):
+            with torch.no_grad():
+                params = self.plan.unpad_params(self._logical(self._stream_params(params)))
+                return metrics_fn(params, self._to_device(batch))
+
+        return fn
+
+    def _make_eval_metrics(self, eval_metrics_fn):
+        """``fit``'s task-metric hook: appends ``eval_<name>`` series to the
+        history. ``<name>__weight`` entries (``metrics.evaluate_dataset``'s
+        masked-metric convention) are dropped, since one eval point has no
+        cross-batch weighting, and a metric named ``loss`` is recorded as
+        ``eval_metrics_loss`` so that it never interleaves with the
+        ``eval_loss`` series."""
+        if eval_metrics_fn is None:
+            return lambda state, batch, history: None
+        compiled = None
+
+        def run(state, batch, history):
+            nonlocal compiled
+            if compiled is None:
+                compiled = self.compile_metrics(eval_metrics_fn, state)
+            for k, v in compiled(state.params, batch).items():
+                if k.endswith("__weight"):
+                    continue
+                name = "eval_metrics_loss" if k == "loss" else f"eval_{k}"
+                history.setdefault(name, []).append(float(v))
+
+        return run
+
+    def _fit_windowed(self, state, batches, steps, eval_batch, eval_every, log_every,
+                      window, eval_metrics_fn=None):
+        """The ``fit(window=k)`` body (see :meth:`fit`).
+
+        A DataLoader gives its ``host_batches()`` (this rank's numpy
+        batches), stacked before the device copy and assembled by
+        ``ShardingPlan.window_from_local``; any other iterable is stacked as
+        it comes, which holds only at world size 1. A batch whose leaf
+        shapes differ from the window's (a ragged final batch) ends the
+        window and runs in the next: it is carried as ``pending``, never
+        pulled twice or dropped, so the batches consumed are those run.
+        """
+        from_loader = hasattr(batches, "host_batches")
+        if from_loader:
+            it = iter(batches.host_batches())
+        else:
+            if self.world.size > 1:
+                raise ValueError(
+                    "fit(window>1) over several ranks needs a DataLoader: a generic "
+                    "iterator's batches cannot be assembled into global windows")
+            it = iter(batches)
+
+        history = {"loss": []}
+        eval_metrics = self._make_eval_metrics(eval_metrics_fn)
+        if eval_every and eval_batch is not None:
+            history["eval_loss"] = []
+
+        def sig(b):
+            return tuple(tuple(leaf.shape if hasattr(leaf, "shape") else np.shape(leaf))
+                         for leaf in tree_leaves(b))
+
+        _end = object()
+        pending = None
+        step_i = 0
+        while steps is None or step_i < steps:
+            # Cut the window so that steps and eval boundaries land between windows.
+            chunk = window
+            if steps is not None:
+                chunk = min(chunk, steps - step_i)
+            if eval_every and eval_batch is not None:
+                chunk = min(chunk, eval_every - (step_i % eval_every))
+            buf = []
+            while len(buf) < chunk:
+                if pending is not None:
+                    b, pending = pending, None
+                else:
+                    b = next(it, _end)
+                    if b is _end:
+                        break
+                if buf and sig(b) != sig(buf[0]):
+                    pending = b          # a ragged or reshaped batch: the next window
+                    break
+                buf.append(b)
+            if not buf:
+                break
+            if len(buf) == 1:
+                batch = buf[0]
+                if from_loader:
+                    batch = self.plan.global_batch_from_rows(batch)
+                state, metrics = self(state, batch)
+                losses = [float(metrics["loss"])]
+            else:
+                stacked = _stack(buf)
+                wnd = self.plan.window_from_local(stacked) if from_loader else stacked
+                state, metrics = self.run(state, wnd, len(buf), stacked=True)
+                losses = metrics["loss"].tolist()
+            for loss in losses:
+                step_i += 1
+                history["loss"].append(loss)
+                if log_every and step_i % log_every == 0:
+                    logging.info("fit step %d: loss=%.6f", step_i, loss)
+            if eval_every and eval_batch is not None and step_i % eval_every == 0:
+                self._eval_point(state, eval_batch, history, eval_metrics, step_i, log_every)
+        return state, history
+
+
+def _stack(batches: List[Any]):
+    """``k`` batches of one nesting stacked leaf by leaf on a new leading
+    axis: numpy leaves with ``np.stack``, tensors with ``torch.stack``."""
+    first = batches[0]
+    if isinstance(first, dict):
+        return {k: _stack([b[k] for b in batches]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([b[i] for b in batches]) for i in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.stack([to_tensor(b) for b in batches])
+    return np.stack([np.asarray(b) for b in batches])

@@ -96,6 +96,18 @@ def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def to_tensor(x: Any) -> torch.Tensor:
+    """A batch leaf as a tensor: a tensor as it is, a numpy array (or
+    array-like) as a CPU tensor sharing its memory where numpy allows (a
+    read-only or non-contiguous array is copied)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    if not x.flags.writeable or not x.flags.c_contiguous:
+        x = np.array(x, copy=True, order="C")
+    return torch.from_numpy(x)
+
+
 def tree_leaves(tree: Any) -> List[Any]:
     """The leaves of :func:`map_tree`'s trees, in its order."""
     out: List[Any] = []

@@ -1,12 +1,18 @@
-"""Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
+"""Build and load the port's native libraries (compiler → shared library →
+ctypes).
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
-for Hopper (``sm_90a``) into ``autodist_tpu_torch/_build/`` under a name that
-carries a hash of the source, so an edited source rebuilds and an unchanged
-one is loaded as built. nvcc's output (the ``-Xptxas -v`` report) is kept
-beside the library as ``lib<name>-<hash>.log``, so a library loaded as built
-still reports its registers and spills. A build failure raises: nothing
-falls back to the plain PyTorch version.
+Each ``csrc/<name>.cu`` (a CUDA kernel) and ``csrc/<name>.cc`` (host C++:
+the data loader's gather engine) has a plain C interface. At first use a
+``.cu`` is compiled by nvcc for Hopper (``sm_90a``), a ``.cc`` by the host
+C++ compiler (the first of ``g++``, ``c++``, ``clang++`` on PATH), into
+``autodist_tpu_torch/_build/`` under a name that carries a hash of the
+source and flags, so an edited source rebuilds and an unchanged one is
+loaded as built. A build writes a temporary file and renames it into place,
+so processes that build at once (test workers) race benignly. The
+compiler's output (nvcc's ``-Xptxas -v`` report) is kept beside the library
+as ``lib<name>-<hash>.log``, so a library loaded as built still reports its
+registers and spills. A build failure raises: nothing falls back to a plain
+version.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,9 +50,26 @@ def _nvcc() -> str:
                        "port's CUDA kernels are built from source at first use")
 
 
+def host_compiler() -> Optional[str]:
+    """The host C++ compiler: the first of ``g++``, ``c++``, ``clang++`` on
+    PATH; None when there is none."""
+    return shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+
+
+def _source(name: str) -> str:
+    """``csrc/<name>.cu`` when it exists, else ``csrc/<name>.cc``."""
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC_DIR, f"{name}.cc")
+
+
+def _flags(src: str) -> tuple:
+    return NVCC_FLAGS if src.endswith(".cu") else CXX_FLAGS
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = _source(name)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(_flags(src)).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
@@ -54,21 +78,32 @@ def _log_path(lib_path: str) -> str:
 
 
 def _compile(name: str):
-    """Start nvcc for ``csrc/<name>.cu``; returns (process, tmp, out, t0), or
-    None when the library and its log are already built."""
+    """Start the compiler for ``name``'s source; returns (process, tmp, out,
+    t0), or None when the library and its log are already built."""
     out = _lib_path(name)
     if os.path.exists(out) and os.path.exists(_log_path(out)):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    src = _source(name)
+    if src.endswith(".cu"):
+        tool = _nvcc()
+    else:
+        tool = host_compiler()
+        if tool is None:
+            raise RuntimeError(f"no C++ compiler found (g++, c++, clang++) to build "
+                               f"csrc/{os.path.basename(src)}")
+    cmd = [tool, *_flags(src), "-o", tmp, src]
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {tool} for csrc/{os.path.basename(src)}: {e}") from e
     return proc, tmp, out, time.perf_counter()
 
 
 def build(names: Iterable[str]) -> None:
-    """Build every named kernel library, all nvcc processes started together."""
+    """Build every named library, all compiler processes started together."""
     with _lock:
         pending = {n: _compile(n) for n in names if n not in _libs}
         for name, job in pending.items():
@@ -81,7 +116,8 @@ def build(names: Iterable[str]) -> None:
             log, _ = proc.communicate()
             build_logs[name] = log
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                raise RuntimeError(f"{proc.args[0]} failed for "
+                                   f"csrc/{os.path.basename(_source(name))} "
                                    f"(rc={proc.returncode}):\n{log}")
             with open(f"{tmp}.log", "w") as f:
                 f.write(log)
@@ -136,7 +172,8 @@ def sass_counts(name: str, opcode: str) -> Optional[Dict[str, int]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` or ``.cc``, built first if
+    needed."""
     lib = _libs.get(name)
     if lib is None:
         build([name])

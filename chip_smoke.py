@@ -200,6 +200,36 @@ Phases, each printing one JSON line:
     summation-order bounds; one forward of every depth (18–152) at 224 px
     launches the kernel once per 1x1 conv; PSLoadBalancing's first-step
     loss equal to AllReduce's.
+10b. ``data_fit``: the data pipeline and the training loop as a user runs
+    them. An ImageNet-shaped dataset (``DATA_ROWS`` uint8 256x256x3 images
+    and int32 labels of 1000 classes, from the seed; two shards, ~126 MB)
+    is written with the port's ``DatasetWriter`` into a temporary directory
+    and opened with ``DataLoader.from_files(engine="native",
+    transform=imagenet.augment(crop=224))``; the augmented loader alone is
+    timed with the native and the python engine (images/s), also without
+    the augmentation (the gather alone); ``device_prefetch=2`` must give
+    the plain plan path's device batches bitwise (its gather and augment
+    run on the loader's producer thread). ResNet-50 (224
+    px, 1000 classes, bf16, batch 128) is built through ``AutoDist.build``
+    and fitted twice per step and once with ``window=4`` over the same
+    batches, each with an eval point and
+    ``eval_metrics_fn=classification_metrics(top_k=(1, 5))``: every loss
+    finite, the windowed history equal to the per-step one (bitwise when the
+    two per-step runs are, else within twice their spread), the fused
+    conv-stats launches exactly ``36 x`` (train steps + eval forwards +
+    metric forwards) in every window, no flash launch. A plain fit gives the
+    step's images/s under ``fit``, the same fit under ``torch.profiler``
+    the card's busy share (kernel time over the unprofiled wall), and a fit
+    from a ``device_prefetch=2`` loader its images/s with the augmentation
+    beside the step. ``evaluate_dataset`` over an ``eval_transform(crop=224)``
+    loader; on one eval batch whose labels are set from the model's own
+    ranking (a quarter top-1 hits, a quarter top-5 hits only, a quarter
+    misses at rank 8), ``evaluate_dataset``'s top1 and top5 must equal a
+    plain stable-sort top-k of ``spec.apply``'s logits. Then
+    the causal ``transformer`` at full width (seq 512, flash) fits
+    ``DATA_LM_STEPS`` steps from an in-memory native loader of token rows
+    with ``eval_metrics_fn=lm_metrics(pad_id=0)``: the flash forward
+    launched ``12 x`` (steps + eval forwards), dK/dV and dQ ``12 x`` steps.
 11. ``zoo_train``: each ``ZOO`` configuration through
     ``AutoDist(strategy_builder=AllReduce()).build`` (default SGD), one
     warm-up step and a window of ``ZOO_STEPS``: host wall a step, the rate
@@ -425,10 +455,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
+from torch.profiler import ProfilerActivity, profile
 
 from autodist_tpu_torch import metrics as M
 from autodist_tpu_torch.api import AutoDist
 from autodist_tpu_torch.checkpoint import SavedModelBuilder, Saver, load_saved_model
+from autodist_tpu_torch.data import DataLoader, DatasetWriter
+from autodist_tpu_torch.data import imagenet
 from autodist_tpu_torch.checkpoint.saver import ShardedLeaf, flatten_with_names
 from autodist_tpu_torch.kernel import DistributedTrainStep, GraphTransformer, Mesh, build_mesh
 from autodist_tpu_torch.model_item import ModelItem, OptimizerSpec
@@ -593,6 +626,15 @@ RESNET_BATCH, RESNET_STEPS = 128, 10
 RESNET_FP32_LOSS_RTOL, RESNET_FP32_HEAD_RTOL, RESNET_SPREAD_FACTOR = 1e-5, 1e-4, 3.0
 RESNET_BF16_LOSS_RTOL = 5e-2
 RESNET_BLOCK_Y_RTOL, RESNET_BLOCK_GRAD_RTOL, RESNET_BLOCK_TENSOR_RTOL = 2e-2, 0.15, 0.2
+# data_fit: DATA_ROWS ImageNet-shaped rows (DATA_STORED px uint8, 1000
+# classes) in shards of DATA_SHARD_ROWS, cropped to DATA_CROP; ResNet-50 fits
+# DATA_STEPS steps of RESNET_BATCH a run with an eval point at the last
+# (window DATA_WINDOW in the windowed run); the causal transformer
+# DATA_LM_STEPS steps of LM_BATCH rows from DATA_LM_ROWS, an eval point every
+# DATA_LM_EVAL_EVERY, its eval batch padded with 0 from DATA_LM_VALID.
+DATA_ROWS, DATA_SHARD_ROWS, DATA_STORED, DATA_CROP, DATA_CLASSES = 640, 320, 256, 224, 1000
+DATA_STEPS, DATA_WINDOW = 4, 4
+DATA_LM_ROWS, DATA_LM_STEPS, DATA_LM_EVAL_EVERY, DATA_LM_VALID = 32, 4, 2, 448
 # zoo_train: the published widths of examples/benchmark/train.py, nothing
 # cut (ResNet-50 has its own phase): (key, zoo name, overrides, batch, what
 # a step's rate counts).
@@ -1919,6 +1961,267 @@ def resnet_check(dev):
 
 
 # --------------------------------------------------------- zoo conv shapes
+# ---------------------------------------------------------------- data_fit
+def _write_imagenet(path: str) -> float:
+    """DATA_ROWS ImageNet-shaped rows from the seed, written through the
+    port's DatasetWriter in blocks; returns the seconds it took."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    with DatasetWriter(path, shard_rows=DATA_SHARD_ROWS) as writer:
+        for _ in range(DATA_ROWS // 64):
+            writer.append({
+                "images": rng.integers(0, 256, (64, DATA_STORED, DATA_STORED, 3),
+                                       dtype=np.uint8),
+                "labels": rng.integers(0, DATA_CLASSES, 64).astype(np.int32)})
+    return time.perf_counter() - t0
+
+
+def _imagenet_loader(path: str, plan=None, engine: str = "native", train: bool = True,
+                     augment: bool = True, device_prefetch: int = 0):
+    """The dataset's loader: shuffled with ``imagenet.augment`` (``train``;
+    no transform without ``augment``), or in order with ``eval_transform``."""
+    transform = (None if not augment
+                 else imagenet.augment("images", crop=DATA_CROP, seed=SEED) if train
+                 else imagenet.eval_transform("images", crop=DATA_CROP))
+    loader = DataLoader.from_files(path, RESNET_BATCH, seed=SEED, shuffle=train, engine=engine,
+                                   plan=plan, transform=transform,
+                                   device_prefetch=device_prefetch)
+    check(loader.engine == engine, f"data_fit: loader engine {loader.engine} != {engine}")
+    return loader
+
+
+def _loader_rate(path: str, engine: str, augment: bool = True) -> float:
+    """Images/s of the loader alone over one epoch: augmented, or the
+    gather only (``augment=False``)."""
+    loader = _imagenet_loader(path, engine=engine, augment=augment)
+    t0 = time.perf_counter()
+    n = sum(b["images"].shape[0] for b in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def _prefetch_check(path: str, plan) -> dict:
+    """``device_prefetch=2`` (pinned buffers, a copy stream) against the
+    plain plan path: the same device batches, bitwise; each path's
+    images/s to the device. The prefetched epoch runs twice: the first
+    is the process's first use of pinned memory (PyTorch's host allocator
+    then allocates every buffer), the second reuses what it cached."""
+    out = {}
+    for label, depth in (("plain", 0), ("prefetch", 2), ("prefetch_again", 2)):
+        loader = _imagenet_loader(path, plan, device_prefetch=depth)
+        t0 = time.perf_counter()
+        batches = [{k: t.clone() for k, t in b.items()} for b in loader]
+        torch.cuda.synchronize()
+        out[label] = (batches, DATA_ROWS / (time.perf_counter() - t0))
+    plain = out["plain"][0]
+    check(all(len(plain) == len(out[label][0]) and all(
+        torch.equal(a[k], b[k]) and b[k].device == plan.device
+        for a, b in zip(plain, out[label][0]) for k in a)
+        for label in ("prefetch", "prefetch_again")), "data_fit: device_prefetch batches differ")
+    return {f"{label}_images_per_s": rate for label, (_, rate) in out.items()}
+
+
+def _topk_check(spec, step, state, batch, mfn) -> dict:
+    """``classification_metrics`` through ``evaluate_dataset`` against a
+    plain top-k on one eval batch. Its labels are set from the model's own
+    ranking: per four rows a top-1 hit, a top-5 hit at rank 3, a miss at
+    rank 8 and the row's random label. The plain ranking is a stable
+    descending sort of ``spec.apply``'s logits, so ties go to the lower
+    class index, as in ``lax.top_k``; top1 and top5 must be equal."""
+    images = batch["images"]
+    with torch.no_grad():
+        logits = spec.apply(step.logical_params(state), images).float()
+    order = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    n = images.shape[0]
+    rank = torch.tensor([0, 2, 7, -1], device=images.device).repeat(n // 4)
+    rows = torch.arange(n, device=images.device)
+    labels = batch["labels"].clone()
+    chosen = rank >= 0
+    labels[chosen] = order[rows[chosen], rank[chosen]].to(labels.dtype)
+    want = {f"top{k}": (order[:, :k] == labels[:, None]).any(-1).double().mean().item()
+            for k in (1, 5)}
+    got = M.evaluate_dataset(step, state, [{"images": images, "labels": labels}],
+                             metrics_fn=mfn)
+    got = {k: got[k] for k in want}
+    check(got == want and want["top1"] >= 0.25 and want["top5"] >= 0.5,
+          f"data_fit: evaluate_dataset top-k {got} != plain {want}")
+    return dict(evaluate_dataset=got, plain=want)
+
+
+def _busy_union_ms(prof) -> float:
+    """The card's busy time in a profiled window: the union of its kernels'
+    intervals (ms); 0 when the profiler saw no device activity."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def _fit_window(step, params, loader, expect: int, label: str, **fit_kw):
+    """One counted ``fit`` from fresh state: (history, host wall s,
+    launches); the fused conv-stats launches must be ``expect``, the flash
+    kernels none."""
+    state = step.init(params)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = step.fit(state, loader, steps=DATA_STEPS, **fit_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fcs.fused_matmul_stats.launches
+    check(launches == expect, f"data_fit {label}: fused conv launches {launches} != {expect}")
+    check(not any(_launch_counts().values()), f"data_fit {label}: flash launched")
+    finite = all(np.isfinite(v) for series in hist.values() for v in series)
+    check(finite and len(hist["loss"]) == DATA_STEPS, f"data_fit {label}: history {hist}")
+    return hist, wall, launches
+
+
+def data_fit(card: str, dev) -> dict:
+    """The data pipeline and the training loop at full width (phase 10b)."""
+    t_phase = time.perf_counter()
+    per_fwd = rn.fused_launches_per_forward(50)
+    with tempfile.TemporaryDirectory(prefix="data_fit-") as work:
+        path = os.path.join(work, "imagenet")
+        write_s = _write_imagenet(path)
+        shards = sorted(os.listdir(path))
+        check(sum(n.startswith("images-") for n in shards) == DATA_ROWS // DATA_SHARD_ROWS,
+              f"data_fit: shards {shards}")
+        rates = {engine: _loader_rate(path, engine) for engine in ("native", "python")}
+        gather = {engine: _loader_rate(path, engine, augment=False)
+                  for engine in ("native", "python")}
+
+        spec = get_model_spec("resnet")
+        params = spec.init(SEED, device=dev)
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=AllReduce(), device=dev)
+        step = autodist.build(spec.loss_fn, params, spec.example_batch(RESNET_BATCH, device=dev))
+        mfn = M.classification_metrics(spec.apply, top_k=(1, 5))
+        prefetch = _prefetch_check(path, autodist.plan)
+        eval_batch = next(iter(_imagenet_loader(path, autodist.plan, train=False)))
+        fit_kw = dict(eval_batch=eval_batch, eval_every=DATA_STEPS, eval_metrics_fn=mfn)
+        # Warm-up (first calls of the step, the eval and the metrics), not counted.
+        step.fit(step.init(params), _imagenet_loader(path, autodist.plan), steps=1,
+                 eval_batch=eval_batch, eval_every=1, eval_metrics_fn=mfn)
+        expect = per_fwd * (DATA_STEPS + 2)      # train steps, evaluate, the metrics
+        runs, launches = {}, 0
+        for label, window in (("per_step_a", 0), ("per_step_b", 0), ("window", DATA_WINDOW)):
+            hist, wall, n = _fit_window(step, params, _imagenet_loader(path, autodist.plan),
+                                        expect, label, window=window, **fit_kw)
+            runs[label], launches = (hist, wall), launches + n
+        a, b, w = (runs[k][0] for k in ("per_step_a", "per_step_b", "window"))
+        series = ("loss", "eval_loss", "eval_top1", "eval_top5")
+        check(all(len(w[k]) == len(a[k]) == len(b[k]) for k in series),
+              f"data_fit: series {w} vs {a}")
+        spread = max(abs(x - y) for k in series for x, y in zip(a[k], b[k]))
+        apart = max(abs(x - y) for k in series for x, y in zip(w[k], a[k]))
+        check(apart <= 2 * spread, f"data_fit: windowed history {w} vs per-step {a}: "
+              f"{apart} > 2 x the per-step runs' spread {spread}")
+
+        # The step's rate under fit, then the same fit profiled for the busy share.
+        _, fit_wall, n = _fit_window(step, params, _imagenet_loader(path, autodist.plan),
+                                     per_fwd * DATA_STEPS, "timed")
+        launches += n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, prof_wall, n = _fit_window(step, params, _imagenet_loader(path, autodist.plan),
+                                          per_fwd * DATA_STEPS, "profiled")
+        launches += n
+        busy_ms = _busy_union_ms(prof)
+        _, prefetch_wall, n = _fit_window(
+            step, params, _imagenet_loader(path, autodist.plan, device_prefetch=2),
+            per_fwd * DATA_STEPS, "prefetch")
+        launches += n
+
+        state = step.init(params)
+        loader = _imagenet_loader(path, autodist.plan, train=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = M.evaluate_dataset(step, state, loader, metrics_fn=mfn)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        n_batches = DATA_ROWS // RESNET_BATCH
+        n = fcs.fused_matmul_stats.launches
+        check(n == per_fwd * 2 * n_batches,
+              f"data_fit evaluate_dataset: fused conv launches {n} != {per_fwd} x 2 x {n_batches}")
+        check(not any(_launch_counts().values()), "data_fit evaluate_dataset: flash launched")
+        check(result["examples"] == DATA_ROWS and np.isfinite(result["loss"])
+              and all(0.0 <= result[k] <= 1.0 for k in ("top1", "top5")),
+              f"data_fit evaluate_dataset: {result}")
+        launches += n
+        topk = _topk_check(spec, step, state, eval_batch, mfn)
+        del step, state, params, autodist
+    lm = _data_fit_lm(card, dev)
+    train_images = DATA_STEPS * RESNET_BATCH
+    row = dict(model="resnet50", image_size=DATA_CROP, stored=DATA_STORED, rows=DATA_ROWS,
+               shards=DATA_ROWS // DATA_SHARD_ROWS, batch=RESNET_BATCH, steps=DATA_STEPS,
+               window=DATA_WINDOW, write_s=write_s, loader_images_per_s=rates,
+               gather_images_per_s=gather, to_device=prefetch,
+               histories={k: v[0] for k, v in runs.items()},
+               per_step_spread=spread, windowed_vs_per_step=apart, bitwise=spread == 0.0,
+               fit_wall_s=fit_wall, fit_images_per_s=train_images / fit_wall,
+               fit_prefetch_wall_s=prefetch_wall,
+               fit_prefetch_images_per_s=train_images / prefetch_wall,
+               profiled_wall_s=prof_wall,
+               busy_ms_per_step=busy_ms / DATA_STEPS if busy_ms else "not measured",
+               busy_share=busy_ms / 1e3 / fit_wall if busy_ms else "not measured",
+               evaluate_dataset=result, evaluate_s=eval_s, topk_check=topk,
+               kernel_launches={"fused_conv_stats": launches},
+               lm=lm, seconds=time.perf_counter() - t_phase, card=card)
+    emit("data_fit", **row)
+    return row
+
+
+def _data_fit_lm(card: str, dev) -> dict:
+    """The causal transformer at full width fitted from an in-memory native
+    loader of token rows, with lm_metrics(pad_id=0) at its eval points."""
+    spec = get_model_spec("transformer", max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    cfg = spec.config
+    rng = np.random.default_rng(SEED + 1)
+    tokens = rng.integers(1, cfg.vocab_size, (DATA_LM_ROWS, TRAIN_SEQ)).astype(np.int32)
+    eval_tokens = rng.integers(1, cfg.vocab_size, (LM_BATCH, TRAIN_SEQ)).astype(np.int32)
+    eval_tokens[:, DATA_LM_VALID:] = 0
+    params = spec.init(SEED, device=dev)
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=AllReduce(), device=dev)
+    step = autodist.build(spec.loss_fn, params, spec.example_batch(LM_BATCH, device=dev))
+    mfn = M.lm_metrics(spec.apply, pad_id=0)
+    eval_batch = {"tokens": torch.from_numpy(eval_tokens).to(dev)}
+
+    def loader():
+        out = DataLoader({"tokens": tokens}, LM_BATCH, seed=SEED, engine="native",
+                         plan=autodist.plan)
+        check(out.engine == "native", f"data_fit lm: engine {out.engine}")
+        return out
+
+    step.fit(step.init(params), loader(), steps=1, eval_batch=eval_batch, eval_every=1,
+             eval_metrics_fn=mfn)                                  # warm-up
+    state = step.init(params)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = step.fit(state, loader(), steps=DATA_LM_STEPS, eval_batch=eval_batch,
+                           eval_every=DATA_LM_EVAL_EVERY, eval_metrics_fn=mfn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    evals = DATA_LM_STEPS // DATA_LM_EVAL_EVERY
+    want = {"fwd": cfg.num_layers * (DATA_LM_STEPS + 2 * evals),
+            "dkdv": cfg.num_layers * DATA_LM_STEPS, "dq": cfg.num_layers * DATA_LM_STEPS}
+    check(launches == want, f"data_fit lm: flash launches {launches} != {want}")
+    check(fcs.fused_matmul_stats.launches == 0, "data_fit lm: fused conv kernel launched")
+    check(all(np.isfinite(v) for series in hist.values() for v in series)
+          and len(hist["loss"]) == DATA_LM_STEPS
+          and len(hist["eval_token_accuracy"]) == evals, f"data_fit lm: history {hist}")
+    return dict(model="transformer", seq=TRAIN_SEQ, batch=LM_BATCH, steps=DATA_LM_STEPS,
+                history=hist, wall_s=wall, kernel_launches=launches, card=card)
+
+
 def fused_conv_shapes(model: str, overrides: dict, batch: int, dev) -> dict:
     """``{(M, K, N): launches}`` of the fused conv-stats op in one forward of
     ``model`` at ``batch``: a forward on meta tensors (no work, no memory)
@@ -5277,6 +5580,7 @@ def main() -> int:
     resnet_row = train_resnet(card, dev)
     train_check(dev)
     resnet_check(dev)
+    data_row = data_fit(card, dev)
     zoo_rows = zoo_train(card, dev, zoo_shapes)
     zoo_check(dev)
     optim_check(dev)
@@ -5335,6 +5639,7 @@ def main() -> int:
             + sup_row["kernel_launches"][kind]
             + sum(r["kernel_launches"][kind] for r in seq_rows)
             + pipe_row["kernel_launches"][kind]
+            + data_row["lm"]["kernel_launches"][kind]
             + (infer_rows[0]["kernel_launches"] if kind == "fwd" else 0),
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
@@ -5357,7 +5662,8 @@ def main() -> int:
         "launches": resnet_row["kernel_launches"]["fused_conv_stats"]
         + sum(r["kernel_launches"].get("fused_conv_stats", 0)
               for r in zoo_rows + dist_rows + sync_rows + ckpt_rows + tp_rows)
-        + infer_rows[1]["kernel_launches"],
+        + infer_rows[1]["kernel_launches"]
+        + data_row["kernel_launches"]["fused_conv_stats"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],

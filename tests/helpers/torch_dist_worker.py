@@ -11,7 +11,10 @@ and ``mesh_axes``: the resource spec's mesh block and the AutoDist's axes,
 for tensor and expert parallelism; ``expert_names``; ``tune``: candidate
 builder names to run ``AutoDist.tune`` over instead of training, with
 ``fail_rank``: the rank whose loss fails in the candidates' steps;
-``bad_id``: an id outside the table put into the embed model's batch). The rank
+``bad_id``: an id outside the table put into the embed model's batch;
+``data_fit``: a dataset directory to train from with
+``DataLoader.from_files(process_slice=True)`` and ``fit(window=)``, and an
+eval batch for ``metrics.evaluate_dataset``). The rank
 joins the group at
 ``file://INIT_FILE`` (with a timeout) through ``AutoDist(init_method=...)``,
 trains each case through ``AutoDist.build`` and the step on the global
@@ -184,6 +187,41 @@ def bad_id(case, params, batch, **autodist_kwargs):
     return {"error": None}
 
 
+def data_fit(case, params, batch, **autodist_kwargs):
+    """The data pipeline and training loop on the ranks: each rank opens the
+    case's dataset directory with ``process_slice=True`` (its contiguous
+    quarter of the rows), ``fit(window=)`` trains on the global batches the
+    plan assembles, and ``evaluate_dataset`` scores the trained state with
+    ``classification_metrics`` on the eval batch; also the error
+    ``fit(window>1)`` raises over a generic iterator."""
+    from autodist_tpu_torch import metrics
+    from autodist_tpu_torch.data import DataLoader
+
+    api.AutoDist.reset_default()
+    ad = api.AutoDist(strategy_builder=from_name(case["builder"]), device="cpu",
+                      **autodist_kwargs)
+    spec = get_model_spec("mlp", **case["overrides"])
+    opt = model_item.OptimizerSpec(case["opt"], dict(case["opt_kwargs"]))
+    step = ad.build(spec.loss_fn, params, batch, optimizer=opt)
+    f = case["data_fit"]
+    loader = DataLoader.from_files(f["dir"], batch_size=f["local_batch"], process_slice=True,
+                                   seed=f["seed"], engine="native", plan=ad.plan)
+    state, history = step.fit(step.init(params), loader, window=f["window"])
+    mfn = metrics.classification_metrics(spec.apply, input_key="x", label_key="y",
+                                         top_k=(1, 2))
+    evaluated = metrics.evaluate_dataset(step, state, [f["eval_batch"]], metrics_fn=mfn)
+    try:
+        step.fit(state, iter([batch, batch]), window=2)
+        window_error = None
+    except ValueError as e:
+        window_error = str(e)
+    return {"engine": loader.engine, "losses": history["loss"], "steps": state.step,
+            "params": {k: v.numpy().copy()
+                       for k, v in flatten_params(step.logical_params(state)).items()},
+            "evaluated": evaluated, "window_error": window_error,
+            "padded": [n for n, p in ad.plan.var_plans.items() if p.storage_shape]}
+
+
 def _local_blocks(step, state):
     """This rank's data of each checkpoint leaf: ``{name: (start, stop,
     array)}`` in logical coordinates (whole leaves from ``(0, ...)``)."""
@@ -233,8 +271,8 @@ def main(job_path, rank, world, init_file, out_dir):
         spec = ResourceSpec(resource_dict={"nodes": [
             {"address": "localhost", "gpus": world, "chief": True}], **mesh})
         axes = {"mesh_axes": case["mesh_axes"]} if case.get("mesh_axes") else {}
-        if case.get("tune") or "bad_id" in case:
-            run = tune if case.get("tune") else bad_id
+        if case.get("tune") or "bad_id" in case or "data_fit" in case:
+            run = tune if case.get("tune") else data_fit if "data_fit" in case else bad_id
             out[case["id"]] = run(case, params, batch, resource_spec=spec,
                                   init_method=f"file://{init_file}", world_size=world,
                                   rank=rank, timeout_s=GROUP_TIMEOUT_S)
