@@ -32,8 +32,9 @@ trains on its rows. A ``mesh:`` block of ``{data, model}`` or ``{data,
 expert}`` (over ``mesh_axes``, default ``("data", "model")`` as in JAX)
 shards the variables the plan puts on that axis (``TensorParallel``'s
 Megatron pairs, the MoE's experts under ``expert_names``) and runs the
-forward on ``DTensor``s (``kernel/lowering.py``); the transformer family
-trains so, other models raise. ``remat`` rematerialises the forward in the backward
+forward on ``DTensor``s (``kernel/lowering.py``); every zoo model trains
+so, the CNNs' convolutions on split weights through ``local_map``
+(``models/layers.py``). ``remat`` rematerialises the forward in the backward
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
 (``kernel/lowering.py``). A strategy that is ``sync=False`` throughout is
 routed to the host-driven asynchronous PS (``runtime/async_ps.py``).
@@ -64,7 +65,6 @@ import datetime
 import functools
 import math
 import os
-import re
 import time
 from typing import TYPE_CHECKING, Any, Callable, Optional, Sequence, Union
 
@@ -192,19 +192,6 @@ def _resolve_optimizer(optimizer):
         spec = OptimizerSpec("sgd", {"learning_rate": 0.01})
         return spec, spec.make()
     return OptimizerSpec("custom"), optimizer
-
-
-def _check_shardable(plan: ShardingPlan, model_item: ModelItem) -> None:
-    """Under a model or expert axis larger than 1 only the transformer
-    family (a ``layers_<i>/attn`` block) trains; the others raise."""
-    axis = plan.mesh.shard_axis
-    if axis is None:
-        return
-    if not any(re.match(r"layers_\d+/attn/", v.name) for v in model_item.variables):
-        raise NotImplementedError(
-            f"a {axis} axis of {plan.mesh.shape[axis]} trains the transformer family "
-            "only; the CNNs (fused_conv_stats under local_map), lstm_lm, ncf and other "
-            "models are not ported to it yet; see ROADMAP.md")
 
 
 class AutoDist:
@@ -351,7 +338,6 @@ class AutoDist:
         plan = GraphTransformer(compiled, model_item, self.mesh,
                                 host_offload=host_offload).transform()
         logging.debug("sharding plan:\n%s", plan.describe())
-        _check_shardable(plan, model_item)
         if remat:
             # After capture and the cast, as in the JAX package.
             loss_fn = _remat(loss_fn, remat)

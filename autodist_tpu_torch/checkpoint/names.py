@@ -16,8 +16,9 @@ from optax's own chains (no optax is imported):
   adamw: the same, ``add_decayed_weights``, the learning rate; lamb: those
   and ``scale_by_trust_ratio`` before the learning rate;
 - adagrad: ``scale_by_rss`` (``sum_of_squares``), the learning rate;
-- rmsprop: ``scale_by_rms`` (``nu``), the learning rate, ``trace`` (with
-  momentum);
+- rmsprop: ``scale_by_rms`` (``nu``), or ``scale_by_stddev`` (``mu``,
+  ``nu``) when centered, either with a ``count`` under bias correction;
+  the learning rate, ``trace`` (with momentum);
 - lion: ``scale_by_lion`` (``count``, ``mu``), the decay, the learning
   rate;
 - adafactor: ``scale_by_factored_rms`` (``count``, ``v_row``, ``v_col``,
@@ -28,7 +29,8 @@ from optax's own chains (no optax is imported):
 
 A learning-rate schedule adds a ``count`` where the learning rate sits.
 Every ``count`` of the chain counts the updates, as the port's single
-``count`` does; a chain with none (constant-rate sgd, adagrad, rmsprop)
+``count`` does; a chain with none (constant-rate sgd, adagrad, rmsprop
+without bias correction)
 restores the port's ``count`` from the state's ``step``.
 """
 from __future__ import annotations
@@ -69,6 +71,10 @@ def optimizer_paths(opt) -> Dict[str, object]:
         out["nu"] = f"{c}0/sum_of_squares"
         lr_at(1)
     elif kind == "rmsprop":
+        if hp["bias_correction"]:
+            counts.append(f"{c}0/count")
+        if hp["centered"]:
+            out["mu"] = f"{c}0/mu"
         out["nu"] = f"{c}0/nu"
         lr_at(1)
         if hp["momentum"] is not None:

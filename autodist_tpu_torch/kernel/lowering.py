@@ -67,7 +67,11 @@ The synchronizer's options:
 - **compressors** (``AllReduce(compressor=...)``, ``kernel/compressor.py``):
   a variable that is not sharded over the data axis syncs through its
   compressor's ``step`` (a sharded one ignores it, with a warning, as
-  JAX does). Any active compressor puts the step into the manual
+  JAX does). A variable split over the model or expert axis syncs its
+  block through an elementwise compressor (Horovod, Horovod-EF); PowerSGD
+  and TopK on one raise, since JAX compresses the logical gradient and a
+  low-rank factor or top-k of a block is not that of the whole (ROADMAP.md,
+  Queue 3). Any active compressor puts the step into the manual
   semantics. ``state.comp_state[name]`` holds ``{"local": ..., "shared":
   ...}``: this rank's own EF residual (JAX keeps the ranks' residuals under
   a leading data-axis dimension) and the state every rank shares
@@ -107,9 +111,13 @@ GSPMD: explicit Megatron collectives would need model code that knows the
 mesh. ``from_local``'s backward hands each block its gradient (a
 ``Partial`` gradient of a replicated parameter reduced over the axis), and
 the data-axis sync above then runs on those local blocks over the data
-subgroup; the optimizer updates blocks in place, its slots block-shaped,
-and sums whole-tensor norms (``clip_norm``, lamb, adafactor) over the
-model group. ``DTensor``'s collectives are counted under the axis's name.
+subgroup; the optimizer updates blocks in place, its slots block-shaped.
+Its whole-tensor reductions (the global norm of ``clip_norm``, lamb's trust
+ratios, adafactor's factored moments and RMS) add each block's partial sum
+over the group that holds the variable's other blocks: the model group for
+a model-split variable, the data group for a ZeRO-1, sharded or sparse one,
+and count a replicated leaf once. ``DTensor``'s collectives are counted
+under the axis's name.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
@@ -893,6 +901,11 @@ def _zeros_at_least_f32(t):
                        device=t.device)
 
 
+#: Compressors whose result on a block is not the block of their result on
+#: the whole gradient (a low-rank factor, a top-k).
+_WHOLE_GRADIENT = ("PowerSGDCompressor", "TopKCompressor")
+
+
 class DistributedTrainStep:
     """The train step users call like a single-device step."""
 
@@ -905,6 +918,14 @@ class DistributedTrainStep:
         self.tx = optimizer
         self.has_aux = has_aux
         self.accum = grad_accum_steps
+        for name, comp in plan.compressors().items():
+            p = plan.var_plans[name]
+            if p.model_sharded and comp.name in _WHOLE_GRADIENT:
+                raise NotImplementedError(
+                    f"{comp.name} on {name}, which the plan splits over the "
+                    f"{p.storage_axis} axis: JAX compresses the whole gradient, the port "
+                    "would compress each rank's block; not ported yet, see ROADMAP.md "
+                    "(Queue 3)")
         mesh = plan.mesh
         self.n, self.rank = mesh.data_size, mesh.data_rank
         self.coll = pg.Collectives(mesh.group)
@@ -947,13 +968,6 @@ class DistributedTrainStep:
         # check on a registered state).
         self.compile_log: List[Dict[str, Any]] = []
         self.steps_taken = 0
-        self.model_cut = any(kind in _MODEL_KINDS for kind, _ in self.render.values())
-        data_cut = any(kind in ("zero1",) + _DATA_BLOCKS for kind, _ in self.render.values())
-        if self.model_cut and data_cut and (optimizer.clip_norm is not None
-                                            or optimizer.kind in ("lamb", "adafactor")):
-            raise NotImplementedError(
-                f"{optimizer.kind} (or clip_norm) over variables split on both the data "
-                f"and the {self.shard_axis} axis is not ported yet; see ROADMAP.md")
 
     # ------------------------------------------------------------- helpers
     def _to_device(self, tree):
@@ -973,19 +987,28 @@ class DistributedTrainStep:
         kind, d = self._render(name)
         return _block(t, d, self.n, self.rank) if kind == "zero1" else t
 
-    def _layout(self, params) -> List[Optional[Tuple[int, Tuple[int, ...]]]]:
-        """Per floating leaf, ``(dim, storage shape)`` when the optimizer
-        sees a block of it, else None."""
+    def _layout(self, params) -> List[Optional[Tuple[int, Tuple[int, ...], str]]]:
+        """Per floating leaf, ``(dim, storage shape, axis)`` when the
+        optimizer sees a block of it, else None: ``axis`` names the group
+        holding its other blocks, ``"model"`` for a variable split on the
+        model (expert) axis, ``"data"`` for a ZeRO-1, sharded or sparse
+        one."""
         out = []
         for name, _ in self._floating(params):
             kind, d = self._render(name)
-            out.append(None if kind == "replicated" else (d, self.plan.var_plans[name].shape))
+            axis = "model" if kind in _MODEL_KINDS else "data"
+            out.append(None if kind == "replicated" else
+                       (d, self.plan.var_plans[name].shape, axis))
         return out
 
-    def _psum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks holding the other blocks of the split leaves:
-        the model (expert) group when those are split on that axis."""
-        (self.shard_coll if self.model_cut else self.coll).all_reduce(t, "optimizer")
+    def _psum(self, t: torch.Tensor, lay) -> torch.Tensor:
+        """Sum a partial sum of blocks over the ranks holding the other
+        blocks: the model (expert) group for the blocks of a variable
+        split on that axis (replicated over the data ranks), else the data
+        group (those of a ZeRO-1, sharded or sparse variable, replicated
+        over the model ranks). No block is counted twice."""
+        coll = self.shard_coll if lay[2] == "model" else self.coll
+        coll.all_reduce(t, "optimizer")
         return t
 
     # ------------------------------------------------- tensor parallelism
@@ -1253,12 +1276,12 @@ class DistributedTrainStep:
                         out.append((full,) + self._factored_leaf(name, field, slot[field],
                                                                  restore))
         for name, st in state.comp_state.items():
-            if plans[name].model_sharded:
-                raise NotImplementedError(
-                    f"checkpointing the compressor state of {name}, split over the "
-                    f"{self.shard_axis} axis, is not ported yet; see ROADMAP.md")
             for k, t in st["local"].items():
                 stacked = t.unsqueeze(0)
+                if plans[name].model_sharded:
+                    out.append((f"comp_state/{name}/local/{k}",)
+                               + self._model_split_local(name, stacked, restore))
+                    continue
                 if self.n == 1:
                     out.append((f"comp_state/{name}/local/{k}", stacked, stacked))
                     continue
@@ -1270,6 +1293,22 @@ class DistributedTrainStep:
         for name, buf in state.stale_state.items():
             out.append((f"stale_state/{name}",) + var_leaf(name, buf, lead=1))
         return out
+
+    def _model_split_local(self, name: str, stacked: torch.Tensor, restore: bool = False):
+        """A compressor's local state of a model-split variable (this rank's
+        ``[1, block]``) as a checkpoint leaf: JAX's ``[n, *var.shape]``
+        stack, one row a data rank, as the variable's own
+        :class:`ShardedLeaf` gives it: each rank writes its model block of
+        its row (every rank's block is its own)."""
+        p = self.plan.var_plans[name]
+        d = self._render(name)[1]
+        logical = (self.n,) + tuple(p.var.shape)
+        cols, j, view = self._split(stacked, logical, d + 1, p.shape[d] // self.n_shard,
+                                    self.n_shard, self.shard_rank)
+        blocks = [((i,) + start[1:], (i + 1,) + stop[1:])
+                  for i in range(self.n) for start, stop in cols]
+        local = {} if j is None else {self.rank * len(cols) + j: view}
+        return ShardedLeaf(logical, stacked.dtype, blocks, local), view
 
     def _factored_leaf(self, name: str, field: str, t: torch.Tensor,
                        restore: bool = False):

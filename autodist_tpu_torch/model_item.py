@@ -251,8 +251,11 @@ class Optimizer:
       ``lamb`` (adam, the decay, then the trust ratio ``|p| / |u|``, 1
       where either norm is 0);
     - ``adagrad``: ``g / sqrt(Σg² + eps)`` from an accumulator of 0.1;
-    - ``rmsprop``: ``g / sqrt(ν + eps)``, uncentred, then the learning rate
-      and, when ``momentum`` is given, a trace of the scaled updates;
+    - ``rmsprop``: ``g / sqrt(ν + eps)``; ``centered`` subtracts the square
+      of the gradient's EMA ``μ`` from ``ν`` (``scale_by_stddev``),
+      ``bias_correction`` divides both EMAs by ``1 − decay^t``; then the
+      learning rate and, when ``momentum`` is given, a trace of the scaled
+      updates;
     - ``lion``: ``sign(b1 m + (1 − b1) g)`` plus the decay, ``m`` an EMA at
       ``b2``;
     - ``adafactor``: second moments factored into row and column means for
@@ -274,9 +277,6 @@ class Optimizer:
             raise TypeError(f"{kind}: learning_rate is required")
         self.kind = kind
         self.hp = {**_DEFAULTS[kind], **hparams}
-        if kind == "rmsprop" and (self.hp["centered"] or self.hp["bias_correction"]):
-            raise NotImplementedError("rmsprop with centered=True or bias_correction=True "
-                                      "is not ported yet; see ROADMAP.md")
         # optax's chain holds a count where a schedule sets the rate
         # (checkpoint/names.py).
         self.schedule = isinstance(learning_rate, dict)
@@ -289,10 +289,10 @@ class Optimizer:
         self.clip_norm = clip_norm
 
     def init(self, leaves: Sequence[torch.Tensor],
-             layout: Optional[Sequence[Optional[Tuple[int, Tuple[int, ...]]]]] = None
+             layout: Optional[Sequence[Optional[Tuple[int, Tuple[int, ...], str]]]] = None
              ) -> Dict[str, Any]:
         """Slots for ``leaves``; a leaf that is a block of a larger tensor
-        (``layout[i] = (dim, full shape)``, see :meth:`update`) gets
+        (``layout[i] = (dim, full shape, group)``, see :meth:`update`) gets
         block-shaped slots."""
         hp, kind = self.hp, self.kind
         layout = list(layout) if layout is not None else [None] * len(leaves)
@@ -310,6 +310,8 @@ class Optimizer:
                            for p in leaves]
         elif kind == "rmsprop":
             state["nu"] = [torch.full_like(p, hp["initial_scale"]) for p in leaves]
+            if hp["centered"]:
+                state["mu"] = zeros()
         elif kind == "adafactor":
             state["v"] = [self._factored_init(p, _full_shape(p, lay))
                           for p, lay in zip(leaves, layout)]
@@ -323,13 +325,14 @@ class Optimizer:
         d1, d0 = dims
         return {"row": torch.zeros_like(p.sum(d0)), "col": torch.zeros_like(p.sum(d1))}
 
-    def _clip(self, grads, sharded, psum):
+    def _clip(self, grads, layout, psum):
         # optax.clip_by_global_norm: unchanged below the norm, else g / |g| * max.
-        # A replicated leaf counts once; the blocks' partial sums add over ranks.
+        # A replicated leaf counts once; the blocks' partial sums add over
+        # the ranks of each block's group.
         squares = [torch.sum(g.to(torch.float32) ** 2) for g in grads]
-        total = sum(s for s, sh in zip(squares, sharded) if not sh)
-        if any(sharded):
-            total = total + psum(sum(s for s, sh in zip(squares, sharded) if sh))
+        total = sum(s for s, lay in zip(squares, layout) if lay is None)
+        for cut in _by_group(layout).values():
+            total = total + psum(sum(squares[i] for i in cut), layout[cut[0]])
         norm = torch.sqrt(total)
         keep = norm < self.clip_norm
         return [torch.where(keep, g, (g / norm.to(g.dtype)) * self.clip_norm)
@@ -343,6 +346,32 @@ class Optimizer:
         for t, u in zip(state["trace"], updates):
             t.mul_(m).add_(u)
             out.append(u + m * t if self.hp["nesterov"] else t.clone())
+        return out
+
+    def _rmsprop(self, state, grads, n):
+        """optax.scale_by_rms, or scale_by_stddev when ``centered``: the EMA
+        of g² (and of g), each divided by ``1 − decay^n`` under
+        ``bias_correction``, then ``g / sqrt(ν̂ − μ̂² + eps)``."""
+        decay, eps = self.hp["decay"], self.hp["eps"]
+        c = None
+        if self.hp["bias_correction"]:
+            # In fp32, as optax: at n = 1 the centered ν̂ − μ̂² is g²'s
+            # rounding, and a correction taken in fp64 can turn it negative.
+            c = 1.0 - torch.tensor(decay, dtype=torch.float32) ** float(n)
+        out = []
+        for i, (nu, g) in enumerate(zip(state["nu"], grads)):
+            # optax's (1 − decay)·g² + decay·ν, product by product: the
+            # centered variance at small counts is rounding, which a fused
+            # multiply-add would round differently.
+            nu.copy_((1.0 - decay) * (g * g) + decay * nu)
+            v = nu if c is None else nu / c
+            if self.hp["centered"]:
+                mu = state["mu"][i]
+                mu.copy_((1.0 - decay) * g + decay * mu)
+                m = mu if c is None else mu / c
+                v = v - m * m
+            out.append(g * torch.rsqrt(v + eps) if self.hp["eps_in_sqrt"]
+                       else g / (torch.sqrt(v) + eps))
         return out
 
     def _adam(self, state, grads, n):
@@ -376,7 +405,7 @@ class Optimizer:
             def mean(x, dim, orig, keepdim=False):
                 if orig != cut:
                     return x.mean(dim, keepdim=keepdim)
-                return psum(x.sum(dim, keepdim=keepdim)) / full[orig]
+                return psum(x.sum(dim, keepdim=keepdim), lay) / full[orig]
 
             v["row"].mul_(decay).add_(mean(g2, d0, d0), alpha=1.0 - decay)
             v["col"].mul_(decay).add_(mean(g2, d1, d1), alpha=1.0 - decay)
@@ -388,11 +417,11 @@ class Optimizer:
     @staticmethod
     def _rms(xs, layout, psum):
         """Per-leaf root mean square over the full tensors: the blocks'
-        partial sums add over ranks in one reduction."""
+        partial sums add over the ranks of their group, one reduction a
+        group."""
         out = [_rms(x) if lay is None else None for x, lay in zip(xs, layout)]
-        cut = [i for i, lay in enumerate(layout) if lay is not None]
-        if cut:
-            total = psum(torch.stack([torch.sum(xs[i] * xs[i]) for i in cut]))
+        for cut in _by_group(layout).values():
+            total = psum(torch.stack([torch.sum(xs[i] * xs[i]) for i in cut]), layout[cut[0]])
             for j, i in enumerate(cut):
                 out[i] = torch.sqrt(total[j] / math.prod(layout[i][1]))
         return out
@@ -420,25 +449,27 @@ class Optimizer:
 
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
                params: Sequence[torch.Tensor],
-               layout: Optional[Sequence[Optional[Tuple[int, Tuple[int, ...]]]]] = None,
-               psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+               layout: Optional[Sequence[Optional[Tuple[int, Tuple[int, ...], str]]]] = None,
+               psum: Optional[Callable[[torch.Tensor, Any], torch.Tensor]] = None
                ) -> List[torch.Tensor]:
         """The updates of ``params`` by ``grads``. Under a sharded update a
         leaf may be one block of a larger tensor: ``layout[i] = (dim, full
-        shape)`` says which, and ``psum`` adds a partial sum over the ranks
-        holding the other blocks (an all-reduce over the data group). The
-        rules that reduce over a whole tensor use them: the global norm of
-        ``clip_norm``, lamb's trust ratio, adafactor's factored statistics,
-        update clipping and parameter scale."""
+        shape, group)`` says which, and ``psum(t, layout[i])`` adds a
+        partial sum over the ranks holding the other blocks of that leaf,
+        the ``group`` (an all-reduce over the data group, or over the model
+        group for a variable split on the model axis; the leaves of one
+        group reduce together). The rules that reduce over a whole
+        tensor use them: the global norm of ``clip_norm``, lamb's trust
+        ratio, adafactor's factored statistics, update clipping and
+        parameter scale."""
         grads = list(grads)
         layout = list(layout) if layout is not None else [None] * len(grads)
-        sharded = [lay is not None for lay in layout]
         if psum is None:
-            if any(sharded):
+            if any(lay is not None for lay in layout):
                 raise ValueError("a sharded update needs psum")
-            psum = lambda t: t                                  # noqa: E731
+            psum = lambda t, lay: t                             # noqa: E731
         if self.clip_norm is not None:
-            grads = self._clip(grads, sharded, psum)
+            grads = self._clip(grads, layout, psum)
         kind, hp = self.kind, self.hp
         count = state["count"]
         state["count"] = count + 1
@@ -454,11 +485,7 @@ class Optimizer:
             grads = [torch.where(nu > 0, torch.rsqrt(nu + hp["eps"]), 0.0) * g
                      for nu, g in zip(state["nu"], grads)]
         elif kind == "rmsprop":
-            for nu, g in zip(state["nu"], grads):
-                nu.mul_(hp["decay"]).add_(g * g, alpha=1.0 - hp["decay"])
-            grads = [g * torch.rsqrt(nu + hp["eps"]) if hp["eps_in_sqrt"]
-                     else g / (torch.sqrt(nu) + hp["eps"])
-                     for nu, g in zip(state["nu"], grads)]
+            grads = self._rmsprop(state, grads, count + 1)
         elif kind == "lion":
             b1, b2 = hp["b1"], hp["b2"]
             out = []
@@ -469,7 +496,7 @@ class Optimizer:
         if kind in ("adamw", "lamb", "lion"):
             grads = [u + hp["weight_decay"] * p for u, p in zip(grads, params)]
         if kind == "lamb":
-            grads = _trust_ratios(params, grads, sharded, psum)
+            grads = _trust_ratios(params, grads, layout, psum)
         updates = [-self.lr(count) * u for u in grads]
         if kind == "rmsprop" and "trace" in state:
             updates = self._trace(state, updates)
@@ -481,16 +508,27 @@ def _full_shape(t: torch.Tensor, lay) -> Tuple[int, ...]:
     return tuple(lay[1]) if lay is not None else tuple(t.shape)
 
 
-def _trust_ratios(params, updates, sharded, psum):
+def _by_group(layout) -> Dict[Any, List[int]]:
+    """The positions of the block leaves by the group of ranks holding
+    their other blocks (``layout[i][2]``), in order."""
+    out: Dict[str, List[int]] = {}
+    for i, lay in enumerate(layout):
+        if lay is not None:
+            out.setdefault(lay[2], []).append(i)
+    return out
+
+
+def _trust_ratios(params, updates, layout, psum):
     """Each update times lamb's trust ratio ``|p| / |u|``; the squared norms
-    of the blocks add over ranks in one reduction."""
-    norms = [None if sh else (torch.linalg.vector_norm(p), torch.linalg.vector_norm(u))
-             for p, u, sh in zip(params, updates, sharded)]
-    cut = [i for i, sh in enumerate(sharded) if sh]
-    if cut:
+    of the blocks add over the ranks of their group, one reduction a
+    group."""
+    norms = [None if lay is not None else
+             (torch.linalg.vector_norm(p), torch.linalg.vector_norm(u))
+             for p, u, lay in zip(params, updates, layout)]
+    for cut in _by_group(layout).values():
         total = psum(torch.stack([torch.stack([torch.sum(params[i] * params[i]),
                                                torch.sum(updates[i] * updates[i])])
-                                  for i in cut]))
+                                  for i in cut]), layout[cut[0]])
         for j, i in enumerate(cut):
             norms[i] = torch.sqrt(total[j][0]), torch.sqrt(total[j][1])
     return [u * _trust_ratio_from(*nrm) for u, nrm in zip(updates, norms)]

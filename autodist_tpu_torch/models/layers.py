@@ -12,6 +12,13 @@ Convolutions and pooling run PyTorch's NCHW operators on channels-last views
 of the NHWC tensors (no copy). ``"SAME"`` padding is XLA's: ``total =
 max((out - 1) * stride + window - size, 0)``, the smaller half at the start,
 so a stride-2 3x3 window over 56 pixels pads (0, 1), not (1, 1).
+
+Under tensor parallelism the params are ``DTensor``s on the model axis.
+``DTensor``'s own convolution takes a weight only replicated, so a conv,
+the stem and the fused 1x1 conv + BatchNorm run on each rank's blocks
+through ``local_map`` (:func:`_split_conv`, :func:`conv_batchnorm`), and
+BatchNorm and pooling on the rank's channel block of an activation split
+on the channel (:func:`_channelwise`).
 """
 from __future__ import annotations
 
@@ -196,12 +203,75 @@ def conv(p, x, stride: int = 1, padding: str = "SAME", *, compute_dtype=None):
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         k = k.to(compute_dtype)
-    return _conv_nhwc(x, k, stride, _pads(x, tuple(k.shape[:2]), stride, padding))
+    pads = _pads(x, tuple(k.shape[:2]), stride, padding)
+    return _split_conv(lambda xs, ks: _conv_nhwc(xs, ks, stride, pads), x, k)
+
+
+# ------------------------------------------------- convolutions on split weights
+def _placement(t):
+    """The placement of a ``DTensor`` on its one-dim mesh (the model or
+    expert axis), or None for a plain tensor."""
+    placements = getattr(t, "placements", None)
+    return None if placements is None else placements[0]
+
+
+def _split_conv(fn, x, k):
+    """``fn(x, k)``, a convolution of NHWC ``x`` by HWIO ``k``, on each rank's
+    blocks when ``k`` is a ``DTensor`` (``local_map``; ``DTensor``'s own
+    convolution rule takes a weight only replicated, so a split weight
+    would be gathered every forward):
+
+    - column (``k`` ``Shard(3)``): ``x`` whole, the output ``Shard(3)`` on
+      the channel; ``x``'s gradient a partial sum over the ranks;
+    - row (``k`` ``Shard(2)``): ``x``'s channel block ``Shard(3)``, the
+      output a ``Partial`` sum, which the BatchNorm after it reduces;
+    - whole: ``x`` and ``k`` gathered, the output replicated."""
+    where = _placement(k)
+    if where is None:
+        return fn(x, k)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rep, chan, cin = [Replicate()], [Shard(3)], [Shard(2)]
+    # The placements of (x, k), of their gradients, and of the output: the
+    # column route, the row route, else whole.
+    ins, grads, out = {
+        Shard(3): ((rep, chan), ([Partial()], chan), chan),
+        Shard(2): ((chan, cin), (chan, cin), [Partial()]),
+    }.get(where, ((rep, rep), (rep, rep), rep))
+    return local_map(fn, out_placements=out, in_placements=ins, in_grad_placements=grads,
+                     redistribute_inputs=True)(x, k)
+
+
+def _channelwise(fn, x, *vectors):
+    """``fn(x, *vectors)`` for an op that works channel by channel on NHWC
+    ``x`` with per-channel ``vectors`` (BatchNorm, pooling). On a
+    ``DTensor`` it runs through ``local_map`` on the rank's channel block
+    (``Shard(3)``, the vectors' block ``Shard(0)``) when ``x`` is split on
+    the channel or is a row-split conv's ``Partial`` sum (reduce-scattered
+    first: per-channel statistics are never taken from a partial sum), and
+    on the whole otherwise."""
+    where = _placement(x)
+    if where is None:
+        return fn(x, *vectors)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    channel = Shard(x.dim() - 1)
+    split = where == channel or isinstance(where, Partial)
+    act, vec = ([channel], [Shard(0)]) if split else ([Replicate()], [Replicate()])
+    return local_map(fn, out_placements=act, in_placements=(act,) + (vec,) * len(vectors),
+                     redistribute_inputs=True)(x, *vectors)
 
 
 # ---------------------------------------------------------------------- pooling
 def max_pool(x, window: int, stride: int, padding: str = "SAME"):
-    """NHWC max pool; ``"SAME"`` pads with ``-inf`` (JAX's init value)."""
+    """NHWC max pool; ``"SAME"`` pads with ``-inf`` (JAX's init value). Per
+    channel on a split activation (:func:`_channelwise`)."""
+    return _channelwise(lambda xs: _max_pool(xs, window, stride, padding), x)
+
+
+def _max_pool(x, window: int, stride: int, padding: str):
     (top, bottom), (left, right) = _pads(x, (window, window), stride, padding)
     xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom), value=float("-inf"))
     return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
@@ -213,7 +283,12 @@ def avg_pool(x, window: int, stride: int, padding: str = "SAME"):
     of ``"SAME"`` divide by fewer than ``window²``. ``"SAME"`` pads can be
     uneven, so the map is padded with zeros explicitly and divided by the
     pooled count map. The sum is rounded to x's dtype once and then divided
-    (JAX's order); PyTorch accumulates it in fp32 before that rounding."""
+    (JAX's order); PyTorch accumulates it in fp32 before that rounding. Per
+    channel on a split activation (:func:`_channelwise`)."""
+    return _channelwise(lambda xs: _avg_pool(xs, window, stride, padding), x)
+
+
+def _avg_pool(x, window: int, stride: int, padding: str):
     (top, bottom), (left, right) = _pads(x, (window, window), stride, padding)
     xc = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
     summed = F.avg_pool2d(xc, window, stride, divisor_override=1)
@@ -230,13 +305,18 @@ def space_to_depth_stem(stem_conv, images, dtype):
     conv on 12 channels over the 2x2 space-to-depth input (the JAX
     package's MLPerf transform; even H and W). The 7x7 kernel, padded to 8
     taps, reshapes exactly to ``[4, 4, 12, cout]``; in block space the
-    receptive field is blocks ``[i - 1, i + 2]``: pad 1 low, 2 high."""
+    receptive field is blocks ``[i - 1, i + 2]``: pad 1 low, 2 high. Both
+    transforms keep each input and output channel's taps together, so a
+    split kernel runs them on its block (:func:`_split_conv`)."""
+    return _split_conv(lambda x, k: _s2d_conv(x, k, dtype), images, stem_conv["kernel"])
+
+
+def _s2d_conv(images, k, dtype):
     b, h, w, c = images.shape
     x = images.reshape(b, h // 2, 2, w // 2, 2, c)
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
 
-    k = stem_conv["kernel"]                                  # [7, 7, 3, cout]
-    k = F.pad(k, (0, 0, 0, 0, 0, 1, 0, 1))                   # [8, 8, 3, cout]
+    k = F.pad(k, (0, 0, 0, 0, 0, 1, 0, 1))                   # [8, 8, cin, cout]
     kh, kw, cin, cout = k.shape
     k = k.reshape(kh // 2, 2, kw // 2, 2, cin, cout)
     k = k.permute(0, 2, 1, 3, 4, 5).reshape(kh // 2, kw // 2, 4 * cin, cout)
@@ -337,15 +417,59 @@ class BatchNormFn(torch.autograd.Function):
         return dscale, dbias, dx, None, None, None
 
 
-def batchnorm(p, x, eps: float = 1e-5, stats: Optional[Tuple] = None):
+def batchnorm(p, x, eps: float = 1e-5):
     """Training-mode batch norm over N, H, W (batch statistics only; running
     averages are an inference concern). Statistics reduce in fp32 in one
     pass, ``E[x²] − E[x]²`` clamped at 0, from the column sums ``(sum x,
-    sum x²)`` over the N·H·W rows (given as ``stats``, or reduced here).
-    They are this process's batch's, or the global batch's inside the
-    distributed step's GSPMD semantics (:class:`BatchNormFn`)."""
-    s1, s2 = stats if stats is not None else (None, None)
-    return BatchNormFn.apply(p["scale"], p["bias"], x, eps, s1, s2)
+    sum x²)`` over the N·H·W rows. They are this process's batch's, or the
+    global batch's inside the distributed step's GSPMD semantics
+    (:class:`BatchNormFn`). On a ``DTensor`` split on the channel, each rank
+    normalises its channel block with its block of the scale and bias
+    (:func:`_channelwise`)."""
+    return _channelwise(lambda xs, scale, bias: BatchNormFn.apply(scale, bias, xs, eps,
+                                                                  None, None),
+                        x, p["scale"], p["bias"])
+
+
+def _fused_product(x, k, stride: int, cols=None):
+    """``(y, s1, s2)`` of the 1x1 conv of :func:`conv_batchnorm` on plain
+    tensors: ``y`` NHWC, the fp32 column sums over its N·H·W rows; ``cols``
+    = (lo, hi) launches on those output columns of ``k`` only."""
+    if stride > 1:
+        x = x[:, ::stride, ::stride, :]
+    b, h, w, c = x.shape
+    kernel = k.reshape(c, -1)
+    if cols is not None:
+        kernel = kernel[:, cols[0]:cols[1]].contiguous()
+    rows = x.contiguous().reshape(-1, c)
+    if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op
+        y, s1, s2 = torch.ops.autodist_tpu_torch.fused_matmul_stats(rows, kernel)
+    else:
+        y, s1, s2 = fcs.FusedConvStatsFn.apply(rows, kernel)
+    return y.reshape(b, h, w, -1), s1, s2
+
+
+def _fused_conv_bn(x, k, scale, bias, stride: int, cols=None):
+    """The 1x1 conv + BatchNorm of :func:`conv_batchnorm` on plain tensors."""
+    y, s1, s2 = _fused_product(x, k, stride, cols)
+    return BatchNormFn.apply(scale, bias, y, 1e-5, s1, s2)
+
+
+def fused_block(split_dim: Optional[int], n: int, rank: int, size: int
+                ) -> Tuple[str, Tuple[int, int]]:
+    """How :func:`conv_batchnorm` runs a 1x1 HWIO kernel with ``n`` output
+    columns split on ``split_dim`` (None: replicated) over ``size`` ranks,
+    and the output columns ``[lo, hi)`` that rank ``rank`` launches the
+    fused op on: ``"column"`` (on ``cout``, dim 3: the rank's ``Shard``
+    block, ``torch.chunk``'s) and ``"row"`` (on ``cin``, dim 2, ``size``
+    dividing ``n``: the gathered kernel's ``n / size`` block) launch on a
+    block, ``"whole"`` on all ``n``."""
+    if split_dim == 3:
+        step = -(-n // size)
+        return "column", (min(rank * step, n), min((rank + 1) * step, n))
+    if split_dim == 2 and n % size == 0:
+        return "row", (rank * n // size, (rank + 1) * n // size)
+    return "whole", (0, n)
 
 
 def conv_batchnorm(conv_p, bn_p, x, stride: int = 1, *, compute_dtype=None):
@@ -353,22 +477,46 @@ def conv_batchnorm(conv_p, bn_p, x, stride: int = 1, *, compute_dtype=None):
     fused product + statistics op (``ops/fused_conv_stats.py``) over the
     ``[N·H·W, C]`` rows, and the batchnorm takes its sums. Its ``"SAME"``
     padding is 0 at any size, so a stride-2 1x1 conv reads the taps
-    ``(2i, 2j)``: a strided slice, then the op."""
+    ``(2i, 2j)``: a strided slice, then the op.
+
+    On a split kernel (``local_map``) every rank launches the op on its
+    block of output columns, so the statistics it returns are those of
+    whole columns of the summed product: under a column split (``cout``)
+    on the whole ``x`` and its ``[K, N/m]`` block; under a row split
+    (``cin``) on the gathered ``x`` and the gathered kernel's column block
+    (the product of a ``cin`` block is a partial sum, whose column sums
+    are not the statistics of the sum). Either way the output is split on
+    the channel, the BatchNorm takes its scale and bias block, and the
+    sums are of the fp32 product before rounding."""
     k = conv_p["kernel"]
     if tuple(k.shape[:2]) != (1, 1):
         return batchnorm(bn_p, conv(conv_p, x, stride, compute_dtype=compute_dtype))
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         k = k.to(compute_dtype)
-    if stride > 1:
-        x = x[:, ::stride, ::stride, :]
-    b, h, w, c = x.shape
-    rows, kernel = x.contiguous().reshape(-1, c), k.reshape(c, -1)
-    if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op
-        y, s1, s2 = torch.ops.autodist_tpu_torch.fused_matmul_stats(rows, kernel)
-    else:
-        y, s1, s2 = fcs.FusedConvStatsFn.apply(rows, kernel)
-    return batchnorm(bn_p, y.reshape(b, h, w, -1), stats=(s1, s2))
+    where = _placement(k)
+    if where is None:
+        return _fused_conv_bn(x, k, bn_p["scale"], bn_p["bias"], stride)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    route, cols = fused_block(where.dim if isinstance(where, Shard) else None, k.shape[3],
+                              mesh.get_local_rank(), mesh.size())
+    cols = cols if route == "row" else None
+    rep, part, vec, chan = [Replicate()], [Partial()], [Shard(0)], [Shard(3)]
+    # The placements of (x, k, scale, bias), of their gradients, and of the
+    # output. x's gradient from a column block is a partial sum.
+    ins, grads, out = {
+        "column": ((rep, chan, vec, vec), (part, chan, vec, vec), chan),
+        "row": ((rep, rep, vec, vec), (part, part, vec, vec), chan),
+        "whole": ((rep,) * 4, (rep,) * 4, rep),
+    }[route]
+    fn = local_map(lambda xs, ks, scale, bias: _fused_conv_bn(xs, ks, scale, bias, stride,
+                                                              cols),
+                   out_placements=out, in_placements=ins, in_grad_placements=grads,
+                   redistribute_inputs=True)
+    return fn(x, k, bn_p["scale"], bn_p["bias"])
 
 
 # ----------------------------------------------------------------------- losses

@@ -522,9 +522,10 @@ class PipelineTrainStep:
     def _layout(self, leaves):
         if self.group is None:
             return None
-        return [(0, (self.n_stages,) + tuple(p.shape[1:])) for p in leaves]
+        return [(0, (self.n_stages,) + tuple(p.shape[1:]), "pipe") for p in leaves]
 
-    def _psum(self, t: torch.Tensor) -> torch.Tensor:
+    def _psum(self, t: torch.Tensor, lay) -> torch.Tensor:
+        """A stage block's partial sum over the pipe group."""
         dist.all_reduce(t, group=self.group)
         return t
 

@@ -177,6 +177,13 @@ Phases, each printing one JSON line:
    the plain version, ``torch.matmul`` + moments, ``torch.matmul`` alone and
    the bound; then ``conv_stats_forward`` for each model: Σ launches x ms
    over a forward beside Σ launches x bound.
+7a. ``conv_split_shapes``: the same checks and times at every distinct
+   ``(M, K, N)`` one rank launches in a ResNet-50 forward (batch 128, bf16)
+   under ``TensorParallel`` at data 1 x model 2 and x model 4, from the
+   plan's renderings and a forward on meta tensors: each 1x1 conv on its
+   rank's ``N / d`` output columns, column- or row-split alike
+   (``layers.conv_batchnorm`` launches a row-split conv on the gathered
+   kernel's column block); N down to 16.
 7b. ``crossover``: the committed H100 tables (``ops/measured/``, written
    by ``tools/torch_crossover_sweep.py``): ``"auto"`` resolves bert_base's
    seq 512 to flash on the card in bf16 (dot in fp32, which the table does
@@ -329,6 +336,22 @@ Phases, each printing one JSON line:
     step, the wire equal to the plan's, the flash kernels ``num_layers x
     5`` times each in bert_base's window. Degree 2 has no rendering on one
     card (``TP_MODELS``' comment).
+18b. ``tp_cnn``: ResNet-50 (224 px, batch 128, bf16) under
+    ``TensorParallel`` at data 1 x model n on n NCCL ranks (``--tp-cnn-rank``,
+    n the cards up to 4, a power of two), 1 + 3 Adam steps through
+    ``AutoDist.build`` against the one-process AllReduce step: bitwise at
+    n = 1; at n > 1 the convs split and the losses within 5e-2 of it. Losses
+    fall, the wire equals the plan's, the conv-stats kernel ``36 x 3``
+    times in the window. One card has no split (model 1): there every
+    variable is then placed as the plan at model 2 renders it
+    (``Shard(2)``/``Shard(3)``/``Replicate``) on a one-rank model mesh, so
+    the convs, BatchNorms and pools run their ``local_map`` routes and the
+    fused kernel its column (9) and row (27) routes: the loss and every
+    gradient bitwise equal to the plain forward and backward, the kernel
+    36 times (not in the kernels line). At n > 1 one fp32 SGD step through
+    ``AutoDist.build`` is held to the one-process step: the whole update
+    (relative L2) within 1e-4 or twice the one-process step's own change
+    when the batch's rows are reversed.
 
 19. ``auto_plan``: the node model ``ResourceSpec.from_local_devices`` reads
     from the card, and ``explain``'s table for bert_base, ResNet-50, LM1B
@@ -423,6 +446,17 @@ Phases, each printing one JSON line:
     data 2 x pipe 2 against the stages in sequence; a small transformer's
     3 steps under ring and Ulysses at data 2 x seq 2 against the
     one-process step; all within rtol 2e-5 / atol 2e-6.
+27. ``tp_models_rehearsal``: not a card result: 4 gloo ranks on the CPU
+    (``--tp-models-cpu-rank``, the card machine's torch) train the zoo
+    outside the transformer family at toy widths through ``AutoDist.build``
+    (``TPM_CASES``): ResNet-18 under ``TensorParallel`` and
+    ``PartitionedAR`` at data 2 x model 2 and under ``AllReduce`` at data 2
+    x expert 2, VGG-11, DenseNet and Inception-v3 under ``TensorParallel``
+    (one SGD step each: the whole update within 1e-4, relative L2, of the
+    one-process step's or twice that step's own change when each data
+    rank's rows are reversed), lstm_lm and ncf under ``TensorParallel`` and
+    the small transformer under ``Zero1`` with ``clip_norm`` (3 steps,
+    within rtol 2e-5 / atol 2e-6); every rank's parameters equal.
 
 Every JSON line carries ``t_s``, the seconds since the script started.
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
@@ -768,6 +802,47 @@ TP_MODELS = (
     ("moe", "moe_transformer", TP_MOE, 32, "AllReduce", "expert", ("expert_",)),
 )
 
+# conv_split_shapes: ResNet-50 (PUBLISHED, batch 128) under TensorParallel
+# at data 1 x model d for each d here: the fused kernel at every distinct
+# (M, K, N) one rank launches, against its plain version.
+CONV_SPLIT_DEGREES = (2, 4)
+# tp_models_rehearsal: TPM_CASES (id, model, builder, mesh, steps) on 4
+# gloo CPU ranks at toy widths, against the one-process step: ResNet-18
+# (width 8), VGG-11, DenseNet (blocks (2, 2), growth 8) and Inception-v3
+# (width 1/16) at 32 px, batch 8, 10 classes, fp32, one SGD step at
+# TPM_CNN_LR, the whole update (relative L2) within TPM_UPDATE_RTOL or
+# twice the one-process step's own change when each data rank's rows are
+# reversed; lstm_lm, ncf and the transformer (TPM_LSTM, TPM_NCF, TPM_LM)
+# REHEARSAL_STEPS steps at REHEARSAL_LR within REHEARSAL_RTOL / ATOL.
+TPM_MESH, TPM_EXPERT = {"data": 2, "model": 2}, {"data": 2, "expert": 2}
+TPM_CNN_LR = {"resnet": 3e-3, "vgg": 1e-4, "densenet": 3e-3, "inception": 3e-3}
+TPM_UPDATE_RTOL = 1e-4
+TPM_LSTM = dict(vocab_size=64, embed_dim=16, hidden=32, num_layers=2, seq_len=8)
+TPM_NCF = dict(num_users=64, num_items=48, mf_dim=8, mlp_dims=(16, 16, 8))
+TPM_LM = dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, d_ff=64, max_seq_len=16,
+              attention_impl="dot", dtype="float32")
+TPM_CASES = (("resnet/tp", "resnet", "TensorParallel", TPM_MESH, 1),
+             ("resnet/partitioned_ar", "resnet", "PartitionedAR", TPM_MESH, 1),
+             ("resnet/expert", "resnet", "AllReduce", TPM_EXPERT, 1),
+             ("vgg/tp", "vgg", "TensorParallel", TPM_MESH, 1),
+             ("densenet/tp", "densenet", "TensorParallel", TPM_MESH, 1),
+             ("inception/tp", "inception", "TensorParallel", TPM_MESH, 1),
+             ("lstm_lm/tp", "lstm_lm", "TensorParallel", TPM_MESH, REHEARSAL_STEPS),
+             ("ncf/tp", "ncf", "TensorParallel", TPM_MESH, REHEARSAL_STEPS),
+             ("transformer/zero1-clip", "transformer", "Zero1", TPM_MESH, REHEARSAL_STEPS))
+TPM_CLIP = 0.5
+# tp_cnn: ResNet-50 (PUBLISHED, batch 128, bf16) under TensorParallel at
+# data 1 x model n on n NCCL ranks (_pow2_ranks), 1 + TP_CNN_STEPS steps of
+# DIST_OPT, against the one-process AllReduce step: bitwise at n = 1;
+# losses within DIST_LOSS_RTOL["resnet50"] and falling at n > 1. Adam's
+# first steps scale each element to about the learning rate, so its update
+# moves with any rounding (relative L2 about 1 between correct runs): at
+# n > 1 one fp32 TP_CNN_SGD step is held to the one-process step within
+# TP_CNN_UPDATE_RTOL or twice that step's own change when the batch's rows
+# are reversed (the whole update, relative L2). At n = 1 the model is also
+# placed as the plan at model TP_CNN_PLACED renders it, on a one-rank mesh.
+TP_CNN_STEPS, TP_CNN_PLACED = 3, 2
+TP_CNN_SGD, TP_CNN_UPDATE_RTOL = ("sgd", {"learning_rate": 0.1}), 1e-4
 
 # auto_plan: (key, zoo name, overrides, batch) explain ranks, at the zoo's
 # batches (bert_base at TRAIN_SEQ and TRAIN_BATCH with flash); Auto must
@@ -2681,9 +2756,20 @@ def dist_cpu_rank(rank: int, world: int, work: str) -> int:
 def _spawn_ranks(flag: str, world: int, work: str, env: dict) -> list:
     """Start ``world`` ranks of this script, wait (``DIST_TIMEOUT_S`` in
     all), kill any left, and return rank by rank their results."""
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
-                               str(world), work], env=env)
-             for r in range(world)]
+    return _join_ranks(flag, _start_ranks(flag, world, work, env), work)
+
+
+def _start_ranks(flag: str, world: int, work: str, env: dict) -> list:
+    """``world`` ranks of this script started with ``flag``: their processes."""
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                              str(world), work], env=env)
+            for r in range(world)]
+
+
+def _join_ranks(flag: str, procs: list, work: str) -> list:
+    """Wait for ranks started by :func:`_start_ranks` (``DIST_TIMEOUT_S`` in
+    all), kill any left, and return rank by rank their results."""
+    world = len(procs)
     deadline = time.monotonic() + DIST_TIMEOUT_S
     try:
         for proc in procs:
@@ -3581,6 +3667,381 @@ def tp_train(card: str) -> list:
     for row in rows:
         emit("tp_train", **row, process_seconds=time.perf_counter() - t0, card=card)
     return rows
+
+# ------------------------------------------------- CNNs on a model axis
+def _dicts_by_id(tree, prefix: str = "") -> dict:
+    """``{id(node): path}`` of every dict of a params tree."""
+    out = {id(tree): prefix}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dicts_by_id(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _tp_plan(degree: int, dev):
+    """The plan of ResNet-50 (PUBLISHED, batch 128) under TensorParallel at
+    data 1 x model ``degree``, on a logical mesh."""
+    from autodist_tpu_torch.strategy import explain as ex
+
+    model, overrides, batch, _ = PUBLISHED["resnet50"]
+    item = ex.model_item_for(model, batch, dev, **overrides)
+    mesh = {"data": 1, "model": degree}
+    rs = ResourceSpec(resource_dict={"nodes": [{"address": "localhost", "gpus": degree}],
+                                     "mesh": mesh})
+    strategy = StrategyCompiler(item).compile(from_name("TensorParallel").build(item, rs))
+    return GraphTransformer(strategy, item, Mesh.logical(mesh)).transform()
+
+
+def _split_dims(plan) -> dict:
+    """``{name: dim}`` of the variables a plan splits over the model axis."""
+    return {n: plan.rendering(n)[1] for n in plan.var_plans
+            if plan.rendering(n)[0] == "partitioned"}
+
+
+def split_conv_shapes(degree: int, dev) -> dict:
+    """``{(M, K, N): launches a forward}`` of the fused conv-stats kernel on
+    rank 0 of ResNet-50 (PUBLISHED, batch 128) under TensorParallel at data
+    1 x model ``degree``: every 1x1 conv's ``(M, K)`` from a forward on meta
+    tensors, ``N`` the columns ``layers.fused_block`` gives rank 0 for the
+    plan's split of the kernel (a block under a ``cout`` split, or under a
+    ``cin`` split the gathered kernel's column block; ROADMAP.md, Queue 3).
+    ResNet-50's widths divide by 2 and 4, so every rank's shapes are these."""
+    split = _split_dims(_tp_plan(degree, dev))
+    model, overrides, batch, _ = PUBLISHED["resnet50"]
+    spec = get_model_spec(model, **overrides)
+    params = map_params(lambda t: t.to("meta"), spec.init(SEED, device=dev))
+    names = _dicts_by_id(params)
+    size = overrides["image_size"]
+    shapes: dict = {}
+    inside: list = []
+    plain_cb, plain_op = L.conv_batchnorm, fcs.fused_matmul_stats
+
+    def conv_bn(conv_p, bn_p, x, stride=1, *, compute_dtype=None):
+        inside.append(names[id(conv_p)] + "/kernel")
+        try:
+            return plain_cb(conv_p, bn_p, x, stride, compute_dtype=compute_dtype)
+        finally:
+            inside.pop()
+
+    def op(x, w):
+        _, (lo, hi) = L.fused_block(split.get(inside[-1]), w.shape[1], 0, degree)
+        key = (x.shape[0], x.shape[1], hi - lo)
+        shapes[key] = shapes.get(key, 0) + 1
+        return plain_op(x, w)
+
+    L.conv_batchnorm, fcs.fused_matmul_stats = conv_bn, op
+    try:
+        with torch.no_grad():
+            spec.apply(params, torch.empty((batch, size, size, 3), device="meta"))
+    finally:
+        L.conv_batchnorm, fcs.fused_matmul_stats = plain_cb, plain_op
+    return shapes
+
+
+def conv_split_shapes(split_shapes: dict, gen, dev) -> list:
+    """The conv_split_shapes phase (see the module docstring)."""
+    t0 = time.perf_counter()
+    rows = []
+    for degree, shapes in split_shapes.items():
+        check(sum(shapes.values()) == rn.fused_launches_per_forward(50),
+              f"conv_split_shapes model {degree}: {sum(shapes.values())} launches a forward")
+        model_rows = [conv_stats_case(*shape, torch.bfloat16, gen, dev, launches,
+                                      f"resnet50/model{degree}")
+                      for shape, launches in sorted(shapes.items())]
+        emit("conv_stats_forward", model=f"resnet50/model{degree}",
+             **conv_forward_totals(model_rows))
+        rows += model_rows
+    emit("conv_split_shapes", shapes=len(rows), seconds=time.perf_counter() - t0,
+         max_abs_err=max(r["max_abs_err"] for r in rows))
+    return rows
+
+
+def _tpm_inputs(model: str):
+    """(loss, params, batch) of a tp_models_rehearsal model at its toy
+    width, from the seed, on the CPU (fp32 forwards)."""
+    from autodist_tpu_torch.models import densenet, inception
+
+    f32, cpu = torch.float32, torch.device("cpu")
+    cnn = {"resnet": (lambda seed: rn.init_params(seed, 18, 10, width=8, device=cpu),
+                      lambda p, x: rn.forward(p, x, 18, dtype=f32)),
+           "vgg": (lambda seed: vgg.init_params(seed, 11, 10, 32, device=cpu),
+                   lambda p, x: vgg.forward(p, x, 11, dtype=f32)),
+           "densenet": (lambda seed: densenet.init_params(seed, 121, 10, blocks=(2, 2),
+                                                          growth=8, device=cpu),
+                        lambda p, x: densenet.forward(p, x, 121, dtype=f32, blocks=(2, 2))),
+           "inception": (lambda seed: inception.init_params(seed, 10, width=1 / 16,
+                                                            device=cpu),
+                         lambda p, x: inception.forward(p, x, dtype=f32))}
+    if model in cnn:
+        init, forward = cnn[model]
+        spec = get_model_spec("resnet", depth=18, image_size=32, num_classes=10)
+        return ((lambda p, b: L.softmax_xent(forward(p, b["images"]), b["labels"])),
+                init(SEED), spec.example_batch(8, device=cpu))
+    if model == "lstm_lm":
+        o = TPM_LSTM
+        spec = get_model_spec("lstm_lm", **o)
+
+        def loss(p, b):
+            t = b["tokens"]
+            return L.softmax_xent(lstm_lm.forward(p, t[:, :-1], o["num_layers"], o["hidden"],
+                                                  dtype=f32), t[:, 1:])
+        gen = torch.Generator().manual_seed(SEED)
+        tokens = torch.randint(0, o["vocab_size"], (8, o["seq_len"] + 1), generator=gen)
+        return loss, spec.init(SEED, device=cpu), {"tokens": tokens}
+    spec = get_model_spec(model, **(TPM_NCF if model == "ncf" else TPM_LM))
+    return spec.loss_fn, spec.init(SEED, device=cpu), spec.example_batch(8, device=cpu)
+
+
+def _tpm_opt(cid: str, model: str) -> tuple:
+    """A tp_models_rehearsal case's ``OptimizerSpec`` arguments."""
+    return ("sgd", {"learning_rate": TPM_CNN_LR.get(model, REHEARSAL_LR)},
+            TPM_CLIP if "clip" in cid else None)
+
+
+def tp_models_cpu_rank(rank: int, world: int, work: str) -> int:
+    """One gloo rank of tp_models_rehearsal."""
+    torch.set_num_threads(1)
+    pg.join(torch.device("cpu"), f"file://{work}/pg", world, rank, DIST_GROUP_TIMEOUT_S)
+    out = {}
+    for cid, model, builder, mesh, steps in TPM_CASES:
+        loss, params, batch = _tpm_inputs(model)
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=from_name(builder), device="cpu",
+                            mesh_axes=tuple(mesh),
+                            resource_spec=ResourceSpec(resource_dict={"nodes": [
+                                {"address": "localhost", "gpus": world, "chief": True}],
+                                "mesh": mesh}))
+        step = autodist.build(loss, params, batch, optimizer=OptimizerSpec(*_tpm_opt(cid, model)))
+        state, metrics = step.run(step.init(params), batch, steps)
+        plan = autodist.plan
+        out[cid] = {"losses": metrics["loss"].tolist(),
+                    "params": flatten_params(step.logical_params(state)),
+                    "split": sorted(n for n in plan.var_plans
+                                    if plan.rendering(n)[0] in ("partitioned", "expert"))}
+    pg.leave()
+    # The tensors go through torch.save: VGG's 19M parameters as JSON take
+    # a minute.
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump({"saved": f"rank{rank}.pt"}, f)
+    return 0
+
+
+def _tpm_one_process(cid, model, steps, batch_order=None):
+    """(losses, flat params, flat start) of the one-process AllReduce step
+    on the CPU; ``batch_order`` reorders the batch's rows first."""
+    loss, params, batch = _tpm_inputs(model)
+    if batch_order is not None:
+        batch = {k: v[batch_order] for k, v in batch.items()}
+    step = _one_process_step(AllReduce(), loss, params, batch, torch.device("cpu"),
+                             _tpm_opt(cid, model))
+    state, metrics = step.run(step.init(params), batch, steps)
+    return (metrics["loss"].tolist(), flatten_params(step.logical_params(state)),
+            flatten_params(params))
+
+
+def tp_models_rehearsal() -> dict:
+    """4 gloo ranks on the CPU against one process (see the module docstring)."""
+    t0 = time.perf_counter()
+    cpu_env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as work:
+        procs = _start_ranks("--tp-models-cpu-rank", REHEARSAL_RANKS, work, cpu_env)
+        # The one-process steps (and, for a CNN, the same on each data
+        # rank's rows reversed) while the ranks run.
+        rows = torch.arange(8).reshape(2, -1).flip(1).reshape(-1)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, (os.cpu_count() or 8) - REHEARSAL_RANKS))
+        try:
+            refs = {cid: (_tpm_one_process(cid, model, steps),
+                          _tpm_one_process(cid, model, steps, rows)
+                          if model in TPM_CNN_LR else None)
+                    for cid, model, _, _, steps in TPM_CASES}
+        except BaseException:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+            raise
+        finally:
+            torch.set_num_threads(threads)
+        ranks = [torch.load(os.path.join(work, r["saved"]), weights_only=False)
+                 for r in _join_ranks("--tp-models-cpu-rank", procs, work)]
+    cases = {}
+    for cid, model, builder, mesh, steps in TPM_CASES:
+        (losses, want, start), reordered = refs[cid]
+        got = ranks[0][cid]
+        check(bool(got["split"]) == (model != "resnet" or "expert" not in mesh),
+              f"tp_models rehearsal {cid}: split variables {got['split'][:4]}")
+        for r, res in enumerate(ranks[1:], 1):
+            check(all(torch.equal(t, got["params"][n]) for n, t in res[cid]["params"].items()),
+                  f"tp_models rehearsal {cid}: rank {r}'s params differ from rank 0's")
+        if reordered is not None:
+            slosses, spread, _ = reordered
+            err, moved = (_update_rel(start, got["params"], want),
+                          _update_rel(start, spread, want))
+            bound = max(TPM_UPDATE_RTOL, 2 * moved)
+            check(err <= bound and abs(got["losses"][0] - losses[0]) <= max(
+                REHEARSAL_RTOL * abs(losses[0]), 2 * abs(slosses[0] - losses[0])),
+                  f"tp_models rehearsal {cid}: update {err} vs {bound}, losses "
+                  f"{got['losses']} vs {losses}")
+            cases[cid] = dict(update_rel_l2=err, bound=bound, losses=got["losses"])
+            continue
+        worst = max((got["params"][n] - t).abs().max().item() for n, t in want.items())
+        check(all(torch.allclose(got["params"][n], t, rtol=REHEARSAL_RTOL,
+                                 atol=REHEARSAL_ATOL) for n, t in want.items())
+              and torch.allclose(torch.tensor(got["losses"]), torch.tensor(losses),
+                                 rtol=REHEARSAL_RTOL),
+              f"tp_models rehearsal {cid}: differs from one process by {worst}")
+        cases[cid] = dict(max_abs_diff=worst, losses=got["losses"])
+    row = dict(note="gloo on the CPU: a rehearsal, not a card result", ranks=REHEARSAL_RANKS,
+               torch=torch.__version__, cases=cases, seconds=time.perf_counter() - t0)
+    emit("tp_models_rehearsal", **row)
+    return row
+
+
+def _resnet_fp32_loss(depth: int):
+    """ResNet's loss with an fp32 forward (the zoo's is bf16)."""
+    return lambda p, b: L.softmax_xent(rn.forward(p, b["images"], depth, dtype=torch.float32),
+                                       b["labels"])
+
+
+def _one_sgd_step(step, params, batch) -> dict:
+    """The flat logical params after one step of ``step`` from ``params``."""
+    state, _ = step(step.init(params), batch)
+    return flatten_params(step.logical_params(state))
+
+
+def _tp_cnn_placed(spec, params, batch, dev) -> dict:
+    """tp_cnn at one rank: ResNet-50's loss and gradients with every
+    variable placed as TensorParallel's plan at model TP_CNN_PLACED renders
+    it (``Shard(dim)`` a split one, ``Replicate`` else) on a one-rank model
+    mesh, against the plain ones (see the module docstring)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    split = _split_dims(_tp_plan(TP_CNN_PLACED, dev))
+    flat = flatten_params(params)
+    routes = collections.Counter(L.fused_block(split.get(n), t.shape[3], 0, 1)[0]
+                                 for n, t in flat.items()
+                                 if t.dim() == 4 and tuple(t.shape[:2]) == (1, 1))
+
+    def loss_and_grads(p, b):
+        p = map_params(lambda t: t.detach().requires_grad_(t.is_floating_point()), p)
+        leaves = [t for t in flatten_params(p).values() if t.requires_grad]
+        loss = spec.loss_fn(p, b)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
+
+    want, gwant = loss_and_grads(params, batch)
+    mesh = DeviceMesh(dev.type, [0], mesh_dim_names=("model",))
+    placed = unflatten_params({n: DTensor.from_local(t, mesh, [Shard(split[n])] if n in split
+                                                     else [Replicate()], run_check=False)
+                               for n, t in flat.items()})
+    dbatch = {k: DTensor.from_local(v, mesh, [Replicate()], run_check=False)
+              for k, v in batch.items()}
+    reset_launches()
+    with implicit_replication():
+        got, ggot = loss_and_grads(placed, dbatch)
+    torch.cuda.synchronize(dev)
+    differ = sum(1 for a, b in zip(ggot, gwant) if not torch.equal(a, b))
+    return dict(model_degree=TP_CNN_PLACED, split_vars=len(split), fused_routes=dict(routes),
+                launches=fcs.fused_matmul_stats.launches, loss=float(got),
+                plain_loss=float(want), grads_differ=differ,
+                bitwise=bool(torch.equal(got, want)) and differ == 0)
+
+
+def tp_cnn_rank(rank: int, world: int, work: str) -> int:
+    """tp_cnn's process (see the module docstring)."""
+    dev = _deterministic(rank)
+    model, overrides, batch_size, _ = PUBLISHED["resnet50"]
+    spec = get_model_spec(model, **overrides)
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(batch_size, device=dev)
+    step = _one_process_step(AllReduce(), spec.loss_fn, params, batch, dev)
+    state, plain_losses, plain_ms, _, _ = _train_window(step, params, batch, TP_CNN_STEPS, dev)
+    plain = flatten_params(step.logical_params(state))
+    del step, state
+    fp32_loss = _resnet_fp32_loss(overrides["depth"])
+    if world > 1:
+        # The one-process fp32 SGD step, and the same with the rows reversed.
+        fp32 = [_one_sgd_step(_one_process_step(AllReduce(), fp32_loss, params, b, dev,
+                                                TP_CNN_SGD), params, b)
+                for b in (batch, {k: v.flip(0) for k, v in batch.items()})]
+    torch.cuda.empty_cache()
+    AutoDist.reset_default()
+    mesh = {"data": 1, "model": world}
+    autodist = AutoDist(
+        strategy_builder=from_name("TensorParallel"), device="cuda",
+        resource_spec=ResourceSpec(resource_dict={
+            "nodes": [{"address": "localhost", "gpus": world}], "mesh": mesh}),
+        mesh_axes=tuple(mesh), init_method=f"file://{work}/pg", world_size=world,
+        rank=rank, timeout_s=DIST_GROUP_TIMEOUT_S)
+    step = autodist.build(spec.loss_fn, params, batch, optimizer=OptimizerSpec(*DIST_OPT))
+    state, losses, ms, launches, wire = _train_window(step, params, batch, TP_CNN_STEPS, dev)
+    logical = flatten_params(step.logical_params(state))
+    update_rel = _update_rel(params, logical, plain)
+    plan = autodist.plan
+    row = dict(model="resnet50", config=overrides, strategy="TensorParallel", mesh=mesh,
+               world=world, global_batch=batch_size, steps=1 + TP_CNN_STEPS,
+               optimizer=DIST_OPT, losses=losses, ms_per_step=ms,
+               images_per_s=batch_size / ms * 1e3, plain_losses=plain_losses,
+               plain_ms_per_step=plain_ms, collectives=wire,
+               predicted_wire=plan.collectives_per_step(), kernel_launches=launches,
+               update_rel_l2=update_rel,
+               bitwise=update_rel == 0.0 and losses == plain_losses,
+               split_vars=len(_split_dims(plan)))
+    del step, state
+    torch.cuda.empty_cache()
+    if world == 1:
+        row["placed"] = _tp_cnn_placed(spec, params, batch, dev)
+    else:
+        got = _one_sgd_step(autodist.build(fp32_loss, params, batch,
+                                           optimizer=OptimizerSpec(*TP_CNN_SGD)), params, batch)
+        spread = _update_rel(params, fp32[1], fp32[0])
+        row["fp32_sgd"] = dict(optimizer=TP_CNN_SGD,
+                               update_rel_l2=_update_rel(params, got, fp32[0]),
+                               reversed_rows_update_rel_l2=spread,
+                               bound=max(TP_CNN_UPDATE_RTOL, 2 * spread))
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(row, f)
+    return 0
+
+
+def tp_cnn(card: str) -> dict:
+    """The tp_cnn phase (see the module docstring). Returns rank 0's row."""
+    torch.cuda.empty_cache()
+    world = _pow2_ranks()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        row = _spawn_ranks("--tp-cnn-rank", world, work, env)[0]
+    emit("tp_cnn", **row, process_seconds=time.perf_counter() - t0, card=card)
+    losses = row["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"tp_cnn: losses {losses}")
+    check(_wire(row["collectives"]) == row["predicted_wire"],
+          f"tp_cnn: wire {row['collectives']} != the plan's {row['predicted_wire']}")
+    check(row["kernel_launches"]["fused_conv_stats"] ==
+          rn.fused_launches_per_forward(50) * TP_CNN_STEPS,
+          f"tp_cnn: fused launches {row['kernel_launches']['fused_conv_stats']}")
+    if row["world"] == 1:
+        check(row["bitwise"], f"tp_cnn: not bitwise equal to the one-process AllReduce step "
+              f"(update rel L2 {row['update_rel_l2']})")
+        placed = row["placed"]
+        check(placed["bitwise"] and placed["launches"] == rn.fused_launches_per_forward(50)
+              and all(placed["fused_routes"].get(r) for r in ("column", "row")),
+              f"tp_cnn: placed on a one-rank model mesh {placed}")
+    else:
+        sgd = row["fp32_sgd"]
+        check(row["split_vars"] > 0 and all(
+            abs(a - b) <= DIST_LOSS_RTOL["resnet50"] * abs(b)
+            for a, b in zip(losses, row["plain_losses"])),
+              f"tp_cnn: losses {losses} vs one process {row['plain_losses']}")
+        check(sgd["update_rel_l2"] <= sgd["bound"], f"tp_cnn: fp32 SGD update {sgd}")
+    return row
+
 
 def _builder_name(strategy, item, spec) -> str:
     """The slate name whose builder gives ``strategy``'s JSON (id and path
@@ -5527,7 +5988,9 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     zoo_shapes = zoo_conv_shapes(dev)
-    zoo_kn = {(k, n) for shapes in zoo_shapes.values() for (_, k, n) in shapes}
+    split_shapes = {d: split_conv_shapes(d, dev) for d in CONV_SPLIT_DEGREES}
+    zoo_kn = {(k, n) for shapes in list(zoo_shapes.values()) + list(split_shapes.values())
+              for (_, k, n) in shapes}
     t0 = time.perf_counter()
     libs = ("paged_attention", "flash_attention", "fused_conv_stats")
     _build.build(libs)                       # one nvcc per source, started together
@@ -5574,6 +6037,7 @@ def main() -> int:
                       for shape, launches in sorted(shapes.items())]
         emit("conv_stats_forward", model=key, **conv_forward_totals(model_rows))
         conv_rows += model_rows
+    conv_rows += conv_split_shapes(split_shapes, gen, dev)
     crossover_phase(card, dev)
     train_rows = [train_run("bert_base", TRAIN_BATCH, TRAIN_STEPS, card, dev),
                   train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
@@ -5591,6 +6055,7 @@ def main() -> int:
     dist_rows = dist_train(card)
     sync_rows = sync_options(card)
     tp_rows = tp_train(card)
+    tp_cnn_row = tp_cnn(card)
     auto_plan(card, dev)
     auto_rows = auto_train(card)
     tune_row = tune_phase(card, dev)
@@ -5600,6 +6065,7 @@ def main() -> int:
     seq_rows = [r for r in seq_rows if r["attention_impl"] != "flash"]
     pipe_row = pipe_rows[0]
     parallel_rehearsal()
+    tp_models_rehearsal()
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -5663,7 +6129,8 @@ def main() -> int:
         + sum(r["kernel_launches"].get("fused_conv_stats", 0)
               for r in zoo_rows + dist_rows + sync_rows + ckpt_rows + tp_rows)
         + infer_rows[1]["kernel_launches"]
-        + data_row["kernel_launches"]["fused_conv_stats"],
+        + data_row["kernel_launches"]["fused_conv_stats"]
+        + tp_cnn_row["kernel_launches"]["fused_conv_stats"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -5684,7 +6151,8 @@ if __name__ == "__main__":
                   "--sync-rank": sync_rank, "--ckpt-rank": ckpt_rank, "--tp-rank": tp_rank,
                   "--auto-rank": auto_rank, "--sparse-cpu-rank": sparse_cpu_rank,
                   "--parallel-rank": parallel_rank,
-                  "--parallel-cpu-rank": parallel_cpu_rank}
+                  "--parallel-cpu-rank": parallel_cpu_rank, "--tp-cnn-rank": tp_cnn_rank,
+                  "--tp-models-cpu-rank": tp_models_cpu_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--serve-cli":

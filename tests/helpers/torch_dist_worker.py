@@ -92,9 +92,28 @@ def lstm_loss(num_layers, hidden):
     return loss
 
 
+def cnn_loss(zoo, overrides):
+    """VGG's, DenseNet's or Inception's loss in fp32 (the zoo specs compute
+    in bf16)."""
+    from autodist_tpu_torch.models import densenet, inception, vgg
+    from autodist_tpu_torch.models import layers as L
+
+    o, f32 = overrides, torch.float32
+    forward = {
+        "vgg": lambda p, x: vgg.forward(p, x, o["depth"], dtype=f32),
+        "densenet": lambda p, x: densenet.forward(p, x, o.get("depth", 121), dtype=f32,
+                                                  blocks=o.get("blocks")),
+        "inception": lambda p, x: inception.forward(p, x, dtype=f32),
+    }[zoo]
+
+    def loss(params, batch):
+        return L.softmax_xent(forward(params, batch["images"]), batch["labels"])
+    return loss
+
+
 def loss_for(case):
-    """The port's loss of a case: a toy model above, ResNet or LM1B in fp32,
-    else a zoo spec's."""
+    """The port's loss of a case: a toy model above, ResNet, LM1B or another
+    CNN in fp32, else a zoo spec's."""
     if case["model"] in LOSSES:
         return LOSSES[case["model"]]
     if case["zoo"] == "resnet":
@@ -102,6 +121,8 @@ def loss_for(case):
     if case["zoo"] == "lstm_lm" and case.get("fp32"):
         o = case["overrides"]
         return lstm_loss(o["num_layers"], o["hidden"])
+    if case["zoo"] in ("vgg", "densenet", "inception") and case.get("fp32"):
+        return cnn_loss(case["zoo"], case["overrides"])
     return get_model_spec(case["zoo"], **case.get("overrides", {})).loss_fn
 
 

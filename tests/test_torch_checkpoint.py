@@ -159,6 +159,8 @@ NAME_CASES = [
     ("adagrad", {"learning_rate": 0.05}),
     ("rmsprop", {"learning_rate": 0.01}),
     ("rmsprop", {"learning_rate": 0.01, "momentum": 0.9}),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True}),
+    ("rmsprop", {"learning_rate": 0.01, "bias_correction": True, "momentum": 0.9}),
     ("lion", {"learning_rate": 0.001}),
     ("adafactor", {"learning_rate": 0.01}),
     ("adafactor", {}),

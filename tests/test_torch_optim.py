@@ -9,7 +9,9 @@ on a leaf whose two dims are at least 128 (factored) beside ones below it
 (not factored); without a learning rate its leaves grow to about 25, and
 atol scales with the largest. A ``piecewise`` spec goes through a JSON
 round trip first. The schedules themselves are held to rtol 1e-5 over 12
-counts (optax evaluates them in fp32).
+counts (optax evaluates them in fp32). rmsprop's ``centered`` and
+``bias_correction`` run alone, together and with nesterov momentum, and
+their checkpoints cross both packages bitwise.
 """
 import json
 
@@ -19,8 +21,18 @@ import optax
 import pytest
 import torch
 
+from autodist_tpu import api as japi
 from autodist_tpu import model_item as jmi
+from autodist_tpu import strategy as jstrat
+from autodist_tpu.checkpoint import Saver as JSaver
+from autodist_tpu.models import get_model as jax_get_model
+from autodist_tpu_torch import api as tapi
 from autodist_tpu_torch import model_item as tmi
+from autodist_tpu_torch import strategy as tstrat
+from autodist_tpu_torch.checkpoint import Saver
+from autodist_tpu_torch.models import get_model_spec
+from autodist_tpu_torch.models.convert import flatten_params, params_from_jax
+from test_torch_zoo import fill_params
 
 ATOL, RTOL, UPDATES = 1e-6, 1e-5, 7
 
@@ -47,6 +59,12 @@ CASES = [
     ("rmsprop", {"learning_rate": 0.01}),
     ("rmsprop", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": True,
                  "eps_in_sqrt": False}),
+    # optax's scale_by_stddev (centered) and the bias-corrected EMAs.
+    ("rmsprop", {"learning_rate": 0.01, "centered": True}),
+    ("rmsprop", {"learning_rate": 0.01, "bias_correction": True}),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True, "bias_correction": True}),
+    ("rmsprop", {"learning_rate": 0.01, "centered": True, "bias_correction": True,
+                 "momentum": 0.9, "nesterov": True, "eps_in_sqrt": False}),
     ("lamb", {"learning_rate": 0.01}),
     ("lamb", {"learning_rate": 0.01, "weight_decay": 0.1}),
     ("lion", {"learning_rate": 0.001}),
@@ -136,9 +154,56 @@ def test_unknown_names_and_arguments_raise():
         tmi.OptimizerSpec("lion", {"learning_rate": 0.1, "decay": 0.5}).make()
     with pytest.raises(TypeError, match="learning_rate is required"):
         tmi.OptimizerSpec("lamb", {}).make()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmi.OptimizerSpec("rmsprop", {"learning_rate": 0.1, "centered": True}).make()
     with pytest.raises(ValueError, match="unknown schedule"):
         tmi.make_schedule({"schedule": "step"})
     with pytest.raises(ValueError, match="positive decay_steps"):
         tmi.make_schedule({"schedule": "cosine", "init_value": 1.0, "decay_steps": 0})
+
+
+@pytest.mark.parametrize("kwargs", [{"centered": True}, {"bias_correction": True},
+                                    {"centered": True, "bias_correction": True,
+                                     "momentum": 0.9}],
+                         ids=["centered", "bias_correction", "both-momentum"])
+def test_rmsprop_checkpoints_cross_both_packages(tmp_path, kwargs):
+    """A centered or bias-corrected rmsprop state (``mu`` beside ``nu``,
+    optax's ``count``) trained 2 steps of the ``mlp`` in each package: both
+    checkpoints have the same entries, shapes and dtypes, and each restores
+    into the other package's step and saves back bitwise."""
+    kwargs = dict(kwargs, learning_rate=0.01)
+    spec = jax_get_model("mlp")
+    jparams = fill_params(spec)
+    batch = {k: np.asarray(v) for k, v in spec.example_batch(16).items()}
+    tparams = params_from_jax(jparams, device="cpu")
+    tbatch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
+    japi.AutoDist.reset_default()
+    tapi.AutoDist.reset_default()
+    try:
+        jstep = japi.AutoDist(strategy_builder=jstrat.AllReduce()).build(
+            spec.loss_fn, jparams, batch, optimizer=jmi.OptimizerSpec("rmsprop", kwargs))
+        tstep = tapi.AutoDist(strategy_builder=tstrat.AllReduce(), device="cpu").build(
+            get_model_spec("mlp").loss_fn, tparams, tbatch,
+            optimizer=tmi.OptimizerSpec("rmsprop", kwargs))
+        jpath = jstep.save(JSaver(str(tmp_path / "jax")),
+                           jstep.run(jstep.init(jparams), batch, 2)[0])
+        tpath = tstep.save(Saver(str(tmp_path / "port")),
+                           tstep.run(tstep.init(tparams), tbatch, 2)[0])
+        assert Saver.read_metadata(tpath) == JSaver.read_metadata(jpath)
+        names = Saver.read_metadata(tpath)["entries"]
+        assert any("/mu/" in n or n.endswith("count") for n in names)
+        # JAX's state through the port, the port's through JAX: bitwise.
+        back = tstep.init_or_restore(tparams, Saver(str(tmp_path / "jax")))
+        assert back.step == 2 and back.opt_state["count"] == 2
+        again = tstep.save(Saver(str(tmp_path / "port_again")), back)
+        jback = jstep.init_or_restore(jparams, JSaver(str(tmp_path / "port")))
+        jagain = jstep.save(JSaver(str(tmp_path / "jax_again")), jback)
+        reader = Saver(str(tmp_path))
+        for first, second in ((jpath, again), (tpath, jagain)):
+            want = flatten_params(reader.restore(first))
+            got = flatten_params(reader.restore(second))
+            assert sorted(got) == sorted(want)
+            for name, value in want.items():
+                np.testing.assert_array_equal(np.asarray(got[name]), np.asarray(value),
+                                              err_msg=name)
+    finally:
+        japi.AutoDist.reset_default()
+        tapi.AutoDist.reset_default()

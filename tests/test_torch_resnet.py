@@ -206,10 +206,16 @@ def test_batchnorm_matches_jax_custom_vjp(dtype, tol):
 
 
 def test_batchnorm_with_precomputed_sums_matches_reduction():
+    # BatchNormFn given the column sums, as conv_batchnorm gives it the
+    # fused op's, against batchnorm's own reduction.
     x, p, dy, _, tdt = _bn_inputs("float32")
     rows = _t(x).reshape(-1, 6).double()
     stats = (rows.sum(0).float(), (rows * rows).sum(0).float())
-    y, dx, dp = _torch_bn_vjp(L.batchnorm, x, p, dy, tdt, stats=stats)
+
+    def with_sums(q, tx):
+        return L.BatchNormFn.apply(q["scale"], q["bias"], tx, 1e-5, *stats)
+
+    y, dx, dp = _torch_bn_vjp(with_sums, x, p, dy, tdt)
     want_y, want_dx, want_dp = _torch_bn_vjp(L.batchnorm, x, p, dy, tdt)
     _assert_close(y, want_y.detach().numpy())
     _assert_close(dx, want_dx.numpy(), name="dx")

@@ -15,15 +15,20 @@ its own ``mesh:`` block. The runs, at ``--ranks`` (the world size, 4):
   model 4}``;
 - the MoE (12 layers, d_model 768, 8 experts, d_ff 3072, seq 128, batch 32)
   under ``AllReduce`` on ``{data 4}``, and with its experts split on
-  ``{data 2, expert 2}`` and ``{data 1, expert 4}``.
+  ``{data 2, expert 2}`` and ``{data 1, expert 4}``;
+- ResNet-50 (224 px, batch 128, bf16) under ``AllReduce`` on ``{data 4}``
+  and under ``TensorParallel`` on ``{data 2, model 2}`` and ``{data 1,
+  model 4}``: its convs split on ``cout`` and ``cin``, the fused conv-stats
+  kernel launched on each rank's column block (``--models resnet50``).
 
 Each: one warm-up step, then ``--steps`` steps (Adam 1e-4) timed on the
 host clock around work ending in a synchronize; rank 0 prints one JSON line
 a run: ms a step, the losses, the collectives of the last step by purpose
 and kind (``model`` / ``expert``: ``DTensor``'s own), the plan's data-axis
-wire, the flash kernels' launches and the heads they ran on, the peak
-memory, and the first loss's distance from rank 0's one-process step on
-the same global batch (the ``{data 1, ...}`` runs compute the same loss).
+wire, the flash kernels' launches and the heads they ran on, the fused
+conv-stats kernel's launches, images/s for ResNet, the peak memory, and the
+first loss's distance from rank 0's one-process step on the same global
+batch (the ``{data 1, ...}`` runs compute the same loss).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from autodist_tpu_torch.kernel import build_mesh  # noqa: E402
 from autodist_tpu_torch.model_item import ModelItem, OptimizerSpec  # noqa: E402
 from autodist_tpu_torch.models import get_model_spec  # noqa: E402
 from autodist_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from autodist_tpu_torch.ops import fused_conv_stats as fcs  # noqa: E402
 from autodist_tpu_torch.resource_spec import ResourceSpec  # noqa: E402
 from autodist_tpu_torch.runtime import process_group as pg  # noqa: E402
 from autodist_tpu_torch.strategy import AllReduce, StrategyCompiler, from_name  # noqa: E402
@@ -54,6 +60,8 @@ MODELS = {
     "moe": ("moe_transformer", {"num_layers": 12, "d_model": 768, "num_heads": 12,
                                 "d_ff": 3072, "num_experts": 8}, 32, "expert", "AllReduce",
             ("expert_",)),
+    "resnet50": ("resnet", {"depth": 50, "image_size": 224}, 128, "model", "TensorParallel",
+                 ()),
 }
 SMALL = {
     "bert_base": {"vocab_size": 64, "num_layers": 2, "d_model": 64, "num_heads": 4,
@@ -61,6 +69,7 @@ SMALL = {
                   "dtype": "float32"},
     "moe": {"vocab_size": 64, "num_layers": 2, "d_model": 32, "num_heads": 4, "d_ff": 64,
             "max_seq_len": 16, "num_experts": 4, "dtype": "float32"},
+    "resnet50": {"depth": 18, "image_size": 32, "num_classes": 10},
 }
 
 
@@ -107,6 +116,7 @@ def run(key, mesh, builder, spec, params, batch, experts, args, ref_loss, heads)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launches()
+    fcs.fused_matmul_stats.launches = 0
     heads.clear()
     losses = [float(first["loss"])]
     t0 = time.perf_counter()
@@ -117,6 +127,7 @@ def run(key, mesh, builder, spec, params, batch, experts, args, ref_loss, heads)
         torch.cuda.synchronize(dev)
     ms = (time.perf_counter() - t0) * 1e3 / args.steps
     plan = autodist.plan
+    images = batch["images"].shape[0] if isinstance(batch, dict) and "images" in batch else None
     return {"model": key, "strategy": builder, "mesh": mesh, "device": str(dev),
             "card": torch.cuda.get_device_name(dev) if cuda else "cpu",
             "ms_per_step": ms, "losses": [float(x) for x in losses],
@@ -128,6 +139,8 @@ def run(key, mesh, builder, spec, params, batch, experts, args, ref_loss, heads)
             "flash_launches": {"fwd": fa.flash_fwd.launches, "dkdv": fa.flash_dkdv.launches,
                                "dq": fa.flash_dq.launches},
             "flash_heads": sorted(heads),
+            "fused_conv_launches": fcs.fused_matmul_stats.launches,
+            "images_per_s": images / ms * 1e3 if images else None,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None}
 
 
