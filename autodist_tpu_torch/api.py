@@ -28,12 +28,13 @@ Several processes, one per device, train as one: started by
 and builds its mesh over it; rank 0 builds the strategy and the others
 receive it over the group. Each rank then calls the step with the same
 global batch (or assembles it with ``plan.global_batch_from_local``) and
-trains on its rows. A ``mesh:`` block of ``{data, model}`` or ``{data,
-expert}`` (over ``mesh_axes``, default ``("data", "model")`` as in JAX)
-shards the variables the plan puts on that axis (``TensorParallel``'s
-Megatron pairs, the MoE's experts under ``expert_names``) and runs the
-forward on ``DTensor``s (``kernel/lowering.py``); every zoo model trains
-so, the CNNs' convolutions on split weights through ``local_map``
+trains on its rows. A ``mesh:`` block (over ``mesh_axes``, default
+``("data", "model")`` as in JAX) may make any mix of ``data``, ``model``,
+``expert``, ``seq`` and ``pipe`` wider than 1 (``kernel/mesh.py``): the
+variables the plan puts on the model or expert axis (``TensorParallel``'s
+Megatron pairs, the MoE's experts under ``expert_names``) are sharded and
+the forward runs on ``DTensor``s (``kernel/lowering.py``); every zoo model
+trains so, the CNNs' convolutions on split weights through ``local_map``
 (``models/layers.py``). ``remat`` rematerialises the forward in the backward
 (:func:`_remat`); ``grad_accum_steps`` splits each step into micro-batches
 (``kernel/lowering.py``). A strategy that is ``sync=False`` throughout is

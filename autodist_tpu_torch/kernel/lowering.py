@@ -68,10 +68,13 @@ The synchronizer's options:
   a variable that is not sharded over the data axis syncs through its
   compressor's ``step`` (a sharded one ignores it, with a warning, as
   JAX does). A variable split over the model or expert axis syncs its
-  block through an elementwise compressor (Horovod, Horovod-EF); PowerSGD
-  and TopK on one raise, since JAX compresses the logical gradient and a
-  low-rank factor or top-k of a block is not that of the whole (ROADMAP.md,
-  Queue 3). Any active compressor puts the step into the manual
+  block through an elementwise compressor (Horovod, Horovod-EF). PowerSGD
+  and TopK compress its logical gradient, as JAX does (a low-rank factor
+  or top-k of a block is not that of the whole): the blocks are
+  all-gathered over the variable's own axis (counted under that axis's
+  name), the compressor runs on the whole, and each rank keeps its block
+  of the result; their state is the whole variable's, the same on every
+  rank of that axis. Any active compressor puts the step into the manual
   semantics. ``state.comp_state[name]`` holds ``{"local": ..., "shared":
   ...}``: this rank's own EF residual (JAX keeps the ranks' residuals under
   a leading data-axis dimension) and the state every rank shares
@@ -99,11 +102,14 @@ raises, and ``AutoDist.build`` routes it to ``runtime/async_ps.py``.
 padded and sparse row-split variables on that axis (the JAX package's
 ``_shard_axis_name``) and the MoE's ``[E, ...]`` kernels on ``expert``; the
 plan renders them ``("partitioned", dim)`` / ``("expert", 0)``, JAX's
-``promised_wire`` names. The state holds this rank's block. The step
-renders the JAX step's GSPMD forward with ``torch.distributed.tensor``:
-each split block enters the loss as a ``DTensor`` (``Shard(dim)`` on the
-axis's one-dim ``DeviceMesh``), every other parameter and each batch leaf
-as a ``Replicate`` one, and the forward and its backward run under
+``promised_wire`` names. Each variable is split over one axis at most, as
+in JAX's plans. The state holds this rank's block. The step renders the
+JAX step's GSPMD forward with ``torch.distributed.tensor``: each split
+block enters the loss as a ``DTensor`` on the mesh's shard mesh (the
+``DeviceMesh`` of the wide model and/or expert axes, one dim or two),
+``Shard(dim)`` on its own axis's dim and ``Replicate`` on the other,
+every other parameter and each batch leaf as a ``Replicate`` one, and
+the forward and its backward run under
 ``DTensor``'s sharding propagation and ``implicit_replication`` (for the
 plain tensors a model makes itself), which derive the collectives as GSPMD
 does. The choice keeps the models sharding-agnostic, as JAX's are under
@@ -114,10 +120,12 @@ the data-axis sync above then runs on those local blocks over the data
 subgroup; the optimizer updates blocks in place, its slots block-shaped.
 Its whole-tensor reductions (the global norm of ``clip_norm``, lamb's trust
 ratios, adafactor's factored moments and RMS) add each block's partial sum
-over the group that holds the variable's other blocks: the model group for
-a model-split variable, the data group for a ZeRO-1, sharded or sparse one,
-and count a replicated leaf once. ``DTensor``'s collectives are counted
-under the axis's name.
+over the group that holds the variable's other blocks: its own axis's
+group for a model- or expert-split variable, the data group for a ZeRO-1,
+sharded or sparse one, and count a replicated leaf once. ``DTensor``'s
+collectives are counted under the name of the axis whose group issues
+them. Ranks along a seq or pipe axis hold every parameter whole, replicated
+as over the data ranks of one block.
 
 :class:`DistributedTrainStep` keeps the JAX step's interface: ``init``,
 ``__call__``, ``run(state, batch, num_steps, stacked=False)`` (a Python
@@ -175,6 +183,7 @@ from autodist_tpu_torch.strategy.ir import (
 from autodist_tpu_torch.obs import recorder as flight
 from autodist_tpu_torch.obs import spans as obs_spans
 from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.placement import placement_list
 
 #: Train steps running now in this process (their state is being updated in
 #: place): the preemption hook (``ft/snapshot.py``) takes no snapshot while
@@ -604,7 +613,7 @@ class ShardingPlan:
             return kind, p.storage_dim
         if p is None or self.mesh.data_size == 1:
             return "replicated", None
-        if p.storage_dim == 0 and p.var.sparse_update and self.mesh.shard_axis is None:
+        if p.storage_dim == 0 and p.var.sparse_update and not self.mesh.shard_axes:
             if not (self.manual_semantics() if manual is None else manual):
                 return "sparse", 0
         if p.storage_dim is not None:
@@ -758,7 +767,7 @@ class ShardingPlan:
             if name in in_bucket:
                 continue
             if name in compressors:
-                for k, c in compressors[name].collectives(self.local_shape(name)).items():
+                for k, c in compressors[name].collectives(self.compressed_shape(name)).items():
                     counts[k] += c
                 continue
             counts["reduce_scatter" if data_wire else "all_reduce"] += 1
@@ -878,6 +887,15 @@ class ShardingPlan:
         shape[p.storage_dim] //= self.mesh.shape[p.storage_axis]
         return tuple(shape)
 
+    def compressed_shape(self, name: str) -> Tuple[int, ...]:
+        """The shape of the gradient a variable's compressor takes: the
+        logical shape under a compressor of :data:`_WHOLE_GRADIENT` (JAX
+        compresses the logical gradient), else :meth:`local_shape`."""
+        p = self.var_plans[name]
+        if p.model_sharded and get_compressor(p.compressor).name in _WHOLE_GRADIENT:
+            return tuple(p.var.shape)
+        return self.local_shape(name)
+
     def describe(self) -> str:
         """One line per variable, in the JAX plan's ``describe`` layout."""
         ax = self.mesh.data_axis
@@ -918,27 +936,23 @@ class DistributedTrainStep:
         self.tx = optimizer
         self.has_aux = has_aux
         self.accum = grad_accum_steps
-        for name, comp in plan.compressors().items():
-            p = plan.var_plans[name]
-            if p.model_sharded and comp.name in _WHOLE_GRADIENT:
-                raise NotImplementedError(
-                    f"{comp.name} on {name}, which the plan splits over the "
-                    f"{p.storage_axis} axis: JAX compresses the whole gradient, the port "
-                    "would compress each rank's block; not ported yet, see ROADMAP.md "
-                    "(Queue 3)")
         mesh = plan.mesh
         self.n, self.rank = mesh.data_size, mesh.data_rank
         self.coll = pg.Collectives(mesh.group)
-        # Tensor / expert parallelism: the one-dim DeviceMesh of that axis.
-        self.shard_axis = mesh.shard_axis
+        # Tensor / expert parallelism: the DeviceMesh of those axes (one dim
+        # or two), and per axis its size, this rank's coordinate and its
+        # group's collectives.
+        self.shard_axes = mesh.shard_axes
         self.dmesh = mesh.shard_mesh()
-        if self.shard_axis is not None and self.dmesh is None:
-            raise ValueError(f"mesh axis {self.shard_axis} needs a process group")
-        self.n_shard = mesh.shape[self.shard_axis] if self.shard_axis else 1
-        self.shard_rank = mesh.coords[self.shard_axis] if self.shard_axis else 0
-        self.world = self.coll.over(mesh.world_group) if self.shard_axis else self.coll
-        self.shard_coll = (self.coll.over(self.dmesh.get_group())
-                           if self.shard_axis else None)
+        if self.shard_axes and self.dmesh is None:
+            raise ValueError(f"mesh axes {self.shard_axes} need a process group")
+        self.n_shard = {ax: mesh.shape[ax] for ax in self.shard_axes}
+        self.shard_rank = {ax: mesh.coords[ax] for ax in self.shard_axes}
+        self.world = self.coll.over(mesh.world_group) if self.shard_axes else self.coll
+        self.shard_coll = {ax: self.coll.over(mesh.axis_group(ax, required=True))
+                           for ax in self.shard_axes}
+        self.shard_ranks = {ax: tuple(torch.distributed.get_process_group_ranks(c.group))
+                            for ax, c in self.shard_coll.items()}
         if mesh.group is None and self.n > 1:
             raise ValueError(f"a data axis of {self.n} needs a process group")
         if mesh.group is not None and self.coll.size != self.n:
@@ -951,6 +965,10 @@ class DistributedTrainStep:
             buckets = ()
         self.buckets = buckets
         self.compressors = plan.compressors(warn=True)
+        # Split variables whose compressor takes the logical gradient.
+        self.whole_grad = {name for name, comp in self.compressors.items()
+                           if plan.var_plans[name].model_sharded
+                           and comp.name in _WHOLE_GRADIENT}
         # The JAX step's manual sync (shard_map): per-shard batch statistics,
         # sparse tables moved whole.
         self.manual = plan.manual_semantics(bucketed=grad_accum_steps == 1)
@@ -987,43 +1005,53 @@ class DistributedTrainStep:
         kind, d = self._render(name)
         return _block(t, d, self.n, self.rank) if kind == "zero1" else t
 
+    def _split_axis(self, name: str) -> Optional[str]:
+        """The model or expert axis a variable is split over, else None."""
+        kind, _ = self._render(name)
+        return self.plan.var_plans[name].storage_axis if kind in _MODEL_KINDS else None
+
     def _layout(self, params) -> List[Optional[Tuple[int, Tuple[int, ...], str]]]:
         """Per floating leaf, ``(dim, storage shape, axis)`` when the
         optimizer sees a block of it, else None: ``axis`` names the group
-        holding its other blocks, ``"model"`` for a variable split on the
-        model (expert) axis, ``"data"`` for a ZeRO-1, sharded or sparse
-        one."""
+        holding its other blocks, the variable's own axis (``"model"`` or
+        ``"expert"``) for one split on the model or expert axis, ``"data"``
+        for a ZeRO-1, sharded or sparse one."""
         out = []
         for name, _ in self._floating(params):
             kind, d = self._render(name)
-            axis = "model" if kind in _MODEL_KINDS else "data"
+            axis = self._split_axis(name) or "data"
             out.append(None if kind == "replicated" else
                        (d, self.plan.var_plans[name].shape, axis))
         return out
 
     def _psum(self, t: torch.Tensor, lay) -> torch.Tensor:
         """Sum a partial sum of blocks over the ranks holding the other
-        blocks: the model (expert) group for the blocks of a variable
-        split on that axis (replicated over the data ranks), else the data
-        group (those of a ZeRO-1, sharded or sparse variable, replicated
-        over the model ranks). No block is counted twice."""
-        coll = self.shard_coll if lay[2] == "model" else self.coll
-        coll.all_reduce(t, "optimizer")
+        blocks: the model or expert group for the blocks of a variable
+        split on that axis (replicated over the data ranks and the other
+        axes), else the data group (those of a ZeRO-1, sharded or sparse
+        variable, replicated over the model ranks). No block is counted
+        twice."""
+        self.shard_coll.get(lay[2], self.coll).all_reduce(t, "optimizer")
         return t
 
     # ------------------------------------------------- tensor parallelism
     def _placements(self, name: str):
+        """A variable's placements on the shard mesh: ``Shard(dim)`` on its
+        own axis's dim when it is split, ``Replicate`` elsewhere."""
         from torch.distributed.tensor import Replicate, Shard
 
-        kind, d = self._render(name)
-        return [Shard(d)] if kind in _MODEL_KINDS else [Replicate()]
+        ax = self._split_axis(name)
+        return placement_list(self.dmesh, ax,
+                              Shard(self._render(name)[1]) if ax else Replicate())
 
     def _dtensor(self, t: torch.Tensor, placements=None):
         """``t`` (this rank's block, or the whole) as a ``DTensor`` on the
-        model / expert mesh (``Replicate`` by default); differentiable."""
+        shard mesh (``Replicate`` on every dim by default);
+        differentiable."""
         from torch.distributed.tensor import DTensor, Replicate
 
-        return DTensor.from_local(t, self.dmesh, placements or [Replicate()],
+        return DTensor.from_local(t, self.dmesh,
+                                  placements or placement_list(self.dmesh, None, Replicate()),
                                   run_check=False)
 
     @contextlib.contextmanager
@@ -1031,13 +1059,15 @@ class DistributedTrainStep:
         """The block a forward (and its backward) runs in: under tensor or
         expert parallelism, ``DTensor``'s implicit replication of plain
         tensors (the models' own ``arange``s and masks) and the count of
-        its collectives under the axis's purpose; else nothing."""
-        if self.shard_axis is None:
+        its collectives, each under the name of the axis whose group
+        issued it; else nothing."""
+        if not self.shard_axes:
             yield
             return
         from torch.distributed.tensor.experimental import implicit_replication
 
-        with self.coll.count_dtensor(self.shard_axis), implicit_replication():
+        with self.coll.count_dtensor(self.shard_axes[0], self.shard_ranks), \
+                implicit_replication():
             yield
 
     @staticmethod
@@ -1049,11 +1079,11 @@ class DistributedTrainStep:
 
     def _loss(self, params, batch):
         """``(loss, aux)`` of the loss function, plain tensors."""
-        if self.shard_axis is not None:
+        if self.shard_axes:
             batch = map_tree(self._dtensor, batch)
         out = self.loss_fn(params, batch)
         loss, aux = out if self.has_aux else (out, None)
-        if self.shard_axis is not None:
+        if self.shard_axes:
             loss = self._local(loss)
             aux = map_params(self._local, aux) if aux is not None else None
         return loss, aux
@@ -1131,8 +1161,9 @@ class DistributedTrainStep:
             if kind in _DATA_BLOCKS:
                 t = _block(self.plan.pad(name, t), d, self.n, self.rank).contiguous()
             elif kind in _MODEL_KINDS:
-                t = _block(self.plan.pad(name, t), d, self.n_shard,
-                           self.shard_rank).contiguous()
+                ax = self._split_axis(name)
+                t = _block(self.plan.pad(name, t), d, self.n_shard[ax],
+                           self.shard_rank[ax]).contiguous()
             return t.requires_grad_(True) if t.is_floating_point() else t
 
         params = _map_named(place, params)
@@ -1151,10 +1182,14 @@ class DistributedTrainStep:
 
     def _init_comp_state(self) -> Dict[str, Any]:
         """Each compressed variable's ``{"local", "shared"}`` state on this
-        rank's device; shared state is broadcast from rank 0."""
+        rank's device, shaped like the gradient its compressor takes (a
+        split variable's block, or under :data:`_WHOLE_GRADIENT` its
+        logical shape); shared state is broadcast from rank 0."""
         dev, out = self.plan.device, {}
         for name, comp in self.compressors.items():
-            var = replace(self.plan.var_plans[name].var, shape=self.plan.local_shape(name))
+            var = self.plan.var_plans[name].var
+            if name not in self.whole_grad:
+                var = replace(var, shape=self.plan.local_shape(name))
             local = {k: t.to(dev) for k, t in comp.init_local(var).items()}
             shared = {k: self.coll.broadcast(t.to(dev).contiguous(), "init")
                       for k, t in comp.init_shared(var).items()}
@@ -1175,7 +1210,7 @@ class DistributedTrainStep:
                 t = t.to(self.plan.device)
                 t = self.plan.unpad(name, self.coll.all_gather(t, d, "view"))
             elif kind in _MODEL_KINDS:
-                t = self.plan.unpad(name, self.shard_coll.all_gather(
+                t = self.plan.unpad(name, self.shard_coll[self._split_axis(name)].all_gather(
                     t.to(self.plan.device), d, "view"))
             return t
 
@@ -1202,20 +1237,30 @@ class DistributedTrainStep:
             return blocks, None, None
         return blocks, r, t.narrow(dim, 0, min(per_rank, size - lo))
 
+    def _first_holder(self, *split: str) -> bool:
+        """Whether this rank is the first of those that hold its block of
+        a leaf split over the ``split`` axes (``"data"``: the batch axis):
+        its coordinate is 0 on every other axis."""
+        mesh = self.plan.mesh
+        split = {mesh.data_axis if ax == "data" else ax for ax in split}
+        return all(c == 0 for ax, c in mesh.coords.items() if ax not in split)
+
     def _leaf(self, t: torch.Tensor, logical, dim: Optional[int], per_rank: int = 0,
               axis: str = "data", restore: bool = False):
         """A state tensor as a checkpoint leaf: whole (the same on every
         rank) when ``dim`` is None, else this rank's :class:`ShardedLeaf`
-        block of a split over the data axis or (``axis="model"``) the model
-        or expert axis; and the view of ``t`` that holds its logical data.
-        Of the ranks holding one block, only the first along the other axis
-        writes it; as a ``restore`` target every rank lists its block."""
+        block of a split over the data axis or (``axis="model"`` or
+        ``"expert"``) that axis; and the view of ``t`` that holds its
+        logical data. Of the ranks holding one block, only the first along
+        the other axes writes it; as a ``restore`` target every rank lists
+        its block."""
         if dim is None:
             return t, t
         if axis == "data":
-            n, r, first = self.n, self.rank, self.shard_rank == 0
+            n, r = self.n, self.rank
         else:
-            n, r, first = self.n_shard, self.shard_rank, self.rank == 0
+            n, r = self.n_shard[axis], self.shard_rank[axis]
+        first = self._first_holder(axis)
         blocks, j, view = self._split(t, tuple(logical), dim, per_rank, n, r)
         local = {j: view} if j is not None and (first or restore) else {}
         return ShardedLeaf(tuple(logical), t.dtype, blocks, local), view
@@ -1245,8 +1290,9 @@ class DistributedTrainStep:
                 return self._leaf(t, t.shape, None)
             logical = tuple(t.shape[:lead]) + tuple(p.var.shape)
             if kind in _MODEL_KINDS:
-                return self._leaf(t, logical, lead + d, p.shape[d] // self.n_shard,
-                                  "model", restore)
+                ax = self._split_axis(name)
+                return self._leaf(t, logical, lead + d, p.shape[d] // self.n_shard[ax], ax,
+                                  restore)
             return self._leaf(t, logical, lead + d, p.shape[d] // self.n, restore=restore)
 
         for name, t in flatten_params(state.params).items():
@@ -1278,7 +1324,7 @@ class DistributedTrainStep:
         for name, st in state.comp_state.items():
             for k, t in st["local"].items():
                 stacked = t.unsqueeze(0)
-                if plans[name].model_sharded:
+                if plans[name].model_sharded and name not in self.whole_grad:
                     out.append((f"comp_state/{name}/local/{k}",)
                                + self._model_split_local(name, stacked, restore))
                     continue
@@ -1286,6 +1332,8 @@ class DistributedTrainStep:
                     out.append((f"comp_state/{name}/local/{k}", stacked, stacked))
                     continue
                 logical = (self.n,) + tuple(t.shape)
+                # A whole-gradient state is the same on the ranks of the
+                # variable's axis; the first of them writes it.
                 out.append((f"comp_state/{name}/local/{k}",)
                            + self._leaf(stacked, logical, 0, 1, restore=restore))
             for k, t in st["shared"].items():
@@ -1298,16 +1346,18 @@ class DistributedTrainStep:
         """A compressor's local state of a model-split variable (this rank's
         ``[1, block]``) as a checkpoint leaf: JAX's ``[n, *var.shape]``
         stack, one row a data rank, as the variable's own
-        :class:`ShardedLeaf` gives it: each rank writes its model block of
-        its row (every rank's block is its own)."""
+        :class:`ShardedLeaf` gives it: each rank writes its block of its
+        row, the first of the ranks holding that block (along the axes
+        other than the data and the variable's own)."""
         p = self.plan.var_plans[name]
-        d = self._render(name)[1]
+        d, ax = self._render(name)[1], self._split_axis(name)
         logical = (self.n,) + tuple(p.var.shape)
-        cols, j, view = self._split(stacked, logical, d + 1, p.shape[d] // self.n_shard,
-                                    self.n_shard, self.shard_rank)
+        cols, j, view = self._split(stacked, logical, d + 1, p.shape[d] // self.n_shard[ax],
+                                    self.n_shard[ax], self.shard_rank[ax])
         blocks = [((i,) + start[1:], (i + 1,) + stop[1:])
                   for i in range(self.n) for start, stop in cols]
-        local = {} if j is None else {self.rank * len(cols) + j: view}
+        first = self._first_holder("data", ax)
+        local = {} if j is None or not (first or restore) else {self.rank * len(cols) + j: view}
         return ShardedLeaf(logical, stacked.dtype, blocks, local), view
 
     def _factored_leaf(self, name: str, field: str, t: torch.Tensor,
@@ -1327,8 +1377,9 @@ class DistributedTrainStep:
             return self._leaf(t, t.shape, None)
         logical = tuple(s for i, s in enumerate(full) if i != removed)
         if kind in _MODEL_KINDS:
-            return self._leaf(t, logical, d - (d > removed), full[d] // self.n_shard,
-                              "model", restore)
+            ax = self._split_axis(name)
+            return self._leaf(t, logical, d - (d > removed), full[d] // self.n_shard[ax], ax,
+                              restore)
         return self._leaf(t, logical, d - (d > removed), full[d] // self.n,
                           restore=restore)
 
@@ -1407,10 +1458,14 @@ class DistributedTrainStep:
         to its logical shape, a sparse one's block is wrapped as a
         :class:`~autodist_tpu_torch.kernel.sparse.RowSplitTable`; the
         others (and the sparse blocks) are their own targets."""
-        if not self._sharded and self.shard_axis is None:
+        if not self._sharded and not self.shard_axes:
             return params, dict(self._floating(params))
         targets, gathered = {}, {}
-        wrap = self._dtensor if self.shard_axis is not None else (lambda t, pl=None: t)
+        def wrap(t, name=None):
+            """``t`` on the shard mesh (placed as ``name`` is), if any."""
+            if not self.shard_axes:
+                return t
+            return self._dtensor(t, self._placements(name) if name else None)
 
         def view(name, t):
             if not t.is_floating_point():
@@ -1422,7 +1477,7 @@ class DistributedTrainStep:
                                      self.rank, gathered=gathered)
             if kind != "sharded":
                 targets[name] = t
-                return self.plan.unpad(name, wrap(t, self._placements(name)))
+                return self.plan.unpad(name, wrap(t, name))
             with torch.no_grad():
                 full = self.coll.all_gather(t.detach(), d, "param")
             full = full.detach().requires_grad_(True)
@@ -1512,12 +1567,23 @@ class DistributedTrainStep:
             if kind == "sparse":
                 out[name] = g       # averaged over ranks in the backward
             elif name in self.compressors:
+                if name in self.whole_grad:
+                    # A split variable: JAX's manual sync compresses the
+                    # logical gradient, so the step runs on the unpadded
+                    # whole and this rank keeps its block of the result.
+                    ax = self._split_axis(name)
+                    g = self.plan.unpad(
+                        name, self.shard_coll[ax].all_gather(g, d, ax)).contiguous()
                 st = comp_state[name]
-                out[name], local, shared = self.compressors[name].step(
+                synced, local, shared = self.compressors[name].step(
                     g, st["local"], st["shared"], self.coll)
                 for old, new in ((st["local"], local), (st["shared"], shared)):
                     for k, t in new.items():
                         old[k].copy_(t)
+                if name in self.whole_grad:
+                    synced = _block(self.plan.pad(name, synced), d, self.n_shard[ax],
+                                    self.shard_rank[ax]).contiguous()
+                out[name] = synced
             elif kind == "replicated" or kind in _MODEL_KINDS:
                 self.coll.all_reduce(g, "grad", mean=True)
                 out[name] = g

@@ -8,24 +8,29 @@ equal the group's world size, or :func:`build_mesh` raises. Planning reads
 only the axis sizes, so :meth:`Mesh.logical` gives a mesh of any size
 without a group, for plans and their tests.
 
-Besides the batch (``data``) axis, one of ``model`` (tensor parallelism)
-or ``expert`` (expert parallelism) may be larger than 1. Such a mesh
-carries a ``torch.distributed`` ``DeviceMesh`` of two dims, the data axis
-and that axis (``device_mesh``), whose data-dim subgroup is ``group``: the
-ranks that share this rank's model (or expert) coordinate, over which the
-gradients are synced. The batch is sharded over the data axis only, as the
-JAX package's ``data_sharding`` does: the ranks of one model group see the
-same rows.
+Besides the batch (``data``) axis, any of ``model`` (tensor parallelism),
+``expert`` (expert parallelism), ``seq`` (ring / Ulysses attention,
+``parallel/``) and ``pipe`` (pipeline stages) may be larger than 1, in any
+mix. Such a mesh carries one ``torch.distributed`` ``DeviceMesh`` over the
+world group (``device_mesh``) whose dims are the batch axis and every other
+axis larger than 1, in ``axis_names`` order. Its subgroups are the mesh's
+groups:
 
-Instead, one of ``seq`` (ring / Ulysses attention, ``parallel/``) or
-``pipe`` (pipeline stages) may be larger than 1 beside the data axis.
-:func:`build_mesh` then forms two subgroups of the world group: that axis's
-group (:meth:`Mesh.axis_group`: the ranks sharing this rank's data
-coordinate) and the data group (``group``: the ranks sharing this rank's
-seq or pipe coordinate), so the gradient sync and ``data_rank`` keep their
-meaning. A seq or pipe axis beside a wide model or expert axis, ``seq``
-with ``pipe``, and a mesh with both ``model`` and ``expert`` larger than 1
-raise ``NotImplementedError`` (ROADMAP.md).
+- ``group``, the data group: the ranks that share this rank's coordinate
+  on every other axis, over which the gradients are synced. The batch is
+  sharded over the data axis only, as the JAX package's ``data_sharding``
+  does: the ranks of one model, expert, seq or pipe group see the same
+  rows;
+- :meth:`Mesh.axis_group` of ``seq`` or ``pipe``: the ranks that share
+  every coordinate but that one, ordered by it;
+- :meth:`Mesh.shard_mesh`: the sub-mesh of the wide ``model`` and/or
+  ``expert`` dims (:attr:`Mesh.shard_axes`), one dim or two, on which
+  split variables live as ``DTensor``s.
+
+Ranks along a seq or pipe axis hold every parameter whole and split the
+work of one data block (the seq ranks compute the rest of the model
+redundantly, as GSPMD's replication does); stage parameters are replicated
+over every axis but ``pipe``, as the JAX package's ``_stage_spec`` does.
 """
 from __future__ import annotations
 
@@ -55,9 +60,9 @@ GROUP_AXES = (const.MESH_AXIS_SEQ, const.MESH_AXIS_PIPE)
 @dataclass(frozen=True)
 class Mesh:
     """Named logical axes (row-major over ``axis_names``), this process's
-    rank and device, the group of the data axis and, with a model or
-    expert axis, the ``DeviceMesh`` over (data axis, that axis); with a
-    seq or pipe axis, that axis's group (``axis_groups``)."""
+    rank and device, the group of the data axis and, with any other axis
+    larger than 1, the ``DeviceMesh`` over the batch axis and those axes
+    (the module docstring)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -66,7 +71,6 @@ class Mesh:
     group: Any = field(default=None, compare=False)
     device_mesh: Any = field(default=None, compare=False)
     world_group: Any = field(default=None, compare=False)
-    axis_groups: Dict[str, Any] = field(default_factory=dict, compare=False)
 
     @classmethod
     def logical(cls, shape: Dict[str, int], device="cpu") -> "Mesh":
@@ -108,34 +112,31 @@ class Mesh:
         return self.coords[self.data_axis]
 
     @property
-    def shard_axis(self) -> Optional[str]:
-        """The model or expert axis when it is larger than 1, else None."""
-        wide = [ax for ax in SHARD_AXES if self.shape.get(ax, 1) > 1]
-        return wide[0] if wide else None
-
-    @property
-    def group_axis(self) -> Optional[str]:
-        """The seq or pipe axis when it is larger than 1, else None."""
-        wide = [ax for ax in GROUP_AXES if self.shape.get(ax, 1) > 1]
-        return wide[0] if wide else None
+    def shard_axes(self) -> Tuple[str, ...]:
+        """The model and/or expert axes larger than 1, in ``axis_names``
+        order: the dims of :meth:`shard_mesh` (0, 1 or 2 of them)."""
+        return tuple(ax for ax in self.axis_names
+                     if ax in SHARD_AXES and self.shape[ax] > 1)
 
     def axis_group(self, name: str, required: bool = False):
         """The process group of the ranks that share this rank's coordinate
-        on every axis but ``name`` (a seq or pipe axis larger than 1),
-        ordered by their coordinate on it; None without one, or a
-        ValueError when ``required``."""
-        group = self.axis_groups.get(name)
+        on every axis but ``name`` (an axis larger than 1), ordered by
+        their coordinate on it; None without one, or a ValueError when
+        ``required``."""
+        dims = getattr(self.device_mesh, "mesh_dim_names", None) or ()
+        group = self.device_mesh.get_group(name) if name in dims else None
         if group is None and required:
             raise ValueError(f"mesh axis {name!r}={self.shape.get(name, 1)} has no process "
                              "group (a logical mesh plans only)")
         return group
 
     def shard_mesh(self):
-        """The one-dim ``DeviceMesh`` of :attr:`shard_axis` this rank lies
-        on (None without one)."""
-        if self.device_mesh is None:
+        """The ``DeviceMesh`` of :attr:`shard_axes` this rank lies on: one
+        dim or two (None without a group or a shard axis)."""
+        axes = self.shard_axes
+        if self.device_mesh is None or not axes:
             return None
-        return self.device_mesh[self.shard_axis]
+        return self.device_mesh[axes if len(axes) > 1 else axes[0]]
 
 
 def _data_axis_name(names: Sequence[str], sizes: Dict[str, int]) -> str:
@@ -163,22 +164,13 @@ def data_axis(mesh: Mesh) -> str:
 
 
 def _check_axes(shape: Dict[str, int], batch_axis: str) -> None:
-    """Raise for the axes the port does not render: a wide axis other than
-    the batch one and the known roles, ``model`` and ``expert`` both wide,
-    or a wide ``seq`` or ``pipe`` axis beside another wide non-data axis."""
+    """Raise for a wide axis other than the batch one and the known roles
+    (the port renders any mix of those)."""
     other = {ax: d for ax, d in shape.items()
              if d > 1 and ax != batch_axis and ax not in SHARD_AXES + GROUP_AXES}
     if other:
         raise NotImplementedError(f"mesh axes {other} beside the batch axis "
                                   f"{batch_axis!r} are not ported; see ROADMAP.md")
-    wide = [ax for ax in SHARD_AXES if shape.get(ax, 1) > 1]
-    if len(wide) > 1:
-        raise NotImplementedError(f"a mesh with both {wide} larger than 1 is not "
-                                  "ported yet; see ROADMAP.md")
-    grouped = [ax for ax in GROUP_AXES if shape.get(ax, 1) > 1]
-    if grouped and len(wide + grouped) > 1:
-        raise NotImplementedError(f"a mesh with {wide + grouped} larger than 1 together "
-                                  "is not ported yet; see ROADMAP.md (Queue 1 item 5)")
 
 
 def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
@@ -187,11 +179,10 @@ def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
     ``group`` (world size 1 without one) and its device, ``cuda:LOCAL_RANK``
     (``device`` default ``"cuda"``) or the CPU. The spec's axis sizes (its
     ``mesh:`` block in any row-major order, the other ``axes`` of size 1)
-    must multiply to the world size. With a model or expert axis larger
-    than 1 the ``DeviceMesh`` of the data axis and that axis is built over
-    ``group`` (every rank calls this) and the data group is its subgroup;
-    with a seq or pipe axis larger than 1, that axis's group and the data
-    group are subgroups of ``group``."""
+    must multiply to the world size. With an axis other than the batch one
+    larger than 1, the ``DeviceMesh`` of the batch axis and every such axis
+    is built over ``group`` (every rank calls this) and the mesh's groups
+    are its subgroups (the module docstring)."""
     dev = resolve_device(device)
     world = torch.distributed.get_world_size(group) if group is not None else 1
     rank = torch.distributed.get_rank(group) if group is not None else 0
@@ -210,45 +201,22 @@ def build_mesh(resource_spec: Optional[ResourceSpec] = None, device=None,
     device = pg.local_device(dev, rank)
     mesh = Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
                 group=group, world_group=group)
-    if mesh.group_axis is not None:
-        return _with_axis_groups(mesh, batch_axis)
-    wide = mesh.shard_axis
-    if wide is None:
+    dims = tuple(ax for ax in names if ax == batch_axis or shape[ax] > 1)
+    wide = [ax for ax in dims if ax != batch_axis]
+    if not wide:
         return mesh
     if group is None:
-        raise ValueError(f"mesh axis {wide}={shape[wide]} needs a process group")
+        raise ValueError(f"mesh axes {wide} larger than 1 need a process group")
     from torch.distributed.device_mesh import DeviceMesh
 
-    grid = torch.arange(world).reshape([shape[ax] for ax in names])
-    grid = grid.permute(names.index(batch_axis), names.index(wide),
-                        *[i for i, ax in enumerate(names) if ax not in (batch_axis, wide)])
-    grid = grid.reshape(shape[batch_axis], shape[wide])
-    dmesh = DeviceMesh(device.type, grid, mesh_dim_names=(batch_axis, wide))
-    return Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
-                group=dmesh.get_group(batch_axis), device_mesh=dmesh, world_group=group)
-
-
-def _with_axis_groups(mesh: Mesh, batch_axis: str) -> Mesh:
-    """``mesh`` with its seq or pipe axis's group and, as ``group``, the
-    data group: two enumerations of subgroups of the world group (every
-    rank forms every subgroup, in the same order)."""
-    axis = mesh.group_axis
-    if mesh.world_group is None:
-        raise ValueError(f"mesh axis {axis}={mesh.shape[axis]} needs a process group")
-    names = mesh.axis_names
-    grid = torch.arange(mesh.size).reshape([mesh.shape[ax] for ax in names])
-
-    def along(ax: str):
-        # One list per coordinate of the other axes: the ranks along ``ax``.
-        lines = grid.movedim(names.index(ax), -1).reshape(-1, mesh.shape[ax])
-        return [line.tolist() for line in lines]
-
-    own, _ = torch.distributed.new_subgroups_by_enumeration(along(axis))
-    data, _ = torch.distributed.new_subgroups_by_enumeration(along(batch_axis))
-    for g in (own, data):
-        # A first collective with every rank of the group: NCCL's
+    # Row-major over every axis; the axes of size 1 drop out of the grid.
+    grid = torch.arange(world).reshape([shape[ax] for ax in dims])
+    dmesh = DeviceMesh(device.type, grid, mesh_dim_names=dims)
+    data = dmesh.get_group(batch_axis)
+    if any(ax in GROUP_AXES for ax in wide):
+        # A first collective with every rank of each group: NCCL's
         # point-to-point batches need one before their first use.
-        torch.distributed.all_reduce(torch.zeros(1, device=mesh.device), group=g)
-    return Mesh(axis_names=names, shape=dict(mesh.shape), rank=mesh.rank,
-                device=mesh.device, group=data, world_group=mesh.world_group,
-                axis_groups={axis: own})
+        for g in [data] + [dmesh.get_group(ax) for ax in wide if ax in GROUP_AXES]:
+            torch.distributed.all_reduce(torch.zeros(1, device=device), group=g)
+    return Mesh(axis_names=names, shape=dict(shape), rank=rank, device=device,
+                group=data, device_mesh=dmesh, world_group=group)

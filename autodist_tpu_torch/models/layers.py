@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from autodist_tpu_torch.ops import fused_conv_stats as fcs
 from autodist_tpu_torch.runtime import process_group as pg
+from autodist_tpu_torch.utils.placement import placement_list, split_of
 
 
 # ------------------------------------------------------------------ initializers
@@ -128,37 +129,42 @@ def embedding_lookup(p, ids):
 
 
 def _split_by_rows(t) -> bool:
-    """A ``DTensor`` split by rows over its (one-dim) mesh."""
-    from torch.distributed.tensor import DTensor, Shard
+    """A ``DTensor`` split by rows over one dim of its mesh."""
+    from torch.distributed.tensor import Shard
 
-    return isinstance(t, DTensor) and tuple(t.placements) == (Shard(0),)
+    split = split_of(t)
+    return split is not None and split.placement == Shard(0)
 
 
 def _rows_held(table, ids, lo: int):
     """This rank's part of a row gather: the rows of ``table`` (rows ``lo``
-    on of the whole) that ``ids`` name, zeros for the others."""
+    on of the whole) that ``ids`` name, zeros for the others. An index
+    read, as the whole table's is: on a one-rank mesh its backward sums a
+    row's gradients in the same order as the plain lookup's."""
     local = ids - lo
     held = (local >= 0) & (local < table.shape[0])
-    rows = F.embedding(torch.where(held, local, torch.zeros_like(local)), table)
+    rows = table[torch.where(held, local, torch.zeros_like(local))]
     return rows * held[..., None].to(rows.dtype)
 
 
 def _vocab_parallel_lookup(table, ids):
-    """Megatron's vocab-parallel embedding on a ``Shard(0)`` table: each
-    rank gathers the rows it holds (``local_map``), the partial sums are
-    all-reduced once. The same values as the whole table's gather (one
-    nonzero term a row), in any torch version's ``DTensor``."""
+    """Megatron's vocab-parallel embedding on a table split by rows
+    (``Shard(0)`` on one mesh dim): each rank gathers the rows it holds
+    (``local_map``), the partial sums are all-reduced once over that dim.
+    The same values as the whole table's gather (one nonzero term a row),
+    in any torch version's ``DTensor``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    mesh = table.device_mesh
+    mesh, split = table.device_mesh, split_of(table)
+    rep = placement_list(mesh, None, Replicate())
     if not isinstance(ids, DTensor):
-        ids = DTensor.from_local(ids, mesh, [Replicate()], run_check=False)
-    lo = mesh.get_local_rank() * (table.shape[0] // mesh.size())
-    lookup = local_map(_rows_held, out_placements=[Partial()],
-                       in_placements=([Shard(0)], [Replicate()], None),
+        ids = DTensor.from_local(ids, mesh, rep, run_check=False)
+    lo = split.coord * (table.shape[0] // split.size)
+    lookup = local_map(_rows_held, out_placements=placement_list(mesh, split.dim, Partial()),
+                       in_placements=(placement_list(mesh, split.dim, Shard(0)), rep, None),
                        redistribute_inputs=True)
-    return lookup(table, ids, lo).redistribute(mesh, [Replicate()])
+    return lookup(table, ids, lo).redistribute(mesh, rep)
 
 
 # ------------------------------------------------------------------------- conv
@@ -208,37 +214,34 @@ def conv(p, x, stride: int = 1, padding: str = "SAME", *, compute_dtype=None):
 
 
 # ------------------------------------------------- convolutions on split weights
-def _placement(t):
-    """The placement of a ``DTensor`` on its one-dim mesh (the model or
-    expert axis), or None for a plain tensor."""
-    placements = getattr(t, "placements", None)
-    return None if placements is None else placements[0]
-
-
 def _split_conv(fn, x, k):
     """``fn(x, k)``, a convolution of NHWC ``x`` by HWIO ``k``, on each rank's
     blocks when ``k`` is a ``DTensor`` (``local_map``; ``DTensor``'s own
     convolution rule takes a weight only replicated, so a split weight
-    would be gathered every forward):
+    would be gathered every forward), on the mesh dim ``k`` is split on
+    (replicated on the others):
 
     - column (``k`` ``Shard(3)``): ``x`` whole, the output ``Shard(3)`` on
       the channel; ``x``'s gradient a partial sum over the ranks;
     - row (``k`` ``Shard(2)``): ``x``'s channel block ``Shard(3)``, the
       output a ``Partial`` sum, which the BatchNorm after it reduces;
     - whole: ``x`` and ``k`` gathered, the output replicated."""
-    where = _placement(k)
-    if where is None:
+    split = split_of(k)
+    if split is None:
         return fn(x, k)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    rep, chan, cin = [Replicate()], [Shard(3)], [Shard(2)]
+    def on(placement):
+        return placement_list(k.device_mesh, split.dim, placement)
+
+    rep, chan, cin = on(Replicate()), on(Shard(3)), on(Shard(2))
     # The placements of (x, k), of their gradients, and of the output: the
     # column route, the row route, else whole.
     ins, grads, out = {
-        Shard(3): ((rep, chan), ([Partial()], chan), chan),
-        Shard(2): ((chan, cin), (chan, cin), [Partial()]),
-    }.get(where, ((rep, rep), (rep, rep), rep))
+        Shard(3): ((rep, chan), (on(Partial()), chan), chan),
+        Shard(2): ((chan, cin), (chan, cin), on(Partial())),
+    }.get(split.placement, ((rep, rep), (rep, rep), rep))
     return local_map(fn, out_placements=out, in_placements=ins, in_grad_placements=grads,
                      redistribute_inputs=True)(x, k)
 
@@ -247,19 +250,23 @@ def _channelwise(fn, x, *vectors):
     """``fn(x, *vectors)`` for an op that works channel by channel on NHWC
     ``x`` with per-channel ``vectors`` (BatchNorm, pooling). On a
     ``DTensor`` it runs through ``local_map`` on the rank's channel block
-    (``Shard(3)``, the vectors' block ``Shard(0)``) when ``x`` is split on
-    the channel or is a row-split conv's ``Partial`` sum (reduce-scattered
-    first: per-channel statistics are never taken from a partial sum), and
-    on the whole otherwise."""
-    where = _placement(x)
-    if where is None:
+    (``Shard(3)``, the vectors' block ``Shard(0)``, on the mesh dim ``x``
+    is split on) when ``x`` is split on the channel or is a row-split
+    conv's ``Partial`` sum (reduce-scattered first: per-channel statistics
+    are never taken from a partial sum), and on the whole otherwise."""
+    split = split_of(x)
+    if split is None:
         return fn(x, *vectors)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     channel = Shard(x.dim() - 1)
-    split = where == channel or isinstance(where, Partial)
-    act, vec = ([channel], [Shard(0)]) if split else ([Replicate()], [Replicate()])
+    mesh = x.device_mesh
+    if split.placement == channel or isinstance(split.placement, Partial):
+        act, vec = (placement_list(mesh, split.dim, channel),
+                    placement_list(mesh, split.dim, Shard(0)))
+    else:
+        act = vec = placement_list(mesh, None, Replicate())
     return local_map(fn, out_placements=act, in_placements=(act,) + (vec,) * len(vectors),
                      redistribute_inputs=True)(x, *vectors)
 
@@ -494,17 +501,21 @@ def conv_batchnorm(conv_p, bn_p, x, stride: int = 1, *, compute_dtype=None):
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         k = k.to(compute_dtype)
-    where = _placement(k)
-    if where is None:
+    split = split_of(k)
+    if split is None:
         return _fused_conv_bn(x, k, bn_p["scale"], bn_p["bias"], stride)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    mesh = k.device_mesh
+    where = split.placement
     route, cols = fused_block(where.dim if isinstance(where, Shard) else None, k.shape[3],
-                              mesh.get_local_rank(), mesh.size())
+                              split.coord, split.size)
     cols = cols if route == "row" else None
-    rep, part, vec, chan = [Replicate()], [Partial()], [Shard(0)], [Shard(3)]
+
+    def on(placement):
+        return placement_list(k.device_mesh, split.dim, placement)
+
+    rep, part, vec, chan = on(Replicate()), on(Partial()), on(Shard(0)), on(Shard(3))
     # The placements of (x, k, scale, bias), of their gradients, and of the
     # output. x's gradient from a column block is a partial sum.
     ins, grads, out = {
@@ -521,13 +532,52 @@ def conv_batchnorm(conv_p, bn_p, x, stride: int = 1, *, compute_dtype=None):
 
 # ----------------------------------------------------------------------- losses
 def per_token_xent(logits, labels):
-    """Per-position cross-entropy (fp32 logsumexp), no reduction."""
+    """Per-position cross-entropy (fp32 logsumexp), no reduction. On a
+    two-dim shard mesh the label's logit is read vocab-parallel
+    (:func:`_vocab_parallel_label`): ``DTensor``'s gather rule keeps one
+    mask for a partial sum over two mesh dims and fails there."""
     logits = logits.to(torch.float32)
+    split = split_of(logits)
+    if split is not None and split.dim is not None and logits.device_mesh.ndim > 1:
+        from torch.distributed.tensor import Shard
+
+        mesh = logits.device_mesh
+        logits = logits.redistribute(mesh, placement_list(mesh, split.dim,
+                                                          Shard(logits.dim() - 1)))
+        return torch.logsumexp(logits, dim=-1) - _vocab_parallel_label(logits, labels,
+                                                                       split.dim)
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1, labels.long()[..., None])
     # Subtract, then drop the label axis: a vocab-split DTensor's gather
     # reduces its masked partial only at the gather's own shape.
     return (logz[..., None] - label_logit)[..., 0]
+
+
+def _label_held(logits, labels, lo: int):
+    """This rank's part of each label's logit: ``logits`` holds the vocab
+    columns ``lo`` on, zeros for the labels it does not hold."""
+    local = labels.long() - lo
+    held = (local >= 0) & (local < logits.shape[-1])
+    picked = torch.gather(logits, -1, torch.where(held, local, torch.zeros_like(local))[..., None])
+    return picked[..., 0] * held.to(logits.dtype)
+
+
+def _vocab_parallel_label(logits, labels, dim: int):
+    """Each label's logit from ``logits`` split over the vocab on mesh dim
+    ``dim``: each rank picks the labels it holds (``local_map``), the
+    partial sums add over that dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    rep = placement_list(mesh, None, Replicate())
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, rep, run_check=False)
+    per = -(-logits.shape[-1] // mesh.size(dim))
+    pick = local_map(_label_held, out_placements=placement_list(mesh, dim, Partial()),
+                     in_placements=(placement_list(mesh, dim, Shard(logits.dim() - 1)),
+                                    rep, None), redistribute_inputs=True)
+    return pick(logits, labels, per * mesh.get_local_rank(dim)).redistribute(mesh, rep)
 
 
 def softmax_xent(logits, labels):

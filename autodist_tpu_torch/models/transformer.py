@@ -116,7 +116,14 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 
 # --------------------------------------------------------------------- forward
 def _dot_attention(q, k, v, causal: bool):
-    """Plain attention: softmax(QK^T/sqrt(d))V, fp32 softmax."""
+    """Plain attention: softmax(QK^T/sqrt(d))V, fp32 softmax. ``DTensor``
+    inputs on a mesh of two dims run on each rank's heads
+    (``utils/placement.py::on_head_groups``): torch 2.11's einsum cannot
+    flatten a head dim split over one of two mesh dims."""
+    if getattr(q, "placements", None) is not None and q.device_mesh.ndim > 1:
+        from autodist_tpu_torch.utils.placement import on_head_groups
+
+        return on_head_groups(_dot_attention, q)(q, k, v, causal)
     head_dim = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
     logits = logits / torch.sqrt(torch.tensor(float(head_dim), device=q.device))

@@ -275,16 +275,14 @@ def flash_attention(q, k, v, causal: bool = False):
     shapes run :class:`FlashAttentionFn` (under ``torch.export``, the
     forward kernel's operator of ``ops/library.py``); the rest
     :func:`mha_reference` (see :func:`use_reference`). ``DTensor`` inputs
-    run on each rank's heads (``local_map``, ``Shard(2)``)."""
-    from torch.distributed.tensor import DTensor, Shard
-    from torch.distributed.tensor.experimental import local_map
+    run on each rank's heads (``utils/placement.py::on_head_groups``:
+    ``H / model`` heads under a model split, all H where q is replicated)."""
+    from torch.distributed.tensor import DTensor
 
     if isinstance(q, DTensor):
-        heads = [Shard(2)]
-        per_rank = local_map(flash_attention, out_placements=heads,
-                             in_placements=(heads, heads, heads, None),
-                             redistribute_inputs=True)
-        return per_rank(q, k, v, causal)
+        from autodist_tpu_torch.utils.placement import on_head_groups
+
+        return on_head_groups(flash_attention, q)(q, k, v, causal)
     if use_reference(q, k):
         return mha_reference(q, k, v, causal)
     if torch.compiler.is_exporting():           # ops/library.py: the kernel as an op

@@ -43,10 +43,17 @@ and of the optimizer slots, microbatches its own rows of the batch (each
 data rank its block), and averages the stage gradients over the data
 group. JAX microbatches the global batch; for row-wise stages and mean
 losses over equal microbatches the two give the same loss and gradients.
+
+Beside other wide axes, stage parameters are replicated over every axis
+but ``pipe`` (JAX's ``_stage_spec``): the ranks of a model, expert or seq
+axis run their stage whole, each on the same data block. A stage that
+calls ``ring_attention`` or ``ulysses_attention`` on a seq axis larger than
+1 raises ``ValueError``, as the JAX package's does.
 """
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Callable, List, Optional
 
 import torch
@@ -57,6 +64,7 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.api import resolve_mesh
 from autodist_tpu_torch.models.convert import (flatten_params, map_params, map_tree,
                                                unflatten_params)
+from autodist_tpu_torch.parallel.ring_attention import pipeline_stage
 from autodist_tpu_torch.runtime.process_group import _all_gather, exchange, peer
 
 SCHEDULES = ("gpipe", "1f1b")
@@ -125,7 +133,7 @@ class _Ring:
     group, ``M`` microbatches."""
 
     def __init__(self, stage_fn: Callable, n_micro: int, n_stages: int, group):
-        self.stage_fn, self.M, self.S, self.group = stage_fn, n_micro, n_stages, group
+        self.stage_fn, self.M, self.S, self.group = _staged(stage_fn), n_micro, n_stages, group
         self.s = dist.get_rank(group)
 
     def fwd_valid(self, t: int) -> bool:
@@ -196,6 +204,50 @@ class _Ring:
         """Stage 0's input cotangent, whole, on every rank."""
         full = torch.cat(gx) if self.s == 0 else torch.empty_like(like)
         return _broadcast(full.contiguous(), 0, self.group)
+
+
+def _staged(stage_fn):
+    """``stage_fn`` run as a pipelined stage (``pipeline_stage``)."""
+    @functools.wraps(stage_fn)
+    def wrapped(params, h):
+        with pipeline_stage():
+            return stage_fn(params, h)
+    return wrapped
+
+
+#: The stage shapes :func:`_check_stage` has passed, per owner (a stage
+#: function or a PipelineTrainStep).
+_STAGES_CHECKED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _check_stage(stage_fn, params, x, n_micro: int, mesh, owner=None) -> None:
+    """On a mesh with a seq axis larger than 1, run the stage once on meta
+    tensors shaped as a microbatch, so that a seq-parallel attention in it
+    raises (``pipeline_stage``) on every rank before any point-to-point op
+    (a rank that raised mid-pipeline would leave its peers waiting). Once
+    per ``owner`` (default ``stage_fn``) and shape: the answer does not
+    change between steps. A stage whose ops do not run on meta tensors is
+    left to its first real call."""
+    seq = 1 if mesh is None else mesh.shape.get(const.MESH_AXIS_SEQ, 1)
+    if seq <= 1:
+        return
+    key = (seq, n_micro, tuple(x.shape), x.dtype,
+           tuple((tuple(t.shape), t.dtype) for t in _leaves(params)))
+    try:
+        seen = _STAGES_CHECKED.setdefault(stage_fn if owner is None else owner, set())
+    except TypeError:                     # an owner that takes no weak reference
+        seen = set()
+    if key in seen:
+        return
+    meta = map_params(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+    h = torch.empty((x.shape[0] // n_micro,) + tuple(x.shape[1:]), dtype=x.dtype,
+                    device="meta")
+    try:
+        with torch.no_grad(), pipeline_stage():
+            stage_fn(meta, h)
+    except (NotImplementedError, RuntimeError):
+        pass
+    seen.add(key)
 
 
 def _stage_vjp(stage_fn, p_tree, p_req, inp, g_out, acc):
@@ -342,6 +394,7 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x, n_microbatches: int, m
     live activations stay O(S), use :func:`pipeline_value_and_grad`."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    owner = stage_fn
     if remat_stages:
         stage_fn = _remat(stage_fn)
     mesh = resolve_mesh(mesh)
@@ -353,6 +406,7 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x, n_microbatches: int, m
     group = mesh.axis_group(axis_name, required=True)
     s = dist.get_rank(group)
     local = map_params(lambda a: a[s], stacked_params)
+    _check_stage(stage_fn, local, x, n_microbatches, mesh, owner)
     return _pipeline_local(local, x, stage_fn=stage_fn, n_micro=n_microbatches,
                            n_stages=n_stages, group=group, schedule=schedule)
 
@@ -378,6 +432,7 @@ def _1f1b_interleaved_local(stage_fn, loss_head, n_micro: int, n_stages: int, gr
     (a list in ``params``' leaf order) and ``x``'s whole cotangent (on
     every rank)."""
     S, R = n_stages, 2 * n_stages - 1
+    stage_fn = _staged(stage_fn)
 
     def run(params, x, targets):
         s = dist.get_rank(group)
@@ -476,6 +531,7 @@ def pipeline_value_and_grad(stage_fn: Callable, stacked_params, x, loss_head: Ca
     s = dist.get_rank(group)
     local = map_params(lambda a: a[s], stacked_params)
     _micro(x, n_microbatches)
+    _check_stage(stage_fn, local, x, n_microbatches, mesh)
     run = _1f1b_interleaved_local(stage_fn, loss_head, n_microbatches, n_stages, group)
     loss, grads, gx = run(local, x, targets)
     stacked = []
@@ -556,6 +612,7 @@ class PipelineTrainStep:
             return _sequential_value_and_grad(self.stage_fn, params, x, self.loss_head,
                                               self.n_microbatches, targets)[:2]
         _micro(x, self.n_microbatches)
+        _check_stage(self._stage, params, x, self.n_microbatches, self.mesh, self)
         run = _1f1b_interleaved_local(self._stage, self.loss_head, self.n_microbatches,
                                       self.n_stages, self.group)
         loss, grads, _ = run(params, x, targets)
@@ -642,6 +699,7 @@ class PipelineTrainStep:
             if self.group is None:
                 out = _sequential(self.stage_fn, state.params, x)
             else:
+                _check_stage(self._stage, state.params, x, M, self.mesh, self)
                 out = _forward_only(self._stage, state.params, x, M, self.n_stages,
                                     self.group)
             outs, tgts = _micro(out, M), _micro_tree(targets, M)

@@ -26,8 +26,26 @@ the output back whole with an all-gather whose backward takes this rank's
 chunk. Every seq rank then holds the whole, true gradient, as a replicated
 JAX array does. On a trivial seq axis they run plain flash attention; a
 meta tensor (the capture's shape trace) takes the same shape-only path.
+
+Beside a model or expert axis (tensor parallelism), q, k and v arrive as
+``DTensor``s on the shard mesh, split on the heads dim as
+``flash_attention`` receives them: the wrappers then run through
+``local_map`` on each rank's head group (``Shard(2)`` on the dims where q
+is split on its heads, ``Replicate`` on the others), over the seq group of the ranks that share this rank's data, model
+and expert coordinates. Ulysses then needs the heads a rank holds
+divisible by the seq axis, and the flash kernels see ``H / (model · seq)``
+heads over the whole sequence.
+
+Inside a pipeline stage (``parallel/pipeline.py`` on a pipe axis larger
+than 1) a seq axis larger than 1 raises ``ValueError``, as the JAX
+package's does: its ``shard_map`` over ``seq`` cannot open inside the one
+over ``pipe``.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
+import functools
 
 import torch
 import torch.distributed as dist
@@ -40,6 +58,19 @@ from autodist_tpu_torch.runtime.process_group import _all_gather, exchange
 
 _NEG_INF = -1e30
 _NEED_MESH = "ring/ulysses attention"
+#: Whether a pipelined stage runs in this context (``pipeline_stage``).
+_in_stage = contextvars.ContextVar("autodist_pipeline_stage", default=False)
+
+
+@contextlib.contextmanager
+def pipeline_stage():
+    """The block a pipelined stage function runs in: a seq-parallel
+    attention inside it raises (see the module docstring)."""
+    token = _in_stage.set(True)
+    try:
+        yield
+    finally:
+        _in_stage.reset(token)
 
 
 # ----------------------------------------------------------------- ring core
@@ -192,8 +223,9 @@ def ulysses_attention_local(q, k, v, causal: bool = False,
     h = q.shape[2]
     if h % n != 0:
         raise ValueError(
-            f"ulysses attention needs heads ({h}) divisible by the seq-axis size "
-            f"({n}); use ring attention for this shape")
+            f"ulysses attention needs the heads a rank holds ({h}: all of them, or "
+            f"heads / model under a model split) divisible by the seq-axis size ({n}); use ring attention for this "
+            "shape")
     qf, kf, vf = (_AllToAll.apply(x, group, True) for x in (q, k, v))
     o = fa_ops.flash_attention(qf, kf, vf, causal=causal)
     return _AllToAll.apply(o.contiguous(), group, False)
@@ -242,7 +274,24 @@ class _GatherChunks(torch.autograd.Function):
         return g[:, r * c:(r + 1) * c].contiguous(), None
 
 
+def _whole_to_chunks(fn_local, q, k, v, causal: bool, axis_name: str, group):
+    """``fn_local`` on this rank's chunk of the whole q, k and v, the
+    output put back whole (plain tensors)."""
+    qs, ks, vs = _TakeChunk.apply(q, k, v, group)
+    o = fn_local(qs, ks, vs, causal=causal, axis_name=axis_name, group=group)
+    return _GatherChunks.apply(o, group)
+
+
 def _seq_sharded(fn_local, q, k, v, causal: bool, mesh, axis_name: str):
+    if _in_stage.get():
+        size = getattr(resolve_mesh(mesh), "shape", {}).get(axis_name, 1)
+        if size > 1:
+            raise ValueError(
+                f"ring/ulysses attention over mesh axis {axis_name!r}={size} inside a "
+                "pipeline stage: a stage runs on its pipe rank alone, as in the JAX "
+                "package, whose shard_map over the seq axis cannot open inside the one "
+                "over the pipe axis; use a seq axis of 1 with a pipe axis, or build the "
+                "model without a pipeline")
     if q.is_meta:
         # The capture's shape trace: no collective on meta tensors.
         return fa_ops.flash_attention(q, k, v, causal=causal)
@@ -254,9 +303,14 @@ def _seq_sharded(fn_local, q, k, v, causal: bool, mesh, axis_name: str):
         raise ValueError(f"sequence length {q.shape[1]} not divisible by mesh axis "
                          f"{axis_name!r}={axis_size}")
     group = mesh.axis_group(axis_name, required=True)
-    qs, ks, vs = _TakeChunk.apply(q, k, v, group)
-    o = fn_local(qs, ks, vs, causal=causal, axis_name=axis_name, group=group)
-    return _GatherChunks.apply(o, group)
+    run = functools.partial(_whole_to_chunks, fn_local, axis_name=axis_name, group=group)
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        from autodist_tpu_torch.utils.placement import on_head_groups
+
+        run = on_head_groups(run, q)
+    return run(q, k, v, causal)
 
 
 def ring_attention(q, k, v, causal: bool = False, mesh=None,

@@ -117,21 +117,26 @@ class Collectives:
         return other
 
     @contextlib.contextmanager
-    def count_dtensor(self, purpose: str) -> Iterator[None]:
+    def count_dtensor(self, purpose: str, axes: Optional[Dict[str, tuple]] = None
+                      ) -> Iterator[None]:
         """Count the collectives ``DTensor`` issues within the block
-        (forward and backward alike) by kind under ``purpose``
-        (``torch.distributed.tensor.debug.CommDebugMode``'s count of the
-        functional collectives; bytes are not recorded)."""
-        from torch.distributed.tensor.debug import CommDebugMode
-
-        mode = CommDebugMode()
+        (forward and backward alike) by kind under ``purpose``, or under the
+        name of the axis in ``axes`` (axis name -> the global ranks of its
+        group) whose ranks the collective's group holds
+        (``torch.distributed.tensor.debug.CommDebugMode``'s view of the
+        functional collectives; bytes are not recorded). Ranks, not
+        groups, decide: ``DTensor`` may run a collective on another group
+        of the same ranks (that of an equal mesh it met before)."""
+        mode = _group_counts()
         with mode:
             yield
-        for op, n in mode.get_comm_counts().items():
+        by_ranks = {r: ax for ax, r in (axes or {}).items()}
+        for (op, group), n in mode.by_group.items():
             namespace, _, name = str(op).rpartition(".")
             if "functional" not in namespace:
                 continue        # this class's own collectives, counted where issued
-            self.counts[purpose][_DTENSOR_KINDS.get(name, name)] += n
+            where = by_ranks.get(_group_ranks(group), purpose) if group else purpose
+            self.counts[where][_DTENSOR_KINDS.get(name, name)] += n
 
     def _count(self, purpose: str, kind: str, t: torch.Tensor) -> None:
         nbytes = t.numel() * t.element_size()
@@ -199,6 +204,44 @@ class Collectives:
         dist.broadcast(t, src=dist.get_global_rank(self.group, 0)
                        if self.group is not dist.group.WORLD else 0, group=self.group)
         return t
+
+
+def _group_counts():
+    """A ``CommDebugMode`` that also counts each collective by ``(op, the
+    name of the process group it ran on)`` (``by_group``): the native
+    functional collectives take the group's name as their last string
+    argument."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class GroupCounts(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.by_group: Dict[tuple, int] = defaultdict(int)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = dict(self.comm_counts)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            grown = {op: n - before.get(op, 0) for op, n in self.comm_counts.items()
+                     if n != before.get(op, 0)}
+            if grown:
+                names = [a for a in list(args) + list((kwargs or {}).values())
+                         if isinstance(a, str)]
+                for op, n in grown.items():
+                    self.by_group[(op, names[-1] if names else None)] += n
+            return out
+
+    return GroupCounts()
+
+
+def _group_ranks(name: str) -> Optional[tuple]:
+    """The global ranks of the process group of ``name`` (None when no
+    group has that name)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    try:
+        return tuple(dist.get_process_group_ranks(_resolve_process_group(name)))
+    except (KeyError, RuntimeError, ValueError, TypeError, AttributeError):
+        return None
 
 
 #: ``DTensor``'s functional collectives -> this module's kinds.

@@ -392,7 +392,8 @@ Phases, each printing one JSON line:
     defers to the step boundary, snapshots step 3 and the process dies.
     The launcher restarts it; attempt 1 resumes from that snapshot
     (``resume_from_snapshot``) and runs to step 6. Its parameters must be
-    bitwise those of an uninterrupted 6-step run (a process of its own),
+    bitwise those of an uninterrupted 6-step run (a process of its own,
+    on the card beside the launcher's),
     each attempt's flash forward, dK/dV and dQ launches ``12 x`` its
     steps, and the stitched trace must hold the launcher's span and both
     attempts' ``ft.snapshot.*`` spans. Prints the restart delay, each
@@ -457,8 +458,49 @@ Phases, each printing one JSON line:
     rank's rows are reversed), lstm_lm and ncf under ``TensorParallel`` and
     the small transformer under ``Zero1`` with ``clip_norm`` (3 steps,
     within rtol 2e-5 / atol 2e-6); every rank's parameters equal.
+28. ``three_axis`` (``--three-axis-rank``, one NCCL rank a card,
+    deterministic algorithms). Below four cards, placed checks at full
+    width on one rank: the MoE at its registry config (4 layers, d_model
+    512, 8 heads, 8 experts, seq 128, bf16, batch 32) with every variable
+    placed as ``TensorParallel``'s plan at model 2 x expert 2 splits it on a
+    one-rank two-dim (model, expert) mesh (``[Shard(d), Replicate()]`` a
+    model-split variable, ``[Replicate(), Shard(0)]`` an expert-split one);
+    bert_base (seq 512, batch 32) under Ulysses and under ring, placed as
+    the plan at model 2 splits it, on a mesh that names a seq axis of 2
+    over a one-rank seq group (``_seq_rig``: the seq-parallel route through
+    ``local_map`` runs, each rank's chunk the whole sequence); bert_base
+    under flash attention placed at model 2 x expert 2 on the two-dim mesh
+    (its heads split on model, whole over expert); ResNet-50 (224 px,
+    batch 32) placed at model 2 x expert 2. Each loss and every gradient
+    must be bitwise the plain run's; Ulysses and the two-dim flash route
+    each launch each flash kernel 12 times, ResNet-50 the fused kernel 36. On four cards, the
+    2 x 2 meshes with data 1 (``THREE_MESHES``: the MoE at model x expert
+    under ``TensorParallel``, bert_base under Ulysses and ring at seq x
+    model, bert_base's 12 blocks as 2 stages through ``build_pipeline`` at
+    pipe x model and seq x pipe): 1 + 3 bf16 Adam steps whose losses fall,
+    the data-axis wire as the plan's, and one fp32 SGD step within 1e-4 or
+    twice the one-process step's own change with the batch's rows reversed
+    (relative L2 of the update); printed beside them the ms a step of data
+    4 and of the two-axis meshes they extend (``THREE_BASELINES``), and
+    ``DTensor``'s collectives of a step by axis. The flash kernels are held
+    to their plain versions at the four-card Ulysses shape in
+    ``flash_parity`` (3 heads a rank at S=512, batch 32).
+29. ``three_axis_rehearsal``: not a card result: 8 gloo ranks on the CPU
+    (``--three-axis-cpu-rank``, the card machine's torch) run
+    ``tests/test_torch_three_axis*.py``'s configurations at toy widths
+    (``THREE_REHEARSAL``: the MoE at data 2 x model 2 x expert 2 and at
+    data 2 x seq 2 x expert 2 under Ulysses, the transformer under Ulysses
+    and ring at data 2 x seq 2 x model 2, under ``TensorParallel`` at data 2
+    x pipe 2 x model 2 and ring at data 2 x seq 2 x pipe 2, pipelines at
+    both pipe meshes), 3 SGD steps each, against the one-process step within
+    rtol 2e-5 / atol 2e-6.
 
-Every JSON line carries ``t_s``, the seconds since the script started.
+The CPU rehearsals (16's and phases 22, 26, 27 and 29: gloo ranks on the
+CPU) run on a thread beside the card phases from ``dist_train`` on, each of
+which runs in processes of its own; ``auto_plan`` and ``tune`` run before
+them. So the host-timed numbers of those card phases (ms a step, walls)
+are read beside a busy CPU. Every JSON line carries ``t_s``, the seconds
+since the script started.
 Kernels and library calls are timed as CUDA graphs of repeated calls (card
 time without the host's, ``device_ms``), plain versions as eager calls.
 Then the kernel table line, the card line and, last, the result line.
@@ -937,15 +979,94 @@ SEQ_IMPLS, SEQ_OPT = ("ring", "ulysses"), ("sgd", {"learning_rate": 0.01})
 # microbatches of the TRAIN_BATCH x TRAIN_SEQ batch, 1 + PIPE_STEPS SGD steps
 # at PIPE_LR through AutoDist.build_pipeline over a data x pipe mesh.
 PIPE_STAGES, PIPE_MICRO, PIPE_STEPS, PIPE_LR = 4, 4, 2, 0.01
+# three_axis. Below four cards, placed on one-rank meshes as TensorParallel's
+# plans split them: the MoE (registry config, batch THREE_MOE_BATCH) and
+# ResNet-50 (batch THREE_RESNET_BATCH) at THREE_ME, bert_base (TRAIN_SEQ,
+# THREE_BERT_BATCH) under each of SEQ_IMPLS on a seq x model mesh and under
+# flash at THREE_ME. On four
+# cards the 2 x 2 meshes of THREE_MESHES ((id, model, mesh, builder,
+# attention), data 1): 1 + THREE_STEPS bf16 steps (THREE_BF16_OPT) whose
+# losses must fall, and one fp32 THREE_SGD step within THREE_UPDATE_RTOL or
+# twice the one-process step's own change with the batch's rows reversed
+# (relative L2 of the update); the ms of THREE_BASELINES beside them.
+THREE_ME = {"data": 1, "model": 2, "expert": 2}
+THREE_MOE_BATCH, THREE_BERT_BATCH, THREE_RESNET_BATCH = 32, TRAIN_BATCH, 32
+THREE_STEPS, THREE_BF16_OPT = 3, DIST_OPT
+THREE_SGD, THREE_UPDATE_RTOL = ("sgd", {"learning_rate": 0.1}), 1e-4
+THREE_MESHES = (
+    ("model2expert2", "moe", THREE_ME, "TensorParallel", None),
+    ("seq2model2/ulysses", "bert", {"data": 1, "seq": 2, "model": 2}, "TensorParallel",
+     "ulysses"),
+    ("seq2model2/ring", "bert", {"data": 1, "seq": 2, "model": 2}, "TensorParallel", "ring"),
+    ("pipe2model2", "stages", {"data": 1, "pipe": 2, "model": 2}, None, None),
+    ("seq2pipe2", "stages", {"data": 1, "seq": 2, "pipe": 2}, None, None),
+)
+# (model, attention, mesh, builder): data 4 and the two-axis meshes the
+# 2 x 2 ones extend.
+THREE_BASELINES = (
+    ("moe", None, {"data": 4}, "AllReduce"), ("moe", None, {"data": 2, "expert": 2}, "AllReduce"),
+    ("bert", "flash", {"data": 4}, "AllReduce"),
+    ("bert", "flash", {"data": 2, "model": 2}, "TensorParallel"),
+    ("bert", "ulysses", {"data": 2, "seq": 2}, "AllReduce"),
+    ("bert", "ring", {"data": 2, "seq": 2}, "AllReduce"),
+    ("stages", None, {"data": 4}, None), ("stages", None, {"data": 2, "pipe": 2}, None),
+)
+# three_axis_rehearsal: the configurations of tests/test_torch_three_axis*.py
+# at toy widths (THREE_TOY, fp32; the MoE with 4 experts at seq 17 and a
+# routing that per-rank and global batches share), (id, model/attention,
+# builder, mesh, expert names) on THREE_REHEARSAL_RANKS gloo ranks.
+THREE_TOY = dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, d_ff=64, max_seq_len=16)
+THREE_REHEARSAL_RANKS = 8
+THREE_REHEARSAL = (
+    ("moe/tp/model2expert2", "moe/flash", "TensorParallel",
+     {"data": 2, "model": 2, "expert": 2}, ("expert_",)),
+    ("transformer/ulysses/seq2model2", "transformer/ulysses", "TensorParallel",
+     {"data": 2, "seq": 2, "model": 2}, ()),
+    ("transformer/ring/seq2model2", "transformer/ring", "TensorParallel",
+     {"data": 2, "seq": 2, "model": 2}, ()),
+    ("moe/ulysses/seq2expert2", "moe/ulysses", "AllReduce", {"data": 2, "seq": 2, "expert": 2},
+     ("expert_",)),
+    ("transformer/tp/pipe2model2", "transformer/flash", "TensorParallel",
+     {"data": 2, "pipe": 2, "model": 2}, ()),
+    ("transformer/ring/seq2pipe2", "transformer/ring", "AllReduce",
+     {"data": 2, "seq": 2, "pipe": 2}, ()),
+    ("pipeline/pipe2model2", "pipeline", None, {"data": 2, "pipe": 2, "model": 2}, ()),
+    ("pipeline/seq2pipe2", "pipeline", None, {"data": 2, "seq": 2, "pipe": 2}, ()),
+)
 
 _T0 = time.perf_counter()
+_EMIT_LOCK = threading.Lock()
 
 
 def emit(phase: str, **fields) -> None:
     """One JSON line: the phase, the seconds since this process started
-    (``t_s``) and the fields."""
-    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 1), **fields}),
-          flush=True)
+    (``t_s``) and the fields (whole lines from any thread)."""
+    line = json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 1), **fields})
+    with _EMIT_LOCK:
+        print(line, flush=True)
+
+
+class _Beside(threading.Thread):
+    """Phases run one after another on a thread beside the main one, from
+    construction on; :meth:`result` waits for them and raises the first
+    failure."""
+
+    def __init__(self, *phases):
+        super().__init__(name="beside")
+        self.phases, self.error = phases, None
+        self.start()
+
+    def run(self):
+        try:
+            for phase in self.phases:
+                phase()
+        except BaseException as e:          # raised again by result()
+            self.error = e
+
+    def result(self) -> None:
+        self.join()
+        if self.error is not None:
+            raise self.error
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2791,8 +2912,8 @@ def _join_ranks(flag: str, procs: list, work: str) -> list:
 
 
 def dist_train(card: str) -> list:
-    """The dist_train phase: NCCL ranks over the cards, then the CPU
-    rehearsal. Returns rank 0's rows."""
+    """The dist_train phase: NCCL ranks over the cards (its CPU rehearsal
+    is :func:`dist_rehearsal`). Returns rank 0's rows."""
     world = 1
     while world * 2 <= min(torch.cuda.device_count(), 8):
         world *= 2
@@ -2815,7 +2936,6 @@ def dist_train(card: str) -> list:
             per = rn.fused_launches_per_forward(50) * steps
             check(launches["fused_conv_stats"] == per,
                   f"dist {model}: fused conv launches {launches['fused_conv_stats']} != {per}")
-    dist_rehearsal()
     return rows
 
 
@@ -3910,46 +4030,70 @@ def _one_sgd_step(step, params, batch) -> dict:
     return flatten_params(step.logical_params(state))
 
 
-def _tp_cnn_placed(spec, params, batch, dev) -> dict:
-    """tp_cnn at one rank: ResNet-50's loss and gradients with every
-    variable placed as TensorParallel's plan at model TP_CNN_PLACED renders
-    it (``Shard(dim)`` a split one, ``Replicate`` else) on a one-rank model
-    mesh, against the plain ones (see the module docstring)."""
+def _placed_run(loss_fn, params, batch, dims, placements, dev) -> dict:
+    """A model's loss and gradients with every variable a ``DTensor`` on a
+    one-rank mesh of ``dims`` placed as ``placements(mesh, name)`` says
+    (the batch replicated), against the plain ones: whether the loss and
+    every gradient are bitwise equal, and the kernels' launches in the
+    placed run."""
     from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import implicit_replication
 
-    split = _split_dims(_tp_plan(TP_CNN_PLACED, dev))
-    flat = flatten_params(params)
-    routes = collections.Counter(L.fused_block(split.get(n), t.shape[3], 0, 1)[0]
-                                 for n, t in flat.items()
-                                 if t.dim() == 4 and tuple(t.shape[:2]) == (1, 1))
+    from autodist_tpu_torch.utils.placement import placement_list
 
     def loss_and_grads(p, b):
         p = map_params(lambda t: t.detach().requires_grad_(t.is_floating_point()), p)
         leaves = [t for t in flatten_params(p).values() if t.requires_grad]
-        loss = spec.loss_fn(p, b)
+        loss = loss_fn(p, b)
         if isinstance(loss, DTensor):
             loss = loss.full_tensor()
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
 
     want, gwant = loss_and_grads(params, batch)
-    mesh = DeviceMesh(dev.type, [0], mesh_dim_names=("model",))
-    placed = unflatten_params({n: DTensor.from_local(t, mesh, [Shard(split[n])] if n in split
-                                                     else [Replicate()], run_check=False)
-                               for n, t in flat.items()})
-    dbatch = {k: DTensor.from_local(v, mesh, [Replicate()], run_check=False)
-              for k, v in batch.items()}
+    mesh = DeviceMesh(dev.type, torch.zeros([1] * len(dims), dtype=torch.int),
+                      mesh_dim_names=dims)
+    placed = unflatten_params({n: DTensor.from_local(t, mesh, placements(mesh, n),
+                                                     run_check=False)
+                               for n, t in flatten_params(params).items()})
+    rep = placement_list(mesh, None, Replicate())
+    dbatch = {k: DTensor.from_local(v, mesh, rep, run_check=False) for k, v in batch.items()}
     reset_launches()
     with implicit_replication():
         got, ggot = loss_and_grads(placed, dbatch)
     torch.cuda.synchronize(dev)
-    differ = sum(1 for a, b in zip(ggot, gwant) if not torch.equal(a, b))
+    differ = [i for i, (a, b) in enumerate(zip(ggot, gwant)) if not torch.equal(a, b)]
+    worst = max([((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(
+        1e-30)).item() for a, b in (zip([ggot[i] for i in differ], [gwant[i] for i in differ]))]
+        or [0.0])
+    names = [n for n, t in flatten_params(params).items() if t.is_floating_point()]
+    return dict(loss=float(got), plain_loss=float(want), grads=len(gwant),
+                grads_differ=len(differ), worst_grad_rel=worst,
+                differ=[names[i] for i in differ][:8],
+                kernel_launches={"fused_conv_stats": fcs.fused_matmul_stats.launches,
+                                 **_launch_counts()},
+                bitwise=bool(torch.equal(got, want)) and not differ)
+
+
+def _tp_cnn_placed(spec, params, batch, dev) -> dict:
+    """tp_cnn at one rank: ResNet-50's loss and gradients with every
+    variable placed as TensorParallel's plan at model TP_CNN_PLACED renders
+    it (``Shard(dim)`` a split one, ``Replicate`` else) on a one-rank model
+    mesh, against the plain ones (see the module docstring)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    split = _split_dims(_tp_plan(TP_CNN_PLACED, dev))
+    flat = flatten_params(params)
+    routes = collections.Counter(L.fused_block(split.get(n), t.shape[3], 0, 1)[0]
+                                 for n, t in flat.items()
+                                 if t.dim() == 4 and tuple(t.shape[:2]) == (1, 1))
+    run = _placed_run(spec.loss_fn, params, batch, ("model",),
+                      lambda mesh, n: [Shard(split[n])] if n in split else [Replicate()], dev)
     return dict(model_degree=TP_CNN_PLACED, split_vars=len(split), fused_routes=dict(routes),
-                launches=fcs.fused_matmul_stats.launches, loss=float(got),
-                plain_loss=float(want), grads_differ=differ,
-                bitwise=bool(torch.equal(got, want)) and differ == 0)
+                launches=run["kernel_launches"]["fused_conv_stats"], loss=run["loss"],
+                plain_loss=run["plain_loss"], grads_differ=run["grads_differ"],
+                bitwise=run["bitwise"])
 
 
 def tp_cnn_rank(rank: int, world: int, work: str) -> int:
@@ -4442,26 +4586,39 @@ def supervised_train(card: str) -> dict:
     me = os.path.abspath(__file__)
     with tempfile.TemporaryDirectory() as work:
         ft_dir, trace_dir = os.path.join(work, "ft"), os.path.join(work, "traces")
-        t0 = time.perf_counter()
-        sup = subprocess.run(
-            [sys.executable, "-m", "autodist_tpu_torch.runtime.launcher",
-             "--max-restarts", "1", "--restart-backoff", str(SUP_BACKOFF_S),
-             "--ft-dir", ft_dir, "--trace-out", trace_dir, "--",
-             sys.executable, me, "--supervised-script", work, "preempt"],
-            env=env, cwd=os.path.dirname(me), stderr=subprocess.PIPE, text=True,
-            timeout=SUP_TIMEOUT_S)
-        launcher_s = time.perf_counter() - t0
+        # The uninterrupted run, on the same card beside the launcher's
+        # (deterministic algorithms: the concurrency changes no bit).
+        ref = {}
+
+        def run_plain():
+            t = time.perf_counter()
+            ref["code"] = subprocess.run(
+                [sys.executable, me, "--supervised-script", work, "plain"], env=env,
+                timeout=SUP_TIMEOUT_S).returncode
+            ref["s"] = time.perf_counter() - t
+
+        beside = threading.Thread(target=run_plain)
+        beside.start()
+        try:
+            t0 = time.perf_counter()
+            sup = subprocess.run(
+                [sys.executable, "-m", "autodist_tpu_torch.runtime.launcher",
+                 "--max-restarts", "1", "--restart-backoff", str(SUP_BACKOFF_S),
+                 "--ft-dir", ft_dir, "--trace-out", trace_dir, "--",
+                 sys.executable, me, "--supervised-script", work, "preempt"],
+                env=env, cwd=os.path.dirname(me), stderr=subprocess.PIPE, text=True,
+                timeout=SUP_TIMEOUT_S)
+            launcher_s = time.perf_counter() - t0
+        finally:
+            beside.join()
         sys.stderr.write(sup.stderr[-20000:])
         check(sup.returncode == 0, f"supervised_train: launcher exited {sup.returncode}")
         delays = [float(line.rsplit(" in ", 1)[1].rstrip("s"))
                   for line in sup.stderr.splitlines() if "restarting (1/1) in " in line]
         check(len(delays) == 1, f"supervised_train: restarts logged {delays}")
-        t0 = time.perf_counter()
-        ref = subprocess.run([sys.executable, me, "--supervised-script", work, "plain"],
-                             env=env, timeout=SUP_TIMEOUT_S)
-        plain_s = time.perf_counter() - t0
-        check(ref.returncode == 0, f"supervised_train: the uninterrupted run exited "
-                                   f"{ref.returncode}")
+        plain_s = ref.get("s")
+        check(ref.get("code") == 0, f"supervised_train: the uninterrupted run exited "
+                                    f"{ref.get('code')}")
         attempts = []
         for k in (0, 1):
             with open(os.path.join(work, f"preempt-attempt{k}.json"), encoding="utf-8") as f:
@@ -5594,12 +5751,14 @@ def _pipe_stages(world: int) -> int:
     return PIPE_STAGES if world in (1, PIPE_STAGES) else world
 
 
-def _bert_stages(dev, stages: int):
-    """bert_base (seq TRAIN_SEQ) as ``stages`` stages of its blocks:
-    ``(stacked params, stage_fn, loss_head, x, targets, config)``. ``x`` is
-    the embedding of the masked batch (outside the pipeline, not trained);
-    the loss head is the MLM loss over the fixed tied table."""
-    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash")
+def _bert_stages(dev, stages: int, dtype: str = "bfloat16"):
+    """bert_base (seq TRAIN_SEQ, computing in ``dtype``) as ``stages`` stages
+    of its blocks: ``(stacked params, stage_fn, loss_head, x, targets,
+    config)``. ``x`` is the embedding of the masked batch (outside the
+    pipeline, not trained); the loss head is the MLM loss over the fixed
+    tied table."""
+    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash",
+                          dtype=dtype)
     cfg = spec.config
     params = spec.init(SEED, device=dev)
     per = cfg.num_layers // stages
@@ -5974,6 +6133,373 @@ def parallel_rehearsal() -> dict:
     return row
 
 
+# ------------------------------------------------------------ three_axis
+def _plan_splits(model: str, overrides: dict, batch: int, mesh: dict, dev) -> dict:
+    """``{name: (axis, dim)}`` of the variables TensorParallel's plan splits
+    at ``mesh`` (a logical mesh), the zoo's expert names given."""
+    from autodist_tpu_torch.strategy import explain as ex
+
+    item = ex.model_item_for(model, batch, dev, **overrides)
+    rs = ResourceSpec(resource_dict={"nodes": [{"address": "localhost",
+                                                "gpus": int(np.prod(list(mesh.values())))}],
+                                     "mesh": mesh})
+    strategy = StrategyCompiler(item).compile(from_name("TensorParallel").build(item, rs))
+    plan = GraphTransformer(strategy, item, Mesh.logical(mesh)).transform()
+    return {n: (plan.var_plans[n].storage_axis, plan.rendering(n)[1]) for n in plan.var_plans
+            if plan.rendering(n)[0] in ("partitioned", "expert")}
+
+
+def _placer(splits: dict):
+    """``placements(mesh, name)`` of a plan's splits: ``Shard(dim)`` on the
+    variable's own axis's dim, ``Replicate`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from autodist_tpu_torch.utils.placement import placement_list
+
+    def placements(mesh, name):
+        axis, dim = splits.get(name, (None, None))
+        return placement_list(mesh, axis, Shard(dim) if axis else Replicate())
+    return placements
+
+
+def _seq_rig(dev) -> Mesh:
+    """A mesh that names a seq axis of 2 over a one-rank seq group (and a
+    model axis of 1): on one card it sends ``ring_attention`` and
+    ``ulysses_attention`` through their seq-parallel route, where this
+    rank's chunk is the whole sequence."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dmesh = DeviceMesh(dev.type, torch.zeros((1, 1), dtype=torch.int),
+                       mesh_dim_names=("seq", "model"))
+    return Mesh(axis_names=("data", "seq", "model"), shape={"data": 1, "seq": 2, "model": 1},
+                rank=0, device=dev, group=None, device_mesh=dmesh)
+
+
+def _three_axis_placed(dev) -> dict:
+    """three_axis at one card: the placed checks (see the module
+    docstring)."""
+    out = {}
+    moe = get_model_spec("moe_transformer")
+    params = moe.init(SEED, device=dev)
+    batch = moe.example_batch(THREE_MOE_BATCH, device=dev)
+    splits = _plan_splits("moe_transformer", {}, THREE_MOE_BATCH, THREE_ME, dev)
+    run = _placed_run(moe.loss_fn, params, batch, ("model", "expert"), _placer(splits), dev)
+    out["moe_model2expert2"] = dict(run, split_vars=collections.Counter(
+        ax for ax, _ in splits.values()))
+    del params, batch
+    bert = {"max_seq_len": TRAIN_SEQ}
+    splits = _plan_splits("bert_base", dict(bert, attention_impl="flash"), THREE_BERT_BATCH,
+                          {"data": 1, "model": 2}, dev)
+    rig = _seq_rig(dev)
+    for impl in SEQ_IMPLS:
+        spec = get_model_spec("bert_base", **bert, attention_impl=impl)
+        params = spec.init(SEED, device=dev)
+        batch = spec.example_batch(THREE_BERT_BATCH, device=dev)
+        AutoDist.reset_default()
+        autodist = AutoDist(device="cuda")
+        autodist._mesh = rig
+        out[f"bert_base_{impl}_seq_model"] = dict(
+            _placed_run(spec.loss_fn, params, batch, ("model",), _placer(splits), dev),
+            split_vars=len(splits))
+        AutoDist.reset_default()
+        del params, batch
+    # bert_base's heads split on model and whole over expert: the flash
+    # kernels under local_map on the two-dim mesh.
+    splits = _plan_splits("bert_base", dict(bert, attention_impl="flash"), THREE_BERT_BATCH,
+                          THREE_ME, dev)
+    spec = get_model_spec("bert_base", **bert, attention_impl="flash")
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(THREE_BERT_BATCH, device=dev)
+    out["bert_base_flash_model2expert2"] = dict(
+        _placed_run(spec.loss_fn, params, batch, ("model", "expert"), _placer(splits), dev),
+        split_vars=collections.Counter(ax for ax, _ in splits.values()))
+    del params, batch
+    model, overrides, _, _ = PUBLISHED["resnet50"]
+    spec = get_model_spec(model, **overrides)
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(THREE_RESNET_BATCH, device=dev)
+    splits = _plan_splits(model, overrides, THREE_RESNET_BATCH, THREE_ME, dev)
+    out["resnet50_model2expert2"] = dict(
+        _placed_run(spec.loss_fn, params, batch, ("model", "expert"), _placer(splits), dev),
+        split_vars=collections.Counter(ax for ax, _ in splits.values()))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_autodist(mesh: dict, builder, world: int, rank: int, work: str) -> AutoDist:
+    """An AutoDist over ``mesh`` (one NCCL rank a card)."""
+    AutoDist.reset_default()
+    spec = ResourceSpec(resource_dict={"nodes": [
+        {"address": "localhost", "gpus": world, "chief": True}], "mesh": mesh})
+    return AutoDist(strategy_builder=builder, resource_spec=spec, device="cuda",
+                    init_method=f"file://{work}/pg", world_size=world, rank=rank,
+                    timeout_s=DIST_GROUP_TIMEOUT_S, mesh_axes=tuple(mesh))
+
+
+def _three_inputs(kind: str, impl, dtype: str, dev):
+    """``(build(autodist, opt) -> step, params, batch, one(opt) -> the
+    one-process step, flip(batch) -> its rows reversed)`` of a three_axis
+    model: the MoE and bert_base through ``AutoDist.build``, the bert_base
+    stage stack through ``build_pipeline``."""
+    if kind == "stages":
+        stacked, stage_fn, loss_head, x, tgt, _ = _bert_stages(dev, 2, dtype)
+
+        def build(autodist, opt):
+            return autodist.build_pipeline(stage_fn, loss_head, PIPE_MICRO,
+                                           optimizer=OptimizerSpec(*opt))
+
+        def one(opt):
+            return par.PipelineTrainStep(stage_fn, loss_head, OptimizerSpec(*opt).make(),
+                                         PIPE_MICRO, mesh=Mesh.logical({"data": 1}, device=dev))
+
+        return build, stacked, (x, tgt), one, lambda b: (b[0].flip(0),
+                                                         tuple(t.flip(0) for t in b[1]))
+    if kind == "moe":
+        spec = get_model_spec("moe_transformer", dtype=dtype)
+        size, experts = THREE_MOE_BATCH, ("expert_",)
+    else:
+        spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl=impl,
+                              dtype=dtype)
+        size, experts = THREE_BERT_BATCH, ()
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(size, device=dev)
+    # The one-process step has no seq group: bert_base's computes flash.
+    plain = spec if kind == "moe" else get_model_spec(
+        "bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash", dtype=dtype)
+
+    def build(autodist, opt):
+        return autodist.build(spec.loss_fn, params, batch, optimizer=OptimizerSpec(*opt),
+                              expert_names=experts)
+
+    def one(opt):
+        return _one_process_step(AllReduce(), plain.loss_fn, params, batch, dev, opt)
+
+    return build, params, batch, one, lambda b: {k: v.flip(0) for k, v in b.items()}
+
+
+def _flat(step, state) -> dict:
+    return {n: t.detach().clone() for n, t in flatten_params(step.logical_params(state)).items()}
+
+
+def _three_axis_row(cid, kind, mesh, builder, impl, world, rank, work, dev) -> dict:
+    """One 2 x 2 mesh of three_axis on four cards (see the module
+    docstring): the bf16 steps and one fp32 SGD step against the
+    one-process step."""
+    build, params, batch, one, flip = _three_inputs(kind, impl, "float32", dev)
+    fp32 = []
+    for b in (batch, flip(batch)):
+        step = one(THREE_SGD)
+        state, _ = step(step.init(params), b)
+        fp32.append(_flat(step, state))
+        del step, state
+    step = build(_mesh_autodist(mesh, from_name(builder or "AllReduce"), world, rank,
+                                work), THREE_SGD)
+    state, _ = step(step.init(params), batch)
+    got = _flat(step, state)
+    spread = _update_rel(params, fp32[1], fp32[0])
+    sgd = dict(update_rel_l2=_update_rel(params, got, fp32[0]),
+               reversed_rows_update_rel_l2=spread, bound=max(THREE_UPDATE_RTOL, 2 * spread))
+    del step, state, got, fp32, params, batch
+    torch.cuda.empty_cache()
+    build, params, batch, _, _ = _three_inputs(kind, impl, "bfloat16", dev)
+    autodist = _mesh_autodist(mesh, from_name(builder or "AllReduce"), world, rank, work)
+    step = build(autodist, THREE_BF16_OPT)
+    state, losses, ms, launches, wire = _train_window(step, params, batch, THREE_STEPS, dev) \
+        if kind != "stages" else _pipe_window(step, params, batch, THREE_STEPS, dev)
+    row = dict(id=cid, model=kind, attention_impl=impl, mesh=mesh, builder=builder or
+               "build_pipeline", world=world, steps=1 + THREE_STEPS, losses=losses,
+               ms_per_step=ms, kernel_launches=launches, collectives=wire,
+               dtensor_by_axis={ax: sum(wire.get(ax, {}).values())
+                                for ax in ("model", "expert")}, fp32_sgd=sgd)
+    if kind != "stages":
+        row["predicted_wire"] = autodist.plan.collectives_per_step()
+    del step, state, params, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def _pipe_window(step, stacked, batch, steps, dev):
+    """``_train_window`` of a pipeline step (it has no collective count)."""
+    state, first = step(step.init(stacked), batch)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(first["loss"])]
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    return state, losses, ms, {"fused_conv_stats": 0, **_launch_counts()}, {}
+
+
+def _baseline_ms(kind, impl, mesh, builder, world, rank, work, dev) -> float:
+    """ms a bf16 step of a model on a baseline mesh (data 4, or the
+    two-axis mesh a 2 x 2 one extends)."""
+    build, params, batch, _, _ = _three_inputs(kind, impl, "bfloat16", dev)
+    step = build(_mesh_autodist(mesh, from_name(builder or "AllReduce"), world, rank,
+                                work), THREE_BF16_OPT)
+    window = _pipe_window if kind == "stages" else _train_window
+    _, _, ms, _, _ = window(step, params, batch, THREE_STEPS, dev)
+    del step, params, batch
+    torch.cuda.empty_cache()
+    return ms
+
+
+def three_axis_rank(rank: int, world: int, work: str) -> int:
+    """One NCCL rank of three_axis: the placed checks below four cards, the
+    2 x 2 meshes and their baselines on four."""
+    dev = _deterministic(rank)
+    if world < 4:
+        AutoDist.reset_default()
+        AutoDist(device="cuda", init_method=f"file://{work}/pg", world_size=world, rank=rank,
+                 timeout_s=DIST_GROUP_TIMEOUT_S)
+        out = {"placed": _three_axis_placed(dev) if rank == 0 else None}
+    else:
+        out = {"meshes": [_three_axis_row(*case, world, rank, work, dev)
+                          for case in THREE_MESHES],
+               "baselines": [dict(kind=kind, impl=impl, mesh=mesh, builder=builder,
+                                  ms_per_step=_baseline_ms(kind, impl, mesh, builder, world,
+                                                           rank, work, dev))
+                             for kind, impl, mesh, builder in THREE_BASELINES]}
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def three_axis(card: str) -> dict:
+    """The three_axis phase (see the module docstring). Returns rank 0's
+    results."""
+    torch.cuda.empty_cache()
+    world = _pow2_ranks()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        res = _spawn_ranks("--three-axis-rank", world, work,
+                           dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))[0]
+    seconds = time.perf_counter() - t0
+    if world < 4:
+        placed = res["placed"]
+        emit("three_axis", world=world, placed=placed, process_seconds=seconds, card=card)
+        layers = get_model_spec("bert_base").config.num_layers
+        for key, run in placed.items():
+            check(run["bitwise"], f"three_axis: {key} placed is not bitwise the plain run "
+                  f"({run['grads_differ']} of {run['grads']} gradients differ, worst rel "
+                  f"{run['worst_grad_rel']})")
+        check(placed["moe_model2expert2"]["split_vars"].get("expert", 0) > 0
+              and placed["moe_model2expert2"]["split_vars"].get("model", 0) > 0,
+              f"three_axis: MoE splits {placed['moe_model2expert2']['split_vars']}")
+        want = {"fwd": layers, "dkdv": layers, "dq": layers}
+        for key in ("bert_base_ulysses_seq_model", "bert_base_flash_model2expert2"):
+            got = {k: placed[key]["kernel_launches"][k] for k in want}
+            check(got == want, f"three_axis: {key} flash launches {got} != {want}")
+        check(set(placed["bert_base_flash_model2expert2"]["split_vars"]) == {"model"},
+              f"three_axis: bert_base splits {placed['bert_base_flash_model2expert2']}")
+        check(placed["resnet50_model2expert2"]["kernel_launches"]["fused_conv_stats"]
+              == rn.fused_launches_per_forward(50),
+              f"three_axis: ResNet-50 fused launches {placed['resnet50_model2expert2']}")
+        return res
+    rows = res["meshes"]
+    for row in rows:
+        emit("three_axis", **row, card=card)
+        losses, sgd = row["losses"], row["fp32_sgd"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"three_axis {row['id']}: bf16 losses {losses}")
+        check(sgd["update_rel_l2"] <= sgd["bound"], f"three_axis {row['id']}: fp32 SGD {sgd}")
+        if "predicted_wire" in row:
+            check(_wire(row["collectives"]) == row["predicted_wire"],
+                  f"three_axis {row['id']}: wire {row['collectives']}")
+    emit("three_axis_baselines", baselines=res["baselines"], process_seconds=seconds,
+         card=card)
+    return res
+
+
+# ------------------------------------------- the three-axis CPU rehearsal
+def _three_cpu_inputs(key: str):
+    """(loss, params, batch, reference loss) of a three_axis_rehearsal model
+    at its toy width, from the seed, on the CPU: the small transformer or
+    MoE with the case's attention (the reference computes ``dot``)."""
+    model, impl = key.split("/")
+    over = dict(THREE_TOY, dtype="float32")
+    if model == "moe":
+        over.update(num_experts=4, max_seq_len=17, capacity_factor=4.0, aux_loss_weight=0.0)
+    spec = get_model_spec("moe_transformer" if model == "moe" else "transformer",
+                          **over, attention_impl=impl)
+    ref = get_model_spec("moe_transformer" if model == "moe" else "transformer",
+                         **over, attention_impl="dot")
+    cpu = torch.device("cpu")
+    return spec.loss_fn, spec.init(SEED, device=cpu), spec.example_batch(8, device=cpu), \
+        ref.loss_fn
+
+
+def three_axis_cpu_rank(rank: int, world: int, work: str) -> int:
+    """One gloo rank of three_axis_rehearsal."""
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    pg.join(cpu, f"file://{work}/pg", world, rank, DIST_GROUP_TIMEOUT_S)
+    out = {}
+    for cid, key, builder, mesh, experts in THREE_REHEARSAL:
+        AutoDist.reset_default()
+        autodist = AutoDist(strategy_builder=from_name(builder or "AllReduce"),
+                            device="cpu", mesh_axes=tuple(mesh),
+                            resource_spec=ResourceSpec(resource_dict={"nodes": [
+                                {"address": "localhost", "gpus": world, "chief": True}],
+                                "mesh": mesh}))
+        opt = OptimizerSpec("sgd", {"learning_rate": REHEARSAL_LR})
+        if key == "pipeline":
+            params, x, tgt = _par_pipe_inputs(mesh["pipe"])
+            step = autodist.build_pipeline(_par_stage, _par_head, 4, optimizer=opt)
+            state, metrics = step.run(step.init(params), (x, tgt), REHEARSAL_STEPS)
+            logical = step.logical_params(state)
+        else:
+            loss, params, batch, _ = _three_cpu_inputs(key)
+            step = autodist.build(loss, params, batch, optimizer=opt, expert_names=experts)
+            state, metrics = step.run(step.init(params), batch, REHEARSAL_STEPS)
+            logical = flatten_params(step.logical_params(state))
+        out[cid] = {"losses": metrics["loss"].tolist(),
+                    "params": {n: t.tolist() for n, t in logical.items()}}
+    pg.leave()
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def three_axis_rehearsal() -> dict:
+    """8 gloo ranks on the CPU against one process (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    cpu, cpu_env = torch.device("cpu"), dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                                              OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as work:
+        ranks = _spawn_ranks("--three-axis-cpu-rank", THREE_REHEARSAL_RANKS, work, cpu_env)
+    worst = {}
+    opt = ("sgd", {"learning_rate": REHEARSAL_LR})
+    for cid, key, _, mesh, _ in THREE_REHEARSAL:
+        if key == "pipeline":
+            params, x, tgt = _par_pipe_inputs(mesh["pipe"])
+            step = par.PipelineTrainStep(_par_stage, _par_head, OptimizerSpec(*opt).make(), 4,
+                                         mesh=Mesh.logical({"data": 1}))
+            state, metrics = step.run(step.init(params), (x, tgt), REHEARSAL_STEPS)
+            want = step.logical_params(state)
+        else:
+            _, params, batch, ref = _three_cpu_inputs(key)
+            step = _one_process_step(AllReduce(), ref, params, batch, cpu, opt)
+            state, metrics = step.run(step.init(params), batch, REHEARSAL_STEPS)
+            want = flatten_params(step.logical_params(state))
+        for r, res in enumerate(ranks):
+            got = res[cid]
+            _close(got["losses"], metrics["loss"], f"three-axis {cid} losses rank {r}")
+            worst[cid] = max(worst.get(cid, 0.0), max(
+                _close(got["params"][n], t, f"three-axis {cid} {n} rank {r}")
+                for n, t in want.items()))
+    row = dict(note="gloo on the CPU: a rehearsal, not a card result",
+               ranks=THREE_REHEARSAL_RANKS, torch=torch.__version__,
+               max_abs_diff_vs_one_process=worst, rtol=REHEARSAL_RTOL, atol=REHEARSAL_ATOL,
+               seconds=time.perf_counter() - t0)
+    emit("three_axis_rehearsal", **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -6028,6 +6554,10 @@ def main() -> int:
                                                (TRAIN_SEQ, False, torch.float32))
                   for r in flash_case(seq, causal, dtype, gen, dev)]
     flash_rows += seq_flash_cases(gen, dev)
+    # three_axis on four cards: Ulysses at seq 2 x model 2 on bert_base's
+    # 12 / 4 heads a rank.
+    flash_rows += flash_case(TRAIN_SEQ, False, torch.bfloat16, gen, dev, THREE_BERT_BATCH,
+                             FLASH_H // 4)
     conv_rows = [conv_stats_case(*shape, torch.bfloat16, gen, dev, launches)
                  for shape, launches in CONV_SHAPES]
     conv_rows.append(conv_stats_case(*CONV_SHAPES[0][0], torch.float32, gen, dev))
@@ -6052,20 +6582,31 @@ def main() -> int:
     accum_check(dev)
     ckpt_rows = checkpoint_train(card)
     saved_row = saved_model_phase(card, dev)
-    dist_rows = dist_train(card)
-    sync_rows = sync_options(card)
-    tp_rows = tp_train(card)
-    tp_cnn_row = tp_cnn(card)
     auto_plan(card, dev)
-    auto_rows = auto_train(card)
     tune_row = tune_phase(card, dev)
-    sparse_rehearsal()
-    sup_row = supervised_train(card)
-    seq_rows, pipe_rows = parallel_train(card, dev)
+    # From here on every card phase runs in processes of its own, and the
+    # CPU rehearsals (gloo ranks on the CPU and their one-process steps in
+    # this process, none of which touches the card) run beside them.
+    rehearsals = _Beside(three_axis_rehearsal, tp_models_rehearsal, dist_rehearsal,
+                         sparse_rehearsal, parallel_rehearsal)
+    try:
+        dist_rows = dist_train(card)
+        sync_rows = sync_options(card)
+        tp_rows = tp_train(card)
+        tp_cnn_row = tp_cnn(card)
+        auto_rows = auto_train(card)
+        sup_row = supervised_train(card)
+        seq_rows, pipe_rows = parallel_train(card, dev)
+        three_axis_row = three_axis(card)
+    finally:
+        rehearsals.join()
+    rehearsals.result()
     seq_rows = [r for r in seq_rows if r["attention_impl"] != "flash"]
     pipe_row = pipe_rows[0]
-    parallel_rehearsal()
-    tp_models_rehearsal()
+    three_runs = (list((three_axis_row.get("placed") or {}).values())
+                  + three_axis_row.get("meshes", []))
+    three_launches = {k: sum(run["kernel_launches"][k] for run in three_runs)
+                      for k in ("fwd", "dkdv", "dq", "fused_conv_stats")}
 
     main_row = rows[0]                  # decode, bf16 pages: the serving hot shape
     kernels = [{
@@ -6106,7 +6647,8 @@ def main() -> int:
             + sum(r["kernel_launches"][kind] for r in seq_rows)
             + pipe_row["kernel_launches"][kind]
             + data_row["lm"]["kernel_launches"][kind]
-            + (infer_rows[0]["kernel_launches"] if kind == "fwd" else 0),
+            + (infer_rows[0]["kernel_launches"] if kind == "fwd" else 0)
+            + three_launches[kind],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],
@@ -6130,7 +6672,8 @@ def main() -> int:
               for r in zoo_rows + dist_rows + sync_rows + ckpt_rows + tp_rows)
         + infer_rows[1]["kernel_launches"]
         + data_row["kernel_launches"]["fused_conv_stats"]
-        + tp_cnn_row["kernel_launches"]["fused_conv_stats"],
+        + tp_cnn_row["kernel_launches"]["fused_conv_stats"]
+        + three_launches["fused_conv_stats"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"],
@@ -6152,7 +6695,9 @@ if __name__ == "__main__":
                   "--auto-rank": auto_rank, "--sparse-cpu-rank": sparse_cpu_rank,
                   "--parallel-rank": parallel_rank,
                   "--parallel-cpu-rank": parallel_cpu_rank, "--tp-cnn-rank": tp_cnn_rank,
-                  "--tp-models-cpu-rank": tp_models_cpu_rank}
+                  "--tp-models-cpu-rank": tp_models_cpu_rank,
+                  "--three-axis-rank": three_axis_rank,
+                  "--three-axis-cpu-rank": three_axis_cpu_rank}
     if len(sys.argv) == 5 and sys.argv[1] in RANK_MAINS:
         sys.exit(RANK_MAINS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) >= 3 and sys.argv[1] == "--serve-cli":

@@ -12,7 +12,8 @@ for tensor and expert parallelism; ``expert_names``; ``tune``: candidate
 builder names to run ``AutoDist.tune`` over instead of training, with
 ``fail_rank``: the rank whose loss fails in the candidates' steps;
 ``bad_id``: an id outside the table put into the embed model's batch;
-``data_fit``: a dataset directory to train from with
+``bucket_bytes``: gradient buckets put into the strategy of a builder
+without that option; ``data_fit``: a dataset directory to train from with
 ``DataLoader.from_files(process_slice=True)`` and ``fit(window=)``, and an
 eval batch for ``metrics.evaluate_dataset``). The rank
 joins the group at
@@ -126,13 +127,27 @@ def loss_for(case):
     return get_model_spec(case["zoo"], **case.get("overrides", {})).loss_fn
 
 
+class _Bucketed(StrategyBuilder):
+    """A builder's strategy with gradient buckets of ``nbytes`` (its graph
+    config's ``bucket_bytes``), for builders without that option."""
+
+    def __init__(self, inner, nbytes: int):
+        self.inner, self.nbytes = inner, nbytes
+
+    def build(self, model_item, resource_spec):
+        strategy = self.inner.build(model_item, resource_spec)
+        strategy.graph_config.bucket_bytes = self.nbytes
+        return strategy
+
+
 def train(case, params, batch, **autodist_kwargs):
     """``(autodist, step, state, losses, per-step collectives, loss of the
     trained state on the batch)`` of a case."""
     api.AutoDist.reset_default()
-    ad = api.AutoDist(strategy_builder=from_name(case["builder"],
-                                                 **case.get("builder_kwargs", {})),
-                      device="cpu", **autodist_kwargs)
+    builder = from_name(case["builder"], **case.get("builder_kwargs", {}))
+    if case.get("bucket_bytes"):
+        builder = _Bucketed(builder, case["bucket_bytes"])
+    ad = api.AutoDist(strategy_builder=builder, device="cpu", **autodist_kwargs)
     opt = model_item.OptimizerSpec(case["opt"], dict(case["opt_kwargs"]),
                                    clip_norm=case.get("clip_norm"))
     step = ad.build(loss_for(case), params, batch, optimizer=opt,

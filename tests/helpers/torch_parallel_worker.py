@@ -26,7 +26,15 @@ fields:
   ``stages`` stacked stages and ``schedule``;
 - ``pipe_step``: ``AutoDist.build_pipeline`` (SGD at ``lr``, 4
   microbatches): evaluate, one step, the gathered stack, ``run`` of
-  ``run_steps``, evaluate again; inputs ``(stacked params, x, targets)``.
+  ``run_steps``, evaluate again; inputs ``(stacked params, x, targets)``;
+- ``mesh_groups``: the mesh of ``mesh`` (over ``mesh_axes``, default its
+  keys): this rank's coordinates and the global ranks of its groups;
+- ``pipe_step_error``: the ``ValueError`` text of one ``build_pipeline``
+  step whose stage calls ``ring_attention`` (``ring_stage``);
+- ``train``: ``AutoDist.build`` on a case of ``torch_dist_worker.py``
+  (its fields; inputs ``(torch params, torch batch)``), reported as that
+  worker reports its losses, logical params, collectives, the plan's
+  prediction and renderings.
 
 The group forms at ``file://INIT_FILE``; ``OUT_DIR/rank<RANK>.pt`` holds
 the results by case id. Imports only torch, numpy and the port.
@@ -60,7 +68,14 @@ def two_layer_stage(p, h):
     return torch.tanh(h @ p["w2"] + p["b"])
 
 
-STAGES = {"tanh": tanh_stage, "two_layer": two_layer_stage}
+def ring_stage(p, h):
+    """A stage whose rows are 4 tokens of one 2-wide head, attended by ring
+    attention over the mesh's seq axis."""
+    q = torch.tanh(h @ p["w"] + p["b"]).reshape(h.shape[0], 4, 1, 2)
+    return ring_attention(q, q, q).reshape(h.shape)
+
+
+STAGES = {"tanh": tanh_stage, "two_layer": two_layer_stage, "ring": ring_stage}
 
 
 def mse_head(o, t):
@@ -88,7 +103,8 @@ def numpy(tree):
 def mesh_of(case, world):
     spec = ResourceSpec(resource_dict={"nodes": [
         {"address": "localhost", "gpus": world, "chief": True}], "mesh": case["mesh"]})
-    return build_mesh(spec, device="cpu", group=dist.group.WORLD, axes=tuple(case["mesh"]))
+    return build_mesh(spec, device="cpu", group=dist.group.WORLD,
+                      axes=case.get("mesh_axes", tuple(case["mesh"])))
 
 
 class SavedBytes:
@@ -204,17 +220,48 @@ def pipe_error(case, inputs, mesh):
     return {"error": None}
 
 
-def pipe_step(case, inputs, world, rank, init_file):
-    params, x, tgt = (tensors(a) for a in inputs)
+def _pipeline_step(case, world, rank, init_file):
     api.AutoDist.reset_default()
     spec = ResourceSpec(resource_dict={"nodes": [
         {"address": "localhost", "gpus": world, "chief": True}], "mesh": case["mesh"]})
     ad = api.AutoDist(resource_spec=spec, device="cpu", init_method=f"file://{init_file}",
                       world_size=world, rank=rank, timeout_s=GROUP_TIMEOUT_S,
                       mesh_axes=tuple(case["mesh"]))
-    step = ad.build_pipeline(STAGES[case["stage"]], mse_head, n_microbatches=4,
+    return ad.build_pipeline(STAGES[case["stage"]], mse_head, n_microbatches=4,
                              optimizer=OptimizerSpec("sgd", {"learning_rate": case["lr"]}),
                              donate_state=False)
+
+
+def pipe_step_error(case, inputs, world, rank, init_file):
+    params, x, tgt = (tensors(a) for a in inputs)
+    step = _pipeline_step(case, world, rank, init_file)
+    try:
+        step(step.init(params), (x, tgt))
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+def train(case, inputs, world, rank, init_file):
+    import torch_dist_worker as worker
+    from autodist_tpu_torch.models.convert import flatten_params
+
+    spec = ResourceSpec(resource_dict={"nodes": [
+        {"address": "localhost", "gpus": world, "chief": True}], "mesh": case["mesh"]})
+    ad, step, state, losses, wire, _ = worker.train(
+        case, *inputs, resource_spec=spec, init_method=f"file://{init_file}",
+        world_size=world, rank=rank, timeout_s=GROUP_TIMEOUT_S, mesh_axes=case["mesh_axes"])
+    return {"losses": losses,
+            "params": {k: v.numpy().copy() for k, v in
+                       flatten_params(step.logical_params(state)).items()},
+            "collectives": [counts for counts, _ in wire],
+            "predicted": ad.plan.collectives_per_step(bucketed=step.accum == 1),
+            "renderings": {n: ad.plan.rendering(n) for n in ad.plan.var_plans}}
+
+
+def pipe_step(case, inputs, world, rank, init_file):
+    params, x, tgt = (tensors(a) for a in inputs)
+    step = _pipeline_step(case, world, rank, init_file)
     state = step.init(params)
     ev0 = float(step.evaluate(state, (x, tgt))["loss"])
     state1, m = step(state, (x, tgt))
@@ -229,8 +276,24 @@ def pipe_step(case, inputs, world, rank, init_file):
             "donated_state_unchanged": unchanged}
 
 
+def mesh_groups(case, inputs, mesh):
+    """This rank's coordinates, the global ranks of its data, seq and pipe
+    groups, its shard axes and the ranks of its shard mesh."""
+    def ranks(group):
+        return [dist.get_global_rank(group, i) for i in range(dist.get_world_size(group))]
+
+    shard = mesh.shard_mesh()
+    return {"coords": mesh.coords, "data": ranks(mesh.group), "shard_axes": mesh.shard_axes,
+            "shard_mesh": None if shard is None else shard.mesh.tolist(),
+            **{ax: ranks(mesh.axis_group(ax)) for ax in ("seq", "pipe")
+               if mesh.shape.get(ax, 1) > 1}}
+
+
 CASES = {"attn": attn, "attn_error": attn_error, "pipe_apply": pipe_apply,
-         "pipe_vg": pipe_vg, "pipe_memory": pipe_memory, "pipe_error": pipe_error}
+         "pipe_vg": pipe_vg, "pipe_memory": pipe_memory, "pipe_error": pipe_error,
+         "mesh_groups": mesh_groups}
+#: The kinds that build an AutoDist of their own over the group.
+GROUP_CASES = {"pipe_step": pipe_step, "pipe_step_error": pipe_step_error, "train": train}
 
 
 def main(job_path, rank, world, init_file, out_dir):
@@ -240,8 +303,8 @@ def main(job_path, rank, world, init_file, out_dir):
     out = {}
     for case in job["cases"]:
         inputs = job["inputs"][case["inputs"]]
-        if case["kind"] == "pipe_step":
-            out[case["id"]] = pipe_step(case, inputs, world, rank, init_file)
+        if case["kind"] in GROUP_CASES:
+            out[case["id"]] = GROUP_CASES[case["kind"]](case, inputs, world, rank, init_file)
         else:
             out[case["id"]] = CASES[case["kind"]](case, inputs, mesh_of(case, world))
     pg.leave()

@@ -11,12 +11,14 @@
   ``tests/test_torch_tp_e2e.py``; every rank's parameters bitwise equal;
   each step's data-axis wire equal to the plan's prediction (the seq
   group's own collectives are not the plan's).
-- Plans on ``Mesh.logical`` data x seq and data x pipe meshes (no
-  processes) var for var against JAX's ``GraphTransformer`` on a mesh of
-  the same shape over the first CPU devices, as
-  ``tests/test_torch_dist_plan.py`` compares data meshes.
-- The combinations that still raise: seq or pipe beside a wide model or
-  expert axis, seq with pipe.
+- Plans on ``Mesh.logical`` data x seq and data x pipe meshes, and on the
+  three-axis meshes data x model x expert, data x seq x model, data x pipe
+  x model and seq x pipe (no processes), var for var against JAX's
+  ``GraphTransformer`` on a mesh of the same shape over the first CPU
+  devices, as ``tests/test_torch_dist_plan.py`` compares data meshes.
+- The combinations that raised before the three-axis port (seq or pipe
+  beside a wide model or expert axis, seq with pipe) now build on gloo
+  ranks, each rank with the groups of its coordinates.
 """
 import jax
 import jax.numpy as jnp
@@ -40,6 +42,7 @@ from autodist_tpu_torch.models.convert import params_from_jax
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from helpers import torch_dist as td
 
+PARALLEL_WORKER = td.WORKER.with_name("torch_parallel_worker.py")
 SMALL = dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, d_ff=64, max_seq_len=16)
 LR, STEPS, BATCH = 0.05, 2, 8
 MESHES = {"data2seq2": {"data": 2, "seq": 2}, "seq4": {"data": 1, "seq": 4}}
@@ -131,7 +134,9 @@ BERT = dict(vocab_size=101, num_layers=2, d_model=64, num_heads=2, d_ff=128, max
 PLAN_BUILDERS = [("AllReduce", {"chunk_size": 2}), ("PartitionedPS", {}), ("Zero1", {}),
                  ("PSLoadBalancing", {})]
 PLAN_MESHES = [{"data": 2, "seq": 2}, {"data": 4, "seq": 2}, {"data": 2, "pipe": 2},
-               {"data": 2, "pipe": 4}]
+               {"data": 2, "pipe": 4}, {"data": 2, "model": 2, "expert": 2},
+               {"data": 2, "seq": 2, "model": 2}, {"data": 2, "pipe": 2, "model": 2},
+               {"data": 1, "seq": 2, "pipe": 2}]
 
 
 def _items(model):
@@ -186,12 +191,42 @@ def test_plan_matches_jax(model, mesh):
         assert tplan.describe() == jplan.describe()
 
 
-@pytest.mark.parametrize("shape", [
-    {"data": 2, "seq": 2, "model": 2}, {"data": 1, "pipe": 2, "expert": 2},
-    {"data": 1, "seq": 2, "pipe": 2}, {"seq": 2, "model": 4}])
-def test_unported_combinations_raise(shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _check_axes(shape, "data")
+UNPORTED_BEFORE = [{"data": 2, "seq": 2, "model": 2}, {"data": 1, "pipe": 2, "expert": 2},
+                   {"data": 1, "seq": 2, "pipe": 2}, {"seq": 2, "model": 4}]
+
+
+@pytest.mark.parametrize("shape", UNPORTED_BEFORE,
+                         ids=lambda m: "x".join(f"{k}{v}" for k, v in m.items()))
+def test_unported_combinations_raise(shape, tmp_path):
+    """The name is kept from when these shapes raised: each now builds on
+    gloo ranks (``helpers/torch_parallel_worker.py``), and each rank's
+    groups are the ranks that share its coordinate on every other axis
+    (row-major coordinates); its shard mesh, those that share every
+    coordinate but the model and expert ones."""
+    _check_axes(shape, "data")
+    world = int(np.prod(list(shape.values())))
+    axes = tuple(shape) if "data" in shape else ("data",) + tuple(shape)
+    case = dict(id="groups", kind="mesh_groups", inputs="none", mesh=shape, mesh_axes=axes)
+    got = {r: res["groups"] for r, res in enumerate(
+        td.run_ranks(tmp_path, {"none": ()}, [case], world=world, worker=PARALLEL_WORKER))}
+    names = tuple(got[0]["coords"])
+    sizes = {ax: shape.get(ax, 1) for ax in names}
+
+    def along(mine, axes):
+        return [r for r, other in got.items()
+                if all(other["coords"][a] == mine[a] for a in names if a not in axes)]
+
+    for rank, res in got.items():
+        mine = res["coords"]
+        assert mine == Mesh(axis_names=names, shape=sizes, rank=rank).coords
+        assert res["data"] == along(mine, ("data",))
+        for ax in ("seq", "pipe"):
+            if shape.get(ax, 1) > 1:
+                assert res[ax] == along(mine, (ax,)), (ax, res)
+        wide = tuple(ax for ax in names if ax in ("model", "expert") and sizes[ax] > 1)
+        assert tuple(res["shard_axes"]) == wide
+        if wide:
+            assert sorted(np.ravel(res["shard_mesh"]).tolist()) == along(mine, wide)
 
 
 @pytest.mark.parametrize("shape", [{"data": 2, "seq": 2}, {"data": 1, "pipe": 4},
@@ -199,5 +234,6 @@ def test_unported_combinations_raise(shape):
 def test_seq_and_pipe_beside_data_pass(shape):
     _check_axes(shape, "data")
     mesh = Mesh.logical(shape)
-    assert mesh.group_axis in ("seq", "pipe") and mesh.shard_axis is None
-    assert mesh.axis_group(mesh.group_axis) is None      # a logical mesh plans only
+    axis = "seq" if shape.get("seq", 1) > 1 else "pipe"
+    assert mesh.shard_axes == ()
+    assert mesh.axis_group(axis) is None      # a logical mesh plans only

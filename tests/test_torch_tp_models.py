@@ -23,7 +23,15 @@ rank's parameters bitwise equal:
   ``clip_norm`` 0.5, with lamb and with adafactor;
 - Horovod-EF on the model-split variables: the trained state, compressor
   residuals included, saved and restored into another plan and into JAX's
-  step, and JAX's into the ranks, bitwise.
+  step, and JAX's into the ranks, bitwise;
+- PowerSGD and TopK on the model-split variables of the transformer under
+  ``TensorParallel``, two steps from JAX's initial compressor state
+  (PowerSGD's ``q``): both compress the logical gradient, as JAX does, so
+  their state is the whole variable's; the trained state (residuals, ``q``)
+  crosses between the packages' checkpoints bitwise. TopK runs on a
+  transformer of width 64, whose attention and MLP kernels (64 x 64) are at
+  TopK's ``min_size`` of 4096 elements while a rank's block is below it:
+  the rule reads the logical size.
 
 Tolerances. The transformer, lstm_lm and ncf: losses within rtol 1e-5,
 parameters within rtol 2e-5 / atol 2e-6 (``tests/test_torch_tp_e2e.py``'s
@@ -122,6 +130,15 @@ EF_TP = dict(case("ef/tp", "transformer", "TensorParallel", steps=2), **EF)
 # state either), every other variable whole under AllReduce.
 EF_AR = dict(case("ef/ar", "transformer", "Parallax", steps=2), **EF)
 EF_VAR = "layers_0/attn/wq/kernel"
+# PowerSGD and TopK on the split variables: trained (and saved), then a
+# fresh step restored from JAX's trained checkpoint.
+WHOLE = {"PowerSGDCompressor": ("psgd", "transformer", SMALL),
+         "TopKCompressor": ("topk", "transformer64", dict(SMALL, d_model=64))}
+WHOLE_CASES = {name: dict(case(f"{tag}/tp", model, "TensorParallel", steps=2),
+                          zoo="transformer",
+                          overrides=dict(over, attention_impl="dot", dtype="float32"),
+                          builder_kwargs={"compressor": name})
+               for name, (tag, model, over) in WHOLE.items()}
 
 
 # ------------------------------------------------------------------- JAX
@@ -142,8 +159,8 @@ def _jax_loss(c):
             return JL.softmax_xent(JLSTM.forward(p, t[:, :-1], o["num_layers"], o["hidden"],
                                                  dtype=f32), t[:, 1:])
         return loss
-    over = dict(o, dtype=f32) if c["model"] == "transformer" else o
-    return jax_get_model(c["model"], **over).loss_fn
+    over = dict(o, dtype=f32) if c["zoo"] == "transformer" else o
+    return jax_get_model(c["zoo"], **over).loss_fn
 
 
 def inputs(cases):
@@ -155,9 +172,9 @@ def inputs(cases):
         if c["model"] in out:
             continue
         over = dict(c["overrides"])
-        if c["model"] == "transformer":
+        if c["zoo"] == "transformer":
             over["dtype"] = jnp.float32
-        spec = jax_get_model(c["model"], **over)
+        spec = jax_get_model(c["zoo"], **over)
         params = filled(jax.eval_shape(spec.init, jax.random.PRNGKey(0)), 1)
         batch = {k: np.asarray(v) for k, v in spec.example_batch(BATCH).items()}
         if c["model"] == "lstm_lm":
@@ -191,7 +208,7 @@ def _jax_runs(c, params, batches, loss):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    np_inputs = inputs(CNN_CASES + EXACT_CASES)
+    np_inputs = inputs(CNN_CASES + EXACT_CASES + list(WHOLE_CASES.values()))
     torch_inputs = {k: (params_from_jax(p, device="cpu"), td.to_torch(b))
                     for k, (p, b) in np_inputs.items()}
     tmp = tmp_path_factory.mktemp("ranks")
@@ -201,8 +218,32 @@ def runs(tmp_path_factory):
     ef = [dict(EF_TP, save=dirs["tp"]), dict(EF_AR, save=dirs["ar"]),
           dict(EF_TP, id="ef/tp<-", steps=0, restore=[dirs["tp"], dirs["ar"], dirs["jax"]]),
           dict(EF_AR, id="ef/ar<-", steps=0, restore=[dirs["tp"]])]
-    results = td.run_ranks(tmp, torch_inputs, CNN_CASES + EXACT_CASES + ef)
+    whole = []
+    for name, c in WHOLE_CASES.items():
+        for d in ("port", "jax"):
+            dirs[f"{name}/{d}"] = str(tmp / f"{c['id'].split('/')[0]}_{d}")
+        jstep, state0, jstate = _jax_whole(c, np_inputs)
+        jstep.save(JSaver(dirs[f"{name}/jax"]), jstate)
+        comp0 = jax.tree.map(np.asarray, state0.comp_state)
+        whole += [dict(c, comp_state=comp0, save=dirs[f"{name}/port"]),
+                  dict(c, id=f"{c['id']}<-jax", steps=0, comp_state=comp0,
+                       restore=[dirs[f"{name}/jax"]])]
+    results = td.run_ranks(tmp, torch_inputs, CNN_CASES + EXACT_CASES + ef + whole)
     return results, np_inputs, dirs
+
+
+def _jax_whole(c, np_inputs):
+    """JAX's TensorParallel step under a whole-gradient compressor, its
+    initial state and its state after the case's steps."""
+    params, batch = np_inputs[c["model"]]
+    step = jax_step(c, params, batch, _jax_loss(c))
+    state0 = step.init(params)
+    state, losses = step.init(params), []
+    for _ in range(c["steps"]):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    step.losses = losses
+    return step, state0, state
 
 
 def _jax_ef(np_inputs):
@@ -372,3 +413,81 @@ def test_row_split_statistics_are_the_reduced_products(tmp_path):
         torch.testing.assert_close(out.to_local(), want, rtol=0, atol=0)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", sorted(WHOLE_CASES))
+def test_whole_gradient_compressor_on_split_variables_matches_jax(name, runs):
+    """PowerSGD and TopK on the model-split variables against JAX's 4-device
+    step (from JAX's initial compressor state): losses, parameters and each
+    rank's compressor state (its data row of JAX's ``[n, ...]`` stack, the
+    whole variable's shape; PowerSGD's ``q`` shared) at the e2e bars."""
+    results, np_inputs, _ = runs
+    c = WHOLE_CASES[name]
+    got = _ranks_agree(results, c["id"])
+    jstep, _, jstate = _jax_whole(c, np_inputs)
+    td.assert_params_close(got["params"], td.flat_np(jax.tree.map(
+        np.asarray, jstep.logical_params(jstate))), what="vs JAX 4-device")
+    np.testing.assert_allclose(got["losses"], jstep.losses, rtol=1e-5)
+    for counts in got["collectives"]:
+        assert td.wire_counts(counts) == got["predicted"], (counts, got["predicted"])
+        assert sum(counts.get("model", {}).values()) > 0, counts
+    params = np_inputs[c["model"]][0]
+    shapes = td.flat_np(params)
+    split = [n for n, (kind, _) in got["renderings"].items() if kind == "partitioned"
+             and n in got["comp_state"]]
+    assert split
+    for rank, res in enumerate(results):
+        data = _coords(rank)["data"]
+        for var, st in res[c["id"]]["comp_state"].items():
+            want = jstate.comp_state[var]
+            for k, v in st["local"].items():
+                assert v.shape == shapes[var].shape, (var, k)
+                np.testing.assert_allclose(v, np.asarray(want["local"][k])[data],
+                                           rtol=2e-5, atol=2e-6, err_msg=f"{var} {k}")
+            for k, v in st["shared"].items():
+                np.testing.assert_allclose(v, np.asarray(want["shared"][k]), rtol=2e-5,
+                                           atol=2e-6, err_msg=f"{var} {k}")
+    if name == "TopKCompressor":
+        # 4096 elements, 2048 a rank: compressed whole.
+        assert got["comp_state"][EF_VAR]["local"]["residual"].shape == (64, 64)
+
+
+@pytest.mark.parametrize("name", sorted(WHOLE_CASES))
+def test_whole_gradient_compressor_state_crosses_packages(name, runs):
+    """The trained compressor state in JAX's layout: ``local`` ``[n,
+    *var.shape]`` (each row written once, by the first model rank of its
+    data rank), ``shared`` whole. The ranks' checkpoint restores into JAX's
+    step and JAX's into the ranks, bitwise."""
+    results, np_inputs, dirs = runs
+    c = WHOLE_CASES[name]
+    path = results[0][c["id"]]["checkpoint"]["path"]
+    jpath = f"{dirs[name + '/jax']}/ckpt-{c['steps']}"
+    entries = Saver.read_metadata(path)["entries"]
+    jentries = JSaver.read_metadata(jpath)["entries"]
+    comp = sorted(k for k in jentries if k.startswith("comp_state/"))
+    assert comp and sorted(k for k in entries if k.startswith("comp_state/")) == comp
+    for k in comp:
+        assert (entries[k]["shape"], entries[k]["dtype"]) == \
+            (jentries[k]["shape"], jentries[k]["dtype"]), k
+    jstep, _, jstate = _jax_whole(c, np_inputs)
+    params = np_inputs[c["model"]][0]
+    back = jstep.init_or_restore(params, JSaver(dirs[name + "/port"]))
+    for var, st in back.comp_state.items():
+        for k, v in st["local"].items():
+            rows = [results[2 * d][c["id"]]["comp_state"][var]["local"][k] for d in range(2)]
+            np.testing.assert_array_equal(np.asarray(v), np.stack(rows), err_msg=var)
+        for k, v in st["shared"].items():
+            np.testing.assert_array_equal(
+                np.asarray(v), results[0][c["id"]]["comp_state"][var]["shared"][k])
+    for rank, res in enumerate(results):
+        data = _coords(rank)["data"]
+        blocks = res[f"{c['id']}<-jax"]["checkpoint"]["restored"][dirs[name + "/jax"]][
+            "blocks"]
+        for var, st in jstate.comp_state.items():
+            for k, v in st["local"].items():
+                start, stop, got = blocks[f"comp_state/{var}/local/{k}"]
+                assert start[0] == data and stop[0] == data + 1
+                np.testing.assert_array_equal(got, np.asarray(v)[data:data + 1])
+            for k, v in st["shared"].items():
+                _, _, got = blocks[f"comp_state/{var}/shared/{k}"]
+                np.testing.assert_array_equal(got, np.asarray(v))

@@ -233,11 +233,14 @@ def test_tensor_parallel_renderings_and_wire():
 @pytest.mark.parametrize("compressor", ["PowerSGDCompressor", "TopKCompressor",
                                         "HorovodCompressorEF"])
 def test_whole_gradient_compressors_on_split_variables_raise(compressor):
-    """JAX's manual sync compresses a model-split variable's whole gradient;
-    PowerSGD's low-rank factor and TopK's top-k of a rank's block are not
-    those of the whole, so building the step raises for them (ROADMAP.md,
-    Queue 3). Horovod-EF is elementwise and passes that check, to the
-    missing process group."""
+    """The name is kept from when PowerSGD and TopK on a model-split
+    variable raised. JAX's manual sync compresses such a variable's whole
+    gradient, and so does the port now: the plan prices PowerSGD's and
+    TopK's collectives on the logical shape (a rank's block for the
+    elementwise Horovod-EF), and the step constructs as far as its missing
+    process group (a logical mesh has none; the step trains in
+    ``tests/test_torch_tp_models.py``)."""
+    from autodist_tpu_torch.kernel.compressor import get_compressor
     from autodist_tpu_torch.kernel.lowering import DistributedTrainStep
 
     _, titem = items("transformer")
@@ -247,30 +250,46 @@ def test_whole_gradient_compressors_on_split_variables_raise(compressor):
     shape = trs.mesh_shape(("data", "model"))
     plan = GraphTransformer(strategy, titem, Mesh(axis_names=tuple(shape),
                                                   shape=shape)).transform()
-    assert any(plan.var_plans[n].model_sharded for n in plan.compressors())
+    split = [n for n in plan.compressors() if plan.var_plans[n].model_sharded]
+    assert split
+    whole = compressor != "HorovodCompressorEF"
+    comp = get_compressor(compressor)
+    want = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    for name in plan.var_plans:
+        if not plan.var_plans[name].var.dtype.startswith("float"):
+            continue
+        if name not in plan.compressors():
+            want["all_reduce"] += 1             # its plain all-reduce
+            continue
+        shape = plan.compressed_shape(name)
+        if name in split:
+            assert shape == (tuple(plan.var_plans[name].var.shape) if whole
+                             else plan.local_shape(name)), name
+        for kind, k in comp.collectives(shape).items():
+            want[kind] += k
+    assert plan.collectives_per_step() == want
     spec = get_model_spec("transformer", **ZOO["transformer"])
     tx = tmi.OptimizerSpec("sgd", {"learning_rate": 0.1}).make()
-    if compressor == "HorovodCompressorEF":
-        with pytest.raises(ValueError, match="process group"):
-            DistributedTrainStep(plan, spec.loss_fn, tx)
-        return
-    with pytest.raises(NotImplementedError, match=f"{compressor} on .*ROADMAP.md"):
+    with pytest.raises(ValueError, match="process group"):
         DistributedTrainStep(plan, spec.loss_fn, tx)
 
 def test_logical_mesh_axes_and_coords():
     m = Mesh.logical({"data": 2, "expert": 4})
-    assert m.axis_names == ("data", "expert", "model") and m.shard_axis == "expert"
+    assert m.axis_names == ("data", "expert", "model") and m.shard_axes == ("expert",)
     assert m.data_size == 2 and m.coords == {"data": 0, "expert": 0, "model": 0}
     m = Mesh(axis_names=("model", "data"), shape={"model": 2, "data": 2}, rank=3)
     assert m.coords == {"model": 1, "data": 1} and m.data_rank == 1
     m = Mesh(axis_names=("model", "data"), shape={"model": 2, "data": 2}, rank=1)
     assert m.coords == {"model": 0, "data": 1} and m.data_rank == 1
+    # Any mix of the known axes renders; the shard mesh has a dim for each
+    # wide model or expert axis. An unknown wide axis still raises.
+    for shape in ({"data": 2, "model": 2, "expert": 2}, {"data": 2, "seq": 2},
+                  {"data": 2, "seq": 2, "model": 2}):
+        tmesh._check_axes(shape, "data")
+    m = Mesh.logical({"data": 2, "model": 2, "expert": 2})
+    assert m.shard_axes == ("model", "expert") and m.shard_mesh() is None
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmesh._check_axes({"data": 2, "model": 2, "expert": 2}, "data")
-    # A seq axis beside the data axis is ported; beside a model axis not yet.
-    tmesh._check_axes({"data": 2, "seq": 2}, "data")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmesh._check_axes({"data": 2, "seq": 2, "model": 2}, "data")
+        tmesh._check_axes({"data": 2, "stage": 2}, "data")
 
 
 @pytest.mark.parametrize("model", sorted(ZOO))
@@ -281,10 +300,7 @@ def test_only_the_transformer_family_trains_under_a_model_axis(model, tmp_path):
     (``Shard(dim)`` for a split one, ``Replicate`` else), on a one-rank
     model mesh in this process, gives the plain loss and gradients. No
     conv kernel is split on a spatial dim."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.distributed.tensor import Replicate, Shard
 
     _, titem = items(model)
     _, trs = _specs(TP_MESHES[1], 8)
@@ -299,6 +315,27 @@ def test_only_the_transformer_family_trains_under_a_model_axis(model, tmp_path):
     for name, dim in split.items():
         if len(plan.var_plans[name].shape) == 4:
             assert dim in (2, 3), (name, dim)
+    want, gwant, got, ggot = _placed_vs_plain(model, tmp_path, ("model",),
+                                              lambda mesh, name: [Shard(split[name])]
+                                              if name in split else [Replicate()])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for a, b in zip(ggot, gwant):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _placed_vs_plain(model, tmp_path, dims, placements):
+    """``(plain loss, plain gradients, placed loss, placed gradients)`` of a
+    zoo model at small widths from seeded numpy parameters: plain tensors,
+    then each variable a ``DTensor`` on a one-rank mesh of ``dims`` placed
+    as ``placements(mesh, name)`` says (the batch replicated), its
+    gradients made whole."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from autodist_tpu_torch.utils.placement import placement_list
+
     js, ts = jax_get_model(model, **ZOO[model]), get_model_spec(model, **ZOO[model])
     rng = np.random.default_rng(1)
     params = map_params(lambda t: (torch.from_numpy(rng.standard_normal(t.shape)
@@ -315,27 +352,65 @@ def test_only_the_transformer_family_trains_under_a_model_axis(model, tmp_path):
         loss = ts.loss_fn(p, b)
         if isinstance(loss, DTensor):
             loss = loss.full_tensor()
-        return loss, torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss, [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
 
     want, gwant = loss_and_grads(params, batch)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0,
                             world_size=1)
     try:
-        mesh = DeviceMesh("cpu", [0], mesh_dim_names=("model",))
-        placed = {n: DTensor.from_local(t, mesh, [Shard(split[n])] if n in split
-                                        else [Replicate()], run_check=False)
+        mesh = DeviceMesh("cpu", torch.zeros([1] * len(dims), dtype=torch.int),
+                          mesh_dim_names=dims)
+        placed = {n: DTensor.from_local(t, mesh, placements(mesh, n), run_check=False)
                   for n, t in flatten_params(params).items()}
-        dparams = unflatten_params(placed)
-        dbatch = {k: DTensor.from_local(v, mesh, [Replicate()], run_check=False)
+        rep = placement_list(mesh, None, Replicate())
+        dbatch = {k: DTensor.from_local(v, mesh, rep, run_check=False)
                   for k, v in batch.items()}
         with implicit_replication():
-            got, ggot = loss_and_grads(dparams, dbatch)
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-        for a, b in zip(ggot, gwant):
-            a = a.full_tensor() if isinstance(a, DTensor) else a
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            got, ggot = loss_and_grads(unflatten_params(placed), dbatch)
     finally:
         dist.destroy_process_group()
+    return want, gwant, got, ggot
+
+
+ME_MESH = {"data": 2, "model": 2, "expert": 2}
+
+
+@pytest.mark.parametrize("model", sorted(ZOO))
+def test_zoo_trains_placed_on_a_model_by_expert_mesh(model, tmp_path):
+    """Each zoo model with every variable placed as ``TensorParallel``'s
+    plan at ``{data 2, model 2, expert 2}`` renders it, on a one-rank
+    two-dim (model, expert) mesh in this process: a model-split variable
+    ``[Shard(dim), Replicate()]``, an expert-split one ``[Replicate(),
+    Shard(0)]``, the rest ``Replicate`` on both (a model without expert
+    variables is replicated over the expert ranks). It gives the plain loss
+    and gradients, at the one-dim test's tolerances."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from autodist_tpu_torch.utils.placement import placement_list
+
+    _, titem = items(model)
+    _, trs = _specs(ME_MESH, 8)
+    strategy = tstrat.StrategyCompiler(titem).compile(
+        tstrat.from_name("TensorParallel").build(titem, trs))
+    shape = trs.mesh_shape(tuple(ME_MESH))
+    plan = GraphTransformer(strategy, titem, Mesh(axis_names=tuple(shape),
+                                                  shape=shape)).transform()
+    assert plan.mesh.shard_axes == ("model", "expert")
+    split = {n: (plan.var_plans[n].storage_axis, plan.rendering(n)[1]) for n in plan.var_plans
+             if plan.rendering(n)[0] in ("partitioned", "expert")}
+    axes = {ax for ax, _ in split.values()}
+    assert axes == ({"model", "expert"} if model == "moe_transformer" else {"model"}), axes
+
+    def placements(mesh, name):
+        ax, d = split.get(name, (None, None))
+        return placement_list(mesh, ax, Shard(d) if ax else Replicate())
+
+    want, gwant, got, ggot = _placed_vs_plain(model, tmp_path, ("model", "expert"),
+                                              placements)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for a, b in zip(ggot, gwant):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_dtensor_counts_and_shared_counters(tmp_path):

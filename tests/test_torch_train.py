@@ -336,14 +336,15 @@ def test_unported_options_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="AsyncPSTrainer"):
         lower(PSSynchronizer(sync=False))
     # A model axis lowers now (tensor parallelism), and a sequence or
-    # pipeline axis beside the data axis; beside a model axis they still
-    # raise, at the mesh.
+    # pipeline axis beside the data axis and beside a model axis; only an
+    # axis of no known role raises, at the mesh.
     assert lower(AllReduceSynchronizer(), on=Mesh.logical({"data": 2, "model": 2})).rendering(
         "w") == ("replicated", None)
     from autodist_tpu_torch.kernel.mesh import _check_axes
     _check_axes({"data": 2, "seq": 2}, "data")
+    _check_axes({"data": 2, "pipe": 2, "model": 2}, "data")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _check_axes({"data": 2, "pipe": 2, "model": 2}, "data")
+        _check_axes({"data": 2, "ring": 2}, "data")
     tstrat.PSLoadBalancing(sync=False)
     tstrat.PSLoadBalancing(staleness=1)
     with pytest.raises(ValueError, match="disagree"):
