@@ -56,8 +56,11 @@ the port's launcher (``runtime/launcher.py``) joins the group from the
 environment it sets. :meth:`AutoDist.build_pipeline` trains a stacked stage
 stack over the mesh's ``pipe`` axis (``parallel/pipeline.py``); a ``seq``
 axis carries the transformer's ring or Ulysses attention
-(``parallel/ring_attention.py``). The JAX package's observability runtime
-is not ported yet (ROADMAP.md).
+(``parallel/ring_attention.py``). ``observability=ObsConfig(...)`` gives
+``autodist.obs`` (``obs/config.py``: spans, the metrics file, the flight
+recorder and the sentry, the cross-process aggregator, and
+``autodist.obs.profiler(step)`` for the live MFU); ``build(record_norms=
+True)`` adds the global gradient and update norms to the step's metrics.
 """
 from __future__ import annotations
 
@@ -91,6 +94,7 @@ from autodist_tpu_torch.utils.retry import wait_until
 
 if TYPE_CHECKING:
     from autodist_tpu_torch.ft import FTConfig, FTRuntime
+    from autodist_tpu_torch.obs import ObsConfig, ObsRuntime
 
 _default_autodist: Optional["AutoDist"] = None
 
@@ -205,7 +209,8 @@ class AutoDist:
                  rank: Optional[int] = None,
                  timeout_s: float = pg.DEFAULT_TIMEOUT_S,
                  mesh_axes: Sequence[str] = ("data", "model"),
-                 fault_tolerance: "Optional[FTConfig]" = None):
+                 fault_tolerance: "Optional[FTConfig]" = None,
+                 observability: "Optional[ObsConfig]" = None):
         global _default_autodist
         if _default_autodist is not None:
             raise RuntimeError("Only one AutoDist instance is supported per process; "
@@ -247,6 +252,17 @@ class AutoDist:
             from autodist_tpu_torch.ft import FTRuntime
 
             self.ft = FTRuntime(fault_tolerance, group=self.group)
+        # Observability: spans, exporters, the flight recorder and sentry,
+        # cross-process aggregation; None when the knob is off.
+        self.obs: "Optional[ObsRuntime]" = None
+        if observability is not None:
+            from autodist_tpu_torch.obs import ObsRuntime
+
+            self.obs = ObsRuntime(observability)
+            if self.ft is not None:
+                # Straggler scores and sentry findings escalate through the
+                # ft HealthMonitor.
+                self.obs.attach_monitor(self.ft.monitor)
         _default_autodist = self
 
     @classmethod
@@ -308,16 +324,19 @@ class AutoDist:
               has_aux: bool = False, sparse_names: Sequence[str] = (),
               expert_names: Sequence[str] = (), host_offload: Union[bool, str] = False,
               grad_accum_steps: int = 1, remat: Union[bool, str] = False,
-              compute_dtype: Optional[str] = None
+              compute_dtype: Optional[str] = None, record_norms: bool = False
               ) -> Union[DistributedTrainStep, AsyncPSTrainer]:
         """Capture -> strategy -> compile -> lower. ``optimizer`` is an
         :class:`OptimizerSpec` (default SGD at 0.01) or an
         :class:`Optimizer`; ``compute_dtype="bfloat16"`` casts floating
         params on entry to the loss (master weights stay fp32);
         ``grad_accum_steps=k`` averages ``k`` micro-batches a step;
-        ``remat`` is ``True`` or a policy name (:func:`_remat`).
-        ``host_offload=True`` keeps every PS variable's parameter and
-        optimizer slots on the host between steps (pinned on CUDA),
+        ``remat`` is ``True`` or a policy name (:func:`_remat`);
+        ``record_norms=True`` adds the global gradient and update L2 norms
+        to every step's metrics (``grad_norm``, ``update_norm``: the flight
+        recorder's and the sentry's signals). ``host_offload=True`` keeps
+        every PS variable's parameter and optimizer slots on the host
+        between steps (pinned on CUDA),
         ``"from_strategy"`` those whose reduction destination is a host CPU
         (``kernel/lowering.py``). A ``sync=False`` strategy returns an
         :class:`AsyncPSTrainer`, whose ``run(state, next_batch, n_pushes)``
@@ -343,7 +362,8 @@ class AutoDist:
             # After capture and the cast, as in the JAX package.
             loss_fn = _remat(loss_fn, remat)
         step = DistributedTrainStep(plan, loss_fn, tx, has_aux=has_aux,
-                                    grad_accum_steps=grad_accum_steps)
+                                    grad_accum_steps=grad_accum_steps,
+                                    record_norms=record_norms)
         self._built, self._strategy, self._model_item = step, compiled, model_item
         return step
 
@@ -464,9 +484,8 @@ class AutoDist:
         broadcasts the winner's index, so every rank builds the same
         winner. ``last_tune_results`` holds the table, the calibration and
         each candidate's measured seconds (``inf``: failed) with the one
-        selected. The JAX package also records the sweep in its metrics
-        registry and span timeline (``_record_tune_obs``); that waits for
-        the port's ``obs/`` (ROADMAP.md Queue 1 item 11)."""
+        selected; the sweep is also recorded in the metrics registry and
+        the span timeline (:meth:`_record_tune_obs`)."""
         from autodist_tpu_torch.strategy.cost_model import CostModel, candidate_slate
 
         candidates = list(candidates) if candidates is not None else candidate_slate()
@@ -531,6 +550,7 @@ class AutoDist:
         if side is not None:
             best_name = self._elect(results)
             self.last_tune_results["selected"] = best_name
+            self._record_tune_obs(results, best_name)
             self.strategy_builder = dict(candidates)[best_name]
             return self.build(loss_fn, params, example_batch, **build_kwargs)
         if best is None:
@@ -538,10 +558,40 @@ class AutoDist:
         best_name, best_dt, best_builder, best_step, best_strategy, best_item = best
         logging.info("tune selected %s (%.3f ms/step)", best_name, best_dt * 1e3)
         self.last_tune_results["selected"] = best_name
+        self._record_tune_obs(results, best_name)
         self.strategy_builder = best_builder
         os.environ[ENV.AUTODIST_STRATEGY_ID.name] = best_strategy.id
         self._built, self._strategy, self._model_item = best_step, best_strategy, best_item
         return best_step
+
+    def _record_tune_obs(self, results, selected: str) -> None:
+        """An auditable selection: every candidate's name and measured
+        seconds (``inf``: failed) and the winner go into the process's
+        metrics registry (``tune_measured_ms_<name>``, ``tune_selected_ms``,
+        ``tune_candidates``, ``tune_runs_total``), the span timeline (one
+        ``tune.candidate`` span each) and ``last_tune_results["measured"]``
+        / ``["selected"]``. Best-effort: it never fails a tune."""
+        try:
+            from autodist_tpu_torch import metrics as M
+            from autodist_tpu_torch.obs import spans
+
+            reg = M.registry
+            reg.counter("tune_runs_total").inc()
+            reg.gauge("tune_candidates").set(len(results))
+            now = time.time()
+            for name, dt in results:
+                failed = not dt < math.inf
+                if not failed:
+                    reg.gauge(f"tune_measured_ms_{name}").set(dt * 1e3)
+                spans.add_span("tune.candidate", now, 0.0 if failed else dt, candidate=name,
+                               failed=failed, selected=name == selected)
+            sel_dt = dict(results).get(selected)
+            if sel_dt is not None and sel_dt < math.inf:
+                reg.gauge("tune_selected_ms").set(sel_dt * 1e3)
+            self.last_tune_results = {**(self.last_tune_results or {}),
+                                      "measured": dict(results), "selected": selected}
+        except Exception:  # noqa: BLE001 - diagnostics must not break tune
+            logging.warning("tune: obs audit recording failed", exc_info=True)
 
     def _sync_device(self) -> None:
         """Wait for the device's queued work (the CPU runs eagerly)."""

@@ -1,8 +1,9 @@
 """Fault injection (the port's counterpart of the JAX package's ``chaos/``).
 
 Only the seam registry is ported (:mod:`~autodist_tpu_torch.chaos.hooks`):
-the snapshot writer and the heartbeat transports consult it, inert without
-a hook. The harness, the fault catalog and the schedules (``ChaosPlant``,
+the snapshot writer, the heartbeat transports, the aggregator, serving and
+the train step (``SEAM_TRAIN_BATCH``, ``SEAM_TRAIN_METRICS``) consult it,
+inert without a hook. The harness, the fault catalog and the schedules (``ChaosPlant``,
 ``ChaosSchedule``, ``ChaosEvent``, ``CATALOG``, ``FaultSpec``) are not
 ported yet: asking for one raises ``NotImplementedError`` (ROADMAP.md).
 """

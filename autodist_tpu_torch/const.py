@@ -12,6 +12,10 @@ import tempfile
 DEFAULT_WORKING_DIR = os.path.join(tempfile.gettempdir(), "autodist-torch")
 DEFAULT_STRATEGY_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
 DEFAULT_CHECKPOINT_DIR = os.path.join(DEFAULT_WORKING_DIR, "checkpoints")
+# torch.profiler traces (utils/tracing.py, DistributedTrainStep.trace_step)
+# and text artifacts of a program (utils/tracing.dump_hlo).
+DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, "traces")
+DEFAULT_HLO_DIR = os.path.join(DEFAULT_WORKING_DIR, "hlo")
 # Fault-tolerance state (heartbeats, snapshot ring); overridable per fleet
 # through AUTODIST_FT_DIR, which the launcher exports so every process of
 # one fleet shares a base.

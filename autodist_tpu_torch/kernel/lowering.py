@@ -145,6 +145,16 @@ the state passed in is consumed, and the one returned holds the same
 first call of a program records a ``compile`` flight event (``obs/
 recorder.py``), a failure an ``error`` event, and ``GraphTransformer``
 a ``lowering.transform`` span (``obs/spans.py``).
+
+Observability, as in the JAX step: :meth:`DistributedTrainStep.window_cost`
+counts one step's FLOPs and bytes (the profiler's MFU numerator,
+``obs/profiler.py``) by walking its aten ops on meta tensors
+(``utils/roofline.py``); :meth:`DistributedTrainStep.trace_step` runs one
+step under ``torch.profiler`` and writes a Chrome trace;
+``record_norms=True`` adds the global gradient and update L2 norms to the
+metrics; and every call and window consults the chaos seams
+``SEAM_TRAIN_BATCH`` and ``SEAM_TRAIN_METRICS`` (``chaos/hooks.py``), at
+the cost of one ``chaos_hooks.active()`` call without a plant.
 """
 from __future__ import annotations
 
@@ -160,6 +170,7 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.chaos import hooks as chaos_hooks
 from autodist_tpu_torch.checkpoint.names import (
     factored_names, optimizer_paths, restored_count)
 from autodist_tpu_torch.checkpoint.saver import ShardedLeaf, flatten_with_names
@@ -169,7 +180,7 @@ from autodist_tpu_torch.kernel.degrade import is_active_compressor, zero1_degrad
 from autodist_tpu_torch.kernel.mesh import SHARD_AXES, Mesh
 from autodist_tpu_torch.kernel.sparse import RowSplitTable
 from autodist_tpu_torch.kernel.sparse import predicted_bytes as table_bytes
-from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem, _factored_dims
+from autodist_tpu_torch.model_item import ModelItem, Optimizer, VarItem, _by_group, _factored_dims
 from autodist_tpu_torch.models.convert import (
     flatten_params, map_params, map_tree, to_tensor, tree_leaves)
 from autodist_tpu_torch.runtime import process_group as pg
@@ -928,7 +939,8 @@ class DistributedTrainStep:
     """The train step users call like a single-device step."""
 
     def __init__(self, plan: ShardingPlan, loss_fn: Callable, optimizer: Optimizer,
-                 has_aux: bool = False, grad_accum_steps: int = 1):
+                 has_aux: bool = False, grad_accum_steps: int = 1,
+                 record_norms: bool = False):
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
         self.plan = plan
@@ -936,6 +948,10 @@ class DistributedTrainStep:
         self.tx = optimizer
         self.has_aux = has_aux
         self.accum = grad_accum_steps
+        # The flight recorder's norms: the global gradient and update L2
+        # norms in every step's metrics (the sentry's SNT002 signal), two
+        # reductions a step, off by default.
+        self.record_norms = bool(record_norms)
         mesh = plan.mesh
         self.n, self.rank = mesh.data_size, mesh.data_rank
         self.coll = pg.Collectives(mesh.group)
@@ -1516,9 +1532,12 @@ class DistributedTrainStep:
         return [map_tree(lambda t: _rows(_rows(t, k, i), n, r, "micro batch"), batch)
                 for i in range(k)]
 
-    def _local_loss_and_grads(self, params, targets, batch, sync=None):
-        """``(loss, aux, grads)`` averaged over the micro-batches."""
-        stats = None if self.manual else self.coll
+    def _local_loss_and_grads(self, params, targets, batch, sync=None,
+                              group_stats: bool = True):
+        """``(loss, aux, grads)`` averaged over the micro-batches;
+        ``group_stats=False`` keeps BatchNorm's statistics local (the meta
+        walk of :meth:`window_cost`, which communicates nothing)."""
+        stats = None if self.manual or not group_stats else self.coll
         micro = self._micro_batches(batch)
         with pg.batch_stats_over(stats if self.coll.group is not None else None):
             if sync is not None:
@@ -1526,7 +1545,9 @@ class DistributedTrainStep:
             if len(micro) == 1:
                 return self._grads(params, targets, micro[0])
             k = len(micro)
-            loss_acc = torch.zeros((), dtype=torch.float32, device=self.plan.device)
+            first = next(iter(targets.values()), None)    # meta in window_cost's walk
+            loss_acc = torch.zeros((), dtype=torch.float32,
+                                   device=self.plan.device if first is None else first.device)
             grads_acc = {n: torch.zeros_like(t) for n, t in targets.items()}
             aux_acc = None
             for mb in micro:
@@ -1667,8 +1688,12 @@ class DistributedTrainStep:
                 # The slots come over only now, after the backward's peak.
                 index = self._offload_index(host.params)
                 opt_state = self._offloaded_slots(opt_state, self._to_dev, index)
-            updates = self.tx.update([grads[n] for n, _ in floating], opt_state,
-                                     views, self._layout(state.params), self._psum)
+            layout = self._layout(state.params)
+            synced = [grads[n] for n, _ in floating]
+            updates = self.tx.update(synced, opt_state, views, layout, self._psum)
+            if self.record_norms:
+                norms = {"grad_norm": self._global_norm(synced, layout),
+                         "update_norm": self._global_norm(updates, layout)}
             for (name, p), v, u in zip(floating, views, updates):
                 if self._render(name)[0] == "zero1":
                     d = self._render(name)[1]
@@ -1682,6 +1707,8 @@ class DistributedTrainStep:
             metrics = {"loss": loss}
             if aux is not None:
                 metrics["aux"] = map_params(self._mean_metric, aux)
+            if self.record_norms:
+                metrics.update(norms)
         after = self.coll.snapshot()
         self.last_collectives = {
             p: {k: v - before.get(p, {}).get(k, 0) for k, v in kinds.items()
@@ -1696,6 +1723,19 @@ class DistributedTrainStep:
         self.last_bytes = {p: k for p, k in self.last_bytes.items() if k}
         return TrainState(host.step + 1, host.params, host.opt_state, host.comp_state,
                           host.stale_state), metrics
+
+    def _global_norm(self, leaves: List[torch.Tensor], layout) -> torch.Tensor:
+        """optax.global_norm of the logical tensors the leaves are (or are
+        blocks of), in fp32: a whole leaf counts once, a block's squared
+        sum adds over its group (:meth:`_psum`), as clipping's norm does."""
+        squares = [torch.sum(t.to(torch.float32) ** 2) for t in leaves]
+        total = torch.zeros((), dtype=torch.float32, device=self.plan.device)
+        for s, lay in zip(squares, layout):
+            if lay is None:
+                total = total + s
+        for cut in _by_group(layout).values():
+            total = total + self._psum(sum(squares[i] for i in cut), layout[cut[0]])
+        return torch.sqrt(total)
 
     def _mean_metric(self, t: torch.Tensor) -> torch.Tensor:
         t = t.detach()
@@ -1726,7 +1766,19 @@ class DistributedTrainStep:
         return out
 
     def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
-        return self._recorded("step", lambda: self._step(state, self._to_device(batch)))
+        chaos = chaos_hooks.active()
+
+        def step():
+            b = self._to_device(batch)
+            if chaos:
+                b = chaos_hooks.apply(chaos_hooks.SEAM_TRAIN_BATCH, b, num_steps=1,
+                                      stacked=False)
+            return self._step(state, b)
+
+        state, metrics = self._recorded("step", step)
+        if chaos:
+            metrics = chaos_hooks.apply(chaos_hooks.SEAM_TRAIN_METRICS, metrics, num_steps=1)
+        return state, metrics
 
     def run(self, state: TrainState, batch, num_steps: int, stacked: bool = False):
         """``num_steps`` train steps. ``stacked=False``: ``batch`` (the
@@ -1734,11 +1786,15 @@ class DistributedTrainStep:
         leaf has a leading ``num_steps`` axis, one slice per step. Returns
         ``(state, metrics)`` with per-step stacked metric leaves
         (``metrics["loss"].shape == (num_steps,)``)."""
+        chaos = chaos_hooks.active()
         batch = self._to_device(batch)
         if stacked and any(t.dim() < 1 or t.shape[0] != num_steps
                            for t in tree_leaves(batch)):
             raise ValueError(f"stacked=True requires every batch leaf to have leading "
                              f"dim num_steps={num_steps}")
+        if chaos:
+            batch = chaos_hooks.apply(chaos_hooks.SEAM_TRAIN_BATCH, batch,
+                                      num_steps=num_steps, stacked=stacked)
 
         def window():
             st, history = state, []
@@ -1748,7 +1804,12 @@ class DistributedTrainStep:
                 history.append(m)
             return st, map_params(lambda *steps: torch.stack(steps), *history)
 
-        return self._recorded(f"run[{num_steps}{'/stacked' if stacked else ''}]", window)
+        state, metrics = self._recorded(f"run[{num_steps}{'/stacked' if stacked else ''}]",
+                                        window)
+        if chaos:
+            metrics = chaos_hooks.apply(chaos_hooks.SEAM_TRAIN_METRICS, metrics,
+                                        num_steps=num_steps)
+        return state, metrics
 
     def evaluate(self, state: TrainState, batch):
         """Loss (+aux) on a global batch without gradients or state
@@ -1768,6 +1829,102 @@ class DistributedTrainStep:
             loss = self._mean_metric(loss)
             aux = map_params(self._mean_metric, aux) if aux is not None else None
         return {"loss": loss, "aux": aux} if self.has_aux else {"loss": loss}
+
+    # -------------------------------------------------------- observability
+    def window_cost(self, state: TrainState, batch, num_steps: int = 1,
+                    stacked: bool = False) -> Dict[str, float]:
+        """FLOPs and bytes of one train step of this rank, the numerator of
+        the profiler's MFU (``obs/profiler.py``), counted from the step's
+        own aten ops: a walk (``utils/roofline.py``) of this rank's
+        forward and backward of every micro-batch and of its optimizer
+        update, on meta tensors of the state's and the batch's shapes.
+        ``state`` and ``batch`` give shapes only; nothing executes, so the
+        count is the same on the CPU and on the card. The CUDA kernels are
+        counted as their plain versions (meta tensors take those): the flash
+        backward's recomputation of the scores is in the count. The
+        numbers are per step for any ``num_steps`` (the slice of a stacked
+        window is its batch), as JAX's per-body numbers are.
+
+        - ``flops``: 2 x the multiply-adds of the step's products (matmuls
+          and convolutions, forward and backward); elementwise work is not
+          counted, where JAX's XLA count includes it;
+        - ``bytes_accessed``: every op's inputs plus outputs, views
+          skipped: what the eager step moves;
+        - ``argument_bytes``: this rank's state (parameters as stored,
+          optimizer slots, compressor and staleness state) plus its rows
+          of the batch;
+        - ``output_bytes``: the state the step returns (the same tensors,
+          updated) plus the metrics;
+        - ``temp_bytes``: what the forward saves for the backward
+          (autograd's saved tensors, each storage once, parameters and
+          batch excluded).
+
+        The gradient sync (collectives, a compressor's work) is not walked,
+        and the model sees the logical parameters, so on a mesh whose
+        model, expert, seq or pipe axis is wider than 1 (where a rank runs
+        part of each product) this raises ``NotImplementedError``.
+        ``attention_impl="auto"`` resolves as on the step's own device
+        (``ops/crossover.meta_resolves_as``), so the walk counts the
+        attention the step runs there."""
+        del num_steps
+        wide = [ax for ax, n in self.plan.mesh.shape.items()
+                if n > 1 and ax != const.MESH_AXIS_DATA]
+        if wide:
+            raise NotImplementedError(
+                f"window_cost on a mesh with {wide} wider than 1: a rank's share of each "
+                "product is not counted yet (ROADMAP.md Queue 1 item 7, program-level "
+                "analysis)")
+        from autodist_tpu_torch.ops.crossover import meta_resolves_as
+        from autodist_tpu_torch.utils.roofline import OpWalk, to_meta
+
+        batch = map_tree(to_tensor, batch)
+        if stacked:
+            batch = map_tree(lambda t: t[0], batch)
+        meta_batch = to_meta(batch)
+        params = _map_named(lambda name, t: torch.empty(
+            self.plan.var_plans[name].var.shape if name in self.plan.var_plans else t.shape,
+            dtype=t.dtype, device="meta").requires_grad_(t.is_floating_point()), state.params)
+        targets = dict(self._floating(params))
+        walk = OpWalk()
+        with walk, walk.saving(exclude=list(targets.values()) + tree_leaves(meta_batch)), \
+                meta_resolves_as(self.plan.device):
+            loss, aux, _ = self._local_loss_and_grads(params, targets, meta_batch,
+                                                      group_stats=False)
+        floating = self._floating(state.params)
+        views = [to_meta(self._update_view(n, t).detach()) for n, t in floating]
+        with walk, torch.no_grad():
+            updates = self.tx.update([torch.empty_like(v) for v in views],
+                                     to_meta(state.opt_state), views,
+                                     self._layout(state.params), lambda t, lay: t)
+            for v, u in zip(views, updates):
+                v.add_(u.to(v.dtype))
+
+        def nbytes(tree) -> int:
+            return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                       if isinstance(t, torch.Tensor))
+
+        held = nbytes((state.params, state.opt_state, state.comp_state, state.stale_state))
+        metrics = nbytes((loss, aux)) + (8 if self.record_norms else 0)
+        return {
+            "flops": float(walk.flops),
+            "bytes_accessed": float(walk.unfused_bytes),
+            "argument_bytes": float(held + nbytes(self.plan.local_batch(meta_batch))),
+            "output_bytes": float(held + metrics),
+            "temp_bytes": float(walk.saved_bytes),
+        }
+
+    def trace_step(self, state: TrainState, batch, name: str = "train_step"):
+        """One step under ``torch.profiler`` (CPU activity, and CUDA
+        activity on the card), synchronized at its end, its Chrome trace
+        written under ``const.DEFAULT_TRACE_DIR`` (``utils/tracing.py``).
+        Returns ``((state, metrics), trace_dir)``."""
+        from autodist_tpu_torch.utils import tracing
+
+        with tracing.trace(name) as trace_dir:
+            out = self(state, batch)
+            if self.plan.device.type == "cuda":
+                torch.cuda.synchronize(self.plan.device)
+        return out, trace_dir
 
     # ------------------------------------------------------------------ fit
     def fit(self, state: TrainState, batches, steps: Optional[int] = None, eval_batch=None,

@@ -37,11 +37,18 @@ CUDA attention in that dtype. Other dtypes (the fp32 kernels are other
 designs, never timed against "dot"), and a call that names no dtype,
 resolve against the packaged default of 1024. A table that records no
 dtype (the JAX package's) decides for every dtype.
+
+Meta tensors have no device of their own. Inside :func:`meta_resolves_as`
+(per thread), "auto" resolves for them as for tensors on the device it
+names: ``DistributedTrainStep.window_cost`` walks a step on meta tensors
+and so counts the attention that the step runs on its own device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -61,9 +68,24 @@ FLASH_TABLE = os.path.join(_MEASURED_DIR, "flash_crossover.json")
 PAGED_TABLE = os.path.join(_MEASURED_DIR, "paged_crossover.json")
 
 _cache: dict = {}
+_meta = threading.local()
+
+
+@contextlib.contextmanager
+def meta_resolves_as(device):
+    """While entered on this thread, "auto" resolves for meta tensors as
+    for tensors on ``device``."""
+    prev = getattr(_meta, "device", None)
+    _meta.device = device
+    try:
+        yield
+    finally:
+        _meta.device = prev
 
 
 def _is_cuda(device) -> bool:
+    if device is not None and torch.device(device).type == "meta":
+        device = getattr(_meta, "device", None)
     return device is not None and torch.device(device).type == "cuda"
 
 
@@ -183,5 +205,5 @@ def resolve_paged_impl(impl: str, batch: int, table_pages: int, page_len: int,
 __all__ = [
     "DEFAULT_FLASH_CROSSOVER_SEQ", "DEFAULT_PAGED_CROSSOVER_TIMELINE", "FLASH_TABLE",
     "PAGED_TABLE", "flash_crossover_seq", "resolve_attention_impl",
-    "paged_crossover_timeline", "resolve_paged_impl",
+    "paged_crossover_timeline", "resolve_paged_impl", "meta_resolves_as",
 ]

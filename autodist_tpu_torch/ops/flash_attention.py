@@ -16,7 +16,8 @@ On CUDA tensors each wrapper launches its kernel from
 ``_fwd_kernel``, ``_dkdv_kernel`` and ``_dq_kernel``) and counts the launch,
 or raises; on CPU tensors it runs its plain version, because there is no
 kernel to run there (meta tensors, used only to trace shapes, take the plain
-version too). :class:`FlashAttentionFn` ties the three together as the
+version too, as the kernel in ``utils/roofline.py``'s walks: its FLOPs,
+the kernel's bytes). :class:`FlashAttentionFn` ties the three together as the
 ``jax.custom_vjp`` of the JAX package does.
 
 The fallback rule is the JAX package's ``_use_reference``, kept visible:
@@ -35,6 +36,7 @@ import ctypes
 import torch
 
 from autodist_tpu_torch.ops.paged_attention import NEG_INF
+from autodist_tpu_torch.utils.roofline import kernel_call
 
 #: The JAX kernel's block size: sequences must be multiples of it (and
 #: ``S_q == S_k``) to take the kernel path; the CUDA tiles (64) divide it.
@@ -199,7 +201,7 @@ def flash_fwd(q, k, v, causal: bool = False):
     ``flash_attention_fwd`` (counted in ``flash_fwd.launches``) or raise;
     CPU tensors run :func:`flash_fwd_plain`."""
     if _device_kind(q) == "plain":
-        return flash_fwd_plain(q, k, v, causal)
+        return kernel_call(flash_fwd_plain, q, k, v, causal)
     _check_kernel_args(q=q, k=k, v=v)
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
@@ -213,7 +215,7 @@ def flash_dkdv(q, k, v, dout, lse, delta, causal: bool = False):
     """dK, dV. CUDA tensors launch ``flash_attention_dkdv`` (counted in
     ``flash_dkdv.launches``) or raise; CPU tensors run :func:`flash_dkdv_plain`."""
     if _device_kind(q) == "plain":
-        return flash_dkdv_plain(q, k, v, dout, lse, delta, causal)
+        return kernel_call(flash_dkdv_plain, q, k, v, dout, lse, delta, causal)
     _check_kernel_args(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(_kernel("flash_attention_dkdv", 8), (q, k, v, dout, lse, delta, dk, dv),
@@ -226,7 +228,7 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool = False):
     """dQ. CUDA tensors launch ``flash_attention_dq`` (counted in
     ``flash_dq.launches``) or raise; CPU tensors run :func:`flash_dq_plain`."""
     if _device_kind(q) == "plain":
-        return flash_dq_plain(q, k, v, dout, lse, delta, causal)
+        return kernel_call(flash_dq_plain, q, k, v, dout, lse, delta, causal)
     _check_kernel_args(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     dq = torch.empty_like(q)
     _launch(_kernel("flash_attention_dq", 7), (q, k, v, dout, lse, delta, dq), q, causal)

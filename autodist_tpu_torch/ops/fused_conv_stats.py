@@ -18,8 +18,9 @@ source's header). fp32 inputs take an FMA kernel, off the main path.
 script's ``xla_matmul_stats``. :func:`fused_matmul_stats` launches the CUDA
 kernel of ``csrc/fused_conv_stats.cu`` (which replaces the Pallas TPU kernel
 ``_kernel``) on CUDA tensors and counts the launch, or raises; on CPU and meta
-tensors it runs the plain version, because there is no kernel to run there.
-:class:`FusedConvStatsFn` makes it differentiable in ``x`` and ``w``.
+tensors it runs the plain version, because there is no kernel to run there
+(on meta tensors as the kernel in ``utils/roofline.py``'s walks: its FLOPs,
+the kernel's bytes). :class:`FusedConvStatsFn` makes it differentiable in ``x`` and ``w``.
 
 The schedule (:func:`block_n`, :func:`tiles_per_block`, :func:`smem_plan`)
 mirrors the kernel's so that the CPU tests reach it, and
@@ -32,6 +33,8 @@ import ctypes
 import math
 
 import torch
+
+from autodist_tpu_torch.utils.roofline import kernel_call
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: Rows of an M tile (both kernels); the fp32 kernel's N tile.
@@ -186,7 +189,7 @@ def fused_matmul_stats(x, w):
     launch ``fused_conv_stats`` (counted in ``fused_matmul_stats.launches``)
     or raise; CPU and meta tensors run :func:`fused_matmul_stats_plain`."""
     if x.device.type in ("cpu", "meta"):
-        return fused_matmul_stats_plain(x, w)
+        return kernel_call(fused_matmul_stats_plain, x, w)
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_stats: unsupported device {x.device}")
     check_kernel_args(x, w)

@@ -200,6 +200,23 @@ Phases, each printing one JSON line:
    kernels against the plain (``dot``) path, and both against the same
    model in fp32, at full width within stated bf16 bounds; and
    PSLoadBalancing's first-step loss equal to AllReduce's.
+9b. ``obs``: observability on the main path. bert_base (seq 512, flash,
+    bf16, batch 32) through ``AutoDist(observability=ObsConfig(flight_dir=
+    <tmp>))`` and ``autodist.obs.profiler(step)``: one warm-up step, 2
+    profiled windows of 4 steps, then one ``step.trace_step``. Checks:
+    ``flops_per_step`` > 0 and equal to the step's meta count
+    (``window_cost``) and to a walk of the loss's value and gradient
+    (``utils/roofline.traffic_bounds``), the same step built with the
+    default ``attention_impl="auto"`` counting the same FLOPs and bytes
+    (``window_cost`` resolves "auto" on the step's device), and within 10% of
+    ``flops_per_example`` x 32 (both printed, the flash backward's
+    recomputation apart); the profiler's MFU (counted FLOPs over the
+    window's CUDA-event seconds at 989 TFLOP/s) finite and in (0, 1),
+    printed beside ``train``'s host-clock MFU; ``device_s`` <= ``wall_s``
+    in every window; each flash kernel launched 12 x 9 times; the trace's
+    device events naming the three flash kernels; the doctor reading the
+    flight records ``clean``; and ``python -m autodist_tpu_torch.obs
+    --selftest``'s body on the card returning 0. Prints its seconds.
 10. ``resnet_check``: ResNet-50 at full width, batch 8, one step's loss and
     gradients: the bf16 kernel path against the model in fp32 on the card
     within stated bf16 bounds (whole model and block by block), and the
@@ -557,8 +574,10 @@ from autodist_tpu_torch.ops import paged_attention as pa
 from autodist_tpu_torch import parallel as par
 from autodist_tpu_torch.parallel.ring_attention import _chunk_merge as chunk_merge
 from autodist_tpu_torch.chaos import hooks as chaos_hooks
-from autodist_tpu_torch.obs import (SLOSpec, Sentry, SentryConfig, parse_openmetrics,
-                                   recorder as obs_recorder, replay_flight_records)
+from autodist_tpu_torch.obs import (ObsConfig, SLOSpec, Sentry, SentryConfig, diagnose,
+                                   parse_openmetrics, recorder as obs_recorder,
+                                   replay_flight_records)
+from autodist_tpu_torch.obs import __main__ as obs_main
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime import process_group as pg
 from autodist_tpu_torch.runtime.async_ps import AsyncPSTrainer
@@ -573,6 +592,7 @@ from autodist_tpu_torch.serve.router import (TEST_SLO_SPEC, RouterConfig, build_
 from autodist_tpu_torch.serve.server import (RouterFrontend, ServeFrontend,
                                              _admission_capacity, mock_load_prompt)
 from autodist_tpu_torch.serve.spec import SpecDecodeEngine, pools_balanced
+from autodist_tpu_torch.utils import roofline, tracing
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and per-type rates.
 HBM_BYTES_PER_S = 3.35e12
@@ -2004,6 +2024,129 @@ def train_check(dev):
          whole_rtol=CHECK_GLOBAL_RTOL, worst_tensor_rel=worst,
          worst_tensor=worst_name, tensor_rtol=CHECK_GRAD_RTOL, tensors_compared=compared,
          tensors_total=len(grads_d), first_step_loss=first, ps_vs_allreduce_rel=ps_rel)
+
+OBS_BATCH, OBS_WINDOW, OBS_WINDOWS = 32, 4, 2
+OBS_FLOPS_RTOL = 0.10          # the counted FLOPs against flops_per_example x batch
+OBS_FLASH_KERNELS = {"fwd": "flash_fwd_bf16_kernel", "dkdv": "flash_dkdv_bf16_kernel",
+                     "dq": "flash_dq_bf16_kernel"}
+
+
+def _trace_device_kernels(trace_dir: str) -> dict:
+    """The device (kernel) events of a ``trace_step`` Chrome trace, by
+    name: ``{name: count}``."""
+    with open(os.path.join(trace_dir, tracing.TRACE_FILE), encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    return dict(collections.Counter(
+        e.get("name", "") for e in events
+        if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"))
+
+
+def obs_phase(card: str, train_mfu: float, dev) -> dict:
+    """Phase 9b (module docstring): the profiler's MFU, ``window_cost``,
+    ``trace_step``, the flight records and the doctor, and the selftest, on
+    bert_base at seq 512, batch 32."""
+    t_phase = time.perf_counter()
+    spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ, attention_impl="flash")
+    cfg = spec.config
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(OBS_BATCH, device=dev)
+    work = tempfile.mkdtemp(prefix="smoke-obs-")
+    ft_base = os.path.join(work, "ft")
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=AllReduce(), device=dev,
+                        observability=ObsConfig(flight_dir=obs_recorder.flight_dir(ft_base)))
+    try:
+        step = autodist.build(spec.loss_fn, params, batch)
+        prof = autodist.obs.profiler(step)
+        state = step.init(params)
+        state, _ = step.run(state, batch, 1)               # warm-up, not counted
+        torch.cuda.synchronize()
+
+        # The main path's windows and the traced step: counts to 0 just
+        # before, read just after.
+        reset_launches()
+        for _ in range(OBS_WINDOWS):
+            state, metrics = prof.run(state, batch, OBS_WINDOW)
+        (state, traced), trace_dir = step.trace_step(state, batch, name="obs_bert_base")
+        launches = _launch_counts()
+        rep = prof.report()
+    finally:
+        if autodist.obs is not None:
+            autodist.obs.close()
+        AutoDist.reset_default()
+    steps = OBS_WINDOWS * OBS_WINDOW + 1
+    for kind, n in launches.items():
+        check(n == cfg.num_layers * steps,
+              f"obs: flash {kind} launches {n} != {cfg.num_layers} x {steps}")
+    check(np.isfinite(float(traced["loss"])), f"obs: traced loss {traced['loss']}")
+
+    # The FLOP count: the profiler's, the step's meta walk and a walk of
+    # the loss's value and gradient alone (the optimizer adds no product).
+    flops = rep.get("flops_per_step", 0.0)
+    meta = step.window_cost(state, batch, 1)
+    leaves = {n: t.detach().requires_grad_(t.is_floating_point())
+              for n, t in flatten_params(params).items()}
+
+    def value_and_grad(p, b):
+        loss = spec.loss_fn(unflatten_params(p), b)
+        return loss, torch.autograd.grad(loss, [t for t in p.values() if t.requires_grad])
+
+    walked = roofline.traffic_bounds(value_and_grad, leaves, batch)["flops"]
+    check(flops > 0 and flops == meta["flops"] == walked,
+          f"obs: flops_per_step {flops} != window_cost {meta['flops']} / walk {walked}")
+    # A user's default "auto" runs flash on the card from the H100 table's
+    # crossover: its count must be the flash step's, not the dot path's.
+    auto_spec = get_model_spec("bert_base", max_seq_len=TRAIN_SEQ)
+    AutoDist.reset_default()
+    try:
+        auto_step = AutoDist(strategy_builder=AllReduce(), device=dev).build(
+            auto_spec.loss_fn, params, batch)
+        auto_meta = auto_step.window_cost(state, batch, 1)
+    finally:
+        AutoDist.reset_default()
+    check(auto_spec.config.attention_impl == "auto" and auto_meta == meta,
+          f"obs: default-auto window_cost {auto_meta} != flash's {meta}")
+    analytic = spec.flops_per_example * OBS_BATCH
+    # The flash backward recomputes S = QK^T in both kernels and dO.V^T in
+    # dQ: 3 products of 2.B.H.S^2.D a layer beyond a saved-P backward.
+    d_head = cfg.d_model // cfg.num_heads
+    recompute = 3 * 2 * OBS_BATCH * cfg.num_heads * TRAIN_SEQ ** 2 * d_head * cfg.num_layers
+    check(abs(flops - analytic) <= OBS_FLOPS_RTOL * analytic,
+          f"obs: counted {flops} vs flops_per_example x {OBS_BATCH} = {analytic}: "
+          f"outside {OBS_FLOPS_RTOL}")
+
+    mfu = rep.get("mfu")
+    check(mfu is not None and np.isfinite(mfu) and 0.0 < mfu < 1.0, f"obs: MFU {mfu}")
+    for w in prof.windows:
+        check(w["device_s"] <= w["wall_s"],
+              f"obs: window device_s {w['device_s']} > wall_s {w['wall_s']}")
+    kernels = _trace_device_kernels(trace_dir)
+    found = {kind: sum(n for name, n in kernels.items() if sym in name)
+             for kind, sym in OBS_FLASH_KERNELS.items()}
+    check(kernels, f"obs: torch.profiler recorded no device kernel in {trace_dir}")
+    check(all(found[k] == cfg.num_layers for k in found),
+          f"obs: trace flash kernels {found} != {cfg.num_layers} each")
+    diag = diagnose(ft_base)
+    check(diag.verdict == "clean", f"obs: doctor verdict {diag.verdict}: "
+          f"{[e.detail for e in diag.evidence]}")
+    t_self = time.perf_counter()
+    rc = obs_main.selftest(device="cuda")
+    selftest_s = time.perf_counter() - t_self
+    check(rc == 0, f"obs: selftest on the card returned {rc}")
+    row = dict(model="bert_base", seq=TRAIN_SEQ, batch=OBS_BATCH, windows=OBS_WINDOWS,
+               window=OBS_WINDOW, flops_per_step=flops, window_cost=meta,
+               auto_window_cost_equal=auto_meta == meta,
+               flops_per_example_x_batch=analytic, flash_recompute_flops=recompute,
+               counted_over_analytic=flops / analytic,
+               counted_less_recompute_over_analytic=(flops - recompute) / analytic,
+               mfu=mfu, train_host_mfu=train_mfu, report=rep,
+               trace_dir=trace_dir, trace_kernel_events=sum(kernels.values()),
+               trace_flash_kernels=found, doctor=diag.verdict, selftest_rc=rc,
+               selftest_s=selftest_s, kernel_launches=launches,
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit("obs", **row)
+    return row
+
 
 def train_resnet(card: str, dev):
     """ResNet-50 at its defaults (224 px, 1000 classes, bf16) through
@@ -6573,6 +6716,7 @@ def main() -> int:
                   train_run("transformer", LM_BATCH, LM_STEPS, card, dev)]
     resnet_row = train_resnet(card, dev)
     train_check(dev)
+    obs_row = obs_phase(card, train_rows[0]["mfu"], dev)
     resnet_check(dev)
     data_row = data_fit(card, dev)
     zoo_rows = zoo_train(card, dev, zoo_shapes)
@@ -6648,7 +6792,8 @@ def main() -> int:
             + pipe_row["kernel_launches"][kind]
             + data_row["lm"]["kernel_launches"][kind]
             + (infer_rows[0]["kernel_launches"] if kind == "fwd" else 0)
-            + three_launches[kind],
+            + three_launches[kind]
+            + obs_row["kernel_launches"][kind],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],

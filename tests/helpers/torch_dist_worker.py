@@ -15,7 +15,8 @@ builder names to run ``AutoDist.tune`` over instead of training, with
 ``bucket_bytes``: gradient buckets put into the strategy of a builder
 without that option; ``data_fit``: a dataset directory to train from with
 ``DataLoader.from_files(process_slice=True)`` and ``fit(window=)``, and an
-eval batch for ``metrics.evaluate_dataset``). The rank
+eval batch for ``metrics.evaluate_dataset``; ``record_norms``: build the
+step with the global gradient and update norms, reported per step). The rank
 joins the group at
 ``file://INIT_FILE`` (with a timeout) through ``AutoDist(init_method=...)``,
 trains each case through ``AutoDist.build`` and the step on the global
@@ -140,9 +141,15 @@ class _Bucketed(StrategyBuilder):
         return strategy
 
 
+#: Per case id, each step's ``{"grad_norm", "update_norm"}`` of a case
+#: built with ``record_norms``.
+NORMS = {}
+
+
 def train(case, params, batch, **autodist_kwargs):
     """``(autodist, step, state, losses, per-step collectives, loss of the
-    trained state on the batch)`` of a case."""
+    trained state on the batch)`` of a case; a ``record_norms`` case's
+    per-step norms go to :data:`NORMS`."""
     api.AutoDist.reset_default()
     builder = from_name(case["builder"], **case.get("builder_kwargs", {}))
     if case.get("bucket_bytes"):
@@ -152,7 +159,8 @@ def train(case, params, batch, **autodist_kwargs):
                                    clip_norm=case.get("clip_norm"))
     step = ad.build(loss_for(case), params, batch, optimizer=opt,
                     grad_accum_steps=case.get("accum", 1),
-                    expert_names=case.get("expert_names", ()))
+                    expert_names=case.get("expert_names", ()),
+                    record_norms=case.get("record_norms", False))
     state = step.init(params)
     if case.get("comp_state") is not None:
         state.comp_state = comp_state_from_jax(case["comp_state"],
@@ -166,6 +174,9 @@ def train(case, params, batch, **autodist_kwargs):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         wire.append((step.last_collectives, step.last_bytes))
+        if case.get("record_norms"):
+            NORMS.setdefault(case["id"], []).append(
+                {k: float(metrics[k]) for k in ("grad_norm", "update_norm")})
     return ad, step, state, losses, wire, float(step.evaluate(state, batch)["loss"])
 
 
@@ -334,6 +345,7 @@ def main(job_path, rank, world, init_file, out_dir):
                            for n, st in state.comp_state.items()},
             "stale_state": {n: t.numpy().copy() for n, t in state.stale_state.items()},
             "checkpoint": checkpoint(case, ad, step, state, params),
+            "norms": NORMS.get(case["id"], []),
         }
     pg.leave()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

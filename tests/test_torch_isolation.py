@@ -70,7 +70,9 @@ def test_scan_sees_the_whole_port():
                 "obs/aggregate.py", "serve/router.py", "serve/replica.py", "serve/server.py",
                 "analysis/__init__.py", "analysis/report.py", "analysis/passes.py",
                 "serve/__main__.py", "serve/__init__.py", "models/transformer.py",
-                "parallel/__init__.py", "parallel/ring_attention.py", "parallel/pipeline.py"):
+                "parallel/__init__.py", "parallel/ring_attention.py", "parallel/pipeline.py",
+                "obs/config.py", "obs/profiler.py", "obs/doctor.py", "obs/__main__.py",
+                "utils/roofline.py", "utils/tracing.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()
