@@ -6,9 +6,9 @@ greppable code (the ``SL*`` table below — tests and operators key on these,
 so codes are append-only) plus a human message; an :class:`AnalysisReport`
 bundles the findings with the informational tables (planned-vs-actual wire,
 memory summary) the CLI surfaces render. ``report.ok`` is the gate: no
-error-severity findings. The port runs only the plan-level memory pass
-(``passes.py::hbm_budget``) so far; the codes of the other passes stay in
-the table so the two packages' reports read alike.
+error-severity findings. The port runs the plan-level passes
+(``passes.py``, ``sched.py``'s screen) so far; the codes of the program
+passes stay in the table so the two packages' reports read alike.
 """
 from __future__ import annotations
 

@@ -47,7 +47,10 @@ asked.
 the model and the resource spec's GPU node model
 (``strategy/auto_strategy.py``); :meth:`AutoDist.tune` measures instead:
 it trains each candidate of the slate for a few windows on the device,
-keeps the fastest and fits the cost model's calibration to the times.
+keeps the fastest and fits the cost model's calibration to the times
+(and the planner's per-topology one). ``strategy_builder="plan"`` searches
+the per-variable strategy space instead, with a persistent plan cache
+(``plan/``).
 ``fault_tolerance=FTConfig(...)`` gives ``autodist.ft`` (``ft/``: a
 started heartbeat monitor, the snapshot ring and its preemption hook);
 :meth:`AutoDist.elastic_rebuild` rebuilds over the surviving ranks' group
@@ -616,7 +619,12 @@ class AutoDist:
     def _record_calibration(self, results, predicted, path: Optional[str] = None) -> None:
         """Fit measured seconds a step against each timed strategy's
         predicted cost (:class:`Calibration`), the chief writes it, and
-        ``last_tune_results`` takes the table."""
+        ``last_tune_results`` takes the table. The chief also fits the
+        planner's per-topology, per-component calibration from the same
+        sweep (``plan/calibrate.py``: one record a timed candidate, saved
+        under the port's plan directory) and returns it as
+        ``plan_calibration``, so a later ``strategy_builder="plan"`` prices
+        this topology; a failure there logs and never fails ``tune``."""
         from autodist_tpu_torch.strategy.cost_model import Calibration
 
         meas, pred, table = [], [], {}
@@ -632,8 +640,21 @@ class AutoDist:
         calib = Calibration.fit(pred, meas, device=device) if meas else None
         chief = self.group is None or torch.distributed.get_rank() == 0
         saved = calib.save(path) if calib is not None and chief else None
+        plan_calib = None
+        if chief and meas:
+            try:
+                from autodist_tpu_torch.plan.calibrate import (
+                    CalibrationRecord, calibrate_from_records)
+
+                plan_calib = calibrate_from_records(
+                    [CalibrationRecord.from_cost(predicted[n], dt, name=n)
+                     for n, dt in results if n in predicted and math.isfinite(dt)],
+                    self.resource_spec, device_kind=device)
+            except Exception:  # noqa: BLE001 - the planner's feed is optional
+                logging.warning("tune: plan calibration recording failed", exc_info=True)
         self.last_tune_results = {"table": table, "calibration": calib,
                                   "calibration_path": saved,
+                                  "plan_calibration": plan_calib,
                                   "measured": dict(results)}
         if calib is not None:
             logging.info("tune calibration: measured ≈ %.3fms + %.2f × predicted "

@@ -20,6 +20,10 @@ DEFAULT_HLO_DIR = os.path.join(DEFAULT_WORKING_DIR, "hlo")
 # through AUTODIST_FT_DIR, which the launcher exports so every process of
 # one fleet shares a base.
 DEFAULT_FT_DIR = os.path.join(DEFAULT_WORKING_DIR, "ft")
+# Planner state: per-topology calibrations (plan/calibrate.py) directly
+# under it, the persistent plan cache (plan/cache.py) in its ``cache``
+# subdirectory unless AUTODIST_PLAN_CACHE names another.
+DEFAULT_PLAN_DIR = os.path.join(DEFAULT_WORKING_DIR, "plan")
 
 # The rendezvous port range (the JAX package's coordinator range): a
 # cluster's MASTER_PORT is drawn from it by the spec's fingerprint.
@@ -96,6 +100,9 @@ class ENV:
     #: The flight recorder's dir; empty = ``<AUTODIST_FT_DIR>/flight`` when
     #: an ft base is exported, off otherwise (``obs/recorder.py``).
     AUTODIST_FLIGHT_DIR = _EnvVar("")
+    #: The plan cache's dir (``plan/cache.py``); empty =
+    #: ``DEFAULT_PLAN_DIR/cache``.
+    AUTODIST_PLAN_CACHE = _EnvVar("")
     #: Exported beside AUTODIST_FT_DIR (``<ft base>/pilot``) for the JAX
     #: package's autopilot; the port reads nothing from it.
     AUTODIST_PILOT_DIR = _EnvVar("")

@@ -362,12 +362,16 @@ class StepProfiler:
             "StepProfiler.attribute needs obs/attrib.py, which waits for ROADMAP.md "
             "Queue 1 item 7 (program-level analysis on torch.profiler traces)")
 
-    def calibration_record(self, *args, **kwargs):
-        """This profile as a planner calibration point (the JAX package's
-        ``plan/calibrate.record_from_profiler``): not ported yet."""
-        raise NotImplementedError(
-            "StepProfiler.calibration_record needs plan/calibrate.py, which waits for "
-            "ROADMAP.md Queue 1 item 6b (plan-level analysis and plan/)")
+    def calibration_record(self, cost, name: str = ""):
+        """This profile as a planner calibration point: the measured
+        per-step wall (and the step's FLOPs and bytes) beside the analytic
+        :class:`~autodist_tpu_torch.strategy.cost_model.StrategyCost` of the
+        strategy that ran. Feed it to
+        :func:`autodist_tpu_torch.plan.calibrate.calibrate_from_records` and
+        the planner prices this topology."""
+        from autodist_tpu_torch.plan.calibrate import record_from_profiler
+
+        return record_from_profiler(self.report(), cost, name=name)
 
 
 def _last(x) -> float:

@@ -2,7 +2,9 @@
 PSLoadBalancing, PartitionedPS, UnevenPartitionedPS, AllReduce,
 PartitionedAR, RandomAxisPartitionAR, Parallax, Zero1, TensorParallel) and
 ``Auto``, which picks one by the cost model (``cost_model.py``) on the
-resource spec's GPU node model; ``explain.py`` prints its ranking."""
+resource spec's GPU node model; ``explain.py`` prints its ranking. The
+search-based ``Plan`` (``autodist_tpu_torch.plan``) sits above this package
+and resolves by name through :func:`from_name`."""
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce
 from autodist_tpu_torch.strategy.auto_strategy import Auto
 from autodist_tpu_torch.strategy.base import StrategyBuilder, StrategyCompiler
@@ -32,14 +34,16 @@ BUILTIN_BUILDERS = {cls.__name__: cls for cls in (
 
 
 def from_name(name: str, **kwargs) -> StrategyBuilder:
-    """Builder by class name. The JAX package's search-based ``Plan`` is
-    not ported yet (ROADMAP.md Queue 1 item 11)."""
+    """Builder by class name; ``"plan"``/``"Plan"`` is the search-based
+    planner (``autodist_tpu_torch.plan.Plan``), imported here because
+    ``plan/`` imports this package."""
     if name in ("plan", "Plan"):
-        raise NotImplementedError("the Plan builder (plan/) is not ported yet; see "
-                                  "ROADMAP.md Queue 1 item 11")
+        from autodist_tpu_torch.plan import Plan
+
+        return Plan(**kwargs)
     if name not in BUILTIN_BUILDERS:
-        raise ValueError(f"unknown or unported strategy {name!r}; ported: "
-                         f"{sorted(BUILTIN_BUILDERS)} (the others are in ROADMAP.md)")
+        raise ValueError(f"unknown strategy {name!r}; choose from "
+                         f"{sorted(BUILTIN_BUILDERS) + ['Plan']}")
     return BUILTIN_BUILDERS[name](**kwargs)
 
 

@@ -13,15 +13,18 @@ whether it fits, so the choice can be read before any card time is spent::
 Without ``--resource-spec`` it plans for this host's card
 (``ResourceSpec.from_local_devices``), and raises without one unless
 ``--device cpu`` is given. ``--model-kwargs`` passes zoo overrides as
-``k=v`` pairs. The JAX package's ``--lint``, ``--wire-measured`` and
-``--plan-provenance`` read ``analysis/``, ``obs/attrib`` and ``plan/``,
-which are not ported yet (ROADMAP.md Queue 1 item 11): they raise
-``NotImplementedError``.
+``k=v`` pairs. ``--plan-provenance PATH`` renders the search provenance
+of the planner (``autodist_tpu_torch.plan``) from a ``provenance.json``, a
+plan-cache entry or a cache root (its newest entry) instead of the table.
+The JAX package's ``--lint`` and ``--wire-measured`` read the program-level
+``analysis/`` and ``obs/attrib``, which are not ported yet (ROADMAP.md
+Queue 1 item 7): they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional, Tuple
 
@@ -30,7 +33,7 @@ from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.cost_model import Calibration, CostModel, candidate_slate
 
 _UNPORTED = ("{} reads the JAX package's {}, which is not ported yet; see ROADMAP.md "
-             "Queue 1 item 11")
+             "Queue 1 item 7")
 
 
 def _coerce(v: str):
@@ -130,8 +133,82 @@ def explain(model_item: ModelItem, resource_spec: ResourceSpec,
 
 
 def explain_provenance(provenance: dict, out=None) -> None:
-    """The JAX package's plan-search provenance record: not ported."""
-    raise NotImplementedError(_UNPORTED.format("explain_provenance", "plan/ search"))
+    """Render a plan-search provenance record (``autodist_tpu_torch.plan``):
+    candidates visited, the seed table, the winner's predicted (and
+    calibrated or measured, when recorded) cost and why it won. The record
+    is ``Plan.last_result["provenance"]``, which the plan cache keeps beside
+    every winner (``provenance.json``)."""
+    out = out if out is not None else sys.stdout
+    if not provenance:
+        print("(empty provenance: cached entry predates search provenance)", file=out)
+        return
+    print(f"plan search: {provenance.get('n_visited', '?')} candidates visited "
+          f"(beam {provenance.get('beam_width', '?')} × "
+          f"{provenance.get('generations', '?')} generations, "
+          f"seed {provenance.get('search_seed', '?')})", file=out)
+    seeds = provenance.get("seeds", {})
+    if seeds:
+        print(f"\n{'seed':22s} {'predicted':>11s} {'mem/chip':>10s} {'fits':>5s}", file=out)
+        for name in sorted(seeds, key=lambda n: seeds[n].get("predicted_s", float("inf"))):
+            row = seeds[name]
+            print(f"{name:22s} {row.get('predicted_s', 0.0) * 1e3:9.3f}ms "
+                  f"{row.get('per_chip_gb', 0.0):8.2f}GB "
+                  f"{'yes' if row.get('feasible') else 'NO':>5s}", file=out)
+    w = provenance.get("winner", {})
+    print(f"\nwinner: {w.get('origin', '?')} — "
+          f"predicted {w.get('predicted_s', 0.0) * 1e3:.3f} ms/step "
+          f"(comm {w.get('comm_s', 0.0) * 1e3:.3f}, "
+          f"update {w.get('update_s', 0.0) * 1e3:.3f}, "
+          f"lat {w.get('latency_s', 0.0) * 1e3:.3f}, "
+          f"act {w.get('act_sync_s', 0.0) * 1e3:.3f}, "
+          f"gather {w.get('gather_s', 0.0) * 1e3:.3f}, "
+          f"overlap {w.get('overlap_s', 0.0) * 1e3:.3f}), "
+          f"{w.get('per_chip_gb', 0.0):.2f} GB/chip "
+          f"(opt {w.get('opt_gb_per_chip', 0.0):.2f}) "
+          f"{'ok' if w.get('feasible') else 'OVER'}", file=out)
+    if w.get("n_shard_update"):
+        print(f"zero1: {w['n_shard_update']} vars carry shard_update "
+              f"(reduce-scatter grads, 1/N-sharded optimizer update, "
+              f"all-gather params — docs/zero.md)", file=out)
+    if w.get("bucket_bytes"):
+        print(f"bucketed overlap: bucket_bytes={w['bucket_bytes']} — grad "
+              f"collectives emitted per bucket inside the backward "
+              f"({w.get('overlap_s', 0.0) * 1e3:.3f} ms of wire priced as "
+              f"overlappable; kernel/bucketing.py, docs/performance.md)", file=out)
+    calib = provenance.get("calibration")
+    if calib:
+        print(f"calibrated: {calib.get('predicted_calibrated_s', 0.0) * 1e3:.3f}"
+              f" ms/step ({calib.get('n_points', 0)} measured points on "
+              f"{calib.get('device') or 'unknown device'}; model error "
+              f"{calib.get('mean_abs_rel_err_before', float('nan')) * 100:.1f}%"
+              f" -> {calib.get('mean_abs_rel_err_after', float('nan')) * 100:.1f}"
+              f"% after fit)", file=out)
+    if w.get("measured_s"):
+        print(f"measured: {w['measured_s'] * 1e3:.3f} ms/step", file=out)
+    mesh = provenance.get("mesh")
+    if mesh and mesh.get("chosen"):
+        print(f"mesh recommendation: {mesh['chosen']} (searched "
+              f"{len(mesh.get('candidates', {}))} factorizations)", file=out)
+    print(f"\nwhy: {provenance.get('why', '(not recorded)')}", file=out)
+
+
+def _load_provenance(path: str) -> dict:
+    """Provenance from a file, a cache entry dir, or a cache root (newest
+    entry wins)."""
+    import glob
+
+    if os.path.isdir(path):
+        direct = os.path.join(path, "provenance.json")
+        if os.path.exists(direct):
+            path = direct
+        else:
+            candidates = sorted(glob.glob(os.path.join(path, "*", "provenance.json")),
+                                key=os.path.getmtime, reverse=True)
+            if not candidates:
+                raise FileNotFoundError(f"no provenance.json under {path!r}")
+            path = candidates[0]
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
 
 
 def lint(*args, **kwargs) -> int:
@@ -183,18 +260,26 @@ def main(argv=None, out=None) -> int:
                    help='a tune()-written calibration.json, or "auto" for the port\'s '
                         'working directory; adds a calibrated column')
     p.add_argument("--plan-provenance", default="",
-                   help="not ported: needs plan/ (ROADMAP.md Queue 1 item 11)")
+                   help="render a plan-search provenance record instead of the table: "
+                        "a provenance.json path, a plan-cache entry dir, or a cache "
+                        "root (newest entry)")
     p.add_argument("--lint", action="store_true",
-                   help="not ported: needs analysis/ (ROADMAP.md Queue 1 item 11)")
+                   help="not ported: needs the program-level analysis/ (ROADMAP.md "
+                        "Queue 1 item 7)")
     p.add_argument("--builder", default="AllReduce", help="--lint/--wire-measured's builder")
     p.add_argument("--wire-measured", default="",
-                   help="not ported: needs obs/attrib (ROADMAP.md Queue 1 item 11)")
+                   help="not ported: needs obs/attrib (ROADMAP.md Queue 1 item 7)")
     args = p.parse_args(argv)
 
     if args.plan_provenance:
-        explain_provenance({})
+        try:
+            provenance = _load_provenance(args.plan_provenance)
+        except (OSError, ValueError) as e:
+            p.error(f"--plan-provenance {args.plan_provenance!r}: {e}")
+        explain_provenance(provenance, out=out)
+        return 0
     if not args.model:
-        p.error("--model is required")
+        p.error("--model is required (or pass --plan-provenance)")
     kwargs = {}
     if args.model_kwargs:
         for pair in args.model_kwargs.split(","):

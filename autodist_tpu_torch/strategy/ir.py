@@ -189,6 +189,10 @@ class Strategy:
                              "bucket_bytes": int(self.graph_config.bucket_bytes)},
         }
 
+    def node_config_for(self, var_name: str) -> Optional[NodeConfig]:
+        """The first node config of ``var_name``, or None."""
+        return next((n for n in self.node_config if n.var_name == var_name), None)
+
     @classmethod
     def from_json(cls, d: dict) -> "Strategy":
         gc = d.get("graph_config", {})

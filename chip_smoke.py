@@ -388,7 +388,26 @@ Phases, each printing one JSON line:
     seconds a step, the fastest selected, the calibration written to a
     temporary directory; the flash launches of every timed step counted.
     At world size 1 the candidates differ only by overhead: the phase
-    checks the mechanism, not a ranking.
+    checks the mechanism, not a ranking. The same sweep fits the planner's
+    per-topology calibration (``plan/calibrate.py``), written to a
+    temporary plan directory (``const.DEFAULT_PLAN_DIR``).
+21b. ``plan``: the search-based planner (``autodist_tpu_torch.plan``) on
+    the card. It reads the calibration ``tune`` wrote (its topology key
+    names the card, one point a timed candidate, its error before and
+    after the fit) and prints its coefficients; builds bert_base (flash,
+    TRAIN_SEQ, TRAIN_BATCH, bf16) through
+    ``AutoDist(strategy_builder=Plan(PlanConfig(cache_dir=<tmp>,
+    calibration=<that calibration>)))`` and takes PLAN_STEPS Adam steps:
+    the first loss equal within CHECK_LOSS_RTOL to a plain ``AllReduce``
+    step's on the same parameters and batch, the flash kernels ``num_layers
+    x PLAN_STEPS`` times each; builds again with a fresh ``Plan`` on the
+    same cache: a hit with no candidate visited, the winner's Strategy JSON
+    byte for byte, its dry run lowered on the card's one-rank mesh; plans
+    offline for AUTO_NODES nodes of AUTO_NODE_GPUS (the dry run skipped:
+    the process holds one card), the winner beside ``Auto``'s pick and no
+    worse than the best lossless slate member; and runs ``python -m
+    autodist_tpu_torch.plan --selftest`` in a child process (the card
+    machine's CPU and torch).
 22. ``sparse_rehearsal``: not a card result: 4 gloo ranks on the CPU
     (``--sparse-cpu-rank``, the card machine's torch) train the sparse
     cases (``SPARSE_CASES``: a 4096 x 16 table at batch 64 under AllReduce,
@@ -533,6 +552,7 @@ import gc
 import io
 import json
 import os
+import re
 import signal
 import socket
 import statistics
@@ -922,6 +942,9 @@ AUTO_TRAIN = (AUTO_MODELS[0], ("ncf", *PUBLISHED["ncf"][:3]))
 # tune: bert_base (AUTO_MODELS[0]) over the dense slate, TUNE_WINDOW steps a
 # window (one warm-up window and api._TUNE_TRIAL_WINDOWS timed ones).
 TUNE_WINDOW = 2
+# plan: bert_base (AUTO_MODELS[0]) built by the planner, PLAN_STEPS Adam
+# steps (DIST_OPT) in one counted window.
+PLAN_STEPS = 4
 # sparse_rehearsal: (id, model, builder, overrides, batch) on 4 gloo CPU
 # ranks, REHEARSAL_STEPS Adam steps at DIST_OPT, against the one-process
 # step within REHEARSAL_RTOL / REHEARSAL_ATOL; "embed" is JAX's
@@ -4473,9 +4496,10 @@ def auto_train(card: str) -> list:
     return rows
 
 
-def tune_phase(card: str, dev) -> dict:
-    """The tune phase (see the module docstring)."""
-    from autodist_tpu_torch import api
+def tune_phase(card: str, dev, plan_dir: str) -> dict:
+    """The tune phase (see the module docstring); the planner's calibration
+    goes to ``plan_dir``."""
+    from autodist_tpu_torch import api, const
     from autodist_tpu_torch.strategy.cost_model import candidate_slate
 
     key, model, overrides, batch_size = AUTO_MODELS[0]
@@ -4485,15 +4509,19 @@ def tune_phase(card: str, dev) -> dict:
     AutoDist.reset_default()
     autodist = AutoDist(device=dev)
     slate = candidate_slate(include_sparse=False)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "calibration.json")
-        reset_launches()
-        t0 = time.perf_counter()
-        autodist.tune(spec.loss_fn, params, batch, candidates=slate, window=TUNE_WINDOW,
-                      optimizer=OptimizerSpec(*DIST_OPT), calibration_path=path)
-        seconds = time.perf_counter() - t0
-        launches = _launch_counts()
-        written = os.path.exists(path)
+    default_plan_dir, const.DEFAULT_PLAN_DIR = const.DEFAULT_PLAN_DIR, plan_dir
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "calibration.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            autodist.tune(spec.loss_fn, params, batch, candidates=slate, window=TUNE_WINDOW,
+                          optimizer=OptimizerSpec(*DIST_OPT), calibration_path=path)
+            seconds = time.perf_counter() - t0
+            launches = _launch_counts()
+            written = os.path.exists(path)
+    finally:
+        const.DEFAULT_PLAN_DIR = default_plan_dir
     rec = autodist.last_tune_results
     calib = rec["calibration"]
     table = {name: dict(measured_ms=row["measured_s"] * 1e3,
@@ -4506,6 +4534,8 @@ def tune_phase(card: str, dev) -> dict:
                calibration=dict(base_ms=calib.base_s * 1e3, scale=calib.scale,
                                 device=calib.device, n_points=calib.n_points),
                calibration_written=written, seconds=seconds, kernel_launches=launches,
+               plan_calibration=(rec["plan_calibration"].describe()
+                                 if rec.get("plan_calibration") is not None else None),
                card=card)
     emit("tune", **row)
     check(written, "tune: the calibration was not written")
@@ -4517,6 +4547,166 @@ def tune_phase(card: str, dev) -> dict:
               f"tune: flash {kind} launches {launches[kind]} != "
               f"{spec.config.num_layers} x {steps}")
     del autodist, params, batch
+    AutoDist.reset_default()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _plan_run(planner, spec, params, batch, dev, steps: int) -> tuple:
+    """bert_base built by ``planner`` through AutoDist on the card and
+    ``steps`` Adam steps in one counted window: (AutoDist, losses,
+    launches, build seconds)."""
+    AutoDist.reset_default()
+    autodist = AutoDist(strategy_builder=planner, device=dev)
+    t0 = time.perf_counter()
+    step = autodist.build(spec.loss_fn, params, batch, optimizer=OptimizerSpec(*DIST_OPT))
+    build_s = time.perf_counter() - t0
+    state = step.init(params)
+    reset_launches()
+    state, metrics = step.run(state, batch, steps)
+    losses = metrics["loss"].tolist()
+    launches = _launch_counts()
+    del step, state
+    return autodist, losses, launches, build_s
+
+
+def _stored_json(strategy) -> bytes:
+    """``strategy`` as the plan cache stores it: before ``AutoDist``
+    serialized it to its strategy dir (which sets ``path``)."""
+    d = strategy.to_json()
+    d["path"] = ""
+    return json.dumps(d, indent=2, sort_keys=True).encode("utf-8")
+
+
+def plan_phase(card: str, dev, plan_dir: str) -> dict:
+    """The plan phase (see the module docstring)."""
+    from autodist_tpu_torch.plan import Plan, PlanConfig, TopologyCalibration, topology_key
+    from autodist_tpu_torch.strategy import Auto, CostModel
+    from autodist_tpu_torch.strategy import explain as ex
+    from autodist_tpu_torch.strategy.cost_model import candidate_slate
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    local = ResourceSpec.from_local_devices(dev)
+    key = topology_key(local, name)
+    calib = TopologyCalibration.load_for(local, name, directory=plan_dir)
+    files = sorted(os.listdir(plan_dir)) if os.path.isdir(plan_dir) else []
+    n_slate = len(candidate_slate(include_sparse=False))
+    check(calib is not None, f"plan: no planner calibration for {key} in {files}")
+    check(calib.topology == key and key.startswith(
+        re.sub(r"[^A-Za-z0-9_.-]+", "_", name).lower()) and key.endswith("-c1-1"),
+        f"plan: calibration topology {calib.topology!r} does not name the card ({name})")
+    check(calib.n_points == n_slate,
+          f"plan: calibration has {calib.n_points} points, the timed slate {n_slate}")
+    check(np.isfinite(calib.error_before) and np.isfinite(calib.error_after),
+          f"plan: calibration errors {calib.error_before}, {calib.error_after}")
+    emit("plan_calibration", file=files, **calib.describe(), card=card)
+
+    mkey, model, overrides, batch_size = AUTO_MODELS[0]
+    spec = get_model_spec(model, **overrides)
+    cfg = spec.config
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(batch_size, device=dev)
+    with tempfile.TemporaryDirectory() as cache:
+        first = Plan(PlanConfig(cache_dir=cache, calibration=calib))
+        autodist, losses, launches, build_s = _plan_run(first, spec, params, batch, dev,
+                                                        PLAN_STEPS)
+        res1 = dict(first.last_result)
+        with open(os.path.join(res1["path"], "strategy.json"), "rb") as f:
+            stored = f.read()
+        winner_json = _stored_json(autodist.strategy)
+        AutoDist.reset_default()
+        plain = AutoDist(strategy_builder=AllReduce(), device=dev)
+        step = plain.build(spec.loss_fn, params, batch, optimizer=OptimizerSpec(*DIST_OPT))
+        _, plain_metrics = step.run(step.init(params), batch, 1)
+        plain_loss = plain_metrics["loss"].tolist()[0]
+        del step, plain
+        second = Plan(PlanConfig(cache_dir=cache, calibration=calib))
+        again, losses2, launches2, build2_s = _plan_run(second, spec, params, batch, dev, 1)
+        res2 = dict(second.last_result)
+        hit_json = _stored_json(again.strategy)
+        del autodist, again
+    check(not res1["cache_hit"] and res1["n_visited"] >= 20,
+          f"plan: first build {res1['cache_hit']=} visited {res1['n_visited']}")
+    check(all(np.isfinite(losses)), f"plan: losses {losses}")
+    check(abs(losses[0] - plain_loss) <= CHECK_LOSS_RTOL * abs(plain_loss),
+          f"plan: first loss {losses[0]} vs the plain AllReduce step's {plain_loss}")
+    for kind, n in launches.items():
+        check(n == cfg.num_layers * PLAN_STEPS,
+              f"plan: flash {kind} launches {n} != {cfg.num_layers} x {PLAN_STEPS}")
+    check(res2["cache_hit"] and res2["n_visited"] == 0,
+          f"plan: second build {res2['cache_hit']=} visited {res2['n_visited']}")
+    check(winner_json == stored and hit_json == stored,
+          "plan: the cache hit's Strategy JSON is not the first winner's byte for byte")
+    check(res2.get("validated") is True,
+          "plan: the cache hit was not dry-run lowered on the card's mesh")
+    check(abs(losses2[0] - losses[0]) <= CHECK_LOSS_RTOL * abs(losses[0]),
+          f"plan: the hit's first loss {losses2[0]} vs the first build's {losses[0]}")
+    for kind, n in launches2.items():
+        check(n == cfg.num_layers, f"plan: the hit's flash {kind} launches {n}")
+    prov = res1["provenance"]
+
+    # Offline: AUTO_NODES nodes of AUTO_NODE_GPUS with the card's node model.
+    fleet = ResourceSpec(resource_dict={
+        "nodes": [{"address": f"10.0.0.{i}", "gpus": AUTO_NODE_GPUS, "chief": i == 1}
+                  for i in range(1, AUTO_NODES + 1)], "gpu": local.gpu.to_dict()})
+    item = ex.model_item_for(model, batch_size, dev, **overrides)
+    with tempfile.TemporaryDirectory() as cache:
+        offline = Plan(PlanConfig(cache_dir=cache, calibration=None))
+        t0 = time.perf_counter()
+        strategy = offline.build(item, fleet)
+        offline_s = time.perf_counter() - t0
+        offline_res = dict(offline.last_result)
+        recheck = Plan(PlanConfig(cache_dir=cache, calibration=None))
+        recheck.build(item, fleet)
+        skipped = recheck.last_result.get("validated") is False
+    cm = CostModel(item, fleet)
+    win_ms = cm.strategy_cost(strategy).total_s * 1e3
+    slate_ms = {}
+    for sname, builder in candidate_slate(full=True):
+        built = builder.build(item, fleet)
+        if not ex._lossy(built):
+            slate_ms[sname] = cm.strategy_cost(built).total_s * 1e3
+    best = min(slate_ms, key=slate_ms.get)
+    auto_pick = _builder_name(StrategyCompiler(item).compile(Auto().build(item, fleet)),
+                              item, fleet)
+    check(win_ms <= slate_ms[best] * (1 + 1e-9),
+          f"plan offline: winner {win_ms} ms > best slate {best} {slate_ms[best]} ms")
+    check(skipped, "plan offline: the dry run of a 32-GPU plan was not skipped on one card")
+    del item
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "autodist_tpu_torch.plan", "--selftest"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    selftest_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    selftest = json.loads(lines[-1]) if lines else {}
+    check(proc.returncode == 0 and selftest.get("ok") is True,
+          f"plan selftest rc {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    row = dict(model=mkey, batch=batch_size, steps=PLAN_STEPS, optimizer=DIST_OPT,
+               topology=key, calibration=calib.describe(),
+               winner=prov["winner"]["origin"], n_visited=res1["n_visited"],
+               predicted_ms=prov["winner"]["predicted_s"] * 1e3,
+               calibrated_ms=prov.get("calibration", {}).get("predicted_calibrated_s", 0.0)
+               * 1e3,
+               best_seed=prov["best_seed"], build_s=build_s, losses=losses,
+               plain_first_loss=plain_loss, kernel_launches=launches,
+               hit=dict(n_visited=res2["n_visited"], validated=res2["validated"],
+                        byte_identical=hit_json == stored, build_s=build2_s,
+                        kernel_launches=launches2, first_loss=losses2[0]),
+               offline=dict(cluster=f"{AUTO_NODES} nodes x {AUTO_NODE_GPUS}",
+                            winner=offline_res["provenance"]["winner"]["origin"],
+                            n_visited=offline_res["n_visited"], predicted_ms=win_ms,
+                            best_slate=best, best_slate_ms=slate_ms[best], auto=auto_pick,
+                            auto_ms=slate_ms.get(auto_pick), seconds=offline_s,
+                            dryrun_skipped=skipped,
+                            why=offline_res["provenance"]["why"]),
+               selftest=dict(selftest, seconds=selftest_s),
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit("plan", **row)
+    del params, batch
     AutoDist.reset_default()
     torch.cuda.empty_cache()
     return row
@@ -6727,7 +6917,9 @@ def main() -> int:
     ckpt_rows = checkpoint_train(card)
     saved_row = saved_model_phase(card, dev)
     auto_plan(card, dev)
-    tune_row = tune_phase(card, dev)
+    with tempfile.TemporaryDirectory() as plan_dir:
+        tune_row = tune_phase(card, dev, plan_dir)
+        plan_row = plan_phase(card, dev, plan_dir)
     # From here on every card phase runs in processes of its own, and the
     # CPU rehearsals (gloo ranks on the CPU and their one-process steps in
     # this process, none of which touches the card) run beside them.
@@ -6787,6 +6979,7 @@ def main() -> int:
             + sum(t["kernel_launches"][kind] + t["named_kernel_launches"][kind]
                   for t in auto_rows)
             + tune_row["kernel_launches"][kind]
+            + plan_row["kernel_launches"][kind] + plan_row["hit"]["kernel_launches"][kind]
             + sup_row["kernel_launches"][kind]
             + sum(r["kernel_launches"][kind] for r in seq_rows)
             + pipe_row["kernel_launches"][kind]

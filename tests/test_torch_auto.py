@@ -8,7 +8,7 @@ package's.
   ones to the cost model's pick; so does the heuristic mode
   (``cost_model=False``), and the memory-pressure fallback.
 - ``strategy.from_name("Auto")`` and ``AutoDist(strategy_builder="Auto")``
-  build; ``"Plan"`` raises, naming ROADMAP.md.
+  build; ``"Plan"`` gives the search-based planner (``tests/test_torch_plan.py``).
 - ``AutoDist.tune`` on the CPU: every candidate timed, the fastest measured
   wins, a failing candidate is skipped, the calibration is written.
 """
@@ -74,12 +74,16 @@ def test_auto_respects_memory_pressure():
                    and not n.synchronizer.shard_update for n in s.node_config)
 
 
-def test_from_name_auto_and_plan():
+def test_from_name_auto_and_plan(tmp_path):
+    from autodist_tpu_torch.plan import Plan
+
     assert isinstance(tstrat.from_name("Auto"), tstrat.Auto)
     assert "Auto" in tstrat.BUILTIN_BUILDERS
     for name in ("Plan", "plan"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            tstrat.from_name(name)
+        planner = tstrat.from_name(name, cache_dir=str(tmp_path / name))
+        assert isinstance(planner, Plan) and planner.cache.cache_dir == str(tmp_path / name)
+    with pytest.raises(ValueError, match="Plan"):
+        tstrat.from_name("NoSuchBuilder")
 
 
 @pytest.mark.parametrize("model,want", [("ncf", PSSynchronizer), ("mlp", None)])

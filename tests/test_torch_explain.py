@@ -124,11 +124,21 @@ def test_cli_without_a_card_needs_device_cpu():
 
 @pytest.mark.parametrize("flag", (["--lint"], ["--wire-measured", "x.json"],
                                   ["--plan-provenance", "x"]))
-def test_unported_modes_raise_naming_roadmap(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        texplain.main(["--model", "mlp", "--device", "cpu", *flag], out=io.StringIO())
+def test_unported_modes_raise_naming_roadmap(flag, capsys):
+    """``--lint`` and ``--wire-measured`` raise naming the program-level
+    analysis (ROADMAP.md Queue 1 item 7); ``--plan-provenance`` is ported
+    (``tests/test_torch_plan.py`` renders it) and fails on a missing
+    record as a usage error, as JAX's does."""
+    if flag[0] == "--plan-provenance":
+        with pytest.raises(SystemExit) as ei:
+            texplain.main(["--model", "mlp", "--device", "cpu", *flag], out=io.StringIO())
+        assert ei.value.code == 2 and "--plan-provenance 'x'" in capsys.readouterr().err
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+            texplain.main(["--model", "mlp", "--device", "cpu", *flag], out=io.StringIO())
     for fn in (texplain.lint, texplain.wire_measured):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             fn()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        texplain.explain_provenance({"n_visited": 1})
+    out = io.StringIO()
+    texplain.explain_provenance({"n_visited": 1}, out=out)
+    assert out.getvalue().startswith("plan search: 1 candidates visited")

@@ -72,7 +72,9 @@ def test_scan_sees_the_whole_port():
                 "serve/__main__.py", "serve/__init__.py", "models/transformer.py",
                 "parallel/__init__.py", "parallel/ring_attention.py", "parallel/pipeline.py",
                 "obs/config.py", "obs/profiler.py", "obs/doctor.py", "obs/__main__.py",
-                "utils/roofline.py", "utils/tracing.py"):
+                "utils/roofline.py", "utils/tracing.py", "analysis/sched.py",
+                "plan/__init__.py", "plan/__main__.py", "plan/builder.py", "plan/cache.py",
+                "plan/calibrate.py", "plan/search.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()

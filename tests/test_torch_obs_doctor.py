@@ -212,7 +212,7 @@ def test_both_doctors_agree(tmp_path, case):
         assert [e for e in d.timeline if e["source"] == "pilot"][0]["code"] == "SNT004"
 
 
-def test_a_profiled_run_reads_clean_in_both(tmp_path):
+def test_a_profiled_run_reads_clean_in_both(tmp_path, monkeypatch):
     from autodist_tpu_torch.api import AutoDist
     from autodist_tpu_torch.models import get_model_spec
     from autodist_tpu_torch.obs import ObsConfig
@@ -221,6 +221,9 @@ def test_a_profiled_run_reads_clean_in_both(tmp_path):
 
     spec = get_model_spec("mlp", in_dim=16, hidden=(32,), num_classes=4)
     params, batch = spec.init(0, device="cpu"), spec.example_batch(8, device="cpu")
+    # The runtime counts into the process-wide registry: a fresh one, so
+    # this run's windows do not reach later tests of this worker process.
+    monkeypatch.setattr(M, "registry", M.MetricsRegistry())
     AutoDist.reset_default()
     try:
         ad = AutoDist(strategy_builder=AllReduce(), device="cpu",

@@ -287,12 +287,29 @@ def test_detect_peak_flops():
 
 
 def test_unported_profiler_methods_name_the_roadmap():
-    step, _, _ = _tiny_step()
+    """``attribute`` waits for the program-level analysis (item 7);
+    ``calibration_record`` is ported: the profile's measured step beside
+    the strategy's analytic cost, as JAX's ``record_from_profiler`` pairs
+    them."""
+    from autodist_tpu_torch.strategy.cost_model import CostModel
+
+    from autodist_tpu_torch.api import get_default_autodist
+
+    step, params, batch = _tiny_step()
     prof = obs.StepProfiler(step, registry=M.MetricsRegistry())
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         prof.attribute(None, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        prof.calibration_record(None)
+    state = step.init(params)
+    for _ in range(2):
+        state, _ = prof.run(state, batch, 2)
+    rep = prof.report()
+    ad = get_default_autodist()
+    cost = CostModel(ad.model_item, ad.resource_spec).strategy_cost(ad.strategy)
+    rec = prof.calibration_record(cost, name="AllReduce")
+    assert rec.name == "AllReduce" and rec.measured_s == rep["step_wall_s"] > 0
+    assert rec.dispatch_gap_s == pytest.approx(rep["dispatch_gap_s"] / 2)
+    assert rec.flops_per_step == rep["flops_per_step"] > 0
+    assert rec.predicted_s == pytest.approx(cost.total_s)
 
 
 # ------------------------------------------------------ recorder and sentry
@@ -358,6 +375,10 @@ def test_obs_config_resolves_like_jax(tmp_path, monkeypatch):
 
 def test_obs_runtime_through_autodist(tmp_path, monkeypatch):
     monkeypatch.setenv("AUTODIST_FT_DIR", str(tmp_path / "ft"))
+    # The runtime counts into the process-wide registry, which other tests
+    # of this worker process (another file's profiled run) may have fed:
+    # this run's counter starts from a fresh one.
+    monkeypatch.setattr(M, "registry", M.MetricsRegistry())
     _, params, batch = _inputs()
     spec = get_model_spec("mlp", **MLP)
     ad = AutoDist(strategy_builder=AllReduce(), device="cpu",
