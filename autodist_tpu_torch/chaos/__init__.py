@@ -1,25 +1,38 @@
-"""Fault injection (the port's counterpart of the JAX package's ``chaos/``).
+"""Deterministic fault injection (the port's counterpart of the JAX
+package's ``chaos/``).
 
-Only the seam registry is ported (:mod:`~autodist_tpu_torch.chaos.hooks`):
-the snapshot writer, the heartbeat transports, the aggregator, serving and
-the train step (``SEAM_TRAIN_BATCH``, ``SEAM_TRAIN_METRICS``) consult it,
-inert without a hook. The harness, the fault catalog and the schedules (``ChaosPlant``,
-``ChaosSchedule``, ``ChaosEvent``, ``CATALOG``, ``FaultSpec``) are not
-ported yet: asking for one raises ``NotImplementedError`` (ROADMAP.md).
+The seam registry (:mod:`~autodist_tpu_torch.chaos.hooks`) is consulted by
+the snapshot writer, the heartbeat transports, the aggregator, serving,
+the train step and the pilot's refit, inert without a hook. The seeded
+schedules (:mod:`~autodist_tpu_torch.chaos.schedule`: ``ChaosEvent``,
+``ChaosSchedule``, ``ChaosPlant``) and the fault catalog
+(:mod:`~autodist_tpu_torch.chaos.faults`: ``CATALOG``, ``FaultSpec``) plant
+faults through those seams. The soak harness and its CLI (``harness``,
+``__main__``) are not ported yet: asking for either raises
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 6d).
+
+This ``__init__`` stays import-light on purpose: production seams import
+``chaos.hooks`` from hot paths, so nothing heavier may load here.
 """
 from __future__ import annotations
 
 from autodist_tpu_torch.chaos import hooks
 
-__all__ = ["hooks"]
-
-_NOT_PORTED = ("CATALOG", "ChaosEvent", "ChaosPlant", "ChaosSchedule", "FaultSpec",
-               "harness", "faults", "schedule")
+__all__ = ["CATALOG", "ChaosEvent", "ChaosPlant", "ChaosSchedule",
+           "FaultSpec", "hooks"]
 
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
+    if name in ("ChaosEvent", "ChaosPlant", "ChaosSchedule"):
+        from autodist_tpu_torch.chaos import schedule
+
+        return getattr(schedule, name)
+    if name in ("CATALOG", "FaultSpec"):
+        from autodist_tpu_torch.chaos import faults
+
+        return getattr(faults, name)
+    if name in ("harness", "__main__"):
         raise NotImplementedError(
-            f"autodist_tpu_torch.chaos.{name}: the chaos harness, faults and schedules "
-            "are not ported yet (only the seam registry, chaos.hooks); see ROADMAP.md")
+            f"autodist_tpu_torch.chaos.{name}: the chaos soak harness and its CLI are not "
+            "ported yet (ROADMAP.md, Queue 1 item 6d)")
     raise AttributeError(name)

@@ -6,8 +6,9 @@ Every fault the chaos subsystem can inject enters the stack through a
 placed in the production module that owns the behavior (snapshot writes,
 heartbeat transports, the train-step window, the serve engine, the obs
 aggregator sweep). With no hook installed the seams are a dict lookup —
-zero-cost and inert in production; with a plant installed (the JAX package's ``ChaosPlant``; the port's
-harness is not ported yet) they become deterministic fault injectors.
+zero-cost and inert in production; with a plant installed (a
+:class:`~autodist_tpu_torch.chaos.schedule.ChaosPlant`) they become
+deterministic fault injectors.
 
 Contract per seam style:
 

@@ -103,8 +103,10 @@ class ENV:
     #: The plan cache's dir (``plan/cache.py``); empty =
     #: ``DEFAULT_PLAN_DIR/cache``.
     AUTODIST_PLAN_CACHE = _EnvVar("")
-    #: Exported beside AUTODIST_FT_DIR (``<ft base>/pilot``) for the JAX
-    #: package's autopilot; the port reads nothing from it.
+    #: The autopilot's artifact dir (``pilot/journal.py``: the decision
+    #: journal, plan artifacts); empty = ``<AUTODIST_FT_DIR>/pilot``, or
+    #: ``DEFAULT_WORKING_DIR/pilot`` without an ft base. The launcher
+    #: exports it beside AUTODIST_FT_DIR.
     AUTODIST_PILOT_DIR = _EnvVar("")
     #: Set by test suites: builders then partition with one reduction
     #: device too (PartitionedPS), as the JAX package's tests do.

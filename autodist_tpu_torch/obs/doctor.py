@@ -89,8 +89,6 @@ _HEARTBEAT_SUBDIR = "heartbeats"
 _SNAPSHOT_SUBDIR = "snapshots"
 _BUNDLE_SUBDIR = "doctor"
 _TRACE_SUBDIR = "traces"
-_PILOT_SUBDIR = "pilot"
-_DECISIONS_FILE = "decisions.jsonl"
 
 
 @dataclass
@@ -221,33 +219,25 @@ def _read_spans(trace_dir: str, limit: int = 200) -> List[Dict[str, Any]]:
 
 
 def _read_pilot_decisions(base_dir: str) -> List[Dict[str, Any]]:
-    """The autopilot's decision journal (``<base>/pilot/decisions.jsonl``,
-    written by the JAX package's ``pilot/journal.py``), when one is there:
-    each retune with its trigger, action and verdict, so a postmortem reads
-    knob changes beside the sentry findings that caused them. A torn or
-    garbled line is skipped."""
+    """Autopilot decision journal (``<base>/pilot/decisions.jsonl``, which
+    either package's ``pilot/journal.py`` writes) — every retune the
+    controller attempted, with its trigger and canary verdict, so a
+    postmortem reads knob changes next to the sentry findings that caused
+    them. Read-only: the pilot package is the ONE writer; a torn line is
+    skipped (``read_decisions``)."""
+    from autodist_tpu_torch.pilot.journal import decisions_path, read_decisions
+
     out: List[Dict[str, Any]] = []
-    try:
-        with open(os.path.join(base_dir, _PILOT_SUBDIR, _DECISIONS_FILE),
-                  encoding="utf-8") as f:
-            lines = f.readlines()
-    except OSError:
-        return out
-    for raw in lines:
-        try:
-            rec = json.loads(raw)
-            entry: Dict[str, Any] = {
-                "t": float(rec.get("t", 0.0)), "source": "pilot", "kind": "decision",
-                "decision_id": str(rec["decision_id"]),
-                "trigger": str(rec.get("trigger", "")),
-                "action": str(rec.get("action", "")),
-                "verdict": str(rec.get("verdict", "pending")),
-            }
-        except (ValueError, KeyError, TypeError, AttributeError):
-            continue
-        for key in ("code", "note"):
-            if rec.get(key):
-                entry[key] = str(rec[key])
+    for rec in read_decisions(decisions_path(base_dir)):
+        entry: Dict[str, Any] = {
+            "t": rec.t, "source": "pilot", "kind": "decision",
+            "decision_id": rec.decision_id, "trigger": rec.trigger,
+            "action": rec.action, "verdict": rec.verdict,
+        }
+        if rec.code:
+            entry["code"] = rec.code
+        if rec.note:
+            entry["note"] = rec.note
         out.append(entry)
     return out
 

@@ -105,8 +105,7 @@ def selftest(min_candidates: int = 20, n: int = SELFTEST_GPUS) -> int:
     )
     from autodist_tpu_torch.plan.search import KINDS
     from autodist_tpu_torch.resource_spec import ResourceSpec
-    from autodist_tpu_torch.strategy.cost_model import CostModel, candidate_slate
-    from autodist_tpu_torch.strategy.explain import _lossy
+    from autodist_tpu_torch.strategy.cost_model import CostModel, lossless_slate
     from autodist_tpu_torch.strategy.ir import Strategy
 
     failures = []
@@ -133,15 +132,8 @@ def selftest(min_candidates: int = 20, n: int = SELFTEST_GPUS) -> int:
             failures.append(f"search visited {n_visited} candidates (< {min_candidates})")
         cm = CostModel(item, spec)
         winner_cost = cm.strategy_cost(strategy1)
-        slate_costs = {}
-        for name, builder in candidate_slate(full=True):
-            try:
-                built = builder.build(item, spec)
-            except Exception:  # noqa: BLE001 - the search's seed policy
-                continue
-            if _lossy(built):  # changes numerics: outside the pick set and the bound
-                continue
-            slate_costs[name] = cm.strategy_cost(built)
+        slate_costs = {name: cm.strategy_cost(built)
+                       for name, built in lossless_slate(item, spec).items()}
         best_slate = min(slate_costs.values(), key=lambda c: c.total_s)
         if winner_cost.total_s > best_slate.total_s * (1 + 1e-9):
             failures.append(f"winner predicted {winner_cost.total_s} > best slate "

@@ -179,7 +179,7 @@ class _FleetWatch:
 
     def env(self) -> dict:
         """What every rank needs to heartbeat into the base dir the watchdog
-        sweeps (and the JAX package's pilot dir beside it)."""
+        sweeps (and the autopilot's dir beside it, ``pilot/journal.py``)."""
         return {
             ENV.AUTODIST_FT_DIR.name: self.config.base_dir,
             ENV.AUTODIST_PILOT_DIR.name: os.path.join(self.config.base_dir, "pilot"),

@@ -187,6 +187,23 @@ def candidate_slate(chunk_size: int = 128, include_sparse: bool = True,
     return slate
 
 
+def lossless_slate(model_item: ModelItem, resource_spec: ResourceSpec) -> Dict[str, object]:
+    """The full slate built for (model x cluster), without the builders
+    that fail there and the strategies whose compressed wire changes
+    numerics (the search's seed policy): name -> Strategy."""
+    from autodist_tpu_torch.strategy.explain import _lossy
+
+    slate = {}
+    for name, builder in candidate_slate(full=True):
+        try:
+            built = builder.build(model_item, resource_spec)
+        except Exception:  # noqa: BLE001 - an unbuildable seed is skipped
+            continue
+        if not _lossy(built):
+            slate[name] = built
+    return slate
+
+
 def default_calibration_path() -> str:
     """Where ``tune()`` writes, and ``Calibration.load()`` reads, the
     port's calibration: its own working directory."""

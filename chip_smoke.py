@@ -408,6 +408,39 @@ Phases, each printing one JSON line:
     worse than the best lossless slate member; and runs ``python -m
     autodist_tpu_torch.plan --selftest`` in a child process (the card
     machine's CPU and torch).
+21c. ``pilot``: the autopilot (``autodist_tpu_torch.pilot``) closing its
+    loop on the card, through the selftest's own ``train_episodes`` and
+    ``serve_rollout``. Train half, bert_base (flash, TRAIN_SEQ,
+    TRAIN_BATCH, DIST_OPT): plans are priced and searched for one node of
+    AUTO_NODE_GPUS GPUs with the card's node model (one card prices every
+    wire at 0, and no drift could open); the replayed profile's compute
+    floor is the card's own calibrated time of the plain AllReduce step,
+    read from the calibration ``tune`` wrote (never a TPU calibration); a
+    stale plan is deployed and three episodes run: drift -> refit ->
+    re-search -> ``committed``; a poisoned refit planted by a real
+    ``ChaosPlant`` -> ``rejected``, the calibration file byte-identical;
+    an unmeasured flag set canaried -> ``rolled_back``, the state
+    bit-exact. Every rebuild is ``ft.elastic.recompile_on`` on the card at
+    world 1 on the deployed genome re-rendered for the card; every canary
+    takes PILOT_CANARY real steps, timed, after one untimed step of each
+    rebuild (and the restored plan one more). The
+    flash kernels launch ``num_layers x`` the steps taken; each rebuilt
+    step's first loss equals a plain ``AllReduce`` step's within
+    CHECK_LOSS_RTOL; each deployed plan's measured ms a step is printed
+    beside its replayed price. Serve half, the full-width transformer
+    (bf16 pages, FLEET_SLOTS rows, PAGE_LEN, FLEET_PAGES pages) on
+    PILOT_REPLICAS replicas behind the router: an SLO burn report grows the
+    pool through ``ServeRollout`` (the router's ``rolling_upgrade``) while
+    a loader submits PILOT_REQUESTS prompts in turn, PILOT_NEW tokens
+    each, at most FLEET_SLOTS in flight, from once every replica holds
+    work until the rollout returns:
+    none dropped, exactly once, one restart per replica, a drain that
+    found work in flight (a replica's drained + persisted above 0), every
+    engine on one larger ``pool.n_pages``, the streams equal the control
+    engine's or parting at near-ties (STREAM_LOGIT_BOUND), the paged
+    kernel ``num_layers x`` the programs of every engine the fleet ran;
+    each replica's drained and persisted counts and restart seconds, the
+    phase's seconds and its peak memory printed.
 22. ``sparse_rehearsal``: not a card result: 4 gloo ranks on the CPU
     (``--sparse-cpu-rank``, the card machine's torch) train the sparse
     cases (``SPARSE_CASES``: a 4096 x 16 table at batch 64 under AllReduce,
@@ -945,6 +978,13 @@ TUNE_WINDOW = 2
 # plan: bert_base (AUTO_MODELS[0]) built by the planner, PLAN_STEPS Adam
 # steps (DIST_OPT) in one counted window.
 PLAN_STEPS = 4
+# pilot: PILOT_CANARY real bert_base steps a canary (the selftest's
+# canary_window); the serve half's fleet of PILOT_REPLICAS x FLEET_SLOTS
+# rows and its loader's PILOT_REQUESTS prompts, submitted in turn (one
+# replica's rows in flight) until the rollout returns, of PILOT_NEW tokens
+# each (long enough that a replica holds work when it drains).
+PILOT_CANARY = 2
+PILOT_REPLICAS, PILOT_REQUESTS, PILOT_NEW = 2, 32, 32
 # sparse_rehearsal: (id, model, builder, overrides, batch) on 4 gloo CPU
 # ranks, REHEARSAL_STEPS Adam steps at DIST_OPT, against the one-process
 # step within REHEARSAL_RTOL / REHEARSAL_ATOL; "embed" is JAX's
@@ -4583,7 +4623,7 @@ def plan_phase(card: str, dev, plan_dir: str) -> dict:
     from autodist_tpu_torch.plan import Plan, PlanConfig, TopologyCalibration, topology_key
     from autodist_tpu_torch.strategy import Auto, CostModel
     from autodist_tpu_torch.strategy import explain as ex
-    from autodist_tpu_torch.strategy.cost_model import candidate_slate
+    from autodist_tpu_torch.strategy.cost_model import candidate_slate, lossless_slate
 
     t_phase = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -4662,11 +4702,8 @@ def plan_phase(card: str, dev, plan_dir: str) -> dict:
         skipped = recheck.last_result.get("validated") is False
     cm = CostModel(item, fleet)
     win_ms = cm.strategy_cost(strategy).total_s * 1e3
-    slate_ms = {}
-    for sname, builder in candidate_slate(full=True):
-        built = builder.build(item, fleet)
-        if not ex._lossy(built):
-            slate_ms[sname] = cm.strategy_cost(built).total_s * 1e3
+    slate_ms = {sname: cm.strategy_cost(built).total_s * 1e3
+                for sname, built in lossless_slate(item, fleet).items()}
     best = min(slate_ms, key=slate_ms.get)
     auto_pick = _builder_name(StrategyCompiler(item).compile(Auto().build(item, fleet)),
                               item, fleet)
@@ -4710,6 +4747,157 @@ def plan_phase(card: str, dev, plan_dir: str) -> dict:
     AutoDist.reset_default()
     torch.cuda.empty_cache()
     return row
+
+
+def _pilot_train(card: str, dev, plan_dir: str, work: str) -> dict:
+    """The pilot phase's train half (see the module docstring)."""
+    from autodist_tpu_torch.pilot import __main__ as pilot_cli
+    from autodist_tpu_torch.plan import TopologyCalibration
+    from autodist_tpu_torch.strategy import CostModel
+
+    name = torch.cuda.get_device_name(0)
+    local = ResourceSpec.from_local_devices(dev)
+    card_calib = TopologyCalibration.load_for(local, name, directory=plan_dir)
+    check(card_calib is not None, f"pilot: no card calibration in {plan_dir}")
+    mkey, model, overrides, batch_size = AUTO_MODELS[0]
+    spec = get_model_spec(model, **overrides)
+    cfg = spec.config
+    params = spec.init(SEED, device=dev)
+    batch = spec.example_batch(batch_size, device=dev)
+    opt = OptimizerSpec(*DIST_OPT)
+    item = ModelItem.from_params(params, optimizer_spec=opt, loss_fn=spec.loss_fn,
+                                 example_batch=batch)
+    floor_s = card_calib.predict_s(CostModel(item, local).strategy_cost(
+        AllReduce().build(item, local)))
+    check(np.isfinite(floor_s) and floor_s > 0, f"pilot: card floor {floor_s} s")
+    node = ResourceSpec(resource_dict={
+        "nodes": [{"address": "localhost", "gpus": AUTO_NODE_GPUS, "chief": True}],
+        "gpu": local.gpu.to_dict()})
+    AutoDist.reset_default()
+    plain = AutoDist(strategy_builder=AllReduce(), device=dev)
+    step = plain.build(spec.loss_fn, params, batch, optimizer=opt)
+    _, plain_metrics = step.run(step.init(params), batch, 1)
+    plain_loss = plain_metrics["loss"].tolist()[0]
+    del step, plain
+    AutoDist.reset_default()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    train, failures, loop = pilot_cli.train_episodes(
+        spec.loss_fn, params, batch, item, node, dev, work, floor_s=floor_s,
+        device_kind=name, optimizer=opt, n_pages=FLEET_PAGES)
+    loop.steps(1)  # the restored plan trains
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    check(not failures, f"pilot train: {failures}")
+    verdicts = [r.verdict for r in train["wiring"].journal.read()]
+    check(verdicts == ["pending", "committed", "rejected", "pending", "rolled_back"],
+          f"pilot train: journal verdicts {verdicts}")
+    for kind, n in launches.items():
+        check(n == cfg.num_layers * loop.steps_run,
+              f"pilot train: flash {kind} launches {n} != {cfg.num_layers} x {loop.steps_run}")
+    deployed = [dict(r) for r in loop.deployed]
+    for r in deployed:
+        check(r["first_loss"] is not None
+              and abs(r["first_loss"] - plain_loss) <= CHECK_LOSS_RTOL * abs(plain_loss),
+              f"pilot train: {r['plan_id']} first loss {r['first_loss']} vs the plain "
+              f"AllReduce step's {plain_loss}")
+    row = dict(model=mkey, batch=batch_size, priced_on=f"1 node x {AUTO_NODE_GPUS}",
+               rebuild_world=1, floor_ms=floor_s * 1e3, drift=train["drift"],
+               stale_plan=train["stale_plan"], replayed_stale_ms=train["measured_stale_ms"],
+               replayed_new_ms=train["measured_new_ms"],
+               improvement_frac=train["improvement_frac"], expected=train["expected"],
+               calibration_byte_identical=train["calibration_byte_identical"],
+               rollback_bit_exact=train["canary_rollback_bit_exact"], proofs=train["proofs"],
+               deployed=deployed, plain_first_loss=plain_loss, steps=loop.steps_run,
+               kernel_launches=launches, journal_verdicts=verdicts, seconds=seconds, card=card)
+    emit("pilot", half="train", **row)
+    row["wiring"] = train["wiring"]
+    del loop, params, batch, item
+    torch.cuda.empty_cache()
+    return row
+
+
+def _pilot_serve(card: str, dev, work: str, train: dict) -> dict:
+    """The pilot phase's serve half (see the module docstring)."""
+    from autodist_tpu_torch.pilot import PilotState
+    from autodist_tpu_torch.pilot import __main__ as pilot_cli
+
+    store = train["wiring"].store
+    cfg = get_model("transformer")
+    params = tt.init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [np.asarray(mock_load_prompt(rng, i, vocab=cfg.vocab_size), np.int32)
+               for i in range(PILOT_REQUESTS)]
+    router, control = build_test_fleet(
+        n_replicas=PILOT_REPLICAS, n_slots=FLEET_SLOTS, page_len=PAGE_LEN, n_pages=FLEET_PAGES,
+        journal_dir=os.path.join(work, "router"), registry=M.MetricsRegistry(), device=dev,
+        model_cfg=cfg, params=params,
+        engine_kwargs=lambda: {"n_pages": int((store.load() or PilotState()).n_pages)
+                               or FLEET_PAGES})
+    want, _, _, control_launches, _ = _served(control, prompts, "pilot control",
+                                              cfg.num_layers, max_new=PILOT_NEW)
+    try:
+        router.start()
+        for rep in router.replicas.values():
+            check(rep.wait_ready(120.0), f"pilot serve: replica {rep.replica_id} not READY")
+        engines = [rep.engine for rep in router.replicas.values()]
+        before = _engine_programs(engines)
+        reset_launches()
+        t0 = time.perf_counter()
+        serve, failures, fronts = pilot_cli.serve_rollout(router, train["wiring"], prompts,
+                                                          max_new=PILOT_NEW)
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = pa.paged_attention.launches
+        engines += [rep.engine for rep in router.replicas.values()]
+        programs = _engine_programs(engines) - before
+    finally:
+        router.stop(drain=False)
+    check(not failures, f"pilot serve: {failures}")
+    check(launches == cfg.num_layers * programs > 0,
+          f"pilot serve: paged launches {launches} != {cfg.num_layers} x {programs} programs")
+    n = len(fronts)
+    check(n > 0 and all(len(f.tokens) == PILOT_NEW for f in fronts),
+          f"pilot serve: {n} requests, lengths {sorted({len(f.tokens) for f in fronts})}")
+    check(any(serve["drained"][r] + serve["persisted"][r] > 0 for r in serve["drained"]),
+          f"pilot serve: every replica drained idle (drained {serve['drained']}, "
+          f"persisted {serve['persisted']})")
+    cycle = [i % len(prompts) for i in range(n)]
+    streams = _streams_agree(params, cfg, [prompts[i] for i in cycle],
+                             [f.tokens for f in fronts], [want[i] for i in cycle],
+                             "pilot serve", bitwise=False)
+    row = dict(model="transformer, full width, bf16 pages", replicas=PILOT_REPLICAS,
+               slots=FLEET_SLOTS, pages_before=FLEET_PAGES,
+               pages_after=sorted(set(serve["pool_after"].values())),
+               requests=serve["serve_requests"], zero_drops=serve["serve_zero_drops"],
+               exactly_once=serve["exactly_once"], restarts=serve["restarts"],
+               restart_s=serve["restart_s"], drained=serve["drained"],
+               persisted=serve["persisted"], rollout_s=serve["rollout_s"], streams=streams,
+               programs=programs, control_launches=control_launches,
+               kernel_launches=control_launches + launches, seconds=seconds, card=card)
+    emit("pilot", half="serve", **row)
+    del params, control
+    torch.cuda.empty_cache()
+    return row
+
+
+def pilot_phase(card: str, dev, plan_dir: str) -> dict:
+    """The pilot phase (see the module docstring): the card calibration in
+    ``plan_dir`` is ``tune``'s."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as work:
+        train = _pilot_train(card, dev, plan_dir, work)
+        serve = _pilot_serve(card, dev, work, train)
+        verdicts = [r.verdict for r in train.pop("wiring").journal.read()]
+    check(verdicts[-2:] == ["pending", "committed"], f"pilot: journal verdicts {verdicts}")
+    row = dict(journal_verdicts=verdicts, seconds=time.perf_counter() - t_phase,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               train_seconds=train["seconds"], serve_seconds=serve["seconds"], card=card)
+    emit("pilot", half="both", **row)
+    return dict(row, train=train, serve=serve)
 
 
 def _sparse_inputs(model: str, overrides: dict, batch_size: int):
@@ -6920,6 +7108,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as plan_dir:
         tune_row = tune_phase(card, dev, plan_dir)
         plan_row = plan_phase(card, dev, plan_dir)
+        pilot_row = pilot_phase(card, dev, plan_dir)
     # From here on every card phase runs in processes of its own, and the
     # CPU rehearsals (gloo ranks on the CPU and their one-process steps in
     # this process, none of which touches the card) run beside them.
@@ -6952,7 +7141,7 @@ def main() -> int:
         "replaces": "autodist_tpu/ops/paged_attention.py:137",
         "launches": sum(r["kernel_launches"] for r in serve_rows + feature_rows
                         + ckpt_serve_rows + [replica_row, fleet_row, bucketed_row,
-                                             selftest_row]),
+                                             selftest_row, pilot_row["serve"]]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -6986,7 +7175,8 @@ def main() -> int:
             + data_row["lm"]["kernel_launches"][kind]
             + (infer_rows[0]["kernel_launches"] if kind == "fwd" else 0)
             + three_launches[kind]
-            + obs_row["kernel_launches"][kind],
+            + obs_row["kernel_launches"][kind]
+            + pilot_row["train"]["kernel_launches"][kind],
             "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                                if r["kernel"] == kind),
             "ms": row["kernel_ms"],

@@ -2,8 +2,9 @@
 ``chip_smoke.py`` nor the port's ``tools/torch_*.py`` scripts import ``jax``
 or the JAX package ``autodist_tpu`` (an AST scan of every import statement,
 lazy ones inside functions included), ``parallel/`` among them. Where the
-JAX behaviour is not ported yet (the chaos harness), the port raises ``NotImplementedError`` naming
-ROADMAP.md; the seam registry it did port keeps JAX's seam names.
+JAX behaviour is not ported yet (the chaos harness and its CLI), the port raises
+``NotImplementedError`` naming ROADMAP.md; the seam registry it did port keeps JAX's seam
+names, and the schedules and fault catalog it ported are the package's lazy exports.
 """
 import ast
 import pathlib
@@ -74,7 +75,10 @@ def test_scan_sees_the_whole_port():
                 "obs/config.py", "obs/profiler.py", "obs/doctor.py", "obs/__main__.py",
                 "utils/roofline.py", "utils/tracing.py", "analysis/sched.py",
                 "plan/__init__.py", "plan/__main__.py", "plan/builder.py", "plan/cache.py",
-                "plan/calibrate.py", "plan/search.py"):
+                "plan/calibrate.py", "plan/search.py", "chaos/schedule.py",
+                "chaos/faults.py", "pilot/__init__.py", "pilot/__main__.py",
+                "pilot/state.py", "pilot/policy.py", "pilot/journal.py",
+                "pilot/rollout.py", "pilot/actions.py", "pilot/controller.py"):
         assert f"autodist_tpu_torch/{new}" in names, new
     for src in ("paged_attention.cu", "flash_attention.cu", "fused_conv_stats.cu"):
         assert (ROOT / "autodist_tpu_torch" / "csrc" / src).exists()
@@ -85,12 +89,20 @@ def test_scan_sees_the_whole_port():
 
 
 @pytest.mark.parametrize("name", ["ChaosPlant", "ChaosSchedule", "ChaosEvent", "CATALOG",
-                                  "FaultSpec", "harness"])
+                                  "FaultSpec", "harness", "__main__"])
 def test_unported_chaos_entry_points_name_the_roadmap(name):
+    """The harness and its CLI raise naming ROADMAP.md; the schedules and
+    the catalog are ported and exported lazily from their modules."""
     import autodist_tpu_torch.chaos as chaos
+    from autodist_tpu_torch.chaos import faults, schedule
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(chaos, name)
+    if name in ("harness", "__main__"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            getattr(chaos, name)
+    else:
+        module = schedule if name.startswith("Chaos") else faults
+        assert getattr(chaos, name) is getattr(module, name)
+        assert name in chaos.__all__
 
 
 def test_chaos_seams_equal_the_jax_packages():

@@ -17,6 +17,7 @@ package), failover of prefix-shared, speculative and sampled streams
 plain path, one 64-prompt run of each package's fleet with the same kill,
 and ``--selftest-router --device cpu``.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -29,20 +30,24 @@ import numpy as np
 import pytest
 
 from autodist_tpu import metrics as JM
+from autodist_tpu.chaos import hooks as jhooks
 from autodist_tpu.ft import drain as jdrain
 from autodist_tpu.obs.aggregate import HostAggregator as JAggregator
 from autodist_tpu.serve import prefix as jprefix
 from autodist_tpu.serve.batcher import Backpressure as JBackpressure
 from autodist_tpu.serve.batcher import GenRequest as JRequest
+from autodist_tpu.serve.engine import EngineDeadError as JEngineDeadError
 from autodist_tpu.serve.router import _Flight as JFlight
 from autodist_tpu.serve.router import build_test_fleet as jax_build_test_fleet
 from autodist_tpu.serve.sampling import SamplingParams as JSampling
 from autodist_tpu_torch import metrics as M
+from autodist_tpu_torch.chaos import hooks
 from autodist_tpu_torch.ft import drain
 from autodist_tpu_torch.ft.heartbeat import MemoryTransport
 from autodist_tpu_torch.obs import HostAggregator
 from autodist_tpu_torch.serve import prefix
 from autodist_tpu_torch.serve.batcher import Backpressure, GenRequest, RequestState
+from autodist_tpu_torch.serve.engine import EngineDeadError
 from autodist_tpu_torch.serve.replica import ReplicaState
 from autodist_tpu_torch.serve.router import RouterConfig, _Flight
 from autodist_tpu_torch.serve.sampling import SamplingParams
@@ -317,14 +322,40 @@ def test_router_journal_carries_sampling(tmp_path):
 
 
 # ------------------------------------------------------- real fleets
+@contextlib.contextmanager
 def _kill_mid_decode(router, rid, timeout=60.0):
-    def on_victim():
-        with router._lock:
-            return any(f.replica_id == rid and len(f.front.tokens) > 0
-                       for f in router._flights.values())
+    """Replica ``rid`` of ``router`` (either package's) dies mid-decode:
+    its engine raises ``EngineDeadError`` inside its own decode step
+    (``SEAM_SERVE_STEP``, the ``replica_death`` fault's seam) once one of
+    its in-flight requests has a token, and the replica reports DEAD. The
+    requests submitted inside the block are the traffic; leaving it waits
+    for the death. Deciding on the victim's own thread leaves it no window
+    to finish that request first (a kill from the test thread, after a
+    poll saw a token, came under load after the victim's last request was
+    done: nothing was rerouted)."""
+    seams, dead = ((hooks, EngineDeadError)
+                   if type(router).__module__.startswith("autodist_tpu_torch.")
+                   else (jhooks, JEngineDeadError))
+    victim = router.replicas[rid]
+    fired = threading.Event()
 
-    assert retry.wait_until(on_victim, timeout, interval_s=0.002)
-    router.replicas[rid].kill("test: mid-decode death")
+    def on_step(host=None, **_):
+        if host != rid or fired.is_set():
+            return
+        batcher = victim.batcher
+        with batcher._lock:
+            armed = any(len(r.tokens) > 0 for r in batcher._active.values())
+        if armed:
+            fired.set()
+            raise dead("test: mid-decode death")
+
+    _ready(router, sorted(router.replicas), timeout=30.0)
+    seams.install(seams.SEAM_SERVE_STEP, on_step)
+    try:
+        yield
+        assert fired.wait(timeout), f"replica {rid} never decoded a started request"
+    finally:
+        seams.uninstall(seams.SEAM_SERVE_STEP)
 
 
 @pytest.fixture(scope="module")
@@ -365,8 +396,8 @@ class TestFailover:
         expected = [control.generate(p, 8) for p in prompts]
         assert expected == [jax_fleet[1].generate(p, 8) for p in prompts]
         before = registry.counter("serve_router_requests_rerouted_total").value
-        fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
-        _kill_mid_decode(router, 0)
+        with _kill_mid_decode(router, 0):
+            fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
         states = [f.wait(120.0).state for f in fronts]
         assert all(s is RequestState.DONE for s in states), states
         # The delivered prefix from the dead replica + the survivor's resumed
@@ -473,8 +504,8 @@ class TestFailoverVariants:
                        for _ in range(8)]
             expected = [control.generate(p, 8) for p in prompts]
             assert expected == [jax_fleet[1].generate(p, 8) for p in prompts]
-            fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
-            _kill_mid_decode(router, 0)
+            with _kill_mid_decode(router, 0):
+                fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
             assert all(f.wait(120.0).state is RequestState.DONE for f in fronts)
             assert [f.tokens for f in fronts] == expected
             assert all(v == 1 for v in router.ledger().values())
@@ -495,8 +526,8 @@ class TestFailoverVariants:
                 rep.wait_ready(60.0)
             prompts = _prompts(7, 8)
             expected = [control.generate(p, 8) for p in prompts]
-            fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
-            _kill_mid_decode(router, 0)
+            with _kill_mid_decode(router, 0):
+                fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
             assert all(f.wait(120.0).state is RequestState.DONE for f in fronts)
             assert [f.tokens for f in fronts] == expected
             assert all(v == 1 for v in router.ledger().values())
@@ -522,9 +553,9 @@ class TestFailoverVariants:
         try:
             for rep in router.replicas.values():
                 rep.wait_ready(60.0)
-            fronts = [router.submit(p, 8, request_id=rids[i], sampling=grid[i % 4])
-                      for i, p in enumerate(prompts)]
-            _kill_mid_decode(router, 1)
+            with _kill_mid_decode(router, 1):
+                fronts = [router.submit(p, 8, request_id=rids[i], sampling=grid[i % 4])
+                          for i, p in enumerate(prompts)]
             assert all(f.wait(120.0).state is RequestState.DONE for f in fronts)
             assert [f.tokens for f in fronts] == expected
             snap = router._reg.snapshot()
@@ -546,8 +577,8 @@ def test_failover_of_int8_kv_streams():
     try:
         for rep in router.replicas.values():
             rep.wait_ready(60.0)
-        fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
-        _kill_mid_decode(router, 0)
+        with _kill_mid_decode(router, 0):
+            fronts = [router.submit(p, max_new_tokens=8) for p in prompts]
         assert all(f.wait(120.0).state is RequestState.DONE for f in fronts)
         assert [f.tokens for f in fronts] == expected
         assert router._reg.snapshot()["serve_router_prefix_mismatch_total"] == 0
@@ -583,12 +614,10 @@ def _routed(router, prompts, kill):
     router.start()
     for rep in router.replicas.values():
         rep.wait_ready(60.0)
-    fronts = [router.submit(p, max_new_tokens=PARITY_NEW, request_id=f"par-{i}")
-              for i, p in enumerate(prompts)]
-    killer = threading.Thread(target=_kill_mid_decode, args=(router, kill))
-    killer.start()
+    with _kill_mid_decode(router, kill):
+        fronts = [router.submit(p, max_new_tokens=PARITY_NEW, request_id=f"par-{i}")
+                  for i, p in enumerate(prompts)]
     states = [f.wait(240.0).state.value for f in fronts]
-    killer.join(timeout=60.0)
     journal_empty = retry.wait_until(lambda: not os.path.exists(router.journal_path), 5.0,
                                      interval_s=0.01)
     # Both survivors READY: a loaded CPU can delay a beat past the CPU-sim
